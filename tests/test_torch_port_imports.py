@@ -1,4 +1,5 @@
-"""The PyTorch port imports no JAX, and its size table is the JAX package's."""
+"""The PyTorch port imports no JAX, and its size table, training defaults
+and dataset constants are the JAX package's."""
 
 import dataclasses
 import subprocess
@@ -8,22 +9,28 @@ from pathlib import Path
 from weathermodel_tpu.utils import config as jax_config
 from weathermodel_tpu.utils import constants as jax_constants
 from weathermodel_tpu_torch.utils import config as port_config
+from weathermodel_tpu_torch.utils import constants as port_constants
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
+    modules = sorted(
+        ".".join(path.relative_to(ROOT).with_suffix("").parts)
+        for path in (ROOT / "weathermodel_tpu_torch").rglob("*.py")
+        if path.name != "__init__.py")
+    assert "weathermodel_tpu_torch.train.trainer" in modules
     code = (
         "import sys\n"
         "import chip_smoke\n"
-        "import weathermodel_tpu_torch.cli.pretrain\n"
-        "import weathermodel_tpu_torch.cli.serve\n"
-        "import weathermodel_tpu_torch.serve\n"
+        + "".join(f"import {m}\n" for m in modules) +
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'weathermodel_tpu'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,
-                          cwd=Path(__file__).resolve().parents[1])
+                          cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
 
 
@@ -40,3 +47,19 @@ def test_size_table_matches_jax_package():
         b = jax_config.model_config_for_size(size)
         assert (a.hidden_dim, a.ffn_dim, a.input_dim, a.num_layers) == \
             (b.hidden_dim, b.ffn_dim, b.input_dim, b.num_layers)
+    assert dataclasses.asdict(port_config.TrainConfig()) == \
+        dataclasses.asdict(jax_config.TrainConfig())
+    cfg = port_config.TrainConfig()
+    for epoch in range(0, 80, 3):
+        for base in (1, 10):
+            assert port_config.n_masked_features_for_epoch(cfg, epoch, base) \
+                == jax_config.n_masked_features_for_epoch(
+                    jax_config.TrainConfig(), epoch, base)
+
+
+def test_constants_match_jax_package():
+    for name in ("VALIDATION_CHUNK_IDS", "DRY_RUN_TRAIN_CHUNK_IDS",
+                 "NUM_DATASET_PARTS", "PRETRAIN_CUTOFF_YEAR", "DRY_RUN",
+                 "DATA_DIR", "TOTAL_WEATHER_VARS", "MAX_CONTEXT_LENGTH"):
+        assert getattr(port_constants, name) == \
+            getattr(jax_constants, name), name

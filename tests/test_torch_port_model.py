@@ -39,7 +39,7 @@ def _jax_params(size, max_len=T, seed=0):
 
 def _port_forward(size, params, impl, dtype, inputs):
     cfg = model_config_for_size(size, max_len=T, compute_dtype=dtype)
-    model = make_model("weatherbert", cfg, impl)
+    model = make_model("weatherbert", cfg, impl).eval()  # dropout off
     model.load_state_dict(state_dict_from_jax_params(params))
     with torch.inference_mode():
         out = model(*(torch.from_numpy(a) for a in inputs))

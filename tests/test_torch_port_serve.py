@@ -46,7 +46,7 @@ def test_port_serve_matches_jax_serve(files, tmp_path):
     jax_res = jax_serve.run(jax_serve.build_parser().parse_args(
         _argv(files, tmp_path / "jax.npz")))
     port_res = port_serve.run(port_serve.build_parser().parse_args(
-        _argv(files, tmp_path / "port.npz")))
+        _argv(files, tmp_path / "port.npz") + ["--device", "cpu"]))
     assert port_res["n"] == jax_res["n"] == N
     assert port_res["keys"] == jax_res["keys"]
     with np.load(tmp_path / "jax.npz") as a, \
@@ -64,7 +64,7 @@ def test_port_serve_matches_jax_serve(files, tmp_path):
                                   ["--tensor-parallel", "2"]])
 def test_unported_flags_exit_naming_the_roadmap(files, tmp_path, flag):
     args = port_serve.build_parser().parse_args(
-        _argv(files, tmp_path / "o.npz") + flag)
+        _argv(files, tmp_path / "o.npz") + ["--device", "cpu"] + flag)
     with pytest.raises(SystemExit, match="ROADMAP"):
         port_serve.run(args)
 
@@ -72,7 +72,7 @@ def test_unported_flags_exit_naming_the_roadmap(files, tmp_path, flag):
 def test_predictor_buckets_and_checkpoint_checks(files):
     predictor = load_weather_predictor(
         str(files / "mini.pth"), "mini", max_len=T, buckets=(8, 32),
-        compute_dtype="float32")
+        compute_dtype="float32", device="cpu")
     assert predictor._bucket(13) == 32 and predictor._bucket(33) == 32
     with np.load(files / "windows.npz") as z:
         w, c, y, i, m = (z[k] for k in ("weather", "coords", "year",
@@ -82,9 +82,11 @@ def test_predictor_buckets_and_checkpoint_checks(files):
     np.testing.assert_allclose(predictor(w[:5], c[:5], y[:5], i[:5], m[:5]),
                                whole[:5], atol=1e-5, rtol=1e-5)
     with pytest.raises(ValueError, match="lacks"):
-        load_weather_predictor(str(files / "mini.pth"), "small", max_len=T)
+        load_weather_predictor(str(files / "mini.pth"), "small", max_len=T,
+                               device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_weather_predictor(str(files / "mini"), "mini", max_len=T)
+        load_weather_predictor(str(files / "mini"), "mini", max_len=T,
+                               device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_weather_predictor(str(files / "mini.pth"), "mini", max_len=T,
-                               num_experts=4)
+                               num_experts=4, device="cpu")

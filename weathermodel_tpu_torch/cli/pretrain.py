@@ -1,7 +1,24 @@
-"""Model construction and checkpoint loading shared by the entry points
-(the ported subset of weathermodel_tpu/cli/pretrain.py: `make_model` for
-the WeatherBERT family, `load_pretrained_params` for reference `.pth`
-files). The training entry point itself is not ported yet."""
+"""Pretraining entry point, `wm-pretrain-torch` (port of
+weathermodel_tpu/cli/pretrain.py): the same flag names and defaults for the
+ported features, the WeatherBERT family with the masked-MSE objective, on
+one CUDA device unless `--device cpu` is given.
+
+    wm-pretrain-torch --model weatherbert --model-size large \\
+        --batch-size 576 --grad-accum 2 --data-dir data/ --workdir run/
+
+It writes `{workdir}/{model}_output.json` every epoch and the best
+parameters as a reference-format `{workdir}/best.pth`, which
+`wm-serve-torch --checkpoint` serves. The module also holds `make_model`
+and `load_pretrained_params`, which the serving path shares. Flags of the
+JAX entry point whose feature is not ported exit non-zero when set, naming
+their ROADMAP.md item.
+"""
+
+import argparse
+import logging
+import sys
+
+import torch
 
 from weathermodel_tpu_torch.models.transfer import load_reference_checkpoint
 from weathermodel_tpu_torch.models.weatherbert import (
@@ -11,6 +28,8 @@ from weathermodel_tpu_torch.models.weatherbert import (
 )
 from weathermodel_tpu_torch.utils.config import ModelConfig
 
+logger = logging.getLogger(__name__)
+
 PORTED_MODELS = {
     "weatherbert": WeatherBERT,
     "weatherautoencoder": WeatherAutoencoder,
@@ -19,6 +38,30 @@ PORTED_MODELS = {
 # models of the JAX package that the port does not have yet
 UNPORTED_MODELS = ("weatherformer", "weatherformersinusoid",
                    "weatherformermixture", "mlp", "weathercnn")
+
+# flags of the JAX entry point whose feature the port does not have yet
+_UNPORTED = {
+    "resume_from_checkpoint": "resume from a full train-state checkpoint "
+                              "(ROADMAP.md queue A item 7)",
+    "use_optimal_lr": "the LR range test (ROADMAP.md queue A item 10)",
+    "remat": "layer rematerialization (ROADMAP.md queue A item 14)",
+    "seq_parallel": "sequence parallelism (ROADMAP.md queue A item 14)",
+    "pipeline_stages": "pipeline parallelism (ROADMAP.md queue A item 14)",
+    "pipeline_microbatches": "pipeline parallelism (ROADMAP.md queue A "
+                             "item 14)",
+    "tensor_parallel": "tensor parallelism (ROADMAP.md queue A item 14)",
+    "fsdp": "FSDP sharding (ROADMAP.md queue A item 14)",
+    "moe_experts": "the MoE FFN (ROADMAP.md queue A item 12)",
+    "moe_top_k": "the MoE FFN (ROADMAP.md queue A item 12)",
+    "moe_dispatch": "the MoE FFN (ROADMAP.md queue A item 12)",
+    "moe_capacity_factor": "the MoE FFN (ROADMAP.md queue A item 12)",
+    "moe_remat": "the MoE FFN (ROADMAP.md queue A item 12)",
+    "n_mixture_components": "the WeatherFormer family (ROADMAP.md queue A "
+                            "item 8)",
+    "beta": "the ELBO objectives (ROADMAP.md queue A item 8)",
+    "prng": "JAX's PRNG choice; the port draws from torch.Generator "
+            "(ROADMAP.md queue A item 14)",
+}
 
 
 def make_model(name: str, cfg: ModelConfig, attention_impl: str,
@@ -42,3 +85,141 @@ def load_pretrained_params(path: str) -> dict:
         f"{path} is not a .pth/.pt file. Orbax checkpoint directories (the "
         "JAX trainer's output) cannot be read without JAX; see ROADMAP.md "
         "queue A item 16")
+
+
+def resolve_device(device: str) -> torch.device:
+    """The device an entry point runs on: `cuda` (the default) needs a
+    card, and without one the entry point exits; `cpu` is asked for."""
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device is available; pass --device cpu "
+                         "to run on the CPU")
+    return torch.device(device)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--model", default="weatherformer",
+                   help="weatherbert, weatherautoencoder or simmtm (the "
+                        "WeatherFormer family is not ported yet)")
+    p.add_argument("--resume-from-checkpoint", default=None,
+                   help="not ported yet")
+    p.add_argument("--pretrained-model-path", default=None,
+                   help="reference-format .pth to initialise from")
+    p.add_argument("--batch-size", default=256, type=int)
+    p.add_argument("--n-masked-features", default=10, type=int)
+    p.add_argument("--n-epochs", default=100, type=int)
+    p.add_argument("--init-lr", default=5e-4, type=float)
+    p.add_argument("--use-optimal-lr", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--n-warmup-epochs", default=10, type=int)
+    p.add_argument("--decay-factor", default=0.99, type=float)
+    p.add_argument("--model-size", default="small",
+                   help="mini (60K), small (2M), medium (8M), large (56M)")
+    p.add_argument("--masking-prob", default=0.30, type=float)
+    p.add_argument("--n-mixture-components", default=1, type=int,
+                   help="not ported yet (WeatherFormer)")
+    p.add_argument("--beta", default=0.5, type=float,
+                   help="not ported yet (ELBO objectives)")
+    p.add_argument("--freqs", default="weekly",
+                   help="comma-separated granularities to stream together "
+                        "(daily,weekly,monthly)")
+    p.add_argument("--data-dir", default=None,
+                   help="chunk-store root (default: WEATHERMODEL_DATA_DIR)")
+    p.add_argument("--workdir", default="checkpoints/pretraining")
+    p.add_argument("--attention-impl", default="auto",
+                   choices=("auto", "fused_qkv", "torch"),
+                   help="auto = the fused QKV CUDA kernels (medium/large; "
+                        "plain PyTorch ops on the CPU); torch = plain "
+                        "attention")
+    p.add_argument("--compute-dtype", default="bfloat16",
+                   choices=("bfloat16", "float32"))
+    p.add_argument("--grad-accum", default=1, type=int,
+                   help="split each batch into N microbatches and apply one "
+                        "update with the mean gradient")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (default) needs a card; cpu runs the kernels' "
+                        "plain versions")
+    for flag in ("--remat", "--fsdp", "--moe-remat"):
+        p.add_argument(flag, action="store_true", help="not ported yet")
+    for flag, default in (("--seq-parallel", 1), ("--pipeline-stages", 1),
+                          ("--pipeline-microbatches", 4),
+                          ("--tensor-parallel", 1), ("--moe-experts", 0),
+                          ("--moe-top-k", 2)):
+        p.add_argument(flag, default=default, type=int, help="not ported yet")
+    p.add_argument("--moe-dispatch", default="ragged",
+                   choices=("sort", "ragged", "scatter"),
+                   help="not ported yet")
+    p.add_argument("--moe-capacity-factor", default=1.25, type=float,
+                   help="not ported yet")
+    p.add_argument("--prng", default="rbg", choices=("rbg", "threefry2x32"),
+                   help="not ported (JAX only)")
+    return p
+
+
+def run(args: argparse.Namespace) -> dict:
+    from weathermodel_tpu_torch.data.pretraining import (
+        PretrainDataConfig,
+        pretrain_batches,
+    )
+    from weathermodel_tpu_torch.ops.attention import resolve_attention_impl
+    from weathermodel_tpu_torch.train.trainer import PretrainTrainer
+    from weathermodel_tpu_torch.utils import constants
+    from weathermodel_tpu_torch.utils.config import (
+        TrainConfig,
+        model_config_for_size,
+    )
+
+    defaults = build_parser().parse_args([])
+    for flag, what in _UNPORTED.items():
+        if getattr(args, flag) != getattr(defaults, flag):
+            raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not "
+                             "ported to weathermodel_tpu_torch yet")
+    device = resolve_device(args.device)
+    mcfg = model_config_for_size(args.model_size,
+                                 compute_dtype=args.compute_dtype)
+    tcfg = TrainConfig(
+        batch_size=args.batch_size,
+        num_epochs=args.n_epochs,
+        init_lr=args.init_lr,
+        num_warmup_epochs=int(args.n_warmup_epochs),
+        decay_factor=args.decay_factor,
+        masking_prob=args.masking_prob,
+        n_masked_features=args.n_masked_features,
+    )
+    dcfg = PretrainDataConfig(
+        data_dir=args.data_dir or constants.DATA_DIR,
+        batch_size=args.batch_size,
+        freqs=tuple(f.strip() for f in args.freqs.split(",") if f.strip()),
+    )
+
+    def make_loaders(split, shuffle, seed):
+        return pretrain_batches(split, dcfg, shuffle=shuffle, seed=seed)
+
+    attention_impl = resolve_attention_impl(args.attention_impl,
+                                            args.model_size)
+    model = make_model(args.model, mcfg, attention_impl)
+    pretrained = None
+    if args.pretrained_model_path:
+        pretrained = load_pretrained_params(args.pretrained_model_path)
+    trainer = PretrainTrainer(
+        model, args.model, mcfg, tcfg, make_loaders, workdir=args.workdir,
+        device=device, pretrained_state=pretrained,
+        grad_accum=args.grad_accum)
+    return trainer.train()
+
+
+def main():
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s - %(levelname)s - %(message)s")
+    args = build_parser().parse_args()
+    logger.info("Command-line arguments:")
+    for k, v in vars(args).items():
+        logger.info("%s: %s", k, v)
+    result = run(args)
+    logger.info("Training complete: best val loss %.6f",
+                result["best_val_loss"])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,7 +9,8 @@ the JAX entry point's keys.
 
 Input schema: weather [N, T, F] (+ optional coords [N, 2], year [N, T],
 interval [N, 1], mask [N, T, F]; missing ones get the pretraining
-defaults). The model runs on the GPU when one is present, else on the CPU.
+defaults). The model runs on the CUDA device; without one the entry point
+exits unless `--device cpu` asks for the CPU (the kernels' plain versions).
 """
 
 import argparse
@@ -18,7 +19,6 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 logger = logging.getLogger(__name__)
 
@@ -48,6 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=("bfloat16", "float32"),
                    help="float32 for exact numerics parity")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (default) needs a card; cpu runs the kernels' "
+                        "plain versions")
     p.add_argument("--daemon", action="store_true", help="not ported yet")
     p.add_argument("--bundle", help="not ported yet")
     p.add_argument("--quantize", default="none",
@@ -75,7 +78,7 @@ def _load_windows_npz(path: str) -> tuple:
     return weather, coords, year, interval, mask
 
 
-def _make_predictor(args: argparse.Namespace, t: int):
+def _make_predictor(args: argparse.Namespace, t: int, device):
     from weathermodel_tpu_torch.ops.attention import resolve_attention_impl
     from weathermodel_tpu_torch.serve import (
         DEFAULT_BUCKETS,
@@ -85,7 +88,6 @@ def _make_predictor(args: argparse.Namespace, t: int):
     # cap the padding buckets at --batch-size
     buckets = tuple(b for b in DEFAULT_BUCKETS if b < args.batch_size)
     buckets = buckets + (args.batch_size,)
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     logger.info("serving on %s", device)
     return load_weather_predictor(
         args.checkpoint, model_size=args.model_size, model_name=args.model,
@@ -103,10 +105,12 @@ def run(args: argparse.Namespace) -> dict:
                              "ported to weathermodel_tpu_torch yet")
     if not (args.checkpoint and args.input and args.output):
         raise SystemExit("--checkpoint, --input and --output are required")
+    from weathermodel_tpu_torch.cli.pretrain import resolve_device
 
+    device = resolve_device(args.device)
     weather, coords, year, interval, mask = _load_windows_npz(args.input)
     n, t, _ = weather.shape
-    predictor = _make_predictor(args, t)
+    predictor = _make_predictor(args, t, device)
     t0 = time.perf_counter()
     output = predictor(weather, coords, year, interval,
                        weather_feature_mask=mask)

@@ -1,23 +1,36 @@
-// Fused QKV projection + multi-head self-attention, eval form, for Hopper (sm_90a).
+// Fused QKV projection + multi-head self-attention for Hopper (sm_90a): the eval form
+// and the training form of one kernel.
 //
-// Replaces the TPU kernel `_fused_fwd_kernel` in
-// weathermodel_tpu/ops/pallas_attention.py (reached through `_fused_call` with
-// emit_qkv=False and dropout 0, the public entry `flash_attention_fused`).
+// Replaces the TPU kernel `_fused_fwd_kernel` in weathermodel_tpu/ops/pallas_attention.py
+// (reached through `_fused_call`, public entry `flash_attention_fused`):
+//   eval form      emit_qkv=False, dropout 0 (`wm_fused_qkv_attention`)
+//   training form  emit_qkv=True, dropout on the attention weights
+//                  (`wm_fused_qkv_attention_train`, the forward rule of the custom VJP)
 //
 // What it computes, for x [B, T, H], w [3H, H] (torch [out, in] layout), b [3H]:
 //   qkv = x . w^T + b          fp32 accumulation, rounded to the element type
-//   s   = q . k^T / sqrt(hd)   per head, fp32
-//   p   = softmax(s)           max-subtracted, fp32, then rounded to the element type
-//   o   = p . v                fp32 accumulation, rounded to the element type
-// The projection runs inside the kernel, as on the TPU: qkv never goes to device memory.
+//   eval form:
+//     s = q . k^T / sqrt(hd)   per head, fp32
+//     p = softmax(s)           max-subtracted, fp32, then rounded to the element type
+//   training form (the TPU kernel's rounding order, pallas_attention.py:158-178):
+//     qs = q * scale           scale rounded to the element type, product rounded
+//     s  = qs . k^T            fp32
+//     e = exp(s - max), recip = 1 / sum(e)
+//     p  = keep ? e * (recip / (1 - rate)) : 0, rounded   (dropout on)
+//     p  = e * recip, rounded                              (dropout off)
+//     and the packed qkv [B, T, 3H] is written out in the element type: the backward's
+//     residual (weathermodel_tpu_torch/csrc/fused_qkv_attention_bwd.cu).
+//   o = p . v                  fp32 accumulation, rounded to the element type
+// The eval form keeps qkv on chip, as on the TPU.
 //
 // Design: one thread block per (batch row, head), 512 threads.
 //   Phase 1 projects that head's q, k and v slices ([T, hd] each) from x[b] into shared
 //   memory. x and the head's 3*hd weight rows are staged through shared memory in
 //   K-chunks of 32; each thread keeps a 4-row by CPT-column register tile.
 //   Phase 2 gives each warp query rows: scores against all of K (lanes over keys, the
-//   query row in registers), a row max and sum by warp shuffles, then p . V with lanes
-//   over the head dim.
+//   query row in registers), a row max and sum by warp shuffles, the weights (with the
+//   dropout keep bits, attention_common.cuh) back into the warp's score row, then p . V
+//   with lanes over the head dim.
 // q, k and v are kept in shared memory as fp32 (values already rounded to the element
 // type) with a row stride of hd + 1 words, odd for the even head dims, so that lanes
 // walking keys hit distinct banks. At T = 365, hd = 36 that is 162 KB of the 227 KB a
@@ -26,52 +39,33 @@
 // What bounds it on the card: this is scalar-FMA first. It uses no tensor cores, so it is
 // bound by fp32 FMA issue and by shared-memory load bandwidth (phase 1 does 11 shared
 // loads per 28 FMAs, phase 2 one per FMA), at one 512-thread block per SM. Each block
-// re-reads x[b] from L2 once per head. Later work: the projection as a wgmma GEMM fed by
-// TMA, and the two attention products on tensor cores.
+// re-reads x[b] from L2 once per head. The training form adds the qkv write (3x the bytes
+// of o) and one hash per attention weight. Later work: the projection as a wgmma GEMM fed
+// by TMA, and the two attention products on tensor cores.
 //
 // Head dims 12/20/28/36 are = 4 mod 8 and the per-head slice offset is not 16-byte
 // aligned, so every global access is a scalar load; T is bounds-checked here (no padding
 // to 384 as on the TPU, hence no pad-column softmax correction and no bias row mask).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+using wm::Dropout;
+using wm::from_float;
+using wm::kThreads;
+using wm::kWarps;
+using wm::round_to;
+using wm::to_float;
+using wm::warp_max;
+using wm::warp_sum;
+
 constexpr int kRowTile = 128;  // phase-1 rows per tile: 32 row groups x 4 rows
 constexpr int kRowsPerThread = 4;
 constexpr int kColGroups = 16;
 constexpr int kChunk = 32;  // phase-1 K-chunk
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-// Round an fp32 value to the element type and back.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return to_float(from_float<T>(v)); }
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 template <int HD>
 struct Layout {
@@ -90,11 +84,14 @@ size_t smem_bytes(int t) {
   return (qkv + shared) * sizeof(float);
 }
 
-template <typename T, int HD>
+// kTrain selects the training form (module comment); the eval instantiations compile
+// exactly the eval form's code.
+template <typename T, int HD, bool kTrain>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
                            const T* __restrict__ bias, T* __restrict__ out,
-                           int t, int h, int num_heads, float scale) {
+                           T* __restrict__ qkv_out, int t, int h, int num_heads, float scale,
+                           Dropout drop) {
   using L = Layout<HD>;
   extern __shared__ float smem[];
   float* qs = smem;                       // [t][HD + 1]
@@ -106,6 +103,9 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int row_b = blockIdx.x / num_heads;
   const int tid = threadIdx.x;
   const T* xb = x + (size_t)row_b * t * h;
+  // training form: q is scaled by the scale rounded to the element type, as the TPU
+  // kernel's `q * scale` is in x.dtype
+  const float scale_t = round_to<T>(scale);
 
   // ---- phase 1: this head's q, k, v = x[b] . W_head^T + b_head -------------------
   float* xs = shared;                               // [kRowTile][kChunk + 1]
@@ -161,7 +161,14 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i) {
         int r = r0 + ty + 32 * i;
-        if (r < t) dst[r * L::kStride + dd] = round_to<T>(acc[i][j] + bv);
+        if (r >= t) continue;
+        float v = round_to<T>(acc[i][j] + bv);
+        if constexpr (kTrain) {
+          qkv_out[((size_t)row_b * t + r) * 3 * h + part * h + head * HD + dd] =
+              from_float<T>(v);
+          if (part == 0) v = round_to<T>(v * scale_t);
+        }
+        dst[r * L::kStride + dd] = v;
       }
     }
   }
@@ -171,6 +178,8 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int warp = tid / 32, lane = tid % 32;
   float* sc = shared + (size_t)warp * t;  // this warp's score row
   T* ob = out + (size_t)row_b * t * h + head * HD;
+  uint32_t head_key = 0;
+  if constexpr (kTrain) head_key = wm::dropout_head_key(drop.seed, blockIdx.x);
 
   for (int i = warp; i < t; i += kWarps) {
     float q[HD];
@@ -183,7 +192,7 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
       float s = 0.f;
 #pragma unroll
       for (int d = 0; d < HD; ++d) s = fmaf(q[d], kr[d], s);
-      s *= scale;
+      if constexpr (!kTrain) s *= scale;  // the training form scaled q instead
       sc[k] = s;
       m = fmaxf(m, s);
     }
@@ -196,12 +205,29 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
       sum += e;
     }
     const float recip = 1.f / warp_sum(sum);
+    if constexpr (kTrain) {
+      // the weights, dropped and rounded, back into the score row
+      if (drop.on) {
+        const float scl = recip / drop.keep_prob;
+        const uint32_t row_key = wm::dropout_row_key(head_key, i);
+        for (int k = lane; k < t; k += 32)
+          sc[k] = wm::dropout_keep(row_key, k, drop.threshold) ? round_to<T>(sc[k] * scl)
+                                                               : 0.f;
+      } else {
+        for (int k = lane; k < t; k += 32) sc[k] = round_to<T>(sc[k] * recip);
+      }
+    }
     __syncwarp();
 
     float acc0 = 0.f, acc1 = 0.f;
     const int d0 = lane, d1 = lane + 32;
     for (int k = 0; k < t; ++k) {
-      float p = round_to<T>(sc[k] * recip);
+      float p;
+      if constexpr (kTrain) {
+        p = sc[k];
+      } else {
+        p = round_to<T>(sc[k] * recip);
+      }
       const float* vr = vs + k * L::kStride;
       if (d0 < HD) acc0 = fmaf(p, vr[d0], acc0);
       if (d1 < HD) acc1 = fmaf(p, vr[d1], acc1);
@@ -212,31 +238,49 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* x, const void* w, const void* b, void* o, int batch, int t,
-                   int h, int num_heads, cudaStream_t stream) {
-  auto kernel = fused_qkv_attention_kernel<T, HD>;
+template <typename T, int HD, bool kTrain>
+cudaError_t launch(const void* x, const void* w, const void* b, void* o, void* qkv,
+                   int batch, int t, int h, int num_heads, Dropout drop,
+                   cudaStream_t stream) {
+  auto kernel = fused_qkv_attention_kernel<T, HD, kTrain>;
   size_t smem = smem_bytes<HD>(t);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  float scale = 1.0f / sqrtf((float)HD);
+  // the training form takes 1/sqrt(hd) rounded once from double, as the JAX
+  // package's Python float is (the eval form keeps its fp32 quotient)
+  float scale = kTrain ? (float)(1.0 / sqrt((double)HD)) : 1.0f / sqrtf((float)HD);
   kernel<<<(unsigned)batch * num_heads, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(o), t, h, num_heads, scale);
+      static_cast<T*>(o), static_cast<T*>(qkv), t, h, num_heads, scale, drop);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kTrain>
 cudaError_t dispatch_head_dim(const void* x, const void* w, const void* b, void* o,
-                              int batch, int t, int h, int num_heads, cudaStream_t stream) {
+                              void* qkv, int batch, int t, int h, int num_heads,
+                              Dropout drop, cudaStream_t stream) {
   switch (h / num_heads) {
-    case 12: return launch<T, 12>(x, w, b, o, batch, t, h, num_heads, stream);
-    case 20: return launch<T, 20>(x, w, b, o, batch, t, h, num_heads, stream);
-    case 28: return launch<T, 28>(x, w, b, o, batch, t, h, num_heads, stream);
-    case 36: return launch<T, 36>(x, w, b, o, batch, t, h, num_heads, stream);
+    case 12: return launch<T, 12, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
+    case 20: return launch<T, 20, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
+    case 28: return launch<T, 28, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
+    case 36: return launch<T, 36, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool kTrain>
+int dispatch(int dtype, const void* x, const void* w, const void* b, void* o, void* qkv,
+             int batch, int t, int h, int num_heads, Dropout drop, void* stream) {
+  if (batch <= 0 || t <= 0 || num_heads <= 0 || h % num_heads != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_head_dim<float, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads, drop, s);
+  if (dtype == 1)
+    return dispatch_head_dim<__nv_bfloat16, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads,
+                                                    drop, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -247,13 +291,19 @@ extern "C" {
 // all contiguous on the current device. Returns a cudaError_t (0 on success).
 int wm_fused_qkv_attention(int dtype, const void* x, const void* w, const void* b, void* o,
                            int batch, int t, int h, int num_heads, void* stream) {
-  if (batch <= 0 || t <= 0 || num_heads <= 0 || h % num_heads != 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_head_dim<float>(x, w, b, o, batch, t, h, num_heads, s);
-  if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(x, w, b, o, batch, t, h, num_heads, s);
-  return cudaErrorInvalidValue;
+  return dispatch<false>(dtype, x, w, b, o, nullptr, batch, t, h, num_heads, Dropout{},
+                         stream);
+}
+
+// The training form: as above, plus qkv [batch, t, 3h] written out, and dropout on the
+// attention weights when dropout_on != 0 (threshold, keep_prob and seed as in
+// attention_common.cuh).
+int wm_fused_qkv_attention_train(int dtype, const void* x, const void* w, const void* b,
+                                 void* o, void* qkv, int batch, int t, int h,
+                                 int num_heads, int dropout_on, unsigned int seed,
+                                 unsigned int threshold, float keep_prob, void* stream) {
+  Dropout drop{dropout_on, seed, threshold, keep_prob, 0.f};
+  return dispatch<true>(dtype, x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
 }
 
 const char* wm_cuda_error_string(int err) {

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled for Hopper (`sm_90a`) into one shared
-library with a plain C interface. The build runs at first use, outside any
-import, into `build/kernels/<hash>/` under the checkout (listed in
-`.gitignore`), keyed by a hash of the sources and the flags, so a changed
-source rebuilds and an unchanged one is loaded from disk.
+Every `csrc/*.cu` file (with the `csrc/*.cuh` headers they include) is
+compiled for Hopper (`sm_90a`), one nvcc process per file, all started
+together, and linked into one shared library with a plain C interface. The
+build runs at first use, outside any import, into `build/kernels/<hash>/`
+under the checkout (listed in `.gitignore`), keyed by a hash of the sources
+and the flags, so a changed source rebuilds and an unchanged one is loaded
+from disk.
 
 Each C entry point returns the `cudaError_t` of its launch; `check` raises
 on anything but 0.
@@ -25,14 +27,14 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libwm_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass(frozen=True)
 class BuiltLibrary:
     lib: ctypes.CDLL
     path: Path
-    seconds: float   # nvcc wall time; 0.0 when loaded from the cache
+    seconds: float   # build wall time; 0.0 when loaded from the cache
     ptxas_log: str   # nvcc's -Xptxas -v report (registers, smem, spills)
 
 
@@ -42,7 +44,7 @@ def _sources():
 
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -63,10 +65,53 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
+    u = ctypes.c_uint
+    f = ctypes.c_float
     lib.wm_fused_qkv_attention.argtypes = [i, p, p, p, p, i, i, i, i, p]
     lib.wm_fused_qkv_attention.restype = i
+    # dtype, x, w, b, o, qkv, batch, t, h, heads, dropout_on, seed, threshold,
+    # keep_prob, stream
+    lib.wm_fused_qkv_attention_train.argtypes = [i, p, p, p, p, p, i, i, i, i,
+                                                 i, u, u, f, p]
+    lib.wm_fused_qkv_attention_train.restype = i
+    # dtype, qkv, do, dqkv, stats, batch, t, h, heads, dropout_on, seed,
+    # threshold, inv_keep, stream
+    lib.wm_fused_qkv_attention_bwd.argtypes = [i, p, p, p, p, i, i, i, i, i, u,
+                                               u, f, p]
+    lib.wm_fused_qkv_attention_bwd.restype = i
     lib.wm_cuda_error_string.argtypes = [i]
     lib.wm_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(cmd, proc) -> str:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(map(str, cmd))}\n{out}")
+    return out
+
+
+def _compile(sources, tmp: Path) -> str:
+    """One nvcc per source, all started together, then one link; returns
+    their output (the ptxas report)."""
+    nvcc = _nvcc()
+    objects = [tmp / (src.stem + ".o") for src in sources]
+    procs = [_start([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src])
+             for src, obj in zip(sources, objects)]
+    try:
+        log = "".join(_wait(cmd, proc) for cmd, proc in procs)
+    finally:
+        for _, proc in procs:  # after a failure, stop the others too
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp / LIB_NAME, *objects]
+    return log + _wait(*_start(link))
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,20 +124,14 @@ def load_library() -> BuiltLibrary:
     seconds = 0.0
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        # build into a private name, then rename: concurrent processes (test
-        # workers) never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        # build in a private directory, then rename the library into place:
+        # concurrent processes (test workers) never load a half-written one
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            log = _compile(sources, Path(tmp))
+            os.replace(Path(tmp) / LIB_NAME, lib_path)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+        log_path.write_text(log)
     lib = ctypes.CDLL(str(lib_path))
     _declare(lib)
     log = log_path.read_text() if log_path.exists() else ""

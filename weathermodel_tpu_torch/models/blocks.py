@@ -6,8 +6,14 @@ modules are named so that their state-dict keys are the reference's
 (`self_attn.in_proj_weight`, `linear1.weight`, `norm1.weight`, ...), and the
 weights keep torch's [out, in] layout.
 
-The forward is eval only (no dropout) and computes in the dtype of its input:
-parameters stay fp32 and are cast at each use, as the JAX package does.
+The forward computes in the dtype of its input: parameters stay fp32 and
+are cast at each use, as the JAX package does. With `dropout_rate` > 0 (the
+model's training mode) the layer drops at the JAX layer's four sites
+(blocks.py:271-396): the attention weights (inside the attention kernel),
+the attention output before the residual, the FFN hidden after the ReLU and
+the FFN output. Each site takes its own seed from the CPU generator the
+caller passes (ops/dropout.py). With dropout 0 and no gradient the eval
+path is the one the serving path runs.
 """
 
 import numpy as np
@@ -16,7 +22,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from weathermodel_tpu_torch.ops.attention import ATTENTION_IMPLS, torch_attention
-from weathermodel_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
+from weathermodel_tpu_torch.ops.dropout import draw_seed, dropout
+from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+    FusedQKVAttention,
+    fused_qkv_attention,
+)
 
 LN_EPS = 1e-5
 
@@ -52,7 +62,9 @@ class SelfAttention(nn.Module):
     """Multi-head self-attention with torch MHA's parameter layout: a packed
     QKV projection `in_proj_weight` [3H, H] / `in_proj_bias` [3H] and an
     `out_proj` Linear. attention_impl "fused_qkv" runs the projection and
-    the attention as one kernel; "torch" runs them as plain ops."""
+    the attention as one kernel (its eval form, or its training form and
+    backward kernel when dropout is on or a gradient is needed); "torch"
+    runs them as plain ops."""
 
     def __init__(self, hidden_dim: int, num_heads: int,
                  attention_impl: str = "torch"):
@@ -70,14 +82,19 @@ class SelfAttention(nn.Module):
         torch_linear_init_(self.in_proj_weight, self.in_proj_bias)
         self.out_proj = nn.Linear(hidden_dim, hidden_dim)
 
-    def forward(self, x):
+    def forward(self, x, dropout_rate: float = 0.0, generator=None):
         w = self.in_proj_weight.to(x.dtype)
         b = self.in_proj_bias.to(x.dtype)
-        if self.attention_impl == "fused_qkv":
-            out = fused_qkv_attention(x, w.contiguous(), b, self.num_heads)
-        else:
+        seed = draw_seed(generator) if dropout_rate > 0.0 else 0
+        if self.attention_impl != "fused_qkv":
             q, k, v = F.linear(x, w, b).chunk(3, dim=-1)
-            out = torch_attention(q, k, v, self.num_heads)
+            out = torch_attention(q, k, v, self.num_heads, dropout_rate, seed)
+        elif dropout_rate > 0.0 or (torch.is_grad_enabled() and (
+                x.requires_grad or w.requires_grad or b.requires_grad)):
+            out = FusedQKVAttention.apply(x, w.contiguous(), b,
+                                          self.num_heads, dropout_rate, seed)
+        else:
+            out = fused_qkv_attention(x, w.contiguous(), b, self.num_heads)
         return linear(out, self.out_proj)
 
 
@@ -108,12 +125,18 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
 
-    def forward(self, x):
+    def forward(self, x, dropout_rate: float = 0.0, generator=None):
+        def drop(a):
+            if dropout_rate <= 0.0:
+                return a
+            return dropout(a, dropout_rate, draw_seed(generator))
+
         dtype = x.dtype
-        y = x + self.self_attn(x)
+        y = x + drop(self.self_attn(x, dropout_rate, generator))
         x = F.layer_norm(y.float(), y.shape[-1:], self.norm1.weight,
                          self.norm1.bias, LN_EPS).to(dtype)
-        ff = linear(F.relu(linear(x, self.linear1)), self.linear2)
+        ff = drop(F.relu(linear(x, self.linear1)))
+        ff = drop(linear(ff, self.linear2))
         y = x + ff
         mu = y.mean(dim=-1, keepdim=True)
         var = (y - mu).square().mean(dim=-1, keepdim=True)
@@ -134,7 +157,7 @@ class TransformerEncoder(nn.Module):
                                     attention_impl, ffn_impl, num_experts)
             for _ in range(num_layers))
 
-    def forward(self, x):
+    def forward(self, x, dropout_rate: float = 0.0, generator=None):
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, dropout_rate, generator)
         return x

@@ -7,6 +7,12 @@ out_proj. Masked features are zeroed before the concat. WeatherAutoencoder
 and SimMTM are the same architecture trained under other masking policies,
 so they are aliases.
 
+In `train()` mode the forward drops at the encoder layers' four sites with
+`cfg.dropout_rate`, drawing its seeds from the CPU `generator` the caller
+passes, as the JAX module does with deterministic=False; there is no dropout
+after the positional encoding (weathermodel_tpu/models/weatherbert.py:63-98).
+In `eval()` mode it is deterministic.
+
 Submodules sit at the top level (`in_proj`, `transformer_encoder.layers`,
 `out_proj`), so `state_dict()` has exactly the reference checkpoint's keys;
 the PE table is a non-persistent buffer.
@@ -56,10 +62,13 @@ class WeatherEncoderCore(nn.Module):
             torch_linear_init_(layer.self_attn.in_proj_weight,
                                layer.self_attn.in_proj_bias, generator)
 
-    def encode(self, weather, coords, year, interval, weather_feature_mask):
+    def encode(self, weather, coords, year, interval, weather_feature_mask,
+               generator=None, dropout_rate=None):
         """weather [B, T, F] (z-scored), coords [B, 2] raw (lat, lon),
         year [B, T] raw, interval [B, 1], weather_feature_mask [B, T, F]
-        bool (True = masked) -> hidden [B, T, H] in the compute dtype."""
+        bool (True = masked) -> hidden [B, T, H] in the compute dtype.
+        In train mode, `generator` (a CPU torch.Generator) seeds the
+        dropout; `dropout_rate` overrides cfg.dropout_rate."""
         cfg = self.cfg
         b, t, _ = weather.shape
         if t > cfg.max_len:
@@ -74,7 +83,13 @@ class WeatherEncoderCore(nn.Module):
         x = torch.cat([weather, year[..., None], coords], dim=-1)
         x = linear(x.to(self.compute_dtype), self.in_proj)
         x = x + self.pe[:t].to(self.compute_dtype)
-        return self.transformer_encoder(x)
+        rate = 0.0
+        if self.training:
+            rate = cfg.dropout_rate if dropout_rate is None else dropout_rate
+        if rate > 0.0 and generator is None:
+            raise ValueError("training with dropout needs a generator (a "
+                             "CPU torch.Generator for the dropout seeds)")
+        return self.transformer_encoder(x, rate, generator)
 
 
 class WeatherBERT(WeatherEncoderCore):
@@ -86,9 +101,10 @@ class WeatherBERT(WeatherEncoderCore):
         super().__init__(cfg, attention_impl, ffn_impl, num_experts)
         self.out_proj = nn.Linear(cfg.hidden_dim, cfg.output_dim)
 
-    def forward(self, weather, coords, year, interval, weather_feature_mask):
+    def forward(self, weather, coords, year, interval, weather_feature_mask,
+                generator=None, dropout_rate=None):
         hidden = self.encode(weather, coords, year, interval,
-                             weather_feature_mask)
+                             weather_feature_mask, generator, dropout_rate)
         return linear(hidden, self.out_proj).float()
 
 

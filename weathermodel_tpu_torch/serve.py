@@ -30,7 +30,7 @@ class WeatherPredictor:
 
     def __init__(self, model: torch.nn.Module,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 device="cpu"):
+                 device="cuda"):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.buckets = tuple(sorted(buckets))
@@ -79,7 +79,7 @@ def load_weather_predictor(
     quantize: str = "none",
     compute_dtype: str = "bfloat16",
     mesh=None,
-    device="cpu",
+    device="cuda",
 ) -> WeatherPredictor:
     """Build the model, load a reference `.pth` state dict into it and wrap
     it in a WeatherPredictor on `device`. Parameters stay fp32; the forward

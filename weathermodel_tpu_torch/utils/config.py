@@ -1,16 +1,18 @@
-"""Model configuration for the port.
+"""Model and training configuration for the port.
 
-The same size table as weathermodel_tpu/utils/config.py (reference
-utils.py:112-123), restated here so that the port imports nothing of the
-JAX package. `tests/test_torch_port_model.py` holds the two tables equal.
-Only the fields the ported serving path reads are carried.
+The same size table and defaults as weathermodel_tpu/utils/config.py
+(reference utils.py:112-141), restated here so that the port imports
+nothing of the JAX package. `tests/test_torch_port_imports.py` holds the
+two equal. Only the model fields the ported paths read are carried.
 """
 
 import dataclasses
+from typing import Optional
 
-# NASA POWER dataset geometry (weathermodel_tpu/utils/constants.py)
-TOTAL_WEATHER_VARS = 31
-MAX_CONTEXT_LENGTH = 365
+from weathermodel_tpu_torch.utils.constants import (
+    MAX_CONTEXT_LENGTH,
+    TOTAL_WEATHER_VARS,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,7 +25,8 @@ class ModelConfig:
     num_layers: int = 8
     hidden_dim_factor: int = 24
     max_len: int = MAX_CONTEXT_LENGTH
-    # "float32" for reference-numerics parity, "bfloat16" for serving speed;
+    dropout_rate: float = 0.1  # torch TransformerEncoderLayer default
+    # "float32" for reference-numerics parity, "bfloat16" for speed;
     # parameters stay float32 either way
     compute_dtype: str = "float32"
 
@@ -53,3 +56,38 @@ def model_config_for_size(size: str, **overrides) -> ModelConfig:
     if size.lower() not in MODEL_SIZES:
         raise ValueError(f"Unknown model size: {size}")
     return ModelConfig(**{**MODEL_SIZES[size.lower()], **overrides})
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference pretraining_main.py:41-67
+    defaults). `use_optimal_lr` and `checkpoint_every` are carried so the
+    table stays the JAX package's; the port's trainer raises on the first
+    and writes no full-state checkpoints yet (ROADMAP.md queue A item 7)."""
+
+    batch_size: int = 256
+    num_epochs: int = 100
+    init_lr: float = 5e-4
+    num_warmup_epochs: int = 10
+    # None -> cosine annealing after warmup; otherwise exponential decay**e
+    decay_factor: Optional[float] = 0.99
+    masking_prob: float = 0.15
+    n_masked_features: int = 1
+    beta: float = 1.0
+    use_optimal_lr: bool = False
+    # Masking curriculum: +2 masked features every curriculum_every epochs,
+    # capped at curriculum_cap (reference base_trainer.py:517-523).
+    curriculum_every: int = 5
+    curriculum_step: int = 2
+    curriculum_cap: int = 25
+    seed: int = 1234
+    checkpoint_every: int = 5
+
+
+def n_masked_features_for_epoch(cfg: TrainConfig, epoch: int,
+                                base_n: int) -> int:
+    """Masking curriculum (reference base_trainer.py:517-523): start at
+    base_n, add `curriculum_step` every `curriculum_every` epochs, cap at
+    `curriculum_cap`."""
+    n = base_n + cfg.curriculum_step * (epoch // cfg.curriculum_every)
+    return min(n, cfg.curriculum_cap)
