@@ -29,6 +29,20 @@ Phases, each printing one line; any failure raises and exits non-zero:
                step, samples/s, TFLOP/s and peak memory; a torch.profiler
                capture of one step; one step of the kernel path against the
                plain attention path at 16 windows, dropout off, fp32 and bf16
+  7. kernel_flash - the attention kernels on separate q, k, v, B3f and its
+               backward B3b, vs their plain versions at WeatherFormer-small's
+               batch (B=256, T=365, H=200, 10 heads), on the column slices of
+               a packed projection as the model passes them, fp32 and bf16,
+               dropout 0.1 (the same seed on both sides) and 0; CUDA-event
+               times of the kernel, the plain version and SDPA (forward;
+               forward and backward for B3b)
+  8. train_former - `wm-pretrain-torch`'s run(args) with the JAX CLI's
+               defaults (WeatherFormer-small, ELBO, beta 0.5, 10 masked
+               features, --attention-impl auto) in bf16 at --batch-size 256,
+               2 epochs, on the same synthetic store: 4 launches of B3f per
+               training step and per validation batch, 4 of B3b per step,
+               none of B1/B2; finite losses, the train loss falls; the same
+               timings, profile and one-step comparison as phase 6
 The card's name and power limit are printed by phase 1 and again before the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -54,6 +68,13 @@ MODEL_SIZE = "large"
 # ulp is 2^-8 relative), hence the wider bf16 bound on O(1) outputs.
 KERNEL_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3),
               torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# and against each output's own scale: max|kernel - plain| <= SCALE_TOL x
+# max|plain|. The kernel phases' outputs are far below 1 (a near-uniform
+# softmax over 365 keys: |o| ~ 0.04 and |dq|, |dk| ~ 0.015 in kernel_flash),
+# where KERNEL_TOL's atol alone would pass a kernel that scaled a gradient
+# by 0.8. A flipped bf16 rounding moves an output by one ulp, at most 2^-7 of
+# its value; fp32 sums in another order only (about 1e-6 of the largest).
+SCALE_TOL = {torch.float32: 2.0 ** -16, torch.bfloat16: 2.0 ** -6}
 # served output, kernel path vs plain attention path, as (max|diff|, RMS of
 # diff) over the RMS of the plain path's output. In bf16 the two paths round
 # the QKV projection at different points (the kernel once after an fp32
@@ -77,19 +98,25 @@ MICRO = TRAIN_BATCH // GRAD_ACCUM
 STEP_WINDOWS = 16
 STEP_TOL = {"float32": dict(loss=1e-5, grad=1e-3),
             "bfloat16": dict(loss=1e-2)}
+# WeatherFormer-small pretraining with the JAX CLI's defaults
+# (weathermodel_tpu/cli/pretrain.py:29-56): batch 256, 10 masked features,
+# beta 0.5
+FORMER_SIZE, FORMER_BATCH = "small", 256
 # the card's published peaks (NVIDIA H100 SXM data sheet): dense bf16
 # tensor-core rate, fp32 rate outside the tensor cores, HBM bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def train_flops_per_sample(cfg) -> float:
+def train_flops_per_sample(cfg, out_dim=None) -> float:
     """Matmul FLOPs per sample of one training step (forward + backward =
-    3x forward) of the dense WeatherBERT encoder: the analytic count of
-    bench.py:35-54, restated here (77.2 GFLOP at large, T=365)."""
+    3x forward) of the dense encoder with an output head of `out_dim`
+    (default cfg.output_dim; 2F for the WeatherFormer's (mu, log var)):
+    the analytic count of bench.py:35-54, restated here (77.2 GFLOP for
+    WeatherBERT-large, T=365)."""
     t, h, n_layers = cfg.max_len, cfg.hidden_dim, cfg.num_layers
     macs = n_layers * (4 * t * h * h + 8 * t * h * h + 2 * t * t * h)
-    macs += cfg.input_dim * t * h + t * h * cfg.output_dim
+    macs += cfg.input_dim * t * h + t * h * (out_dim or cfg.output_dim)
     return 3.0 * 2.0 * macs
 
 
@@ -110,9 +137,16 @@ def _attention_bound(b, t, h, nh, dtype, train: bool):
     return _bound(flops, elems * dtype.itemsize, dtype)
 
 
+def _flash_bound(b, t, h, nh, dtype):
+    """B3f's bound: two T x T x hd products per (row, head); it reads q, k
+    and v and writes o."""
+    return _bound(4.0 * b * nh * t * t * (h // nh), 4 * b * t * h *
+                  dtype.itemsize, dtype)
+
+
 def _bwd_bound(b, t, h, nh, dtype):
-    """B2's bound: five T x T x hd products per (row, head); it reads qkv
-    and dO and writes dqkv."""
+    """B2's and B3b's bound: five T x T x hd products per (row, head); it
+    reads q, k, v and dO and writes dq, dk and dv."""
     return _bound(5 * 2.0 * b * nh * t * t * (h // nh),
                   7 * b * t * h * dtype.itemsize, dtype)
 
@@ -148,6 +182,26 @@ def _sdpa_backend(q, k, v):
         except RuntimeError:
             continue
     raise RuntimeError("no SDPA backend takes these inputs")
+
+
+def _check_kernel(what, got, want, dtype):
+    """A kernel's output against its plain version's, at KERNEL_TOL
+    entrywise and at SCALE_TOL of the plain output's largest magnitude:
+    (max|diff|, RMS of the plain output, its max magnitude)."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, **KERNEL_TOL[dtype],
+                               msg=lambda m: f"{what}: {m}")
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    if not err <= SCALE_TOL[dtype] * peak:
+        raise AssertionError(f"{what}: max|kernel - plain| {err:.3g} exceeds "
+                             f"{SCALE_TOL[dtype]:.3g} x max|plain| {peak:.3g}")
+    return err, want.square().mean().sqrt().item(), peak
+
+
+def _errs_text(errs):
+    return ", ".join(f"{name} {err:.3g} (RMS {rms:.3g}, max {peak:.3g})"
+                     for name, (err, rms, peak) in errs.items())
 
 
 def phase_device():
@@ -210,23 +264,21 @@ def phase_kernel():
         out = fused_qkv_attention(*args)
         ref = fused_qkv_attention_reference(*args)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        torch.testing.assert_close(out.float(), ref.float(),
-                                   **KERNEL_TOL[dtype])
+        err, rms, peak = _check_kernel(f"o {dtype}", out, ref, dtype)
         bound_ms, bound_by = _attention_bound(BATCH, SEQ_LEN, h, nh, dtype,
                                               train=False)
         results[dtype] = dict(
-            max_abs_err=err,
+            max_abs_err=err, errs=_errs_text({"o": (err, rms, peak)}),
             ms=_cuda_ms(lambda: fused_qkv_attention(*args)),
             plain_ms=_cuda_ms(lambda: fused_qkv_attention_reference(*args)),
             library_ms=_cuda_ms(lambda: _library_attention(*args)),
             bound_ms=bound_ms, bound_by=bound_by)
     print("kernel: fused_qkv_attention B=%d T=%d H=%d heads=%d | " % (
         BATCH, SEQ_LEN, h, nh) + " | ".join(
-        f"{str(d).split('.')[1]}: max|err| {r['max_abs_err']:.3g} (tol "
-        f"{KERNEL_TOL[d]}), kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
-        f" ms, F.linear+SDPA {r['library_ms']:.3f} ms, bound "
-        f"{r['bound_ms']:.3f} ms by {r['bound_by']}"
+        f"{str(d).split('.')[1]}: max|err| {r['errs']} (tol {KERNEL_TOL[d]}"
+        f", {SCALE_TOL[d]:.3g} x max), kernel {r['ms']:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, F.linear+SDPA {r['library_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.3f} ms by {r['bound_by']}"
         for d, r in results.items()), flush=True)
     return results[torch.bfloat16]
 
@@ -335,14 +387,12 @@ def _train_kernels_case(x, w, b, do, nh, dtype, rate, seed, timed: bool):
     dqkv = fused_qkv_attention_bwd(qkv_ref, g, nh, rate, seed)
     dqkv_ref = fused_qkv_attention_bwd_reference(qkv_ref, g, nh, rate, seed)
     torch.cuda.synchronize()
-    errs = {}
-    for name, got, want in (("o", o, o_ref), ("qkv", qkv, qkv_ref),
-                            ("dqkv", dqkv, dqkv_ref)):
-        errs[name] = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got.float(), want.float(),
-                                   **KERNEL_TOL[dtype], msg=lambda m: (
-                                       f"{name} {dtype} dropout {rate}: {m}"))
-    r = dict(fwd_err=max(errs["o"], errs["qkv"]), bwd_err=errs["dqkv"])
+    errs = {name: _check_kernel(f"{name} {dtype} dropout {rate}", got, want,
+                                dtype)
+            for name, got, want in (("o", o, o_ref), ("qkv", qkv, qkv_ref),
+                                    ("dqkv", dqkv, dqkv_ref))}
+    r = dict(fwd_err=max(errs["o"][0], errs["qkv"][0]),
+             bwd_err=errs["dqkv"][0], errs=_errs_text(errs))
     del o, qkv, o_ref, dqkv, dqkv_ref
     if not timed:
         return r
@@ -388,8 +438,8 @@ def phase_kernel_train():
                 x, w, b, do, nh, dtype, rate, seed, timed=rate == DROPOUT)
     lines = []
     for (dtype, rate), r in results.items():
-        line = (f"{str(dtype).split('.')[1]} dropout {rate}: max|err| B1 "
-                f"{r['fwd_err']:.3g} B2 {r['bwd_err']:.3g}")
+        line = (f"{str(dtype).split('.')[1]} dropout {rate}: max|err| "
+                f"{r['errs']}")
         if "fwd_ms" in r:
             r["fwd_bound"] = _attention_bound(MICRO, SEQ_LEN, h, nh, dtype,
                                               train=True)
@@ -404,7 +454,8 @@ def phase_kernel_train():
                 f"{r['bwd_bound'][1]}; SDPA backend {r['sdpa_backend']}")
         lines.append(line)
     print(f"kernel_train: B={MICRO} T={SEQ_LEN} H={h} heads={nh} (tol "
-          f"{KERNEL_TOL}) | " + " | ".join(lines), flush=True)
+          f"{KERNEL_TOL}, {SCALE_TOL} x max) | " + " | ".join(lines),
+          flush=True)
     return results[torch.bfloat16, DROPOUT]
 
 
@@ -440,30 +491,40 @@ def _kernel_events(prof):
     return sorted(kernels, key=_device_ms, reverse=True)
 
 
-def _profile_step(cfg):
-    """torch.profiler over one train step at 2 x 288 (after a warm-up
-    step): device time by op and the device's busy share of the step."""
+def _train_step_fn(name, cfg, impl, device, grad_accum=1):
+    """A seeded model `name` on `device` and its train step with the
+    model's objective (beta 0.5, the CLI's default)."""
     from weathermodel_tpu_torch.cli.pretrain import make_model
     from weathermodel_tpu_torch.train.state import make_optimizer
     from weathermodel_tpu_torch.train.steps import (
-        batch_to_device,
+        OBJECTIVE_FOR_MODEL,
         make_train_step,
     )
 
-    model = make_model("weatherbert", cfg, "fused_qkv")
+    model = make_model(name, cfg, impl)
     model.reset_parameters(torch.Generator().manual_seed(SEED))
-    model = model.cuda()
-    step = make_train_step(model, make_optimizer(model), "weatherbert",
-                           grad_accum=GRAD_ACCUM)
-    batch = batch_to_device(_windows_batch(TRAIN_BATCH, SEED)[0], "cuda")
+    model = model.to(device)
+    objective, masking = OBJECTIVE_FOR_MODEL[name]
+    return model, make_train_step(model, make_optimizer(model), masking,
+                                  grad_accum=grad_accum, objective=objective,
+                                  beta=0.5)
+
+
+def _profile_step(name, cfg, impl, batch_size, grad_accum=1):
+    """torch.profiler over one train step (after a warm-up step): device
+    time by op and the device's busy share of the step."""
+    from weathermodel_tpu_torch.train.steps import batch_to_device
+
+    _, step = _train_step_fn(name, cfg, impl, "cuda", grad_accum)
+    batch = batch_to_device(_windows_batch(batch_size, SEED)[0], "cuda")
     gen = torch.Generator().manual_seed(SEED)
-    float(step(batch, gen, 1e-4, 1)["total_loss"])  # warm-up
+    float(step(batch, gen, 1e-4, 10)["total_loss"])  # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        float(step(batch, gen, 1e-4, 1)["total_loss"])
+        float(step(batch, gen, 1e-4, 10)["total_loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = _kernel_events(prof)
@@ -483,33 +544,26 @@ def _grad_rel(a, b):
                                          b.parameters()))
 
 
-def _step_parity(dtype: str):
-    """One train step of the kernel path against the plain attention path
-    at STEP_WINDOWS windows, large width, the same weights, batch and mask,
-    dropout off: (loss rel diff, worst gradient rel diff, its parameter,
-    and in fp32 the same worst gradient diff between the plain path on the
-    card and on the CPU: the noise floor of two plain fp32 runs)."""
-    from weathermodel_tpu_torch.cli.pretrain import make_model
-    from weathermodel_tpu_torch.train.state import make_optimizer
-    from weathermodel_tpu_torch.train.steps import (
-        batch_to_device,
-        make_train_step,
-    )
+def _step_parity(name, size, impl, dtype: str):
+    """One train step of the kernel path `impl` against the plain attention
+    path at STEP_WINDOWS windows, full width, the same weights, batch and
+    mask, dropout off: (loss rel diff, worst gradient rel diff, its
+    parameter, and in fp32 the same worst gradient diff between the plain
+    path on the card and on the CPU: the noise floor of two plain fp32
+    runs)."""
+    from weathermodel_tpu_torch.train.steps import batch_to_device
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
-    cfg = model_config_for_size(MODEL_SIZE, compute_dtype=dtype)
+    cfg = model_config_for_size(size, compute_dtype=dtype)
     batch, mask = _windows_batch(STEP_WINDOWS, SEED + 2)
-    runs = [("fused_qkv", "cuda"), ("torch", "cuda")]
+    runs = [(impl, "cuda"), ("torch", "cuda")]
     if dtype == "float32":
         runs.append(("torch", "cpu"))
     models, losses = [], []
-    for impl, device in runs:
-        model = make_model("weatherbert", cfg, impl)
-        model.reset_parameters(torch.Generator().manual_seed(SEED))
-        model = model.to(device)
-        step = make_train_step(model, make_optimizer(model), "weatherbert")
+    for run_impl, device in runs:
+        model, step = _train_step_fn(name, cfg, run_impl, device)
         out = step(batch_to_device(batch, device),
-                   torch.Generator().manual_seed(SEED), 0.0, 1,
+                   torch.Generator().manual_seed(SEED), 0.0, 10,
                    mask=torch.from_numpy(mask).to(device), dropout_rate=0.0)
         models.append(model)
         losses.append(float(out["total_loss"]))
@@ -518,102 +572,313 @@ def _step_parity(dtype: str):
     return (loss_rel, *_grad_rel(models[0], models[1]), floor)
 
 
-def phase_train(smi: str):
-    from weathermodel_tpu_torch.cli import pretrain
+def _check_step_parity(name, size, impl):
+    parity = {}
+    for dtype in ("float32", "bfloat16"):
+        parity[dtype] = _step_parity(name, size, impl, dtype)
+        loss_rel, grad_rel, _, _ = parity[dtype]
+        tol = STEP_TOL[dtype]
+        if loss_rel > tol["loss"] or grad_rel > tol.get("grad", np.inf):
+            raise AssertionError(
+                f"{name} {dtype}: one step, kernel path vs plain path (loss "
+                f"rel, worst gradient, its parameter) {parity[dtype]}, bars "
+                f"{tol}")
+    return (f"one step at {STEP_WINDOWS} windows, kernel path vs plain "
+            "attention path, dropout off, (loss rel, worst gradient "
+            "||diff||/||grad||, its parameter, the plain path's card-vs-CPU "
+            f"worst gradient diff): {parity}; bars {STEP_TOL}")
+
+
+def _write_store(root: Path) -> Path:
+    """A seeded synthetic chunk store written by the port's writer: 8 chunks
+    (train 0-6, validation 7) of 1000 windows, of which the cutoff year
+    keeps about 2/3."""
     from weathermodel_tpu_torch.data.chunks import write_synthetic_dataset
+
+    data = root / "data"
+    write_synthetic_dataset(str(data), n_chunks=8, n_samples=1000,
+                            seq_len=SEQ_LEN, seed=SEED)
+    return data
+
+
+def _store_batches(data: Path, batch_size: int):
+    """(train batches, validation windows) per epoch of the store."""
     from weathermodel_tpu_torch.data.pretraining import (
         PretrainDataConfig,
         pretrain_batches,
+    )
+
+    dcfg = PretrainDataConfig(data_dir=str(data), batch_size=batch_size)
+    n_train = sum(1 for _ in pretrain_batches("train", dcfg))
+    n_val = sum(int(bt.weight.sum()) if bt.weight is not None
+                else batch_size for bt in pretrain_batches("validation",
+                                                           dcfg))
+    if n_train < 4 or n_val < batch_size:
+        raise AssertionError(f"synthetic store too small: {n_train} train "
+                             f"batches, {n_val} validation windows")
+    return n_train, n_val
+
+
+def _run_pretrain(argv, counted):
+    """`wm-pretrain-torch`'s run(args) on argv with every wrapper in
+    `counted` set to 0 just before: (result, launches by wrapper name,
+    wall seconds, peak GB, the output json)."""
+    from weathermodel_tpu_torch.cli import pretrain
+
+    args = pretrain.build_parser().parse_args(argv)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = pretrain.run(args)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    workdir = Path(args.workdir)
+    records = list(workdir.glob("*_output.json"))
+    if len(records) != 1 or not (workdir / "best.pth").exists():
+        raise AssertionError(f"wm-pretrain-torch wrote {records} and "
+                             "no best.pth")
+    with open(records[0]) as f:
+        record = json.load(f)
+    return result, launches, wall, peak_gb, record
+
+
+def _all_kernels():
+    from weathermodel_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
     )
     from weathermodel_tpu_torch.ops.fused_qkv_attention import (
         fused_qkv_attention,
         fused_qkv_attention_bwd,
         fused_qkv_attention_train,
     )
-    from weathermodel_tpu_torch.utils.config import model_config_for_size
 
-    cfg = model_config_for_size(MODEL_SIZE, compute_dtype="bfloat16")
-    with tempfile.TemporaryDirectory() as tmp:
-        data, workdir = Path(tmp) / "data", Path(tmp) / "run"
-        # 8 chunks (train 0-6, validation 7) of 1000 windows; the cutoff
-        # year keeps about 2/3 of them
-        write_synthetic_dataset(str(data), n_chunks=8, n_samples=1000,
-                                seq_len=SEQ_LEN, seed=SEED)
-        dcfg = PretrainDataConfig(data_dir=str(data), batch_size=TRAIN_BATCH)
-        n_train = sum(1 for _ in pretrain_batches("train", dcfg))
-        n_val = sum(int(bt.weight.sum()) if bt.weight is not None
-                    else TRAIN_BATCH for bt in pretrain_batches("validation",
-                                                                dcfg))
-        if n_train < 4 or n_val < TRAIN_BATCH:
-            raise AssertionError(f"synthetic store too small: {n_train} "
-                                 f"train batches, {n_val} validation windows")
-        args = pretrain.build_parser().parse_args([
-            "--model", "weatherbert", "--model-size", MODEL_SIZE,
-            "--batch-size", str(TRAIN_BATCH), "--grad-accum", str(GRAD_ACCUM),
-            "--n-epochs", "2", "--n-warmup-epochs", "0",
-            "--masking-prob", "0.15", "--data-dir", str(data),
-            "--workdir", str(workdir), "--compute-dtype", "bfloat16",
-            "--device", "cuda"])
-        for fn in (fused_qkv_attention, fused_qkv_attention_train,
-                   fused_qkv_attention_bwd):
-            fn.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        result = pretrain.run(args)
-        wall = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in (
-            fused_qkv_attention, fused_qkv_attention_train,
-            fused_qkv_attention_bwd)}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        with open(workdir / "weatherbert_output.json") as f:
-            record = json.load(f)
-        best = workdir / "best.pth"
-        if not best.exists():
-            raise AssertionError("wm-pretrain-torch wrote no best.pth")
-    steps = sum(len(s) for s in result["train_step_seconds"])
-    val_batches = sum(result["val_batches"])
-    per_step = GRAD_ACCUM * cfg.num_layers
-    expected = {"fused_qkv_attention": cfg.num_layers * val_batches,
-                "fused_qkv_attention_train": per_step * steps,
-                "fused_qkv_attention_bwd": per_step * steps}
+    return (fused_qkv_attention, fused_qkv_attention_train,
+            fused_qkv_attention_bwd, flash_attention_fwd, flash_attention_bwd)
+
+
+def _check_record(record, keys=("total_loss",)):
+    """The losses of both scopes are finite and the train loss falls from
+    epoch 1 to epoch 2; returns (train loss, validation loss)."""
+    losses = record["losses"]
+    for scope in ("train", "val"):
+        for k in keys:
+            if not np.all(np.isfinite(losses[scope][k])):
+                raise AssertionError(f"non-finite {scope} {k}: "
+                                     f"{losses[scope][k]}")
+    train_loss = losses["train"]["total_loss"]
+    if not train_loss[1] < train_loss[0]:
+        raise AssertionError(f"train loss did not fall: {train_loss}")
+    return train_loss, losses["val"]["total_loss"]
+
+
+def _check_launches(launches, expected, steps, val_batches):
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} on the train path, "
                              f"expected {expected} ({steps} steps, "
                              f"{val_batches} validation batches)")
-    train_loss = record["losses"]["train"]["total_loss"]
-    val_loss = record["losses"]["val"]["total_loss"]
-    if not np.all(np.isfinite(train_loss + val_loss)):
-        raise AssertionError(f"non-finite losses {train_loss} {val_loss}")
-    if not train_loss[1] < train_loss[0]:
-        raise AssertionError(f"train loss did not fall: {train_loss}")
+
+
+def _throughput(result, cfg, batch_size, out_dim=None):
+    """Epoch 2's median step: (ms, samples/s, TFLOP/s, GFLOP/sample)."""
     step_s = float(np.median(result["train_step_seconds"][-1]))
-    tflops = train_flops_per_sample(cfg) * TRAIN_BATCH / step_s / 1e12
+    flops = train_flops_per_sample(cfg, out_dim)
+    return (step_s * 1e3, batch_size / step_s,
+            flops * batch_size / step_s / 1e12, flops / 1e9)
+
+
+def phase_train(smi: str, data: Path):
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(MODEL_SIZE, compute_dtype="bfloat16")
+    n_train, n_val = _store_batches(data, TRAIN_BATCH)
+    with tempfile.TemporaryDirectory() as workdir:
+        result, launches, wall, peak_gb, record = _run_pretrain([
+            "--model", "weatherbert", "--model-size", MODEL_SIZE,
+            "--batch-size", str(TRAIN_BATCH), "--grad-accum", str(GRAD_ACCUM),
+            "--n-epochs", "2", "--n-warmup-epochs", "0",
+            "--masking-prob", "0.15", "--data-dir", str(data),
+            "--workdir", workdir, "--compute-dtype", "bfloat16",
+            "--device", "cuda"], _all_kernels())
+    steps = sum(len(s) for s in result["train_step_seconds"])
+    val_batches = sum(result["val_batches"])
+    per_step = GRAD_ACCUM * cfg.num_layers
+    _check_launches(launches, {
+        "fused_qkv_attention": cfg.num_layers * val_batches,
+        "fused_qkv_attention_train": per_step * steps,
+        "fused_qkv_attention_bwd": per_step * steps,
+        "flash_attention_fwd": 0, "flash_attention_bwd": 0},
+        steps, val_batches)
+    train_loss, val_loss = _check_record(record)
+    ms, rate, tflops, gflop = _throughput(result, cfg, TRAIN_BATCH)
     print(f"train: wm-pretrain-torch WeatherBERT-{MODEL_SIZE} bf16 "
           f"--batch-size {TRAIN_BATCH} --grad-accum {GRAD_ACCUM}, dropout "
           f"{cfg.dropout_rate}, 2 epochs, lr 5e-4: {n_train} train batches "
           f"and {n_val} validation windows per epoch; train loss "
           f"{train_loss}, val loss {val_loss}; {launches}; epoch 2 median "
-          f"{step_s * 1e3:.1f} ms/step, {TRAIN_BATCH / step_s:.1f} samples/s, "
-          f"{tflops:.1f} TFLOP/s ({train_flops_per_sample(cfg) / 1e9:.1f} "
-          f"GFLOP/sample); epoch seconds {record['metrics']['epoch_seconds']};"
-          f" run {wall:.1f} s; peak memory {peak_gb:.1f} GB; card {smi}",
-          flush=True)
-    print("train: " + _profile_step(cfg), flush=True)
-    parity = {}
-    for dtype in ("float32", "bfloat16"):
-        parity[dtype] = _step_parity(dtype)
-        loss_rel, grad_rel, _, _ = parity[dtype]
-        tol = STEP_TOL[dtype]
-        if loss_rel > tol["loss"] or grad_rel > tol.get("grad", np.inf):
-            raise AssertionError(
-                f"{dtype}: one step, kernel path vs plain path (loss rel, "
-                f"worst gradient, its parameter) {parity[dtype]}, bars {tol}")
-    print(f"train: one step at {STEP_WINDOWS} windows, kernel path vs plain "
-          "attention path, dropout off, (loss rel, worst gradient "
-          "||diff||/||grad||, its parameter, the plain path's card-vs-CPU "
-          f"worst gradient diff): {parity}; bars {STEP_TOL}",
-          flush=True)
+          f"{ms:.1f} ms/step, {rate:.1f} samples/s, {tflops:.1f} TFLOP/s "
+          f"({gflop:.1f} GFLOP/sample); epoch seconds "
+          f"{record['metrics']['epoch_seconds']}; run {wall:.1f} s; peak "
+          f"memory {peak_gb:.1f} GB; card {smi}", flush=True)
+    print("train: " + _profile_step("weatherbert", cfg, "fused_qkv",
+                                    TRAIN_BATCH, GRAD_ACCUM), flush=True)
+    print("train: " + _check_step_parity("weatherbert", MODEL_SIZE,
+                                         "fused_qkv"), flush=True)
     return launches
+
+
+def _flash_case(qkv, do, nh, dtype, rate, seed, timed: bool):
+    """B3f and B3b against their plain versions on the column slices of
+    one packed projection, as the model passes them."""
+    from weathermodel_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_fwd,
+        flash_attention_fwd_reference,
+    )
+
+    q, k, v = qkv.to(dtype).chunk(3, dim=-1)
+    g = do.to(dtype)
+    args = (q, k, v, nh, rate, seed)
+    bwd_args = (q, k, v, g, nh, rate, seed)
+    o = flash_attention_fwd(*args)
+    o_ref = flash_attention_fwd_reference(*args)
+    grads = flash_attention_bwd(*bwd_args)
+    grads_ref = flash_attention_bwd_reference(*bwd_args)
+    torch.cuda.synchronize()
+    errs = {name: _check_kernel(f"{name} {dtype} dropout {rate}", got, want,
+                                dtype)
+            for name, got, want in (("o", o, o_ref),
+                                    *zip(("dq", "dk", "dv"), grads,
+                                         grads_ref))}
+    r = dict(fwd_err=errs["o"][0],
+             bwd_err=max(errs[n][0] for n in ("dq", "dk", "dv")),
+             errs=_errs_text(errs))
+    del o, o_ref, grads, grads_ref
+    if not timed:
+        return r
+    torch.cuda.empty_cache()
+    heads = [_heads(a, nh) for a in (q, k, v)]
+    qh, kh, vh = (a.detach().requires_grad_() for a in heads)
+    g_heads = _heads(g, nh)
+
+    def library_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(*heads, dropout_p=rate)
+
+    def library_bwd():
+        out = F.scaled_dot_product_attention(qh, kh, vh, dropout_p=rate)
+        return torch.autograd.grad(out, (qh, kh, vh), g_heads)
+
+    r.update(
+        fwd_ms=_cuda_ms(lambda: flash_attention_fwd(*args)),
+        fwd_plain_ms=_cuda_ms(lambda: flash_attention_fwd_reference(*args),
+                              iters=3, warmup=1),
+        fwd_library_ms=_cuda_ms(library_fwd),
+        bwd_ms=_cuda_ms(lambda: flash_attention_bwd(*bwd_args)),
+        bwd_plain_ms=_cuda_ms(lambda: flash_attention_bwd_reference(
+            *bwd_args), iters=3, warmup=1),
+        bwd_library_ms=_cuda_ms(library_bwd),
+        sdpa_backend=_sdpa_backend(qh, kh, vh))
+    return r
+
+
+def phase_kernel_flash():
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(FORMER_SIZE)
+    h, nh = cfg.hidden_dim, cfg.num_heads
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    bound = 1.0 / h ** 0.5
+    x = torch.randn(FORMER_BATCH, SEQ_LEN, h, device="cuda", generator=g)
+    w = (torch.rand(3 * h, h, device="cuda", generator=g) * 2 - 1) * bound
+    b = (torch.rand(3 * h, device="cuda", generator=g) * 2 - 1) * bound
+    qkv = F.linear(x, w, b)  # the model's packed projection
+    do = torch.randn(FORMER_BATCH, SEQ_LEN, h, device="cuda", generator=g)
+    del x
+    seed = 20260102
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for rate in (DROPOUT, 0.0):
+            results[dtype, rate] = _flash_case(qkv, do, nh, dtype, rate, seed,
+                                               timed=rate == DROPOUT)
+    lines = []
+    for (dtype, rate), r in results.items():
+        line = (f"{str(dtype).split('.')[1]} dropout {rate}: max|err| "
+                f"{r['errs']}")
+        if "fwd_ms" in r:
+            r["fwd_bound"] = _flash_bound(FORMER_BATCH, SEQ_LEN, h, nh, dtype)
+            r["bwd_bound"] = _bwd_bound(FORMER_BATCH, SEQ_LEN, h, nh, dtype)
+            line += (
+                f"; B3f kernel {r['fwd_ms']:.3f} ms, plain "
+                f"{r['fwd_plain_ms']:.3f}, SDPA {r['fwd_library_ms']:.3f}, "
+                f"bound {r['fwd_bound'][0]:.3f} by {r['fwd_bound'][1]}; B3b "
+                f"kernel {r['bwd_ms']:.3f} ms, plain {r['bwd_plain_ms']:.3f}, "
+                f"SDPA fwd+bwd {r['bwd_library_ms']:.3f}, bound "
+                f"{r['bwd_bound'][0]:.3f} by {r['bwd_bound'][1]}; SDPA "
+                f"backend {r['sdpa_backend']}")
+        lines.append(line)
+    print(f"kernel_flash: B={FORMER_BATCH} T={SEQ_LEN} H={h} heads={nh} (tol "
+          f"{KERNEL_TOL}, {SCALE_TOL} x max) | " + " | ".join(lines),
+          flush=True)
+    return results[torch.bfloat16, DROPOUT]
+
+
+def phase_train_former(smi: str, data: Path):
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(FORMER_SIZE, compute_dtype="bfloat16")
+    n_train, n_val = _store_batches(data, FORMER_BATCH)
+    with tempfile.TemporaryDirectory() as workdir:
+        # the JAX CLI's defaults; --attention-impl left at auto
+        result, launches, wall, peak_gb, record = _run_pretrain([
+            "--model", "weatherformer", "--model-size", FORMER_SIZE,
+            "--batch-size", str(FORMER_BATCH), "--n-masked-features", "10",
+            "--beta", "0.5", "--compute-dtype", "bfloat16", "--n-epochs", "2",
+            "--n-warmup-epochs", "0", "--data-dir", str(data),
+            "--workdir", workdir, "--device", "cuda"], _all_kernels())
+    steps = sum(len(s) for s in result["train_step_seconds"])
+    val_batches = sum(result["val_batches"])
+    n = cfg.num_layers
+    _check_launches(launches, {
+        "fused_qkv_attention": 0, "fused_qkv_attention_train": 0,
+        "fused_qkv_attention_bwd": 0,
+        "flash_attention_fwd": n * (steps + val_batches),
+        "flash_attention_bwd": n * steps}, steps, val_batches)
+    train_loss, val_loss = _check_record(
+        record, ("total_loss", "reconstruction", "kl_term"))
+    out_dim = 2 * cfg.output_dim
+    ms, rate, tflops, gflop = _throughput(result, cfg, FORMER_BATCH, out_dim)
+    kl = record["losses"]["train"]["kl_term"]
+    print(f"train_former: wm-pretrain-torch WeatherFormer-{FORMER_SIZE} bf16 "
+          f"--batch-size {FORMER_BATCH}, ELBO beta 0.5, 10 masked features, "
+          f"dropout {cfg.dropout_rate}, 2 epochs, lr 5e-4: {n_train} train "
+          f"batches and {n_val} validation windows per epoch; train loss "
+          f"{train_loss} (kl_term {kl}), val loss {val_loss}; {launches}; "
+          f"epoch 2 median {ms:.1f} ms/step, {rate:.1f} samples/s, "
+          f"{tflops:.1f} TFLOP/s ({gflop:.2f} GFLOP/sample); epoch seconds "
+          f"{record['metrics']['epoch_seconds']}; run {wall:.1f} s; peak "
+          f"memory {peak_gb:.1f} GB; card {smi}", flush=True)
+    print("train_former: " + _profile_step("weatherformer", cfg, "flash",
+                                           FORMER_BATCH), flush=True)
+    print("train_former: " + _check_step_parity("weatherformer", FORMER_SIZE,
+                                                "flash"), flush=True)
+    return launches
+
+
+def _record(name, source, replaces, launches, k, prefix):
+    """One kernel's entry of the JSON line: `k` is a kernel phase's result
+    and `prefix` ("fwd" or "bwd") picks the kernel's numbers in it."""
+    bound_ms, bound_by = k[prefix + "_bound"]
+    return dict(name=name, route="cuda",
+                source="weathermodel_tpu_torch/csrc/" + source,
+                replaces="weathermodel_tpu/ops/pallas_attention.py:" + replaces,
+                launches=launches, max_abs_err=k[prefix + "_err"],
+                ms=k[prefix + "_ms"], plain_ms=k[prefix + "_plain_ms"],
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=k[prefix + "_library_ms"])
 
 
 def main():
@@ -624,32 +889,31 @@ def main():
     kernel = phase_kernel()
     serve_launches = phase_serve(smi)
     train_kernels = phase_kernel_train()
-    train_launches = phase_train(smi)
-    src = "weathermodel_tpu_torch/csrc/"
-    replaces = "weathermodel_tpu/ops/pallas_attention.py:"
-    tk = train_kernels
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _write_store(Path(tmp))
+        train_launches = phase_train(smi, data)
+        flash_kernels = phase_kernel_flash()
+        former_launches = phase_train_former(smi, data)
+    tk, fk = train_kernels, flash_kernels
     records = [
-        dict(name="fused_qkv_attention", source=src + "fused_qkv_attention.cu",
-             replaces=replaces + "242", launches=serve_launches,
-             max_abs_err=kernel["max_abs_err"], ms=kernel["ms"],
-             plain_ms=kernel["plain_ms"], bound_ms=kernel["bound_ms"],
-             bound_by=kernel["bound_by"], library_ms=kernel["library_ms"]),
-        dict(name="fused_qkv_attention_train",
-             source=src + "fused_qkv_attention.cu", replaces=replaces + "242",
-             launches=train_launches["fused_qkv_attention_train"],
-             max_abs_err=tk["fwd_err"], ms=tk["fwd_ms"],
-             plain_ms=tk["fwd_plain_ms"], bound_ms=tk["fwd_bound"][0],
-             bound_by=tk["fwd_bound"][1], library_ms=tk["fwd_library_ms"]),
-        dict(name="fused_qkv_attention_bwd",
-             source=src + "fused_qkv_attention_bwd.cu",
-             replaces=replaces + "391",
-             launches=train_launches["fused_qkv_attention_bwd"],
-             max_abs_err=tk["bwd_err"], ms=tk["bwd_ms"],
-             plain_ms=tk["bwd_plain_ms"], bound_ms=tk["bwd_bound"][0],
-             bound_by=tk["bwd_bound"][1], library_ms=tk["bwd_library_ms"]),
+        dict(name="fused_qkv_attention", route="cuda",
+             source="weathermodel_tpu_torch/csrc/fused_qkv_attention.cu",
+             replaces="weathermodel_tpu/ops/pallas_attention.py:242",
+             launches=serve_launches, max_abs_err=kernel["max_abs_err"],
+             ms=kernel["ms"], plain_ms=kernel["plain_ms"],
+             bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"],
+             library_ms=kernel["library_ms"]),
+        _record("fused_qkv_attention_train", "fused_qkv_attention.cu", "242",
+                train_launches["fused_qkv_attention_train"], tk, "fwd"),
+        _record("fused_qkv_attention_bwd", "fused_qkv_attention_bwd.cu",
+                "391", train_launches["fused_qkv_attention_bwd"], tk, "bwd"),
+        _record("flash_attention_fwd", "flash_attention.cu", "199",
+                former_launches["flash_attention_fwd"], fk, "fwd"),
+        _record("flash_attention_bwd", "flash_attention_bwd.cu", "288",
+                former_launches["flash_attention_bwd"], fk, "bwd"),
     ]
     print(f"card: {smi}")
-    print(json.dumps({"kernels": [{"route": "cuda", **r} for r in records]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -51,7 +51,7 @@ def test_resolve_attention_impl():
     assert resolve_attention_impl("auto", "mini", mode="eval") == "fused_qkv"
     assert resolve_attention_impl("auto", "large") == "fused_qkv"
     assert resolve_attention_impl("torch", "large") == "torch"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_attention_impl("auto", "small", mode="train")
+    # mini/small training: the attention on separate q, k, v (B3)
+    assert resolve_attention_impl("auto", "small", mode="train") == "flash"
     with pytest.raises(ValueError):
         resolve_attention_impl("pallas_qkv")

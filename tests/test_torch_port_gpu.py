@@ -12,6 +12,12 @@ import torch
 
 from weathermodel_tpu_torch.cli import serve
 from weathermodel_tpu_torch.cli.pretrain import make_model
+from weathermodel_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_fwd,
+    flash_attention_fwd_reference,
+)
 from weathermodel_tpu_torch.ops.fused_qkv_attention import (
     fused_qkv_attention,
     fused_qkv_attention_bwd,
@@ -99,6 +105,59 @@ def test_train_kernels_match_plain(cuda, dtype, rate, b, t, h, nh):
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+# B3f and B3b against their plain versions at WeatherFormer-small's width
+# (T=365, H=200, 10 heads of 20) and at mini's head dim, on the column slices
+# of a packed projection (the model's layout) and on three separate tensors;
+# the bars of the fused kernels, for the same reasons
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,nh", [(2, 365, 200, 10), (2, 37, 48, 4)])
+def test_flash_kernels_match_plain(cuda, dtype, rate, packed, b, t, h, nh):
+    rng = np.random.default_rng(2)
+    qkv = torch.tensor(rng.normal(size=(b, t, 3 * h)), dtype=dtype,
+                       device=cuda)
+    q, k, v = qkv.chunk(3, dim=-1)
+    if not packed:
+        q, k, v = (a.contiguous() for a in (q, k, v))
+    do = torch.tensor(rng.normal(size=(b, t, h)), dtype=dtype, device=cuda)
+    seed = 424242
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    o = flash_attention_fwd(q, k, v, nh, rate, seed)
+    grads = flash_attention_bwd(q, k, v, do, nh, rate, seed)
+    o_ref = flash_attention_fwd_reference(q, k, v, nh, rate, seed)
+    grads_ref = flash_attention_bwd_reference(q, k, v, do, nh, rate, seed)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches,
+            flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert o.dtype == dtype and o.shape == (b, t, h) and o.is_contiguous()
+    for got, want in ((o, o_ref), *zip(grads, grads_ref)):
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_flash_kernels_draw_the_fused_kernels_mask(cuda):
+    """One seed, one keep-mask: B3f on the packed projection equals B1's
+    training form."""
+    x, w, bias = _inputs(2, 40, 48, torch.float32, cuda)
+    o_fused, qkv = fused_qkv_attention_train(x, w, bias, 4, 0.1, 9)
+    o = flash_attention_fwd(*qkv.chunk(3, dim=-1), 4, 0.1, 9)
+    torch.testing.assert_close(o, o_fused, atol=1e-6, rtol=1e-5)
+    assert not torch.equal(o, flash_attention_fwd(*qkv.chunk(3, dim=-1), 4,
+                                                  0.1, 10))
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v = (torch.zeros(2, 5, 48, device=cuda) for _ in range(3))
+    with pytest.raises(ValueError, match="row stride"):
+        flash_attention_fwd(q.transpose(0, 1).contiguous().transpose(0, 1),
+                            k, v, 4, 0.0, 0)
+    with pytest.raises(ValueError, match="contiguous do"):
+        flash_attention_bwd(q, k, v, q.transpose(0, 1).contiguous()
+                            .transpose(0, 1), 4, 0.0, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_fwd(q, k, v, 3, 0.0, 0)  # hd 16 is not instantiated
+
+
 def test_train_kernel_dropout_is_the_seeds(cuda):
     x, w, bias = _inputs(2, 40, 48, torch.float32, cuda)
     a, _ = fused_qkv_attention_train(x, w, bias, 4, 0.1, 5)
@@ -170,6 +229,47 @@ def test_train_step_kernel_path_matches_plain_path(cuda):
     n = 2 * cfg.num_layers
     assert (fused_qkv_attention_train.launches,
             fused_qkv_attention_bwd.launches) == (before[0] + n, before[1] + n)
+
+
+def test_weatherformer_step_flash_path_matches_plain_path(cuda):
+    """WeatherFormer-small's ELBO step through B3f/B3b against the plain
+    attention path, same weights, batch and mask, dropout off (the bars of
+    the WeatherBERT step above); then with dropout on each B3 kernel
+    launches once per layer, and the deterministic eval forward runs B3f."""
+    cfg = model_config_for_size("small", max_len=64)
+    rng = np.random.default_rng(0)
+    batch = batch_to_device(Batch(
+        rng.normal(size=(4, 64, 31)), rng.uniform(-90, 90, (4, 2)),
+        np.full((4, 64), 1995.0), np.full((4, 1), 7.0)), cuda)
+    mask = torch.zeros(4, 64, 31, dtype=torch.bool, device=cuda)
+    mask[..., :10] = True
+    models, losses = [], []
+    for impl in ("flash", "torch"):
+        model = make_model("weatherformer", cfg, impl)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model = model.to(cuda)
+        step = make_train_step(model, make_optimizer(model), "weatherformer",
+                               objective="elbo", beta=0.5)
+        out = step(batch, torch.Generator().manual_seed(0), 0.0, 10,
+                   mask=mask, dropout_rate=0.0)
+        models.append(model)
+        losses.append(out["total_loss"].item())
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    for (name, pk), pp in zip(models[0].named_parameters(),
+                              models[1].parameters()):
+        assert (pk.grad - pp.grad).norm() <= 1e-4 * pp.grad.norm(), name
+
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    step = make_train_step(models[0], make_optimizer(models[0]),
+                           "weatherformer", objective="elbo", beta=0.5)
+    out = step(batch, torch.Generator().manual_seed(1), 1e-4, 10)
+    assert np.isfinite(out["total_loss"].item())
+    n = cfg.num_layers
+    assert (flash_attention_fwd.launches,
+            flash_attention_bwd.launches) == (before[0] + n, before[1] + n)
+    with torch.inference_mode():
+        models[0].eval()(*batch[:4], mask)
+    assert flash_attention_fwd.launches == before[0] + 2 * n
 
 
 def test_serve_entry_point_launches_kernel(cuda, tmp_path):

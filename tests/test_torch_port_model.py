@@ -106,7 +106,7 @@ def test_forward_matches_jax_bf16(port_impl, jax_impl):
 def test_unported_options_raise():
     cfg = model_config_for_size("mini")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model("weatherformer", cfg, "torch")
+        make_model("mlp", cfg, "torch")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_model("weatherbert", cfg, "torch", ffn_impl="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -106,8 +106,7 @@ def test_pretrained_state_initialises_the_trainer(tmp_path):
     ["--pipeline-microbatches", "8"], ["--tensor-parallel", "2"],
     ["--moe-experts", "4"], ["--moe-top-k", "1"], ["--moe-dispatch", "sort"],
     ["--moe-capacity-factor", "2"], ["--moe-remat"], ["--fsdp"],
-    ["--prng", "threefry2x32"], ["--n-mixture-components", "3"],
-    ["--beta", "1.0"]])
+    ["--prng", "threefry2x32"]])
 def test_unported_flags_exit_naming_the_roadmap(store, tmp_path, flag):
     args = pretrain.build_parser().parse_args(
         _argv(store, tmp_path) + ["--device", "cpu"] + flag)
@@ -116,16 +115,74 @@ def test_unported_flags_exit_naming_the_roadmap(store, tmp_path, flag):
 
 
 def test_unported_models_and_sizes_raise(store, tmp_path):
+    for model in ("mlp", "weathercnn"):
+        args = pretrain.build_parser().parse_args(
+            _argv(store, tmp_path) + ["--device", "cpu", "--model", model])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pretrain.run(args)
     args = pretrain.build_parser().parse_args(
-        _argv(store, tmp_path) + ["--device", "cpu", "--model",
-                                  "weatherformer"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _argv(store, tmp_path) + ["--device", "cpu", "--model-size", "huge"])
+    with pytest.raises(ValueError, match="Unknown model size"):
         pretrain.run(args)
-    # mini training under "auto" needs kernel B3, not ported yet
-    args = pretrain.build_parser().parse_args(
-        _argv(store, tmp_path) + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="B3"):
-        pretrain.run(args)
+
+
+def test_defaults_train_weatherformer_small_with_the_elbo(store, tmp_path):
+    """With no --model/--model-size `wm-pretrain-torch` trains what
+    `wm-pretrain` does (WeatherFormer-small, ELBO, beta 0.5, 10 masked
+    features, attention "auto" -> the flash kernels' plain versions here),
+    and its record has the JAX record's keys, the ELBO's parts included."""
+    from weathermodel_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    argv = ["--batch-size", "8", "--n-epochs", "1", "--n-warmup-epochs",
+            "0", "--data-dir", store, "--compute-dtype", "float32"]
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    result = pretrain.run(pretrain.build_parser().parse_args(
+        argv + ["--workdir", str(tmp_path / "port"), "--device", "cpu"]))
+    # on CPU tensors the wrappers run the plain versions: no launch
+    assert (flash_attention_fwd.launches,
+            flash_attention_bwd.launches) == before
+    jax_pretrain.run(jax_pretrain.build_parser().parse_args(
+        argv + ["--workdir", str(tmp_path / "jax"), "--model-size", "mini",
+                "--attention-impl", "xla"]))
+    with open(tmp_path / "port" / "weatherformer_output.json") as f:
+        record = json.load(f)
+    with open(tmp_path / "jax" / "weatherformer_output.json") as f:
+        jax_record = json.load(f)
+    assert _keys(record) == _keys(jax_record)
+    assert record["model_config"]["hidden_dim"] == 200
+    assert record["model_config"]["beta"] == 0.5
+    for scope in ("train", "val"):
+        losses = record["losses"][scope]
+        assert set(losses) == {"total_loss", "reconstruction", "kl_term",
+                               "mae"}
+        np.testing.assert_allclose(
+            losses["total_loss"], np.add(losses["reconstruction"],
+                                         losses["kl_term"]), rtol=1e-5)
+    assert result["best_val_loss"] == record["losses"]["val"]["total_loss"][0]
+
+
+@pytest.mark.parametrize("model,key,prior,k", [
+    ("weatherformersinusoid", "weatherformer_sinusoid", "frequency", 4),
+    ("weatherformermixture", "weatherformer_mixture", "mixture_logits", 7)])
+def test_prior_models_take_the_jax_k_rule(store, tmp_path, monkeypatch, model,
+                                          key, prior, k):
+    """--n-mixture-components 1 gives the model's own k, as `wm-pretrain`
+    does (weathermodel_tpu/cli/pretrain.py:194-198), and the trainer (its
+    objective and its record's name) gets the JAX trainer's key. The run
+    stops where training would start: the epochs are the defaults test's."""
+    from weathermodel_tpu_torch.train.trainer import PretrainTrainer
+
+    monkeypatch.setattr(PretrainTrainer, "train", lambda self: self)
+    trainer = pretrain.run(pretrain.build_parser().parse_args([
+        "--model", model, "--model-size", "mini", "--n-mixture-components",
+        "1", "--data-dir", store, "--workdir", str(tmp_path), "--device",
+        "cpu"]))
+    assert trainer.model_name == key == jax_pretrain.TRAINER_KEY[model]
+    assert trainer.output_json["model_config"]["model"] == key
+    assert getattr(trainer.model, prior).shape[1] == k
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(store, tmp_path):

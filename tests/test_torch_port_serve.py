@@ -59,6 +59,31 @@ def test_port_serve_matches_jax_serve(files, tmp_path):
             np.testing.assert_allclose(b[key], a[key], atol=5e-5, rtol=1e-4)
 
 
+def test_port_serve_matches_jax_serve_for_weatherformer(files, tmp_path):
+    """A WeatherFormer's variational head: both entry points write mu and
+    var, and they agree at the fused kernel's bar."""
+    model = make_model("weatherformer",
+                       model_config_for_size("mini", max_len=T), "torch")
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    torch.save(model.state_dict(), tmp_path / "wf.pth")
+    argv = _argv(files, None)
+    argv[argv.index("--checkpoint") + 1] = str(tmp_path / "wf.pth")
+    argv[argv.index("--model") + 1] = "weatherformer"
+    out = argv.index("--output") + 1
+    argv[out] = str(tmp_path / "jax.npz")
+    jax_res = jax_serve.run(jax_serve.build_parser().parse_args(argv))
+    argv[out] = str(tmp_path / "port.npz")
+    port_res = port_serve.run(port_serve.build_parser().parse_args(
+        argv + ["--device", "cpu"]))
+    assert port_res["keys"] == jax_res["keys"] == ["mu", "var"]
+    with np.load(tmp_path / "jax.npz") as a, \
+            np.load(tmp_path / "port.npz") as b:
+        for key in ("mu", "var"):
+            assert b[key].shape == a[key].shape == (N, T, 31)
+            np.testing.assert_allclose(b[key], a[key], atol=5e-5, rtol=1e-4,
+                                       err_msg=key)
+
+
 @pytest.mark.parametrize("flag", [["--daemon"], ["--bundle", "x.wmx"],
                                   ["--quantize", "int8"],
                                   ["--tensor-parallel", "2"]])

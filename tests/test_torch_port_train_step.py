@@ -2,7 +2,9 @@
 trajectory from the same weights on the same batches and injected masks,
 fp32, dropout off (the pattern of tests/test_training_parity.py), with the
 fused attention (its plain path on the CPU) against `pallas_qkv` in
-interpret mode and plain attention against `xla`; then gradient
+interpret mode, the flash attention against `pallas` and plain attention
+against `xla`; the ELBO objectives of the WeatherFormer family the same way
+(the mixture's in one step with the same injected eps); then gradient
 accumulation and the validation weights, in the port alone."""
 
 import jax
@@ -13,6 +15,9 @@ import pytest
 import torch
 
 from weathermodel_tpu.models import WeatherBERT as JaxWeatherBERT
+from weathermodel_tpu.models import WeatherFormer as JaxWeatherFormer
+from weathermodel_tpu.models import WeatherFormerMixture as JaxMixture
+from weathermodel_tpu.models import WeatherFormerSinusoid as JaxSinusoid
 from weathermodel_tpu.ops.schedules import epoch_lr_schedule as jax_schedule
 from weathermodel_tpu.train.steps import Batch as JaxBatch
 from weathermodel_tpu.train.steps import _objective_losses
@@ -47,11 +52,28 @@ def _data(seed=0, n=N_STEPS, b=B):
     return weather, coords, year, interval, masks
 
 
-def _jax_run(size, impl, params, data):
+# port model name -> (JAX model class, objective)
+MODELS = {"weatherbert": (JaxWeatherBERT, "masked_mse"),
+          "weatherformer": (JaxWeatherFormer, "elbo"),
+          "weatherformersinusoid": (JaxSinusoid, "elbo_sinusoid"),
+          "weatherformermixture": (JaxMixture, "elbo_mixture")}
+BETA = 0.5
+
+
+def _jax_params(name, size, data):
+    init = [jnp.asarray(a[0]) if a.ndim == 4 else jnp.asarray(a)
+            for a in data]
+    params = MODELS[name][0](jax_config_for_size(size, max_len=T)).init(
+        jax.random.PRNGKey(0), *init)
+    return jax.tree.map(np.asarray, params)
+
+
+def _jax_run(size, impl, params, data, name="weatherbert"):
     """(losses, step-0 grads) of N_STEPS optax-Adam steps."""
     weather, coords, year, interval, masks = data
-    model = JaxWeatherBERT(jax_config_for_size(size, max_len=T),
-                           attention_impl=impl)
+    jax_model, objective = MODELS[name]
+    model = jax_model(jax_config_for_size(size, max_len=T),
+                      attention_impl=impl)
     tx = optax.adam(LR)
 
     @jax.jit
@@ -60,7 +82,7 @@ def _jax_run(size, impl, params, data):
                          jnp.asarray(interval))
 
         def loss_fn(p):
-            return _objective_losses(model, "masked_mse", p, batch, m, 1.0,
+            return _objective_losses(model, objective, p, batch, m, BETA,
                                      deterministic=True, rngs=None,
                                      sample_key=None)["total_loss"]
 
@@ -80,12 +102,12 @@ def _jax_run(size, impl, params, data):
     return np.asarray(losses), grads0
 
 
-def _port_run(size, impl, params, data):
+def _port_run(size, impl, params, data, name="weatherbert"):
     weather, coords, year, interval, masks = data
-    model = make_model("weatherbert", model_config_for_size(size, max_len=T),
-                       impl)
+    model = make_model(name, model_config_for_size(size, max_len=T), impl)
     model.load_state_dict(state_dict_from_jax_params(params))
-    step = make_train_step(model, make_optimizer(model), "weatherbert")
+    step = make_train_step(model, make_optimizer(model), "weatherbert",
+                           objective=MODELS[name][1], beta=BETA)
     gen = torch.Generator().manual_seed(0)
     losses, grads0 = [], None
     for i in range(N_STEPS):
@@ -99,18 +121,8 @@ def _port_run(size, impl, params, data):
     return np.asarray(losses), grads0
 
 
-@pytest.mark.parametrize("size", ["mini", "small"])
-@pytest.mark.parametrize("port_impl,jax_impl", [("fused_qkv", "pallas_qkv"),
-                                                ("torch", "xla")])
-def test_20_step_trajectory_matches_jax(size, port_impl, jax_impl):
-    data = _data()
-    init = [jnp.asarray(a[0]) if a.ndim == 4 else jnp.asarray(a)
-            for a in data]
-    params = JaxWeatherBERT(jax_config_for_size(size, max_len=T)).init(
-        jax.random.PRNGKey(0), *init)
-    params = jax.tree.map(np.asarray, params)
-    jax_losses, jax_grads = _jax_run(size, jax_impl, params, data)
-    port_losses, port_grads = _port_run(size, port_impl, params, data)
+def _check_trajectories(port, jax_run):
+    (port_losses, port_grads), (jax_losses, jax_grads) = port, jax_run
     # the same weights, batch and mask: step 0 agrees to fp32 precision
     np.testing.assert_allclose(port_losses[0], jax_losses[0], rtol=1e-5)
     assert set(port_grads) == set(jax_grads)
@@ -120,6 +132,71 @@ def test_20_step_trajectory_matches_jax(size, port_impl, jax_impl):
     # the trajectories track (the bar of tests/test_training_parity.py)
     np.testing.assert_allclose(port_losses, jax_losses, rtol=1e-2)
     assert port_losses[-1] < port_losses[0]
+
+
+@pytest.mark.parametrize("size", ["mini", "small"])
+@pytest.mark.parametrize("port_impl,jax_impl", [("fused_qkv", "pallas_qkv"),
+                                                ("torch", "xla"),
+                                                ("flash", "pallas")])
+def test_20_step_trajectory_matches_jax(size, port_impl, jax_impl):
+    data = _data()
+    params = _jax_params("weatherbert", size, data)
+    _check_trajectories(_port_run(size, port_impl, params, data),
+                        _jax_run(size, jax_impl, params, data))
+
+
+@pytest.mark.parametrize("name", ["weatherformer", "weatherformersinusoid"])
+def test_20_step_elbo_trajectory_matches_jax(name):
+    """WeatherFormer's ELBO and the sinusoid prior's, beta 0.5, through the
+    flash attention against `pallas` (the path `auto` takes at mini/small
+    training), at the bars of the WeatherBERT trajectory above."""
+    data = _data(4)
+    params = _jax_params(name, "mini", data)
+    _check_trajectories(_port_run("mini", "flash", params, data, name),
+                        _jax_run("mini", "pallas", params, data, name))
+
+
+def test_elbo_mixture_step_matches_jax_with_the_same_eps():
+    """One step of the mixture's ELBO: the JAX formula draws eps from its
+    sample key; the port takes the same eps injected. Loss, its parts and
+    every gradient at the trajectory test's step-0 bars."""
+    weather, coords, year, interval, masks = _data(5, n=1)
+    data = (weather, coords, year, interval, masks)
+    params = _jax_params("weatherformermixture", "mini", data)
+    cfg = jax_config_for_size("mini", max_len=T)
+    model = JaxMixture(cfg, attention_impl="xla")
+    batch = JaxBatch(*(jnp.asarray(a) for a in (weather[0], coords, year,
+                                                interval)))
+    key = jax.random.PRNGKey(7)
+
+    def loss_fn(p):
+        out = _objective_losses(model, "elbo_mixture", p, batch,
+                                jnp.asarray(masks[0]), BETA,
+                                deterministic=True, rngs=None,
+                                sample_key=key)
+        return out["total_loss"], out
+
+    (_, want), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params)
+    want_grads = state_dict_from_jax_params(jax.tree.map(np.asarray, grads))
+    eps = np.array(jax.random.normal(key, weather[0].shape))
+
+    port = make_model("weatherformermixture",
+                      model_config_for_size("mini", max_len=T), "torch")
+    port.load_state_dict(state_dict_from_jax_params(params))
+    step = make_train_step(port, make_optimizer(port), "weatherformer",
+                           objective="elbo_mixture", beta=BETA)
+    got = step(batch_to_device(Batch(weather[0], coords, year, interval),
+                               "cpu"), torch.Generator().manual_seed(0), 0.0,
+               1, mask=torch.from_numpy(masks[0]), dropout_rate=0.0,
+               eps=torch.from_numpy(eps))
+    assert set(got) == {"total_loss", "reconstruction", "kl_term", "mae"}
+    for k in got:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
+                                   err_msg=k)
+    for k, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[k].numpy(),
+                                   atol=1e-5, rtol=1e-4, err_msg=k)
 
 
 def _mini_model(seed=0):

@@ -1,8 +1,11 @@
 """Pretraining entry point, `wm-pretrain-torch` (port of
 weathermodel_tpu/cli/pretrain.py): the same flag names and defaults for the
-ported features, the WeatherBERT family with the masked-MSE objective, on
-one CUDA device unless `--device cpu` is given.
+ported features, the WeatherBERT family with the masked-MSE objective and
+the WeatherFormer family with the ELBO objectives, on one CUDA device
+unless `--device cpu` is given. With no flags it trains what `wm-pretrain`
+does: WeatherFormer-small, ELBO with beta 0.5, 10 masked features.
 
+    wm-pretrain-torch --data-dir data/ --workdir run/
     wm-pretrain-torch --model weatherbert --model-size large \\
         --batch-size 576 --grad-accum 2 --data-dir data/ --workdir run/
 
@@ -26,18 +29,28 @@ from weathermodel_tpu_torch.models.weatherbert import (
     WeatherAutoencoder,
     WeatherBERT,
 )
+from weathermodel_tpu_torch.models.weatherformer import (
+    WeatherFormer,
+    WeatherFormerMixture,
+    WeatherFormerSinusoid,
+)
 from weathermodel_tpu_torch.utils.config import ModelConfig
 
 logger = logging.getLogger(__name__)
 
 PORTED_MODELS = {
     "weatherbert": WeatherBERT,
+    "weatherformer": WeatherFormer,
+    "weatherformersinusoid": WeatherFormerSinusoid,
+    "weatherformermixture": WeatherFormerMixture,
     "weatherautoencoder": WeatherAutoencoder,
     "simmtm": SimMTM,
 }
 # models of the JAX package that the port does not have yet
-UNPORTED_MODELS = ("weatherformer", "weatherformersinusoid",
-                   "weatherformermixture", "mlp", "weathercnn")
+UNPORTED_MODELS = ("mlp", "weathercnn")
+# CLI model name -> the trainer's key (weathermodel_tpu/cli/pretrain.py:161-170)
+TRAINER_KEY = {"weatherformersinusoid": "weatherformer_sinusoid",
+               "weatherformermixture": "weatherformer_mixture"}
 
 # flags of the JAX entry point whose feature the port does not have yet
 _UNPORTED = {
@@ -56,9 +69,6 @@ _UNPORTED = {
     "moe_dispatch": "the MoE FFN (ROADMAP.md queue A item 12)",
     "moe_capacity_factor": "the MoE FFN (ROADMAP.md queue A item 12)",
     "moe_remat": "the MoE FFN (ROADMAP.md queue A item 12)",
-    "n_mixture_components": "the WeatherFormer family (ROADMAP.md queue A "
-                            "item 8)",
-    "beta": "the ELBO objectives (ROADMAP.md queue A item 8)",
     "prng": "JAX's PRNG choice; the port draws from torch.Generator "
             "(ROADMAP.md queue A item 14)",
 }
@@ -69,7 +79,7 @@ def make_model(name: str, cfg: ModelConfig, attention_impl: str,
     if name in UNPORTED_MODELS:
         raise NotImplementedError(
             f"model {name!r} is not ported yet; see ROADMAP.md queue A "
-            "items 8 and 11")
+            "items 8 (mlp) and 11 (weathercnn)")
     if name not in PORTED_MODELS:
         raise ValueError(f"Unknown model type: {name}. Choose one of "
                          + ", ".join((*PORTED_MODELS, *UNPORTED_MODELS)))
@@ -100,8 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--model", default="weatherformer",
-                   help="weatherbert, weatherautoencoder or simmtm (the "
-                        "WeatherFormer family is not ported yet)")
+                   help="one of: " + ", ".join(PORTED_MODELS)
+                        + " (mlp and weathercnn are not ported yet)")
     p.add_argument("--resume-from-checkpoint", default=None,
                    help="not ported yet")
     p.add_argument("--pretrained-model-path", default=None,
@@ -118,9 +128,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mini (60K), small (2M), medium (8M), large (56M)")
     p.add_argument("--masking-prob", default=0.30, type=float)
     p.add_argument("--n-mixture-components", default=1, type=int,
-                   help="not ported yet (WeatherFormer)")
+                   help="prior components k; 1 keeps the model's default "
+                        "(sinusoid 4, mixture 7)")
     p.add_argument("--beta", default=0.5, type=float,
-                   help="not ported yet (ELBO objectives)")
+                   help="KL weight of the ELBO objectives")
     p.add_argument("--freqs", default="weekly",
                    help="comma-separated granularities to stream together "
                         "(daily,weekly,monthly)")
@@ -128,10 +139,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="chunk-store root (default: WEATHERMODEL_DATA_DIR)")
     p.add_argument("--workdir", default="checkpoints/pretraining")
     p.add_argument("--attention-impl", default="auto",
-                   choices=("auto", "fused_qkv", "torch"),
-                   help="auto = the fused QKV CUDA kernels (medium/large; "
-                        "plain PyTorch ops on the CPU); torch = plain "
-                        "attention")
+                   choices=("auto", "fused_qkv", "flash", "torch"),
+                   help="auto = the fused QKV CUDA kernels at medium/large, "
+                        "the flash attention kernels on separate q, k, v at "
+                        "mini/small (their plain PyTorch versions on the "
+                        "CPU); torch = plain attention")
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=("bfloat16", "float32"))
     p.add_argument("--grad-accum", default=1, type=int,
@@ -176,7 +188,12 @@ def run(args: argparse.Namespace) -> dict:
             raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not "
                              "ported to weathermodel_tpu_torch yet")
     device = resolve_device(args.device)
-    mcfg = model_config_for_size(args.model_size,
+    k = args.n_mixture_components
+    if args.model == "weatherformersinusoid" and k == 1:
+        k = 4  # the model's default (reference weatherformer_sinusoid.py:22)
+    if args.model == "weatherformermixture" and k == 1:
+        k = 7  # reference weatherformer_mixture.py:24
+    mcfg = model_config_for_size(args.model_size, k=k,
                                  compute_dtype=args.compute_dtype)
     tcfg = TrainConfig(
         batch_size=args.batch_size,
@@ -186,6 +203,7 @@ def run(args: argparse.Namespace) -> dict:
         decay_factor=args.decay_factor,
         masking_prob=args.masking_prob,
         n_masked_features=args.n_masked_features,
+        beta=args.beta,
     )
     dcfg = PretrainDataConfig(
         data_dir=args.data_dir or constants.DATA_DIR,
@@ -203,7 +221,8 @@ def run(args: argparse.Namespace) -> dict:
     if args.pretrained_model_path:
         pretrained = load_pretrained_params(args.pretrained_model_path)
     trainer = PretrainTrainer(
-        model, args.model, mcfg, tcfg, make_loaders, workdir=args.workdir,
+        model, TRAINER_KEY.get(args.model, args.model), mcfg, tcfg,
+        make_loaders, workdir=args.workdir,
         device=device, pretrained_state=pretrained,
         grad_accum=args.grad_accum)
     return trainer.train()

@@ -2,7 +2,8 @@
 load a reference-format `.pth` encoder checkpoint and run the bucketed
 `WeatherPredictor` (weathermodel_tpu_torch/serve.py) over an input `.npz`
 of weather windows, writing the reconstructions to an output `.npz` with
-the JAX entry point's keys.
+the JAX entry point's keys: `output`, or `mu` and `var` for the
+WeatherFormer family.
 
     wm-serve-torch --checkpoint wb_large.pth --model weatherbert \
                    --model-size large --input windows.npz --output preds.npz
@@ -40,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
                                    "coords/year/interval/mask)")
     p.add_argument("--output", help="output .npz path")
     p.add_argument("--attention-impl", default="auto",
-                   choices=("auto", "fused_qkv", "torch"),
+                   choices=("auto", "fused_qkv", "flash", "torch"),
                    help="auto = the fused QKV CUDA kernel (plain PyTorch "
                         "ops on a CPU tensor)")
     p.add_argument("--batch-size", default=256, type=int,
@@ -115,11 +116,16 @@ def run(args: argparse.Namespace) -> dict:
     output = predictor(weather, coords, year, interval,
                        weather_feature_mask=mask)
     predict_s = time.perf_counter() - t0
-    np.savez(args.output, output=output)
-    summary = float(np.mean(output))
-    logger.info("wrote %s: output for %d windows in %.3f s (mean %.4f)",
-                args.output, n, predict_s, summary)
-    return {"n": n, "keys": ["output"], "mean": summary,
+    if isinstance(output, tuple):  # variational heads: (mu, var, ...)
+        out = {"mu": output[0], "var": output[1]}
+        summary = float(np.mean(out["mu"]))
+    else:
+        out = {"output": output}
+        summary = float(np.mean(output))
+    np.savez(args.output, **out)
+    logger.info("wrote %s: %s for %d windows in %.3f s (mean %.4f)",
+                args.output, list(out), n, predict_s, summary)
+    return {"n": n, "keys": list(out), "mean": summary,
             "predict_s": predict_s}
 
 

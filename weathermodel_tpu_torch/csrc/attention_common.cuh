@@ -1,4 +1,5 @@
-// Helpers shared by the fused QKV attention kernels (forward and backward).
+// Helpers shared by the attention kernels: the fused QKV attention (B1, B2) and the
+// attention on separate q, k, v (B3f, B3b), forward and backward.
 //
 // Element types: float and __nv_bfloat16. Values are carried in fp32 and rounded to
 // the element type where the TPU kernels store them in x.dtype (round_to).
@@ -82,5 +83,18 @@ struct Dropout {
   float keep_prob;     // 1 - p        (forward: scl = recip / keep_prob)
   float inv_keep;      // 1 / (1 - p)  (backward: w * inv_keep)
 };
+
+// Copy one head's [t, HD] slice (rows `stride` elements apart, starting at src) into
+// shared memory as fp32 [t][HD + 1]; kScaled stores rnd(v * scale_t).
+template <typename T, int HD, bool kScaled>
+__device__ __forceinline__ void load_head(const T* __restrict__ src, float* dst, int t,
+                                          int stride, float scale_t) {
+  for (int idx = threadIdx.x; idx < t * HD; idx += kThreads) {
+    int r = idx / HD, d = idx % HD;
+    float v = to_float(src[(size_t)r * stride + d]);
+    if constexpr (kScaled) v = round_to<T>(v * scale_t);
+    dst[r * (HD + 1) + d] = v;
+  }
+}
 
 }  // namespace wm

@@ -30,7 +30,8 @@
 //   Phase 2 gives each warp query rows: scores against all of K (lanes over keys, the
 //   query row in registers), a row max and sum by warp shuffles, the weights (with the
 //   dropout keep bits, attention_common.cuh) back into the warp's score row, then p . V
-//   with lanes over the head dim.
+//   with lanes over the head dim. It is `wm::attend_rows` (attention_fwd.cuh), which
+//   kernel B3f (flash_attention.cu) shares.
 // q, k and v are kept in shared memory as fp32 (values already rounded to the element
 // type) with a row stride of hd + 1 words, odd for the even head dims, so that lanes
 // walking keys hit distinct banks. At T = 365, hd = 36 that is 162 KB of the 227 KB a
@@ -50,6 +51,7 @@
 #include <math.h>
 
 #include "attention_common.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
 
@@ -59,8 +61,6 @@ using wm::kThreads;
 using wm::kWarps;
 using wm::round_to;
 using wm::to_float;
-using wm::warp_max;
-using wm::warp_sum;
 
 constexpr int kRowTile = 128;  // phase-1 rows per tile: 32 row groups x 4 rows
 constexpr int kRowsPerThread = 4;
@@ -174,68 +174,9 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   __syncthreads();
 
-  // ---- phase 2: per query row, softmax(q . K^T * scale) . V ----------------------
-  const int warp = tid / 32, lane = tid % 32;
-  float* sc = shared + (size_t)warp * t;  // this warp's score row
-  T* ob = out + (size_t)row_b * t * h + head * HD;
-  uint32_t head_key = 0;
-  if constexpr (kTrain) head_key = wm::dropout_head_key(drop.seed, blockIdx.x);
-
-  for (int i = warp; i < t; i += kWarps) {
-    float q[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) q[d] = qs[i * L::kStride + d];
-
-    float m = -INFINITY;
-    for (int k = lane; k < t; k += 32) {
-      const float* kr = ks + k * L::kStride;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) s = fmaf(q[d], kr[d], s);
-      if constexpr (!kTrain) s *= scale;  // the training form scaled q instead
-      sc[k] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-
-    float sum = 0.f;
-    for (int k = lane; k < t; k += 32) {
-      float e = expf(sc[k] - m);
-      sc[k] = e;
-      sum += e;
-    }
-    const float recip = 1.f / warp_sum(sum);
-    if constexpr (kTrain) {
-      // the weights, dropped and rounded, back into the score row
-      if (drop.on) {
-        const float scl = recip / drop.keep_prob;
-        const uint32_t row_key = wm::dropout_row_key(head_key, i);
-        for (int k = lane; k < t; k += 32)
-          sc[k] = wm::dropout_keep(row_key, k, drop.threshold) ? round_to<T>(sc[k] * scl)
-                                                               : 0.f;
-      } else {
-        for (int k = lane; k < t; k += 32) sc[k] = round_to<T>(sc[k] * recip);
-      }
-    }
-    __syncwarp();
-
-    float acc0 = 0.f, acc1 = 0.f;
-    const int d0 = lane, d1 = lane + 32;
-    for (int k = 0; k < t; ++k) {
-      float p;
-      if constexpr (kTrain) {
-        p = sc[k];
-      } else {
-        p = round_to<T>(sc[k] * recip);
-      }
-      const float* vr = vs + k * L::kStride;
-      if (d0 < HD) acc0 = fmaf(p, vr[d0], acc0);
-      if (d1 < HD) acc1 = fmaf(p, vr[d1], acc1);
-    }
-    if (d0 < HD) ob[(size_t)i * h + d0] = from_float<T>(acc0);
-    if (d1 < HD) ob[(size_t)i * h + d1] = from_float<T>(acc1);
-    __syncwarp();  // sc is rewritten by the next row
-  }
+  // ---- phase 2: per query row, softmax(q . K^T * scale) . V (attention_fwd.cuh) ----
+  wm::attend_rows<T, HD, kTrain>(qs, ks, vs, shared, out + (size_t)row_b * t * h + head * HD,
+                                 t, h, scale, drop, blockIdx.x);
 }
 
 template <typename T, int HD, bool kTrain>

@@ -9,7 +9,9 @@ and the flags, so a changed source rebuilds and an unchanged one is loaded
 from disk.
 
 Each C entry point returns the `cudaError_t` of its launch; `check` raises
-on anything but 0.
+on anything but 0. `on_cuda` is the device rule every wrapper applies before
+it calls one: which device, dtypes and head dims the library takes. Each
+wrapper states its own layout rule beside it.
 """
 
 import ctypes
@@ -23,11 +25,17 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libwm_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the dtype argument of every entry point
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims the kernels are instantiated for: mini/small/medium/large
+KERNEL_HEAD_DIMS = (12, 20, 28, 36)
 
 
 @dataclass(frozen=True)
@@ -79,6 +87,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wm_fused_qkv_attention_bwd.argtypes = [i, p, p, p, p, i, i, i, i, i, u,
                                                u, f, p]
     lib.wm_fused_qkv_attention_bwd.restype = i
+    # dtype, q, k, v, row stride, o, batch, t, h, heads, dropout_on, seed,
+    # threshold, keep_prob, stream
+    lib.wm_flash_attention.argtypes = [i, p, p, p, i, p, i, i, i, i, i, u, u,
+                                       f, p]
+    lib.wm_flash_attention.restype = i
+    # dtype, q, k, v, row stride, do, dq, dk, dv, stats, batch, t, h, heads,
+    # dropout_on, seed, threshold, inv_keep, stream
+    lib.wm_flash_attention_bwd.argtypes = [i, p, p, p, i, p, p, p, p, p, i, i,
+                                           i, i, i, u, u, f, p]
+    lib.wm_flash_attention_bwd.restype = i
     lib.wm_cuda_error_string.argtypes = [i]
     lib.wm_cuda_error_string.restype = ctypes.c_char_p
 
@@ -143,3 +161,29 @@ def check(err: int) -> None:
     if err != 0:
         msg = load_library().lib.wm_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel launch failed: error {err} ({msg})")
+
+
+def on_cuda(name, head_dim, *tensors) -> bool:
+    """False for CPU tensors (the plain version runs); True for CUDA
+    tensors of one dtype and a head dim the kernels take; raises on
+    anything else. Layout is each wrapper's own check."""
+    devices = {a.device for a in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on different devices: {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    dtypes = {a.dtype for a in tensors}
+    if len(dtypes) != 1 or tensors[0].dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: inputs must share one dtype of "
+                         f"float32/bfloat16, got {[a.dtype for a in tensors]}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not in the kernel's "
+                         f"instantiations {KERNEL_HEAD_DIMS}")
+    return True
+
+
+def cuda_stream(device):
+    return torch.cuda.current_stream(device).cuda_stream

@@ -23,6 +23,10 @@ from torch import nn
 
 from weathermodel_tpu_torch.ops.attention import ATTENTION_IMPLS, torch_attention
 from weathermodel_tpu_torch.ops.dropout import draw_seed, dropout
+from weathermodel_tpu_torch.ops.flash_attention import (
+    FlashAttention,
+    flash_attention_fwd,
+)
 from weathermodel_tpu_torch.ops.fused_qkv_attention import (
     FusedQKVAttention,
     fused_qkv_attention,
@@ -63,8 +67,11 @@ class SelfAttention(nn.Module):
     QKV projection `in_proj_weight` [3H, H] / `in_proj_bias` [3H] and an
     `out_proj` Linear. attention_impl "fused_qkv" runs the projection and
     the attention as one kernel (its eval form, or its training form and
-    backward kernel when dropout is on or a gradient is needed); "torch"
-    runs them as plain ops."""
+    backward kernel when dropout is on or a gradient is needed); "flash"
+    runs the projection as a plain matmul in the compute dtype and the
+    attention on its three column slices as kernel B3f (with B3b as its
+    backward when dropout is on or a gradient is needed; blocks.py:170-185
+    of the JAX package); "torch" runs both as plain ops."""
 
     def __init__(self, hidden_dim: int, num_heads: int,
                  attention_impl: str = "torch"):
@@ -86,15 +93,23 @@ class SelfAttention(nn.Module):
         w = self.in_proj_weight.to(x.dtype)
         b = self.in_proj_bias.to(x.dtype)
         seed = draw_seed(generator) if dropout_rate > 0.0 else 0
-        if self.attention_impl != "fused_qkv":
-            q, k, v = F.linear(x, w, b).chunk(3, dim=-1)
-            out = torch_attention(q, k, v, self.num_heads, dropout_rate, seed)
-        elif dropout_rate > 0.0 or (torch.is_grad_enabled() and (
-                x.requires_grad or w.requires_grad or b.requires_grad)):
+        train = dropout_rate > 0.0 or (torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad or b.requires_grad))
+        if self.attention_impl == "fused_qkv" and train:
             out = FusedQKVAttention.apply(x, w.contiguous(), b,
                                           self.num_heads, dropout_rate, seed)
-        else:
+        elif self.attention_impl == "fused_qkv":
             out = fused_qkv_attention(x, w.contiguous(), b, self.num_heads)
+        else:
+            q, k, v = F.linear(x, w, b).chunk(3, dim=-1)
+            if self.attention_impl == "torch":
+                out = torch_attention(q, k, v, self.num_heads, dropout_rate,
+                                      seed)
+            elif train:
+                out = FlashAttention.apply(q, k, v, self.num_heads,
+                                           dropout_rate, seed)
+            else:
+                out = flash_attention_fwd(q, k, v, self.num_heads, 0.0, 0)
         return linear(out, self.out_proj)
 
 

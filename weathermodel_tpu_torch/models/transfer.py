@@ -1,16 +1,21 @@
 """Reference checkpoints in and out of the port (port of
 weathermodel_tpu/models/transfer.py:107-171).
 
-The port's `WeatherBERT.state_dict()` uses the reference's keys and torch's
+The port's models' `state_dict()`s use the reference's keys and torch's
 [out, in] weight layout, so a reference `.pth` loads with no conversion.
-`state_dict_from_jax_params` maps a flax param tree to that state dict: it
-is the exact inverse of the JAX package's `convert_torch_state_dict`.
+`state_dict_from_jax_params` maps a flax param tree of WeatherBERT or of the
+WeatherFormer family to that state dict: it is the exact inverse of the JAX
+package's `convert_torch_state_dict`.
 """
 
 import numpy as np
 import torch
 
 _LAYER_KEYS = {"self_attn", "linear1", "linear2", "norm1", "norm2"}
+# the WeatherFormer priors' top-level parameters, kept untransposed
+# (weathermodel_tpu/models/transfer.py:27-30)
+PRIOR_PARAM_NAMES = ("frequency", "phase", "amplitude", "log_var_prior",
+                     "log_var_k", "mixture_logits")
 
 
 def load_reference_checkpoint(path: str) -> dict:
@@ -35,13 +40,14 @@ def _tensor(a) -> torch.Tensor:
 
 
 def state_dict_from_jax_params(params) -> dict:
-    """flax WeatherBERT param tree (numpy or jax arrays, with or without the
-    top-level 'params') -> the port's state dict of CPU tensors."""
+    """flax WeatherBERT or WeatherFormer param tree (numpy or jax arrays,
+    with or without the top-level 'params') -> the port's state dict of CPU
+    tensors."""
     p = params["params"] if "params" in params else params
-    unknown = set(p) - {"core", "out_proj"}
+    unknown = set(p) - {"core", "out_proj", *PRIOR_PARAM_NAMES}
     if unknown:
-        raise ValueError(f"not a WeatherBERT param tree: unexpected "
-                         f"top-level entries {sorted(unknown)}")
+        raise ValueError(f"not a WeatherBERT/WeatherFormer param tree: "
+                         f"unexpected top-level entries {sorted(unknown)}")
     sd = {}
 
     def dense(prefix, node):
@@ -69,4 +75,7 @@ def state_dict_from_jax_params(params) -> dict:
         norm(pre + "norm2.", layer["norm2"])
     if "out_proj" in p:
         dense("out_proj.", p["out_proj"])
+    for name in PRIOR_PARAM_NAMES:
+        if name in p:
+            sd[name] = _tensor(p[name])
     return sd

@@ -2,8 +2,10 @@
 attention-weight dropout rule (port of weathermodel_tpu/ops/attention.py).
 
 Impl names in the port: "fused_qkv" is the hand-written CUDA kernel of
-`ops/fused_qkv_attention.py` (the JAX package's "pallas_qkv"); "torch" is
-`torch_attention` below (the JAX package's "xla").
+`ops/fused_qkv_attention.py` (the JAX package's "pallas_qkv"); "flash" is
+the attention kernel on separate q, k, v of `ops/flash_attention.py` (the
+JAX package's "pallas"); "torch" is `torch_attention` below (the JAX
+package's "xla").
 
 Dropout on the attention weights keeps weight (i, j) of head `head` of
 batch row `row` iff bits < (1 - p) * 2^32, the TPU kernels' rule
@@ -16,7 +18,7 @@ version draw the same mask and the backward regenerates the forward's.
 
 import torch
 
-ATTENTION_IMPLS = ("fused_qkv", "torch")
+ATTENTION_IMPLS = ("fused_qkv", "flash", "torch")
 
 _M32 = 0xFFFFFFFF
 # keep-mask elements per chunk of batch rows: bounds the int64 temporaries
@@ -101,15 +103,14 @@ def torch_attention(q, k, v, num_heads: int, dropout_rate: float = 0.0,
 
 def resolve_attention_impl(impl: str, model_size=None,
                            mode: str = "train") -> str:
-    """Resolve impl="auto" by the JAX package's rule: the fused QKV kernel
-    for inference at every size and for medium/large training. Mini/small
-    training used the unfused kernel B3, which is not ported yet."""
+    """Resolve impl="auto" by the JAX package's rule
+    (weathermodel_tpu/ops/attention.py:44-56): the fused QKV kernel for
+    inference at every size and for medium/large training, the attention
+    kernel on separate q, k, v for mini/small training."""
     if impl != "auto":
         if impl not in ATTENTION_IMPLS:
             raise ValueError(f"Unknown attention impl: {impl}")
         return impl
     if mode == "eval" or model_size in ("medium", "large"):
         return "fused_qkv"
-    raise NotImplementedError(
-        "attention for mini/small training (TPU kernel B3, flash_attention) "
-        "is not ported yet; see ROADMAP.md queue A item 5 and queue B")
+    return "flash"

@@ -4,8 +4,8 @@ weathermodel_tpu/ops/dropout.py the port needs).
 Randomness comes from the caller: a CPU `torch.Generator` hands out integer
 seeds (`draw_seed`, host only, so no device sync), and each dropout site
 draws its mask on the tensor's device from a generator seeded with its own
-seed. The attention-weight site runs inside the fused attention kernel and
-takes its seed directly (ops/fused_qkv_attention.py).
+seed. The attention-weight site runs inside the attention kernels and
+takes its seed directly (ops/fused_qkv_attention.py, ops/flash_attention.py).
 """
 
 import torch

@@ -26,7 +26,9 @@ DEFAULT_BUCKETS = (8, 32, 128, 512)
 
 class WeatherPredictor:
     """Deterministic batched forward of `model` on `device` with batch
-    bucketing. Inputs and outputs are numpy arrays."""
+    bucketing. Inputs and outputs are numpy arrays; a model with several
+    outputs (the WeatherFormer family: mu, var, ...) gives a tuple of
+    them."""
 
     def __init__(self, model: torch.nn.Module,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -49,10 +51,13 @@ class WeatherPredictor:
             weather_feature_mask = np.zeros(weather.shape, bool)
         big = self.buckets[-1]
         if n > big:  # chunk large requests by the largest bucket
-            return np.concatenate([
-                self(weather[i:i + big], coords[i:i + big], year[i:i + big],
-                     interval[i:i + big], weather_feature_mask[i:i + big])
-                for i in range(0, n, big)])
+            outs = [self(weather[i:i + big], coords[i:i + big],
+                         year[i:i + big], interval[i:i + big],
+                         weather_feature_mask[i:i + big])
+                    for i in range(0, n, big)]
+            if isinstance(outs[0], tuple):
+                return tuple(np.concatenate(parts) for parts in zip(*outs))
+            return np.concatenate(outs)
         pad = self._bucket(n) - n
 
         def place(x, dtype):
@@ -65,6 +70,8 @@ class WeatherPredictor:
                 place(weather, np.float32), place(coords, np.float32),
                 place(year, np.float32), place(interval, np.float32),
                 place(weather_feature_mask, bool))
+        if isinstance(out, tuple):
+            return tuple(o.cpu().numpy()[:n] for o in out)
         return out.cpu().numpy()[:n]
 
 

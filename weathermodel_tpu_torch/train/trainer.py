@@ -58,14 +58,16 @@ class PretrainTrainer:
     ):
         """make_loaders(split, shuffle, seed) -> iterator of numpy Batch.
 
-        The model is initialised from `train_cfg.seed` (or loaded from
+        `model_name` is the JAX trainer's key (`weatherformer_sinusoid`,
+        not the CLI's `weatherformersinusoid`): it picks the objective and
+        the masking policy and names the output json. The model is
+        initialised from `train_cfg.seed` (or loaded from
         `pretrained_state`, a state dict with the model's keys) and moved
         to `device`."""
         if model_name not in OBJECTIVE_FOR_MODEL:
             raise NotImplementedError(
-                f"pretraining {model_name!r} is not ported yet (the ELBO "
-                "objectives and the other models); see ROADMAP.md queue A "
-                "items 8 and 11")
+                f"pretraining {model_name!r} is not ported yet; see "
+                "ROADMAP.md queue A items 8 (mlp) and 11 (weathercnn)")
         if train_cfg.use_optimal_lr:
             raise NotImplementedError(
                 "use_optimal_lr (the LR range test, train/lr_finder.py) is "
@@ -75,7 +77,7 @@ class PretrainTrainer:
         self.make_loaders = make_loaders
         self.workdir = workdir
         self.device = torch.device(device)
-        self.masking = OBJECTIVE_FOR_MODEL[model_name][1]  # masked_mse
+        objective, self.masking = OBJECTIVE_FOR_MODEL[model_name]
 
         model.reset_parameters(torch.Generator().manual_seed(train_cfg.seed))
         if pretrained_state is not None:
@@ -91,9 +93,11 @@ class PretrainTrainer:
         self.optimizer = make_optimizer(self.model)
         self._train_step = make_train_step(
             self.model, self.optimizer, self.masking,
-            masking_prob=train_cfg.masking_prob, grad_accum=grad_accum)
+            masking_prob=train_cfg.masking_prob, grad_accum=grad_accum,
+            objective=objective, beta=train_cfg.beta)
         self._eval_step = make_eval_step(
-            self.model, self.masking, masking_prob=train_cfg.masking_prob)
+            self.model, self.masking, masking_prob=train_cfg.masking_prob,
+            objective=objective, beta=train_cfg.beta)
         self.lr_schedule = epoch_lr_schedule(
             train_cfg.init_lr, train_cfg.num_warmup_epochs,
             train_cfg.num_epochs, train_cfg.decay_factor)

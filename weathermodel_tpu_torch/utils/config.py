@@ -17,7 +17,7 @@ from weathermodel_tpu_torch.utils.constants import (
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of the WeatherBERT family."""
+    """Architecture hyperparameters of the WeatherBERT/WeatherFormer family."""
 
     weather_dim: int = TOTAL_WEATHER_VARS
     output_dim: int = TOTAL_WEATHER_VARS
@@ -26,6 +26,9 @@ class ModelConfig:
     hidden_dim_factor: int = 24
     max_len: int = MAX_CONTEXT_LENGTH
     dropout_rate: float = 0.1  # torch TransformerEncoderLayer default
+    # prior components of the WeatherFormer sinusoid (k=4) and mixture (k=7)
+    # models (reference weatherformer_sinusoid.py:22 / _mixture.py:24)
+    k: int = 4
     # "float32" for reference-numerics parity, "bfloat16" for speed;
     # parameters stay float32 either way
     compute_dtype: str = "float32"
