@@ -43,6 +43,26 @@ Phases, each printing one line; any failure raises and exits non-zero:
                training step and per validation batch, 4 of B3b per step,
                none of B1/B2; finite losses, the train loss falls; the same
                timings, profile and one-step comparison as phase 6
+  9. kernel_gmm - the grouped matmul B4 (forward, and with rhs^T as the
+               backward's d_lhs) and its weight gradient B4t vs their plain
+               versions at the MoE microbatch's shapes (S = 96 x 365 x 2 =
+               70080 routed rows, E=8, K x N = 576 x 2304 and 2304 x 576),
+               with the group sizes of a top-2 routing of seeded activations
+               through a seeded router, in bf16 and fp32; then the edge cases
+               (empty first/middle/last groups, boundaries inside a tile, S
+               not a multiple of 128, tiny groups sharing a tile); CUDA-event
+               times of the kernel, the plain version and the library
+               yardstick (torch._grouped_mm where it takes the inputs, else
+               one cuBLAS matmul per group)
+  10. train_moe - `wm-pretrain-torch`'s run(args) for the flagship MoE
+               configuration: WeatherBERT-large, --moe-experts 8 --moe-top-k 2
+               (ragged dispatch), bf16, --batch-size 288 --grad-accum 3,
+               dropout 0.1, 2 epochs, on the same store: per step 96 launches
+               of B4, 48 of B4t, 24 of B1 train and 24 of B2; per validation
+               batch 16 of B4 and 8 of B1 eval; finite losses and moe_aux, the
+               train loss falls; the same timings (TFLOP/s from the MoE
+               analytic count), profile and one-step comparison with the plain
+               path (plain grouped matmuls, plain attention) as phase 6
 The card's name and power limit are printed by phase 1 and again before the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -98,6 +118,11 @@ MICRO = TRAIN_BATCH // GRAD_ACCUM
 STEP_WINDOWS = 16
 STEP_TOL = {"float32": dict(loss=1e-5, grad=1e-3),
             "bfloat16": dict(loss=1e-2)}
+# the flagship MoE configuration (BASELINE.md:836-915): WeatherBERT-large,
+# 8 experts, top-2, the effective batch 288 as 3 microbatches of 96
+MOE = dict(num_experts=8, moe_top_k=2)
+MOE_BATCH, MOE_ACCUM = 288, 3
+MOE_MICRO = MOE_BATCH // MOE_ACCUM
 # WeatherFormer-small pretraining with the JAX CLI's defaults
 # (weathermodel_tpu/cli/pretrain.py:29-56): batch 256, 10 masked features,
 # beta 0.5
@@ -110,12 +135,16 @@ PEAK_BYTES_PER_S = 3.35e12
 
 def train_flops_per_sample(cfg, out_dim=None) -> float:
     """Matmul FLOPs per sample of one training step (forward + backward =
-    3x forward) of the dense encoder with an output head of `out_dim`
-    (default cfg.output_dim; 2F for the WeatherFormer's (mu, log var)):
-    the analytic count of bench.py:35-54, restated here (77.2 GFLOP for
-    WeatherBERT-large, T=365)."""
+    3x forward) of the encoder with an output head of `out_dim` (default
+    cfg.output_dim; 2F for the WeatherFormer's (mu, log var)): the analytic
+    count of bench.py:35-54, restated here (77.2 GFLOP for WeatherBERT-large,
+    T=365; with 8 experts, top-2, each token runs k expert FFNs and the
+    router: 123.8 GFLOP)."""
     t, h, n_layers = cfg.max_len, cfg.hidden_dim, cfg.num_layers
-    macs = n_layers * (4 * t * h * h + 8 * t * h * h + 2 * t * t * h)
+    ffn_macs = 8 * t * h * h
+    if cfg.num_experts > 0:
+        ffn_macs = cfg.moe_top_k * 8 * t * h * h + t * h * cfg.num_experts
+    macs = n_layers * (4 * t * h * h + ffn_macs + 2 * t * t * h)
     macs += cfg.input_dim * t * h + t * h * (out_dim or cfg.output_dim)
     return 3.0 * 2.0 * macs
 
@@ -491,7 +520,7 @@ def _kernel_events(prof):
     return sorted(kernels, key=_device_ms, reverse=True)
 
 
-def _train_step_fn(name, cfg, impl, device, grad_accum=1):
+def _train_step_fn(name, cfg, impl, device, grad_accum=1, gmm_impl="kernel"):
     """A seeded model `name` on `device` and its train step with the
     model's objective (beta 0.5, the CLI's default)."""
     from weathermodel_tpu_torch.cli.pretrain import make_model
@@ -501,7 +530,7 @@ def _train_step_fn(name, cfg, impl, device, grad_accum=1):
         make_train_step,
     )
 
-    model = make_model(name, cfg, impl)
+    model = make_model(name, cfg, impl, gmm_impl=gmm_impl)
     model.reset_parameters(torch.Generator().manual_seed(SEED))
     model = model.to(device)
     objective, masking = OBJECTIVE_FOR_MODEL[name]
@@ -544,24 +573,26 @@ def _grad_rel(a, b):
                                          b.parameters()))
 
 
-def _step_parity(name, size, impl, dtype: str):
-    """One train step of the kernel path `impl` against the plain attention
-    path at STEP_WINDOWS windows, full width, the same weights, batch and
-    mask, dropout off: (loss rel diff, worst gradient rel diff, its
+def _step_parity(name, size, impl, dtype: str, moe=None):
+    """One train step of the kernel path `impl` against the plain path
+    (plain attention; with `moe`, the MoE config, also the plain grouped
+    matmuls) at STEP_WINDOWS windows, full width, the same weights, batch
+    and mask, dropout off: (loss rel diff, worst gradient rel diff, its
     parameter, and in fp32 the same worst gradient diff between the plain
     path on the card and on the CPU: the noise floor of two plain fp32
     runs)."""
     from weathermodel_tpu_torch.train.steps import batch_to_device
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
-    cfg = model_config_for_size(size, compute_dtype=dtype)
+    cfg = model_config_for_size(size, compute_dtype=dtype, **(moe or {}))
     batch, mask = _windows_batch(STEP_WINDOWS, SEED + 2)
-    runs = [(impl, "cuda"), ("torch", "cuda")]
+    runs = [(impl, "kernel", "cuda"), ("torch", "plain", "cuda")]
     if dtype == "float32":
-        runs.append(("torch", "cpu"))
+        runs.append(("torch", "plain", "cpu"))
     models, losses = [], []
-    for run_impl, device in runs:
-        model, step = _train_step_fn(name, cfg, run_impl, device)
+    for run_impl, gmm_impl, device in runs:
+        model, step = _train_step_fn(name, cfg, run_impl, device,
+                                     gmm_impl=gmm_impl)
         out = step(batch_to_device(batch, device),
                    torch.Generator().manual_seed(SEED), 0.0, 10,
                    mask=torch.from_numpy(mask).to(device), dropout_rate=0.0)
@@ -572,10 +603,10 @@ def _step_parity(name, size, impl, dtype: str):
     return (loss_rel, *_grad_rel(models[0], models[1]), floor)
 
 
-def _check_step_parity(name, size, impl):
+def _check_step_parity(name, size, impl, moe=None):
     parity = {}
     for dtype in ("float32", "bfloat16"):
-        parity[dtype] = _step_parity(name, size, impl, dtype)
+        parity[dtype] = _step_parity(name, size, impl, dtype, moe)
         loss_rel, grad_rel, _, _ = parity[dtype]
         tol = STEP_TOL[dtype]
         if loss_rel > tol["loss"] or grad_rel > tol.get("grad", np.inf):
@@ -584,7 +615,8 @@ def _check_step_parity(name, size, impl):
                 f"rel, worst gradient, its parameter) {parity[dtype]}, bars "
                 f"{tol}")
     return (f"one step at {STEP_WINDOWS} windows, kernel path vs plain "
-            "attention path, dropout off, (loss rel, worst gradient "
+            f"path ({'attention and grouped matmuls' if moe else 'attention'}"
+            "), dropout off, (loss rel, worst gradient "
             "||diff||/||grad||, its parameter, the plain path's card-vs-CPU "
             f"worst gradient diff): {parity}; bars {STEP_TOL}")
 
@@ -654,9 +686,11 @@ def _all_kernels():
         fused_qkv_attention_bwd,
         fused_qkv_attention_train,
     )
+    from weathermodel_tpu_torch.ops.gmm import gmm, tgmm
 
     return (fused_qkv_attention, fused_qkv_attention_train,
-            fused_qkv_attention_bwd, flash_attention_fwd, flash_attention_bwd)
+            fused_qkv_attention_bwd, flash_attention_fwd, flash_attention_bwd,
+            gmm, tgmm)
 
 
 def _check_record(record, keys=("total_loss",)):
@@ -709,8 +743,8 @@ def phase_train(smi: str, data: Path):
         "fused_qkv_attention": cfg.num_layers * val_batches,
         "fused_qkv_attention_train": per_step * steps,
         "fused_qkv_attention_bwd": per_step * steps,
-        "flash_attention_fwd": 0, "flash_attention_bwd": 0},
-        steps, val_batches)
+        "flash_attention_fwd": 0, "flash_attention_bwd": 0, "gmm": 0,
+        "tgmm": 0}, steps, val_batches)
     train_loss, val_loss = _check_record(record)
     ms, rate, tflops, gflop = _throughput(result, cfg, TRAIN_BATCH)
     print(f"train: wm-pretrain-torch WeatherBERT-{MODEL_SIZE} bf16 "
@@ -846,7 +880,8 @@ def phase_train_former(smi: str, data: Path):
         "fused_qkv_attention": 0, "fused_qkv_attention_train": 0,
         "fused_qkv_attention_bwd": 0,
         "flash_attention_fwd": n * (steps + val_batches),
-        "flash_attention_bwd": n * steps}, steps, val_batches)
+        "flash_attention_bwd": n * steps, "gmm": 0, "tgmm": 0}, steps,
+        val_batches)
     train_loss, val_loss = _check_record(
         record, ("total_loss", "reconstruction", "kl_term"))
     out_dim = 2 * cfg.output_dim
@@ -865,6 +900,255 @@ def phase_train_former(smi: str, data: Path):
                                            FORMER_BATCH), flush=True)
     print("train_former: " + _check_step_parity("weatherformer", FORMER_SIZE,
                                                 "flash"), flush=True)
+    return launches
+
+
+# grouped-matmul edge cases (rows per group): boundaries inside a 128-row
+# tile, empty first/middle/last groups, S not a multiple of 128, tiny groups
+# sharing one tile; at (K, N) = (80, 200), partial slabs and tiles
+GMM_EDGE_GROUPS = [[100, 60, 96], [0, 256, 0], [128, 0, 44, 128],
+                   [1, 1, 1, 127], [0, 333, 0, 367, 0]]
+GMM_EDGE_DIMS = (80, 200)
+
+
+def _moe_group_sizes(cfg):
+    """The per-expert row counts of the MoE microbatch: a top-2 routing of
+    MOE_MICRO windows of seeded activations through a seeded router, on the
+    device."""
+    from weathermodel_tpu_torch.models.moe import MoEFFN, ragged_routing
+
+    ffn = MoEFFN(cfg.hidden_dim, cfg.ffn_dim, cfg.num_experts, cfg.moe_top_k)
+    ffn.reset_parameters(torch.Generator().manual_seed(SEED))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn(MOE_MICRO, SEQ_LEN, cfg.hidden_dim, device="cuda",
+                    generator=g)
+    with torch.no_grad():
+        idx = ffn.cuda().route(x)[3]
+    return ragged_routing(idx.reshape(MOE_MICRO, -1), cfg.num_experts)[2]
+
+
+def _gmm_library(op, lhs, other, gs):
+    """One PyTorch call computing what B4 ("gmm", "gmm_t" for rhs^T) or B4t
+    ("tgmm") computes, timed beside the kernel and never the port's path:
+    torch._grouped_mm where it takes the inputs (bf16), else one cuBLAS
+    matmul per group with the sizes read here, outside the timed region.
+    Returns (fn, its name)."""
+    ends = torch.cumsum(gs, 0).to(torch.int32)
+    grouped = {"gmm": lambda: torch._grouped_mm(lhs, other, offs=ends),
+               "gmm_t": lambda: torch._grouped_mm(
+                   lhs, other.transpose(1, 2), offs=ends),
+               "tgmm": lambda: torch._grouped_mm(lhs.t(), other, offs=ends)}
+    if hasattr(torch, "_grouped_mm") and lhs.dtype == torch.bfloat16:
+        try:
+            grouped[op]()
+            torch.cuda.synchronize()
+            return grouped[op], "torch._grouped_mm"
+        except RuntimeError as err:
+            print(f"kernel_gmm: torch._grouped_mm refused {op}: "
+                  f"{str(err).splitlines()[0]}", flush=True)
+    bounds = torch.cat([ends.new_zeros(1), ends]).tolist()
+    slices = list(zip(range(len(gs)), bounds[:-1], bounds[1:]))
+    loops = {"gmm": lambda: torch.cat([lhs[a:b] @ other[e]
+                                       for e, a, b in slices]),
+             "gmm_t": lambda: torch.cat([lhs[a:b] @ other[e].T
+                                         for e, a, b in slices]),
+             "tgmm": lambda: torch.stack([lhs[a:b].T @ other[a:b]
+                                          for _, a, b in slices])}
+    return loops[op], "a cuBLAS matmul per group"
+
+
+def _gmm_cases(s, k, n, e, dtype, seed):
+    """The B4/B4t calls of one MoE layer's training step, on seeded inputs
+    of the layer's shapes: name -> (op, lhs, other). fwd1/fwd2 are the two
+    expert matmuls, dlhs1/dlhs2 their d_lhs (B4 against rhs^T), dw1/dw2
+    their weight gradients (B4t). Activations are N(0, 1), weights
+    U(+-1/sqrt(fan_in)) and cotangents N(0, E/S): a mean loss's gradient is
+    small, and at that scale the weight gradients, sums over S/E rows, come
+    out O(1) like the forward's outputs, the scale KERNEL_TOL is set for."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    def uniform(fan_in, *shape):
+        return ((torch.rand(*shape, device="cuda", generator=g) * 2 - 1)
+                / fan_in ** 0.5).to(dtype)
+
+    x, hdn = normal(s, k), normal(s, n)
+    dhdn, dout = ((torch.randn(s, c, device="cuda", generator=g)
+                   * (e / s) ** 0.5).to(dtype) for c in (n, k))
+    w1, w2 = uniform(k, e, k, n), uniform(n, e, n, k)
+    return {"fwd1": ("gmm", x, w1), "fwd2": ("gmm", hdn, w2),
+            "dlhs1": ("gmm_t", dhdn, w1), "dlhs2": ("gmm_t", dout, w2),
+            "dw1": ("tgmm", x, dhdn), "dw2": ("tgmm", hdn, dout)}
+
+
+def _gmm_call(op, lhs, other, gs, plain=False):
+    from weathermodel_tpu_torch.ops.gmm import (
+        gmm,
+        gmm_reference,
+        tgmm,
+        tgmm_reference,
+    )
+
+    if op == "tgmm":
+        return (tgmm_reference if plain else tgmm)(lhs, other, gs)
+    return (gmm_reference if plain else gmm)(lhs, other, gs,
+                                             trans_rhs=op == "gmm_t")
+
+
+def _gmm_bound(op, lhs, other, e, dtype):
+    """The least time of one call: 2 S K N operations; it reads lhs and the
+    other operand once and writes the output ([S, N], or [E, K, N] for B4t)
+    once."""
+    s, k = lhs.shape
+    if op == "tgmm":
+        n = other.shape[1]
+        out = e * k * n
+    else:
+        n = other.shape[1] if op == "gmm_t" else other.shape[2]
+        out = s * n
+    return _bound(2.0 * s * k * n,
+                  (lhs.numel() + other.numel() + out) * dtype.itemsize, dtype)
+
+
+def phase_kernel_gmm():
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(MODEL_SIZE, **MOE)
+    gs = _moe_group_sizes(cfg)
+    s, e = int(gs.sum()), cfg.num_experts
+    results = {}
+    print(f"kernel_gmm: S={s} (top-2 routing of {MOE_MICRO} x {SEQ_LEN} "
+          f"seeded windows, group sizes {gs.tolist()}), E={e}, K x N = "
+          f"{cfg.hidden_dim} x {cfg.ffn_dim} and back (tol {KERNEL_TOL}, "
+          f"{SCALE_TOL} x max)", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = _gmm_cases(s, cfg.hidden_dim, cfg.ffn_dim, e, dtype, SEED + 5)
+        for name, (op, lhs, other) in cases.items():
+            got = _gmm_call(op, lhs, other, gs)
+            want = _gmm_call(op, lhs, other, gs, plain=True)
+            torch.cuda.synchronize()
+            err = _check_kernel(f"{name} {dtype}", got, want, dtype)
+            del got, want
+            library, library_name = _gmm_library(op, lhs, other, gs)
+            r = dict(op=op, err=err,
+                     bound=_gmm_bound(op, lhs, other, e, dtype),
+                     ms=_cuda_ms(lambda: _gmm_call(op, lhs, other, gs)),
+                     plain_ms=_cuda_ms(lambda: _gmm_call(op, lhs, other, gs,
+                                                         plain=True)),
+                     library_ms=_cuda_ms(library), library=library_name)
+            results[dtype, name] = r
+            print(f"kernel_gmm: {str(dtype).split('.')[1]} {name} ({op}): "
+                  f"max|err| {_errs_text({'out': err})}; kernel "
+                  f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f}, "
+                  f"{library_name} {r['library_ms']:.3f}, bound "
+                  f"{r['bound'][0]:.3f} by {r['bound'][1]}", flush=True)
+        del cases
+        torch.cuda.empty_cache()
+    edge = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for groups in GMM_EDGE_GROUPS:
+            gsz = torch.tensor(groups, device="cuda")
+            cases = _gmm_cases(sum(groups), *GMM_EDGE_DIMS, len(groups),
+                               dtype, SEED + 6)
+            for name, (op, lhs, other) in cases.items():
+                got = _gmm_call(op, lhs, other, gsz)
+                want = _gmm_call(op, lhs, other, gsz, plain=True)
+                torch.cuda.synchronize()
+                edge.append(_check_kernel(f"edge {groups} {name} {dtype}",
+                                          got, want, dtype)[0])
+                if op == "tgmm":
+                    for g, size in enumerate(groups):
+                        if size == 0 and torch.count_nonzero(got[g]):
+                            raise AssertionError(f"edge {groups}: B4t wrote "
+                                                 f"non-zeros for empty group "
+                                                 f"{g}")
+    print(f"kernel_gmm: edge cases, {len(edge)} checks of {GMM_EDGE_GROUPS} "
+          f"at K x N = {GMM_EDGE_DIMS} in fp32 and bf16: max|err| "
+          f"{max(edge):.3g}", flush=True)
+
+    def record(ops):
+        """Mean per call over a layer's calls of the kernel, bf16."""
+        rs = [r for (d, _), r in results.items()
+              if d == torch.bfloat16 and r["op"] in ops]
+        mean = {key: sum(r[key] for r in rs) / len(rs)
+                for key in ("ms", "plain_ms", "library_ms")}
+        return dict(max_abs_err=max(r["err"][0] for r in rs),
+                    bound_ms=sum(r["bound"][0] for r in rs) / len(rs),
+                    bound_by=rs[0]["bound"][1], **mean)
+
+    return record(("gmm", "gmm_t")), record(("tgmm",))
+
+
+def _check_moe_no_host_sync(cfg):
+    """One training forward and backward of the MoE kernel path at full
+    width, STEP_WINDOWS windows, dropout on, under torch's sync debug mode
+    "error": any operation that waits on the host (a group size read back,
+    a `bincount` or `nonzero` in the routing) raises."""
+    from weathermodel_tpu_torch.train.steps import batch_to_device
+
+    model, _ = _train_step_fn("weatherbert", cfg, "fused_qkv", "cuda")
+    batch, mask = _windows_batch(STEP_WINDOWS, SEED + 3)
+    batch = batch_to_device(batch, "cuda")
+    mask = torch.from_numpy(mask).to("cuda")
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = model(*batch[:4], mask,
+                         generator=torch.Generator().manual_seed(SEED),
+                         return_moe_aux=True)
+        (out.square().mean() + cfg.moe_aux_weight * aux).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return (f"one training forward and backward at {STEP_WINDOWS} windows "
+            "under torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+
+def phase_train_moe(smi: str, data: Path):
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(MODEL_SIZE, compute_dtype="bfloat16", **MOE)
+    n_train, n_val = _store_batches(data, MOE_BATCH)
+    with tempfile.TemporaryDirectory() as workdir:
+        result, launches, wall, peak_gb, record = _run_pretrain([
+            "--model", "weatherbert", "--model-size", MODEL_SIZE,
+            "--moe-experts", str(cfg.num_experts), "--moe-top-k",
+            str(cfg.moe_top_k), "--batch-size", str(MOE_BATCH),
+            "--grad-accum", str(MOE_ACCUM), "--n-epochs", "2",
+            "--n-warmup-epochs", "0", "--masking-prob", "0.15",
+            "--data-dir", str(data), "--workdir", workdir,
+            "--compute-dtype", "bfloat16", "--device", "cuda"], _all_kernels())
+    steps = sum(len(s) for s in result["train_step_seconds"])
+    val_batches = sum(result["val_batches"])
+    per_step = MOE_ACCUM * cfg.num_layers
+    _check_launches(launches, {
+        "fused_qkv_attention": cfg.num_layers * val_batches,
+        "fused_qkv_attention_train": per_step * steps,
+        "fused_qkv_attention_bwd": per_step * steps,
+        "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+        "gmm": 4 * per_step * steps + 2 * cfg.num_layers * val_batches,
+        "tgmm": 2 * per_step * steps}, steps, val_batches)
+    train_loss, val_loss = _check_record(record, ("total_loss", "moe_aux"))
+    ms, rate, tflops, gflop = _throughput(result, cfg, MOE_BATCH)
+    aux = record["losses"]["train"]["moe_aux"]
+    print(f"train_moe: wm-pretrain-torch WeatherBERT-{MODEL_SIZE} MoE "
+          f"E={cfg.num_experts} top-{cfg.moe_top_k} ragged bf16 --batch-size "
+          f"{MOE_BATCH} --grad-accum {MOE_ACCUM}, dropout {cfg.dropout_rate}, "
+          f"2 epochs, lr 5e-4: {n_train} train batches and {n_val} validation "
+          f"windows per epoch; train loss {train_loss} (moe_aux {aux}), val "
+          f"loss {val_loss}; {launches}; epoch 2 median {ms:.1f} ms/step, "
+          f"{rate:.1f} samples/s, {tflops:.1f} TFLOP/s ({gflop:.1f} "
+          f"GFLOP/sample); epoch seconds {record['metrics']['epoch_seconds']}"
+          f"; run {wall:.1f} s; peak memory {peak_gb:.1f} GB; card {smi}",
+          flush=True)
+    print("train_moe: " + _profile_step("weatherbert", cfg, "fused_qkv",
+                                        MOE_BATCH, MOE_ACCUM), flush=True)
+    print("train_moe: " + _check_step_parity("weatherbert", MODEL_SIZE,
+                                             "fused_qkv", MOE), flush=True)
+    print("train_moe: " + _check_moe_no_host_sync(cfg), flush=True)
     return launches
 
 
@@ -894,6 +1178,8 @@ def main():
         train_launches = phase_train(smi, data)
         flash_kernels = phase_kernel_flash()
         former_launches = phase_train_former(smi, data)
+        gmm_kernel, tgmm_kernel = phase_kernel_gmm()
+        moe_launches = phase_train_moe(smi, data)
     tk, fk = train_kernels, flash_kernels
     records = [
         dict(name="fused_qkv_attention", route="cuda",
@@ -911,6 +1197,12 @@ def main():
                 former_launches["flash_attention_fwd"], fk, "fwd"),
         _record("flash_attention_bwd", "flash_attention_bwd.cu", "288",
                 former_launches["flash_attention_bwd"], fk, "bwd"),
+        *(dict(name=name, route="cuda",
+               source=f"weathermodel_tpu_torch/csrc/{name}.cu",
+               replaces=f"weathermodel_tpu/ops/pallas_gmm.py:{line}",
+               launches=moe_launches[name], **k)
+          for name, line, k in (("gmm", 155, gmm_kernel),
+                                ("tgmm", 233, tgmm_kernel))),
     ]
     print(f"card: {smi}")
     print(json.dumps({"kernels": records}))

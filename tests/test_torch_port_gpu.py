@@ -26,6 +26,13 @@ from weathermodel_tpu_torch.ops.fused_qkv_attention import (
     fused_qkv_attention_train,
     fused_qkv_attention_train_reference,
 )
+from weathermodel_tpu_torch.ops.gmm import (
+    GroupedMatmul,
+    gmm,
+    gmm_reference,
+    tgmm,
+    tgmm_reference,
+)
 from weathermodel_tpu_torch.train.state import make_optimizer
 from weathermodel_tpu_torch.train.steps import (
     Batch,
@@ -270,6 +277,116 @@ def test_weatherformer_step_flash_path_matches_plain_path(cuda):
     with torch.inference_mode():
         models[0].eval()(*batch[:4], mask)
     assert flash_attention_fwd.launches == before[0] + 2 * n
+
+
+# group layouts of the grouped matmul (rows per group, summing to S): group
+# boundaries inside a 128-row tile, empty first/middle/last groups, S not a
+# multiple of 128, one group over many tiles, tiny groups sharing one tile
+GMM_GROUPS = [[100, 60, 96], [0, 256, 0], [128, 0, 44, 128], [640],
+              [1, 1, 1, 127], [0, 333, 0, 367, 0]]
+# (K, N): partial 32-deep slabs and 128-wide tiles with 16-byte loads, and a
+# K whose rows are not whole 16-byte chunks (element loads)
+GMM_DIMS = [(80, 200), (12, 40)]
+
+
+def _gmm_inputs(groups, k, n, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    s, e = sum(groups), len(groups)
+    lhs, rhs, dy = (torch.tensor(rng.normal(size=shape), dtype=dtype,
+                                 device=device)
+                    for shape in ((s, k), (e, k, n), (s, n)))
+    return lhs, rhs, dy, torch.tensor(groups, device=device)
+
+
+@pytest.mark.parametrize("k,n", GMM_DIMS)
+@pytest.mark.parametrize("groups", GMM_GROUPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernels_match_plain(cuda, dtype, groups, k, n):
+    """B4 (plain and rhs^T) and B4t against their plain versions on the
+    edge cases, at the bars of the attention kernels (inputs of unit scale,
+    sums of up to K or S products: the bf16 outputs round once, as the plain
+    versions do, so they may sit one bf16 ulp apart)."""
+    lhs, rhs, dy, gs = _gmm_inputs(groups, k, n, dtype, cuda)
+    before = (gmm.launches, tgmm.launches)
+    out = gmm(lhs, rhs, gs)
+    out_t = gmm(dy, rhs, gs, trans_rhs=True)
+    d_rhs = tgmm(lhs, dy, gs)
+    torch.cuda.synchronize()
+    assert (gmm.launches, tgmm.launches) == (before[0] + 2, before[1] + 1)
+    assert out.shape == (sum(groups), n) and out.dtype == dtype
+    assert d_rhs.shape == (len(groups), k, n) and d_rhs.dtype == dtype
+    tol = {torch.float32: dict(atol=1e-3, rtol=1e-4),
+           torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}[dtype]
+    for got, want in ((out, gmm_reference(lhs, rhs, gs)),
+                      (out_t, gmm_reference(dy, rhs, gs, trans_rhs=True)),
+                      (d_rhs, tgmm_reference(lhs, dy, gs))):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    # d_lhs through the rhs^T flag is gmm on a transposed copy, bit for bit
+    assert torch.equal(out_t, gmm(dy, rhs.transpose(1, 2).contiguous(), gs))
+    for g, size in enumerate(groups):
+        if size == 0:
+            assert torch.count_nonzero(d_rhs[g]) == 0
+
+
+def test_grouped_matmul_gradients_match_plain(cuda):
+    lhs, rhs, dy, gs = _gmm_inputs([70, 0, 150, 36], 48, 192, torch.float32,
+                                   cuda, seed=3)
+    lhs.requires_grad_()
+    rhs.requires_grad_()
+    before = (gmm.launches, tgmm.launches)
+    got = torch.autograd.grad(GroupedMatmul.apply(lhs, rhs, gs), (lhs, rhs),
+                              dy)
+    assert (gmm.launches, tgmm.launches) == (before[0] + 2, before[1] + 1)
+    want = torch.autograd.grad(gmm_reference(lhs, rhs, gs), (lhs, rhs), dy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_gmm_never_takes_the_plain_path_on_cuda(cuda, monkeypatch):
+    from weathermodel_tpu_torch.ops import gmm as gmm_ops
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(gmm_ops, "gmm_reference", refuse)
+    monkeypatch.setattr(gmm_ops, "tgmm_reference", refuse)
+    lhs, rhs, dy, gs = _gmm_inputs([5, 7], 16, 32, torch.float32, cuda)
+    gmm_ops.gmm(lhs, rhs, gs)
+    gmm_ops.tgmm(lhs, dy, gs)
+    with pytest.raises(ValueError, match="dtype"):
+        gmm_ops.gmm(lhs.half(), rhs.half(), gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_ops.gmm(lhs.T.contiguous().T, rhs, gs)
+    with pytest.raises(ValueError, match="group_sizes"):
+        gmm_ops.gmm(lhs, rhs, gs.cpu())
+
+
+def test_moe_path_never_waits_on_the_host(cuda):
+    """A MoE WeatherBERT's training forward and backward on the card, dropout
+    on: no operation synchronises with the host (torch's sync debug mode
+    raises on one, such as a group size read back), and each layer launches
+    B4 four times (two forward, two d_lhs) and B4t twice."""
+    cfg = model_config_for_size("mini", max_len=32, num_experts=4)
+    model = make_model("weatherbert", cfg, "fused_qkv").to(cuda).train()
+    rng = np.random.default_rng(0)
+    inputs = [torch.tensor(a, dtype=torch.float32, device=cuda) for a in (
+        rng.normal(size=(4, 32, 31)), rng.uniform(-90, 90, (4, 2)),
+        np.full((4, 32), 1995.0), np.full((4, 1), 7.0))]
+    inputs.append(torch.tensor(rng.random((4, 32, 31)) < 0.15, device=cuda))
+    before = (gmm.launches, tgmm.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = model(*inputs, generator=torch.Generator().manual_seed(0),
+                         return_moe_aux=True)
+        (out.square().mean() + cfg.moe_aux_weight * aux).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    n = cfg.num_layers
+    assert (gmm.launches, tgmm.launches) == (before[0] + 4 * n,
+                                             before[1] + 2 * n)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
 
 
 def test_serve_entry_point_launches_kernel(cuda, tmp_path):

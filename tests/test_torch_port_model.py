@@ -19,6 +19,20 @@ from weathermodel_tpu_torch.utils.config import model_config_for_size
 T = 24
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's side runs at small shapes, where one thread is about as
+    fast as a pool; under the suite's parallel workers, which share the
+    host's cores, an oversubscribed pool made this file several times
+    slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _inputs(b=3, t=T, seed=0):
     rng = np.random.default_rng(seed)
     weather = rng.normal(size=(b, t, 31)).astype(np.float32)
@@ -110,6 +124,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_model("weatherbert", cfg, "torch", ffn_impl="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model("weatherbert", cfg, "torch", num_experts=4)
+        make_model("weatherbert", model_config_for_size(
+            "mini", num_experts=4, moe_dispatch="sort"), "torch")
     with pytest.raises(ValueError):
         make_model("nosuchmodel", cfg, "torch")

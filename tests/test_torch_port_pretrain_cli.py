@@ -15,6 +15,20 @@ from weathermodel_tpu_torch.data.chunks import write_synthetic_dataset
 T = 24
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's side runs at small shapes, where one thread is about as
+    fast as a pool; under the suite's parallel workers, which share the
+    host's cores, an oversubscribed pool made this file several times
+    slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def store(tmp_path_factory):
     root = tmp_path_factory.mktemp("store")
@@ -104,8 +118,10 @@ def test_pretrained_state_initialises_the_trainer(tmp_path):
     ["--resume-from-checkpoint", "x"], ["--use-optimal-lr"], ["--remat"],
     ["--seq-parallel", "2"], ["--pipeline-stages", "2"],
     ["--pipeline-microbatches", "8"], ["--tensor-parallel", "2"],
-    ["--moe-experts", "4"], ["--moe-top-k", "1"], ["--moe-dispatch", "sort"],
-    ["--moe-capacity-factor", "2"], ["--moe-remat"], ["--fsdp"],
+    ["--moe-experts", "4", "--moe-dispatch", "sort"],
+    ["--moe-experts", "4", "--moe-dispatch", "scatter"],
+    ["--moe-dispatch", "sort"], ["--moe-experts", "4", "--moe-remat"],
+    ["--moe-remat"], ["--fsdp"],
     ["--prng", "threefry2x32"]])
 def test_unported_flags_exit_naming_the_roadmap(store, tmp_path, flag):
     args = pretrain.build_parser().parse_args(

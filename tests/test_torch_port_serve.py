@@ -112,6 +112,6 @@ def test_predictor_buckets_and_checkpoint_checks(files):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_weather_predictor(str(files / "mini"), "mini", max_len=T,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="lacks MoE"):
         load_weather_predictor(str(files / "mini.pth"), "mini", max_len=T,
                                num_experts=4, device="cpu")

@@ -41,6 +41,20 @@ LR = 1e-3
 N_STEPS = 20
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's side runs at small shapes, where one thread is about as
+    fast as a pool; under the suite's parallel workers, which share the
+    host's cores, an oversubscribed pool made this file several times
+    slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _data(seed=0, n=N_STEPS, b=B):
     rng = np.random.default_rng(seed)
     weather = rng.normal(size=(n, b, T, F)).astype(np.float32)

@@ -30,6 +30,20 @@ K = {"weatherformer": 4, "weatherformersinusoid": 4,
      "weatherformermixture": 7}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's side runs at small shapes, where one thread is about as
+    fast as a pool; under the suite's parallel workers, which share the
+    host's cores, an oversubscribed pool made this file several times
+    slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _inputs(b=3, t=T, seed=0):
     rng = np.random.default_rng(seed)
     weather = rng.normal(size=(b, t, 31)).astype(np.float32)

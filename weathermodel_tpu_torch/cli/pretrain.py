@@ -4,10 +4,15 @@ ported features, the WeatherBERT family with the masked-MSE objective and
 the WeatherFormer family with the ELBO objectives, on one CUDA device
 unless `--device cpu` is given. With no flags it trains what `wm-pretrain`
 does: WeatherFormer-small, ELBO with beta 0.5, 10 masked features.
+`--moe-experts N` swaps every layer's FFN for a top-k routed expert FFN
+with the dropless ragged dispatch (the grouped-matmul kernels B4/B4t).
 
     wm-pretrain-torch --data-dir data/ --workdir run/
     wm-pretrain-torch --model weatherbert --model-size large \\
         --batch-size 576 --grad-accum 2 --data-dir data/ --workdir run/
+    wm-pretrain-torch --model weatherbert --model-size large \\
+        --moe-experts 8 --moe-top-k 2 --batch-size 288 --grad-accum 3 \\
+        --data-dir data/ --workdir run/
 
 It writes `{workdir}/{model}_output.json` every epoch and the best
 parameters as a reference-format `{workdir}/best.pth`, which
@@ -64,18 +69,19 @@ _UNPORTED = {
                              "item 14)",
     "tensor_parallel": "tensor parallelism (ROADMAP.md queue A item 14)",
     "fsdp": "FSDP sharding (ROADMAP.md queue A item 14)",
-    "moe_experts": "the MoE FFN (ROADMAP.md queue A item 12)",
-    "moe_top_k": "the MoE FFN (ROADMAP.md queue A item 12)",
-    "moe_dispatch": "the MoE FFN (ROADMAP.md queue A item 12)",
-    "moe_capacity_factor": "the MoE FFN (ROADMAP.md queue A item 12)",
-    "moe_remat": "the MoE FFN (ROADMAP.md queue A item 12)",
+    "moe_dispatch": "the MoE capacity layouts 'sort' and 'scatter' "
+                    "(ROADMAP.md queue A item 12)",
+    "moe_remat": "MoE rematerialization (ROADMAP.md queue A item 12)",
     "prng": "JAX's PRNG choice; the port draws from torch.Generator "
             "(ROADMAP.md queue A item 14)",
 }
 
 
 def make_model(name: str, cfg: ModelConfig, attention_impl: str,
-               ffn_impl: str = "torch", num_experts: int = 0):
+               ffn_impl: str = "torch", gmm_impl: str = "kernel"):
+    """The model `name` at `cfg` (MoE layers when cfg.num_experts > 0;
+    `gmm_impl` "plain" runs their grouped matmuls as the plain versions on
+    any device, the reference path)."""
     if name in UNPORTED_MODELS:
         raise NotImplementedError(
             f"model {name!r} is not ported yet; see ROADMAP.md queue A "
@@ -84,7 +90,7 @@ def make_model(name: str, cfg: ModelConfig, attention_impl: str,
         raise ValueError(f"Unknown model type: {name}. Choose one of "
                          + ", ".join((*PORTED_MODELS, *UNPORTED_MODELS)))
     return PORTED_MODELS[name](cfg, attention_impl=attention_impl,
-                               ffn_impl=ffn_impl, num_experts=num_experts)
+                               ffn_impl=ffn_impl, gmm_impl=gmm_impl)
 
 
 def load_pretrained_params(path: str) -> dict:
@@ -152,18 +158,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) needs a card; cpu runs the kernels' "
                         "plain versions")
+    p.add_argument("--moe-experts", default=0, type=int,
+                   help="num_experts > 0 swaps the dense FFN for a top-k "
+                        "routed Mixture-of-Experts FFN (models/moe.py)")
+    p.add_argument("--moe-top-k", default=2, type=int)
+    p.add_argument("--moe-dispatch", default="ragged",
+                   choices=("sort", "ragged", "scatter"),
+                   help="ragged (dropless grouped matmul) is ported; sort "
+                        "and scatter are not yet")
+    p.add_argument("--moe-capacity-factor", default=1.25, type=float,
+                   help="capacity of the sort/scatter layouts; ragged "
+                        "ignores it")
     for flag in ("--remat", "--fsdp", "--moe-remat"):
         p.add_argument(flag, action="store_true", help="not ported yet")
     for flag, default in (("--seq-parallel", 1), ("--pipeline-stages", 1),
                           ("--pipeline-microbatches", 4),
-                          ("--tensor-parallel", 1), ("--moe-experts", 0),
-                          ("--moe-top-k", 2)):
+                          ("--tensor-parallel", 1)):
         p.add_argument(flag, default=default, type=int, help="not ported yet")
-    p.add_argument("--moe-dispatch", default="ragged",
-                   choices=("sort", "ragged", "scatter"),
-                   help="not ported yet")
-    p.add_argument("--moe-capacity-factor", default=1.25, type=float,
-                   help="not ported yet")
     p.add_argument("--prng", default="rbg", choices=("rbg", "threefry2x32"),
                    help="not ported (JAX only)")
     return p
@@ -187,14 +198,22 @@ def run(args: argparse.Namespace) -> dict:
         if getattr(args, flag) != getattr(defaults, flag):
             raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not "
                              "ported to weathermodel_tpu_torch yet")
+    if args.moe_experts > 0 and args.model in UNPORTED_MODELS:
+        # these models have no transformer FFN to replace
+        # (weathermodel_tpu/cli/pretrain.py:200-206)
+        raise ValueError(
+            f"--moe-experts is not supported for --model {args.model} "
+            "(no transformer encoder trunk)")
     device = resolve_device(args.device)
     k = args.n_mixture_components
     if args.model == "weatherformersinusoid" and k == 1:
         k = 4  # the model's default (reference weatherformer_sinusoid.py:22)
     if args.model == "weatherformermixture" and k == 1:
         k = 7  # reference weatherformer_mixture.py:24
-    mcfg = model_config_for_size(args.model_size, k=k,
-                                 compute_dtype=args.compute_dtype)
+    mcfg = model_config_for_size(
+        args.model_size, k=k, compute_dtype=args.compute_dtype,
+        num_experts=args.moe_experts, moe_top_k=args.moe_top_k,
+        moe_capacity_factor=args.moe_capacity_factor)
     tcfg = TrainConfig(
         batch_size=args.batch_size,
         num_epochs=args.n_epochs,

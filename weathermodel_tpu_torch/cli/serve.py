@@ -10,8 +10,10 @@ WeatherFormer family.
 
 Input schema: weather [N, T, F] (+ optional coords [N, 2], year [N, T],
 interval [N, 1], mask [N, T, F]; missing ones get the pretraining
-defaults). The model runs on the CUDA device; without one the entry point
-exits unless `--device cpu` asks for the CPU (the kernels' plain versions).
+defaults). A Mixture-of-Experts checkpoint needs `--moe-experts` (and
+`--moe-top-k`) as it was trained; a mismatch either way raises. The model
+runs on the CUDA device; without one the entry point exits unless
+`--device cpu` asks for the CPU (the kernels' plain versions).
 """
 
 import argparse
@@ -49,6 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=("bfloat16", "float32"),
                    help="float32 for exact numerics parity")
+    p.add_argument("--moe-experts", default=0, type=int,
+                   help="must match the checkpoint's --moe-experts")
+    p.add_argument("--moe-top-k", default=2, type=int)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) needs a card; cpu runs the kernels' "
                         "plain versions")
@@ -94,7 +99,8 @@ def _make_predictor(args: argparse.Namespace, t: int, device):
         args.checkpoint, model_size=args.model_size, model_name=args.model,
         attention_impl=resolve_attention_impl(
             args.attention_impl, args.model_size, mode="eval"),
-        max_len=t, buckets=buckets, compute_dtype=args.compute_dtype,
+        max_len=t, buckets=buckets, num_experts=args.moe_experts,
+        moe_top_k=args.moe_top_k, compute_dtype=args.compute_dtype,
         device=device)
 
 

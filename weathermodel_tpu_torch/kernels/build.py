@@ -97,6 +97,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wm_flash_attention_bwd.argtypes = [i, p, p, p, i, p, p, p, p, p, i, i,
                                            i, i, i, u, u, f, p]
     lib.wm_flash_attention_bwd.restype = i
+    # dtype, lhs, rhs, offsets, out, s, k, n, e, trans_rhs, stream
+    lib.wm_gmm.argtypes = [i, p, p, p, p, i, i, i, i, i, p]
+    lib.wm_gmm.restype = i
+    # dtype, lhs, dy, offsets, out, s, k, n, e, stream
+    lib.wm_tgmm.argtypes = [i, p, p, p, p, i, i, i, i, p]
+    lib.wm_tgmm.restype = i
     lib.wm_cuda_error_string.argtypes = [i]
     lib.wm_cuda_error_string.restype = ctypes.c_char_p
 
@@ -165,8 +171,9 @@ def check(err: int) -> None:
 
 def on_cuda(name, head_dim, *tensors) -> bool:
     """False for CPU tensors (the plain version runs); True for CUDA
-    tensors of one dtype and a head dim the kernels take; raises on
-    anything else. Layout is each wrapper's own check."""
+    tensors of one dtype and a head dim the kernels take (None for kernels
+    without heads); raises on anything else. Layout is each wrapper's own
+    check."""
     devices = {a.device for a in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs on different devices: {devices}")
@@ -179,7 +186,7 @@ def on_cuda(name, head_dim, *tensors) -> bool:
     if len(dtypes) != 1 or tensors[0].dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: inputs must share one dtype of "
                          f"float32/bfloat16, got {[a.dtype for a in tensors]}")
-    if head_dim not in KERNEL_HEAD_DIMS:
+    if head_dim is not None and head_dim not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {head_dim} not in the kernel's "
                          f"instantiations {KERNEL_HEAD_DIMS}")
     return True

@@ -10,10 +10,11 @@ The forward computes in the dtype of its input: parameters stay fp32 and
 are cast at each use, as the JAX package does. With `dropout_rate` > 0 (the
 model's training mode) the layer drops at the JAX layer's four sites
 (blocks.py:271-396): the attention weights (inside the attention kernel),
-the attention output before the residual, the FFN hidden after the ReLU and
-the FFN output. Each site takes its own seed from the CPU generator the
-caller passes (ops/dropout.py). With dropout 0 and no gradient the eval
-path is the one the serving path runs.
+the attention output before the residual, the FFN hidden after the ReLU (the
+experts' hidden in a MoE layer, models/moe.py) and the FFN output. Each site
+takes its own seed from the CPU generator the caller passes (ops/dropout.py).
+With dropout 0 and no gradient the eval path is the one the serving path
+runs.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from weathermodel_tpu_torch.models.moe import MoEFFN
 from weathermodel_tpu_torch.ops.attention import ATTENTION_IMPLS, torch_attention
 from weathermodel_tpu_torch.ops.dropout import draw_seed, dropout
 from weathermodel_tpu_torch.ops.flash_attention import (
@@ -114,29 +116,32 @@ class SelfAttention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-LN encoder layer with the dense ReLU FFN.
+    """Post-LN encoder layer with the dense ReLU FFN or, with `moe` (the
+    keyword arguments of models/moe.py's MoEFFN), the routed expert FFN.
 
-    norm1 takes its statistics in fp32 (as flax nn.LayerNorm does) and
-    norm2 in the compute dtype (as the JAX layer's hand-written tail,
-    blocks.py:391-396, does), so that bf16 rounds where the JAX package
-    rounds."""
+    norm1 takes its statistics in fp32 (as flax nn.LayerNorm does). The dense
+    branch's norm2 takes them in the compute dtype (as the JAX layer's
+    hand-written tail, blocks.py:391-396, does); the MoE branch's norm2 is a
+    flax nn.LayerNorm again (blocks.py:287-305), with fp32 statistics. So bf16
+    rounds where the JAX package rounds. The forward returns (x, the MoE aux
+    loss or None)."""
 
     def __init__(self, hidden_dim: int, num_heads: int, ffn_dim: int,
                  attention_impl: str = "torch", ffn_impl: str = "torch",
-                 num_experts: int = 0):
+                 moe: dict = None):
         super().__init__()
-        if num_experts > 0:
-            raise NotImplementedError(
-                "the MoE FFN (models/moe.py, TPU kernel B4) is not ported "
-                "yet; see ROADMAP.md queue A item 12")
         if ffn_impl != "torch":
             raise NotImplementedError(
                 f"ffn_impl={ffn_impl!r} (int8 serving or the Pallas FFN "
                 "kernels B6/B7) is not ported yet; see ROADMAP.md queue A "
                 "item 13 and queue B")
         self.self_attn = SelfAttention(hidden_dim, num_heads, attention_impl)
-        self.linear1 = nn.Linear(hidden_dim, ffn_dim)
-        self.linear2 = nn.Linear(ffn_dim, hidden_dim)
+        if moe:
+            self.moe = MoEFFN(hidden_dim, ffn_dim, **moe)
+        else:
+            self.moe = None
+            self.linear1 = nn.Linear(hidden_dim, ffn_dim)
+            self.linear2 = nn.Linear(ffn_dim, hidden_dim)
         self.norm1 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
 
@@ -146,33 +151,45 @@ class TransformerEncoderLayer(nn.Module):
                 return a
             return dropout(a, dropout_rate, draw_seed(generator))
 
+        def layer_norm(y, norm):  # fp32 statistics, as flax nn.LayerNorm
+            return F.layer_norm(y.float(), y.shape[-1:], norm.weight,
+                                norm.bias, LN_EPS).to(y.dtype)
+
         dtype = x.dtype
-        y = x + drop(self.self_attn(x, dropout_rate, generator))
-        x = F.layer_norm(y.float(), y.shape[-1:], self.norm1.weight,
-                         self.norm1.bias, LN_EPS).to(dtype)
+        x = layer_norm(x + drop(self.self_attn(x, dropout_rate, generator)),
+                       self.norm1)
+        if self.moe is not None:
+            ff, aux = self.moe(x, dropout_rate, generator)
+            return layer_norm(x + drop(ff), self.norm2), aux
         ff = drop(F.relu(linear(x, self.linear1)))
         ff = drop(linear(ff, self.linear2))
         y = x + ff
         mu = y.mean(dim=-1, keepdim=True)
         var = (y - mu).square().mean(dim=-1, keepdim=True)
         xhat = (y - mu) * torch.rsqrt(var + LN_EPS)
-        return xhat * self.norm2.weight.to(dtype) + self.norm2.bias.to(dtype)
+        return (xhat * self.norm2.weight.to(dtype)
+                + self.norm2.bias.to(dtype)), None
 
 
 class TransformerEncoder(nn.Module):
     """Stack of post-LN layers with no final norm (reference
-    weatherbert.py:52-54)."""
+    weatherbert.py:52-54). Returns (x, the mean of the layers' MoE aux
+    losses, or None for dense layers), as the JAX step averages the sown
+    losses (train/steps.py:71-79)."""
 
     def __init__(self, hidden_dim: int, num_heads: int, ffn_dim: int,
                  num_layers: int, attention_impl: str = "torch",
-                 ffn_impl: str = "torch", num_experts: int = 0):
+                 ffn_impl: str = "torch", moe: dict = None):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(hidden_dim, num_heads, ffn_dim,
-                                    attention_impl, ffn_impl, num_experts)
+                                    attention_impl, ffn_impl, moe)
             for _ in range(num_layers))
 
     def forward(self, x, dropout_rate: float = 0.0, generator=None):
+        auxes = []
         for layer in self.layers:
-            x = layer(x, dropout_rate, generator)
-        return x
+            x, aux = layer(x, dropout_rate, generator)
+            if aux is not None:
+                auxes.append(aux)
+        return x, (torch.stack(auxes).mean() if auxes else None)

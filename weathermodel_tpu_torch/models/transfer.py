@@ -4,14 +4,19 @@ weathermodel_tpu/models/transfer.py:107-171).
 The port's models' `state_dict()`s use the reference's keys and torch's
 [out, in] weight layout, so a reference `.pth` loads with no conversion.
 `state_dict_from_jax_params` maps a flax param tree of WeatherBERT or of the
-WeatherFormer family to that state dict: it is the exact inverse of the JAX
-package's `convert_torch_state_dict`.
+WeatherFormer family to that state dict: for dense layers it is the exact
+inverse of the JAX package's `convert_torch_state_dict`. MoE layers
+(`layer_i/moe`, models/moe.py) map to `....moe.router.{weight,bias}` (the
+kernel transposed) and `....moe.expert_{w1,b1,w2,b2}` in the JAX layout,
+which is what the grouped matmul takes.
 """
 
 import numpy as np
 import torch
 
 _LAYER_KEYS = {"self_attn", "linear1", "linear2", "norm1", "norm2"}
+_MOE_LAYER_KEYS = {"self_attn", "moe", "norm1", "norm2"}
+_EXPERT_PARAMS = ("expert_w1", "expert_b1", "expert_w2", "expert_b2")
 # the WeatherFormer priors' top-level parameters, kept untransposed
 # (weathermodel_tpu/models/transfer.py:27-30)
 PRIOR_PARAM_NAMES = ("frequency", "phase", "amplitude", "log_var_prior",
@@ -33,6 +38,11 @@ def load_reference_checkpoint(path: str) -> dict:
         state_dict = obj
     return {(k[7:] if k.startswith("module.") else k): v
             for k, v in state_dict.items()}
+
+
+def has_moe_layers(state_dict) -> bool:
+    """True if a state dict holds MoE expert layers (`.moe.` keys)."""
+    return any(".moe." in k for k in state_dict)
 
 
 def _tensor(a) -> torch.Tensor:
@@ -63,14 +73,19 @@ def state_dict_from_jax_params(params) -> dict:
     encoder = core["encoder"]
     for i in range(len(encoder)):
         layer = encoder[f"layer_{i}"]
-        if set(layer) != _LAYER_KEYS:
-            raise ValueError(f"layer_{i} is not a dense post-LN layer: "
-                             f"{sorted(layer)}")
+        if set(layer) not in (_LAYER_KEYS, _MOE_LAYER_KEYS):
+            raise ValueError(f"layer_{i} is not a post-LN layer (dense or "
+                             f"MoE): {sorted(layer)}")
         pre = f"transformer_encoder.layers.{i}."
         dense(pre + "self_attn.in_proj_", layer["self_attn"]["qkv_proj"])
         dense(pre + "self_attn.out_proj.", layer["self_attn"]["out_proj"])
-        dense(pre + "linear1.", layer["linear1"])
-        dense(pre + "linear2.", layer["linear2"])
+        if "moe" in layer:
+            dense(pre + "moe.router.", layer["moe"]["router"])
+            for name in _EXPERT_PARAMS:
+                sd[pre + "moe." + name] = _tensor(layer["moe"][name])
+        else:
+            dense(pre + "linear1.", layer["linear1"])
+            dense(pre + "linear2.", layer["linear2"])
         norm(pre + "norm1.", layer["norm1"])
         norm(pre + "norm2.", layer["norm2"])
     if "out_proj" in p:

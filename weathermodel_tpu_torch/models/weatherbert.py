@@ -13,6 +13,11 @@ passes, as the JAX module does with deterministic=False; there is no dropout
 after the positional encoding (weathermodel_tpu/models/weatherbert.py:63-98).
 In `eval()` mode it is deterministic.
 
+With `cfg.num_experts` > 0 every layer's FFN is the routed expert FFN
+(models/moe.py, ragged dispatch); `return_moe_aux=True` makes the forward
+return (outputs, the mean of the layers' aux losses), which the train step
+adds to the objective (train/steps.py).
+
 Submodules sit at the top level (`in_proj`, `transformer_encoder.layers`,
 `out_proj`), so `state_dict()` has exactly the reference checkpoint's keys;
 the PE table is a non-persistent buffer.
@@ -27,6 +32,7 @@ from weathermodel_tpu_torch.models.blocks import (
     sinusoidal_positional_encoding,
     torch_linear_init_,
 )
+from weathermodel_tpu_torch.models.moe import MoEFFN
 from weathermodel_tpu_torch.ops.normalize import normalize_year_interval_coords
 from weathermodel_tpu_torch.utils.config import ModelConfig
 
@@ -36,7 +42,7 @@ class WeatherEncoderCore(nn.Module):
     computed in `cfg.compute_dtype` (parameters stay fp32)."""
 
     def __init__(self, cfg: ModelConfig, attention_impl: str = "torch",
-                 ffn_impl: str = "torch", num_experts: int = 0):
+                 ffn_impl: str = "torch", gmm_impl: str = "kernel"):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
@@ -44,16 +50,25 @@ class WeatherEncoderCore(nn.Module):
         self.register_buffer(
             "pe", sinusoidal_positional_encoding(cfg.max_len, cfg.hidden_dim),
             persistent=False)
+        moe = None
+        if cfg.num_experts > 0:
+            moe = dict(num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       dispatch=cfg.moe_dispatch, remat=cfg.moe_remat,
+                       gmm_impl=gmm_impl)
         self.transformer_encoder = TransformerEncoder(
             cfg.hidden_dim, cfg.num_heads, cfg.ffn_dim, cfg.num_layers,
-            attention_impl, ffn_impl, num_experts)
+            attention_impl, ffn_impl, moe)
 
     def reset_parameters(self, generator: torch.Generator = None) -> None:
         """Re-initialize from `generator` with the init the modules are
         built with (the JAX package's): every Linear and the packed QKV
-        projection U(-1/sqrt(fan_in), 1/sqrt(fan_in)), LayerNorm ones/zeros."""
+        projection U(-1/sqrt(fan_in), 1/sqrt(fan_in)), LayerNorm ones/zeros,
+        the experts as MoEFFN.reset_parameters."""
         for module in self.modules():
-            if isinstance(module, nn.Linear):
+            if isinstance(module, MoEFFN):
+                module.reset_parameters(generator)
+            elif isinstance(module, nn.Linear):
                 torch_linear_init_(module.weight, module.bias, generator)
             elif isinstance(module, nn.LayerNorm):
                 nn.init.ones_(module.weight)
@@ -66,9 +81,10 @@ class WeatherEncoderCore(nn.Module):
                generator=None, dropout_rate=None):
         """weather [B, T, F] (z-scored), coords [B, 2] raw (lat, lon),
         year [B, T] raw, interval [B, 1], weather_feature_mask [B, T, F]
-        bool (True = masked) -> hidden [B, T, H] in the compute dtype.
-        In train mode, `generator` (a CPU torch.Generator) seeds the
-        dropout; `dropout_rate` overrides cfg.dropout_rate."""
+        bool (True = masked) -> (hidden [B, T, H] in the compute dtype, the
+        mean MoE aux loss or None). In train mode, `generator` (a CPU
+        torch.Generator) seeds the dropout; `dropout_rate` overrides
+        cfg.dropout_rate."""
         cfg = self.cfg
         b, t, _ = weather.shape
         if t > cfg.max_len:
@@ -94,18 +110,20 @@ class WeatherEncoderCore(nn.Module):
 
 class WeatherBERT(WeatherEncoderCore):
     """Masked-feature reconstruction encoder; returns [B, T, output_dim]
-    in fp32."""
+    in fp32 (and the MoE aux loss with `return_moe_aux`)."""
 
     def __init__(self, cfg: ModelConfig, attention_impl: str = "torch",
-                 ffn_impl: str = "torch", num_experts: int = 0):
-        super().__init__(cfg, attention_impl, ffn_impl, num_experts)
+                 ffn_impl: str = "torch", gmm_impl: str = "kernel"):
+        super().__init__(cfg, attention_impl, ffn_impl, gmm_impl)
         self.out_proj = nn.Linear(cfg.hidden_dim, cfg.output_dim)
 
     def forward(self, weather, coords, year, interval, weather_feature_mask,
-                generator=None, dropout_rate=None):
-        hidden = self.encode(weather, coords, year, interval,
-                             weather_feature_mask, generator, dropout_rate)
-        return linear(hidden, self.out_proj).float()
+                generator=None, dropout_rate=None, return_moe_aux=False):
+        hidden, aux = self.encode(weather, coords, year, interval,
+                                  weather_feature_mask, generator,
+                                  dropout_rate)
+        out = linear(hidden, self.out_proj).float()
+        return (out, aux) if return_moe_aux else out
 
 
 # Identical architecture under other masking policies (reference

@@ -40,22 +40,26 @@ class WeatherFormer(WeatherEncoderCore):
     """Encoder with a (mu, var) head; returns fp32 [B, T, output_dim] each."""
 
     def __init__(self, cfg: ModelConfig, attention_impl: str = "torch",
-                 ffn_impl: str = "torch", num_experts: int = 0):
-        super().__init__(cfg, attention_impl, ffn_impl, num_experts)
+                 ffn_impl: str = "torch", gmm_impl: str = "kernel"):
+        super().__init__(cfg, attention_impl, ffn_impl, gmm_impl)
         self.out_proj = nn.Linear(cfg.hidden_dim, 2 * cfg.output_dim)
 
     def posterior(self, weather, coords, year, interval, weather_feature_mask,
                   generator=None, dropout_rate=None):
-        hidden = self.encode(weather, coords, year, interval,
-                             weather_feature_mask, generator, dropout_rate)
+        """((mu_x, var_x), the MoE aux loss or None)."""
+        hidden, aux = self.encode(weather, coords, year, interval,
+                                  weather_feature_mask, generator,
+                                  dropout_rate)
         out = linear(hidden, self.out_proj).float()
         mu_x, log_var_x = out.split(self.cfg.output_dim, dim=-1)
-        return mu_x, _var(log_var_x)
+        return (mu_x, _var(log_var_x)), aux
 
     def forward(self, weather, coords, year, interval, weather_feature_mask,
-                generator=None, dropout_rate=None):
-        return self.posterior(weather, coords, year, interval,
-                              weather_feature_mask, generator, dropout_rate)
+                generator=None, dropout_rate=None, return_moe_aux=False):
+        outputs, aux = self.posterior(weather, coords, year, interval,
+                                      weather_feature_mask, generator,
+                                      dropout_rate)
+        return (outputs, aux) if return_moe_aux else outputs
 
 
 class _SinusoidPrior(WeatherFormer):
@@ -66,8 +70,8 @@ class _SinusoidPrior(WeatherFormer):
     PRIOR_DIM = "weather_dim"
 
     def __init__(self, cfg: ModelConfig, attention_impl: str = "torch",
-                 ffn_impl: str = "torch", num_experts: int = 0):
-        super().__init__(cfg, attention_impl, ffn_impl, num_experts)
+                 ffn_impl: str = "torch", gmm_impl: str = "kernel"):
+        super().__init__(cfg, attention_impl, ffn_impl, gmm_impl)
         shape = (1, cfg.k, cfg.max_len, getattr(cfg, self.PRIOR_DIM))
         self.frequency = nn.Parameter(torch.empty(shape))
         self.phase = nn.Parameter(torch.empty(shape))
@@ -109,14 +113,15 @@ class WeatherFormerSinusoid(_SinusoidPrior):
         nn.init.normal_(self.log_var_prior, -1.0, 0.1, generator=generator)
 
     def forward(self, weather, coords, year, interval, weather_feature_mask,
-                generator=None, dropout_rate=None):
-        mu_x, var_x = self.posterior(weather, coords, year, interval,
-                                     weather_feature_mask, generator,
-                                     dropout_rate)
+                generator=None, dropout_rate=None, return_moe_aux=False):
+        (mu_x, var_x), aux = self.posterior(weather, coords, year, interval,
+                                            weather_feature_mask, generator,
+                                            dropout_rate)
         b, t, f = weather.shape
         mu_p = self._sines(interval, t).sum(dim=1)
         var_p = _var(self.log_var_prior[:, :t]).expand(b, t, f)
-        return mu_x, var_x, mu_p, var_p
+        outputs = (mu_x, var_x, mu_p, var_p)
+        return (outputs, aux) if return_moe_aux else outputs
 
 
 class WeatherFormerMixture(_SinusoidPrior):
@@ -137,13 +142,14 @@ class WeatherFormerMixture(_SinusoidPrior):
         nn.init.constant_(self.mixture_logits, -math.log(float(self.cfg.k)))
 
     def forward(self, weather, coords, year, interval, weather_feature_mask,
-                generator=None, dropout_rate=None):
-        mu_x, var_x = self.posterior(weather, coords, year, interval,
-                                     weather_feature_mask, generator,
-                                     dropout_rate)
+                generator=None, dropout_rate=None, return_moe_aux=False):
+        (mu_x, var_x), aux = self.posterior(weather, coords, year, interval,
+                                            weather_feature_mask, generator,
+                                            dropout_rate)
         b, t, _ = weather.shape
         k, f = self.cfg.k, self.cfg.output_dim
         mu_k = self._sines(interval, t)
         var_k = _var(self.log_var_k[:, :, :t]).expand(b, k, t, f)
         log_w_k = F.log_softmax(self.mixture_logits, dim=1).expand(b, k)
-        return mu_x, var_x, mu_k, var_k, log_w_k
+        outputs = (mu_x, var_x, mu_k, var_k, log_w_k)
+        return (outputs, aux) if return_moe_aux else outputs

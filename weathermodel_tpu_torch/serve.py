@@ -83,6 +83,7 @@ def load_weather_predictor(
     max_len: int = 365,
     buckets: Sequence[int] = DEFAULT_BUCKETS,
     num_experts: int = 0,
+    moe_top_k: int = 2,
     quantize: str = "none",
     compute_dtype: str = "bfloat16",
     mesh=None,
@@ -90,11 +91,15 @@ def load_weather_predictor(
 ) -> WeatherPredictor:
     """Build the model, load a reference `.pth` state dict into it and wrap
     it in a WeatherPredictor on `device`. Parameters stay fp32; the forward
-    computes in `compute_dtype`."""
+    computes in `compute_dtype`. `num_experts` and `moe_top_k` must match
+    the checkpoint's training config: MoE layers run the dropless ragged
+    dispatch (exact under bucket padding: rows are independent), and a
+    checkpoint whose MoE-ness differs from `num_experts` raises."""
     from weathermodel_tpu_torch.cli.pretrain import (
         load_pretrained_params,
         make_model,
     )
+    from weathermodel_tpu_torch.models.transfer import has_moe_layers
 
     if mesh is not None:
         raise NotImplementedError(
@@ -104,17 +109,18 @@ def load_weather_predictor(
         raise NotImplementedError(
             f"quantize={quantize!r} (int8 serving, ops/quant.py) is not "
             "ported yet; see ROADMAP.md queue A item 13")
-    if num_experts > 0:
-        raise NotImplementedError(
-            "MoE serving is not ported yet; see ROADMAP.md queue A item 12")
     cfg = model_config_for_size(model_size, max_len=max_len,
+                                num_experts=num_experts, moe_top_k=moe_top_k,
                                 compute_dtype=compute_dtype)
     model = make_model(model_name, cfg, attention_impl)
     state_dict = load_pretrained_params(checkpoint_path)
-    if any(".moe." in k for k in state_dict):
+    if has_moe_layers(state_dict) != (num_experts > 0):
         raise ValueError(
-            f"checkpoint {checkpoint_path} contains MoE expert params but "
-            "the predictor was requested with num_experts=0")
+            f"checkpoint {checkpoint_path} "
+            f"{'contains' if has_moe_layers(state_dict) else 'lacks'} MoE "
+            f"expert params but the predictor was requested with "
+            f"num_experts={num_experts}; pass --moe-experts matching the "
+            "training config")
     missing = [k for k in model.state_dict() if k not in state_dict]
     if missing:
         raise ValueError(

@@ -16,7 +16,9 @@ Objectives (weathermodel_tpu/train/steps.py:109-169):
   elbo_sinusoid - the KL against the model's sinusoidal prior
   elbo_mixture  - the one-sample mixture KL at z = mu + sqrt(var) * eps
 The ELBO objectives also report `reconstruction`, `kl_term` and the `mae`
-of mu.
+of mu. A model with MoE layers also reports `moe_aux`, the mean of its
+layers' aux losses; the training total adds cfg.moe_aux_weight times it,
+the validation total stays the task loss (steps.py:57-107).
 
 Randomness: every draw comes from the CPU `torch.Generator` passed to the
 step (the trainer seeds one per epoch), as integer seeds on the host, so
@@ -131,17 +133,36 @@ def _draw_mask(masking, generator, shape, device, masking_prob, n_masked):
                      n_masked=torch.as_tensor(n_masked, device=device))
 
 
+def moe_aux_weight(model) -> float:
+    """cfg.moe_aux_weight when the model carries MoE layers, else 0."""
+    cfg = getattr(model, "cfg", None)
+    if cfg is not None and cfg.num_experts > 0:
+        return cfg.moe_aux_weight
+    return 0.0
+
+
 def _forward_losses(model, batch: Batch, mask, generator, dropout_rate,
-                    objective, beta, eps):
+                    objective, beta, eps, train: bool):
+    moe_w = moe_aux_weight(model)
     outputs = model(batch.weather, batch.coords, batch.year, batch.interval,
-                    mask, generator=generator, dropout_rate=dropout_rate)
+                    mask, generator=generator, dropout_rate=dropout_rate,
+                    return_moe_aux=bool(moe_w))
+    if moe_w:
+        outputs, moe_aux = outputs
     if objective == "masked_mse":
-        return masked_mse_losses(outputs, batch.weather, mask, batch.weight)
-    if objective == "elbo_mixture" and eps is None:
-        eps = torch.randn(batch.weather.shape, device=batch.weather.device,
-                          generator=_seeded(generator, batch.weather.device))
-    return elbo_losses(objective, outputs, batch.weather, mask, batch.weight,
-                       beta, eps)
+        losses = masked_mse_losses(outputs, batch.weather, mask, batch.weight)
+    else:
+        if objective == "elbo_mixture" and eps is None:
+            eps = torch.randn(
+                batch.weather.shape, device=batch.weather.device,
+                generator=_seeded(generator, batch.weather.device))
+        losses = elbo_losses(objective, outputs, batch.weather, mask,
+                             batch.weight, beta, eps)
+    if moe_w:
+        losses["moe_aux"] = moe_aux
+        if train:
+            losses["total_loss"] = losses["total_loss"] + moe_w * moe_aux
+    return losses
 
 
 def make_train_step(model, optimizer, masking: str, *,
@@ -177,7 +198,8 @@ def make_train_step(model, optimizer, masking: str, *,
                  if mask is None else mask[sl])
             losses = _forward_losses(model, micro, m, generator, dropout_rate,
                                      objective, beta,
-                                     None if eps is None else eps[sl])
+                                     None if eps is None else eps[sl],
+                                     train=True)
             losses["total_loss"].backward()
             metrics.append({k: v.detach() for k, v in losses.items()})
         if grad_accum > 1:
@@ -206,6 +228,6 @@ def make_eval_step(model, masking: str, *, masking_prob: float = 0.15,
                                   batch.weather.device, masking_prob,
                                   n_masked)
             return _forward_losses(model, batch, mask, generator, None,
-                                   objective, beta, eps)
+                                   objective, beta, eps, train=False)
 
     return eval_step

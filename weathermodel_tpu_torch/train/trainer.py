@@ -7,7 +7,8 @@ parameters saved on a better validation loss, and `output_json` with the
 JAX trainer's keys. Each pass seeds its loader shuffle and a CPU
 `torch.Generator` (masks and dropout) from
 seed_base = seed + (2 * epoch + split) * 100003, split 0 = train,
-1 = validation, as the JAX trainer does.
+1 = validation, as the JAX trainer does. The record's losses are every
+metric the step returns (`moe_aux` too for a MoE model), per scope.
 
 Not ported yet, and raising or absent until then: SIGTERM with mid-epoch
 resume and full-state checkpoints (ROADMAP.md queue A item 7), the LR range

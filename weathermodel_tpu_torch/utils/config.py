@@ -32,6 +32,18 @@ class ModelConfig:
     # "float32" for reference-numerics parity, "bfloat16" for speed;
     # parameters stay float32 either way
     compute_dtype: str = "float32"
+    # Mixture-of-Experts FFN (models/moe.py): num_experts > 0 replaces the
+    # dense FFN with a top-k routed expert FFN; 0 = dense. moe_aux_weight
+    # weighs the layers' mean Switch balance + router z loss in the training
+    # objective. Only the dropless "ragged" dispatch is ported; the capacity
+    # layouts ("sort", "scatter", which read moe_capacity_factor) and
+    # moe_remat raise (ROADMAP.md queue A item 12).
+    num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_remat: bool = False
+    moe_dispatch: str = "ragged"
 
     @property
     def hidden_dim(self) -> int:
