@@ -63,6 +63,26 @@ Phases, each printing one line; any failure raises and exits non-zero:
                train loss falls; the same timings (TFLOP/s from the MoE
                analytic count), profile and one-step comparison with the plain
                path (plain grouped matmuls, plain attention) as phase 6
+  11. kernel_ffn - the fused FFN + residual + LayerNorm B6f, its backward
+               B6b and the fused FFN B7 (with and without its hidden output)
+               vs their plain versions at the bench microbatch's shapes (M =
+               288 x 365 = 105120 rows, H=576, F=2304) in bf16 and fp32,
+               dropout 0.1 (the same seeds on both sides) and 0, then at the
+               edge shapes H=200/F=800 and H=48/F=192 with M not a multiple
+               of the 32-row block; CUDA-event times of the kernel, the plain
+               version and the yardstick (the port's "torch" FFN: F.linear,
+               ReLU, F.linear, and for B6 the residual and F.layer_norm; its
+               autograd backward for B6b)
+  12. bench - `python -m weathermodel_tpu_torch.bench`'s run(env) at
+               WeatherBERT-large, 2 x 288, bf16, dropout 0.1, for
+               BENCH_FFN_IMPL torch, fused_ffn_ln and fused_ffn (each JSON
+               line printed): per step 16 launches of B1 train and B2 in all
+               three, of B6f and B6b with fused_ffn_ln, of B7 with fused_ffn;
+               BENCH_MODE=eval runs of the two fused impls (8 launches of B6f
+               or B7, without its hidden output, per batch); finite losses; a
+               torch.profiler step of each fused impl; one step of each fused
+               path against the plain path (plain attention and FFN) at 16
+               windows, dropout off, fp32 and bf16
 The card's name and power limit are printed by phase 1 and again before the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -134,19 +154,13 @@ PEAK_BYTES_PER_S = 3.35e12
 
 
 def train_flops_per_sample(cfg, out_dim=None) -> float:
-    """Matmul FLOPs per sample of one training step (forward + backward =
-    3x forward) of the encoder with an output head of `out_dim` (default
-    cfg.output_dim; 2F for the WeatherFormer's (mu, log var)): the analytic
-    count of bench.py:35-54, restated here (77.2 GFLOP for WeatherBERT-large,
-    T=365; with 8 experts, top-2, each token runs k expert FFNs and the
-    router: 123.8 GFLOP)."""
-    t, h, n_layers = cfg.max_len, cfg.hidden_dim, cfg.num_layers
-    ffn_macs = 8 * t * h * h
-    if cfg.num_experts > 0:
-        ffn_macs = cfg.moe_top_k * 8 * t * h * h + t * h * cfg.num_experts
-    macs = n_layers * (4 * t * h * h + ffn_macs + 2 * t * t * h)
-    macs += cfg.input_dim * t * h + t * h * (out_dim or cfg.output_dim)
-    return 3.0 * 2.0 * macs
+    """Matmul FLOPs per sample of one training step (forward + backward) of
+    the encoder with an output head of `out_dim` (default cfg.output_dim;
+    2F for the WeatherFormer's (mu, log var)): the bench's analytic count
+    (77.2 GFLOP for WeatherBERT-large, T=365; with 8 experts, top-2: 123.8)."""
+    from weathermodel_tpu_torch.bench import analytic_flops_per_sample
+
+    return analytic_flops_per_sample(cfg, "train", out_dim)
 
 
 def _bound(flops: float, nbytes: float, dtype):
@@ -520,7 +534,8 @@ def _kernel_events(prof):
     return sorted(kernels, key=_device_ms, reverse=True)
 
 
-def _train_step_fn(name, cfg, impl, device, grad_accum=1, gmm_impl="kernel"):
+def _train_step_fn(name, cfg, impl, device, grad_accum=1, gmm_impl="kernel",
+                   ffn_impl="torch"):
     """A seeded model `name` on `device` and its train step with the
     model's objective (beta 0.5, the CLI's default)."""
     from weathermodel_tpu_torch.cli.pretrain import make_model
@@ -530,7 +545,7 @@ def _train_step_fn(name, cfg, impl, device, grad_accum=1, gmm_impl="kernel"):
         make_train_step,
     )
 
-    model = make_model(name, cfg, impl, gmm_impl=gmm_impl)
+    model = make_model(name, cfg, impl, ffn_impl, gmm_impl)
     model.reset_parameters(torch.Generator().manual_seed(SEED))
     model = model.to(device)
     objective, masking = OBJECTIVE_FOR_MODEL[name]
@@ -539,12 +554,14 @@ def _train_step_fn(name, cfg, impl, device, grad_accum=1, gmm_impl="kernel"):
                                   beta=0.5)
 
 
-def _profile_step(name, cfg, impl, batch_size, grad_accum=1):
+def _profile_step(name, cfg, impl, batch_size, grad_accum=1,
+                  ffn_impl="torch"):
     """torch.profiler over one train step (after a warm-up step): device
     time by op and the device's busy share of the step."""
     from weathermodel_tpu_torch.train.steps import batch_to_device
 
-    _, step = _train_step_fn(name, cfg, impl, "cuda", grad_accum)
+    _, step = _train_step_fn(name, cfg, impl, "cuda", grad_accum,
+                             ffn_impl=ffn_impl)
     batch = batch_to_device(_windows_batch(batch_size, SEED)[0], "cuda")
     gen = torch.Generator().manual_seed(SEED)
     float(step(batch, gen, 1e-4, 10)["total_loss"])  # warm-up
@@ -573,26 +590,27 @@ def _grad_rel(a, b):
                                          b.parameters()))
 
 
-def _step_parity(name, size, impl, dtype: str, moe=None):
-    """One train step of the kernel path `impl` against the plain path
-    (plain attention; with `moe`, the MoE config, also the plain grouped
-    matmuls) at STEP_WINDOWS windows, full width, the same weights, batch
-    and mask, dropout off: (loss rel diff, worst gradient rel diff, its
-    parameter, and in fp32 the same worst gradient diff between the plain
-    path on the card and on the CPU: the noise floor of two plain fp32
-    runs)."""
+def _step_parity(name, size, impl, dtype: str, moe=None, ffn_impl="torch"):
+    """One train step of the kernel path `impl` (with `ffn_impl`) against the
+    plain path (plain attention and FFN; with `moe`, the MoE config, also the
+    plain grouped matmuls) at STEP_WINDOWS windows, full width, the same
+    weights, batch and mask, dropout off: (loss rel diff, worst gradient rel
+    diff, its parameter, and in fp32 the same worst gradient diff between
+    the plain path on the card and on the CPU: the noise floor of two plain
+    fp32 runs)."""
     from weathermodel_tpu_torch.train.steps import batch_to_device
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
     cfg = model_config_for_size(size, compute_dtype=dtype, **(moe or {}))
     batch, mask = _windows_batch(STEP_WINDOWS, SEED + 2)
-    runs = [(impl, "kernel", "cuda"), ("torch", "plain", "cuda")]
+    runs = [(impl, ffn_impl, "kernel", "cuda"),
+            ("torch", "torch", "plain", "cuda")]
     if dtype == "float32":
-        runs.append(("torch", "plain", "cpu"))
+        runs.append(("torch", "torch", "plain", "cpu"))
     models, losses = [], []
-    for run_impl, gmm_impl, device in runs:
+    for run_impl, run_ffn, gmm_impl, device in runs:
         model, step = _train_step_fn(name, cfg, run_impl, device,
-                                     gmm_impl=gmm_impl)
+                                     gmm_impl=gmm_impl, ffn_impl=run_ffn)
         out = step(batch_to_device(batch, device),
                    torch.Generator().manual_seed(SEED), 0.0, 10,
                    mask=torch.from_numpy(mask).to(device), dropout_rate=0.0)
@@ -603,10 +621,10 @@ def _step_parity(name, size, impl, dtype: str, moe=None):
     return (loss_rel, *_grad_rel(models[0], models[1]), floor)
 
 
-def _check_step_parity(name, size, impl, moe=None):
+def _check_step_parity(name, size, impl, moe=None, ffn_impl="torch"):
     parity = {}
     for dtype in ("float32", "bfloat16"):
-        parity[dtype] = _step_parity(name, size, impl, dtype, moe)
+        parity[dtype] = _step_parity(name, size, impl, dtype, moe, ffn_impl)
         loss_rel, grad_rel, _, _ = parity[dtype]
         tol = STEP_TOL[dtype]
         if loss_rel > tol["loss"] or grad_rel > tol.get("grad", np.inf):
@@ -614,9 +632,10 @@ def _check_step_parity(name, size, impl, moe=None):
                 f"{name} {dtype}: one step, kernel path vs plain path (loss "
                 f"rel, worst gradient, its parameter) {parity[dtype]}, bars "
                 f"{tol}")
+    what = ("attention and grouped matmuls" if moe else "attention"
+            if ffn_impl == "torch" else f"attention and {ffn_impl}")
     return (f"one step at {STEP_WINDOWS} windows, kernel path vs plain "
-            f"path ({'attention and grouped matmuls' if moe else 'attention'}"
-            "), dropout off, (loss rel, worst gradient "
+            f"path ({what}), dropout off, (loss rel, worst gradient "
             "||diff||/||grad||, its parameter, the plain path's card-vs-CPU "
             f"worst gradient diff): {parity}; bars {STEP_TOL}")
 
@@ -686,11 +705,20 @@ def _all_kernels():
         fused_qkv_attention_bwd,
         fused_qkv_attention_train,
     )
+    from weathermodel_tpu_torch.ops.fused_ffn import fused_ffn
+    from weathermodel_tpu_torch.ops.fused_ffn_ln import (
+        fused_ffn_ln,
+        fused_ffn_ln_bwd,
+    )
     from weathermodel_tpu_torch.ops.gmm import gmm, tgmm
 
     return (fused_qkv_attention, fused_qkv_attention_train,
             fused_qkv_attention_bwd, flash_attention_fwd, flash_attention_bwd,
-            gmm, tgmm)
+            gmm, tgmm, fused_ffn_ln, fused_ffn_ln_bwd, fused_ffn)
+
+
+# the FFN kernels, launched on no path but the bench's
+NO_FFN = {"fused_ffn_ln": 0, "fused_ffn_ln_bwd": 0, "fused_ffn": 0}
 
 
 def _check_record(record, keys=("total_loss",)):
@@ -744,7 +772,7 @@ def phase_train(smi: str, data: Path):
         "fused_qkv_attention_train": per_step * steps,
         "fused_qkv_attention_bwd": per_step * steps,
         "flash_attention_fwd": 0, "flash_attention_bwd": 0, "gmm": 0,
-        "tgmm": 0}, steps, val_batches)
+        "tgmm": 0, **NO_FFN}, steps, val_batches)
     train_loss, val_loss = _check_record(record)
     ms, rate, tflops, gflop = _throughput(result, cfg, TRAIN_BATCH)
     print(f"train: wm-pretrain-torch WeatherBERT-{MODEL_SIZE} bf16 "
@@ -880,8 +908,8 @@ def phase_train_former(smi: str, data: Path):
         "fused_qkv_attention": 0, "fused_qkv_attention_train": 0,
         "fused_qkv_attention_bwd": 0,
         "flash_attention_fwd": n * (steps + val_batches),
-        "flash_attention_bwd": n * steps, "gmm": 0, "tgmm": 0}, steps,
-        val_batches)
+        "flash_attention_bwd": n * steps, "gmm": 0, "tgmm": 0, **NO_FFN},
+        steps, val_batches)
     train_loss, val_loss = _check_record(
         record, ("total_loss", "reconstruction", "kl_term"))
     out_dim = 2 * cfg.output_dim
@@ -1130,7 +1158,7 @@ def phase_train_moe(smi: str, data: Path):
         "fused_qkv_attention_bwd": per_step * steps,
         "flash_attention_fwd": 0, "flash_attention_bwd": 0,
         "gmm": 4 * per_step * steps + 2 * cfg.num_layers * val_batches,
-        "tgmm": 2 * per_step * steps}, steps, val_batches)
+        "tgmm": 2 * per_step * steps, **NO_FFN}, steps, val_batches)
     train_loss, val_loss = _check_record(record, ("total_loss", "moe_aux"))
     ms, rate, tflops, gflop = _throughput(result, cfg, MOE_BATCH)
     aux = record["losses"]["train"]["moe_aux"]
@@ -1152,13 +1180,248 @@ def phase_train_moe(smi: str, data: Path):
     return launches
 
 
+# the bench microbatch's FFN rows (2 x 288 windows of 365 steps: 288 x 365)
+# and the edge shapes (M, H, F): M not a multiple of the 32-row block, H and
+# F not multiples of 16 or 128
+FFN_ROWS = MICRO * SEQ_LEN
+FFN_EDGE_SHAPES = [(1001, 200, 800), (333, 48, 192)]
+FFN_SEEDS = (20260103, 20260104)
+
+
+def _ffn_inputs(m, h, f, dtype, seed):
+    """x [m, h] N(0, 1), weights and biases U(+-1/sqrt(fan_in)) (fp32
+    vectors), LN scale 1 + 0.1 N, bias 0.1 N, and a cotangent N(0, 1/m), a
+    mean loss's scale, at which the weight gradients (sums over m rows) come
+    out O(1) like the other outputs, the scale KERNEL_TOL is set for."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=g) * scale
+
+    def uniform(fan_in, *shape):
+        return (torch.rand(*shape, device="cuda", generator=g) * 2 - 1) \
+            / fan_in ** 0.5
+
+    return dict(x=normal(m, h).to(dtype), w1=uniform(h, h, f).to(dtype),
+                b1=uniform(h, f), w2=uniform(f, f, h).to(dtype),
+                b2=uniform(f, h), ls=1 + normal(h, scale=0.1),
+                lb=normal(h, scale=0.1),
+                do=normal(m, h, scale=m ** -0.5).to(dtype))
+
+
+def _ffn_bounds(m, h, f, dtype):
+    """(B6f, B6b, B7 with its hidden output) bounds: 4 M H F operations
+    forward, 12 backward; each reads x and the parameters once and writes
+    its outputs once (B6b also reads do and writes dx and the parameters'
+    gradients; B7 writes f and h)."""
+    e = dtype.itemsize
+    params = 2 * h * f * e + (f + 3 * h) * 4
+    flops = 4.0 * m * h * f
+    return dict(
+        fwd_bound=_bound(flops, 2 * m * h * e + params, dtype),
+        bwd_bound=_bound(3 * flops, 3 * m * h * e + 2 * params, dtype),
+        b7_bound=_bound(flops, (2 * m * h + m * f) * e + params - 2 * h * 4,
+                        dtype))
+
+
+def _ffn_yardstick(t, train: bool, ln: bool):
+    """The port's "torch" FFN in the compute dtype on the same inputs (no
+    dropout): F.linear, ReLU, F.linear, and for B6 the residual and
+    F.layer_norm; with `train`, forward and autograd backward. Timed beside
+    the kernels, never the port's path."""
+    dtype = t["x"].dtype
+    w1, w2 = t["w1"].T.contiguous(), t["w2"].T.contiguous()
+    b1, b2 = t["b1"].to(dtype), t["b2"].to(dtype)
+    leaves = [a.detach().requires_grad_(train) for a in (t["x"], w1, w2)]
+
+    def run():
+        x, a, b = leaves
+        y = F.linear(F.relu(F.linear(x, a, b1)), b, b2)
+        if ln:
+            y = F.layer_norm(x + y, y.shape[-1:], t["ls"].to(dtype),
+                             t["lb"].to(dtype), 1e-5)
+        if train:
+            return torch.autograd.grad(y, leaves, t["do"])
+        return y
+
+    return run
+
+
+def _ffn_case(t, rate, timed: bool):
+    """B6f, B6b and B7 (with and without h) against their plain versions on
+    one set of inputs."""
+    from weathermodel_tpu_torch.ops.fused_ffn import (
+        fused_ffn,
+        fused_ffn_reference,
+    )
+    from weathermodel_tpu_torch.ops.fused_ffn_ln import (
+        fused_ffn_ln,
+        fused_ffn_ln_bwd,
+        fused_ffn_ln_bwd_reference,
+        fused_ffn_ln_reference,
+    )
+
+    dtype = t["x"].dtype
+    ln_args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["ls"], t["lb"])
+    ffn_args = ln_args[:5]
+    bwd_args = (*ln_args, t["do"])
+    errs = {"out": _check_kernel(
+        f"B6f {dtype} dropout {rate}", fused_ffn_ln(*ln_args, rate, FFN_SEEDS),
+        fused_ffn_ln_reference(*ln_args, rate, FFN_SEEDS), dtype)}
+    got = fused_ffn_ln_bwd(*bwd_args, rate, FFN_SEEDS)
+    want = fused_ffn_ln_bwd_reference(*bwd_args, rate, FFN_SEEDS)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb"),
+                          got, want):
+        errs[name] = _check_kernel(f"B6b {name} {dtype} dropout {rate}", a,
+                                   b, dtype)
+    del got, want
+    f_k, h_k = fused_ffn(*ffn_args, rate, FFN_SEEDS, want_h=True)
+    f_p, h_p = fused_ffn_reference(*ffn_args, rate, FFN_SEEDS, True)
+    errs["f"] = _check_kernel(f"B7 f {dtype} dropout {rate}", f_k, f_p, dtype)
+    errs["h"] = _check_kernel(f"B7 h {dtype} dropout {rate}", h_k, h_p, dtype)
+    f_only = fused_ffn(*ffn_args, rate, FFN_SEEDS)
+    torch.cuda.synchronize()
+    if f_only[1] is not None or not torch.equal(f_only[0], f_k):
+        raise AssertionError("B7 without its hidden output differs from B7 "
+                             "with it")
+    del f_k, h_k, f_p, h_p, f_only
+    r = dict(fwd_err=errs["out"][0],
+             bwd_err=max(errs[n][0] for n in ("dx", "dw1", "db1", "dw2",
+                                               "db2", "dls", "dlb")),
+             b7_err=max(errs["f"][0], errs["h"][0]), errs=_errs_text(errs))
+    if not timed:
+        return r
+    torch.cuda.empty_cache()
+    r.update(
+        fwd_ms=_cuda_ms(lambda: fused_ffn_ln(*ln_args, rate, FFN_SEEDS)),
+        fwd_plain_ms=_cuda_ms(lambda: fused_ffn_ln_reference(
+            *ln_args, rate, FFN_SEEDS), iters=3, warmup=1),
+        fwd_library_ms=_cuda_ms(_ffn_yardstick(t, False, True)),
+        bwd_ms=_cuda_ms(lambda: fused_ffn_ln_bwd(*bwd_args, rate, FFN_SEEDS)),
+        bwd_plain_ms=_cuda_ms(lambda: fused_ffn_ln_bwd_reference(
+            *bwd_args, rate, FFN_SEEDS), iters=3, warmup=1),
+        bwd_library_ms=_cuda_ms(_ffn_yardstick(t, True, True)),
+        b7_ms=_cuda_ms(lambda: fused_ffn(*ffn_args, rate, FFN_SEEDS,
+                                         want_h=True)),
+        b7_plain_ms=_cuda_ms(lambda: fused_ffn_reference(
+            *ffn_args, rate, FFN_SEEDS, True), iters=3, warmup=1),
+        b7_library_ms=_cuda_ms(_ffn_yardstick(t, False, False)),
+        b7_eval_ms=_cuda_ms(lambda: fused_ffn(*ffn_args, rate, FFN_SEEDS)))
+    return r
+
+
+def phase_kernel_ffn():
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(MODEL_SIZE)
+    h, f = cfg.hidden_dim, cfg.ffn_dim
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        t = _ffn_inputs(FFN_ROWS, h, f, dtype, SEED + 7)
+        for rate in (DROPOUT, 0.0):
+            r = _ffn_case(t, rate, timed=rate == DROPOUT)
+            results[dtype, rate] = r
+            line = (f"kernel_ffn: M={FFN_ROWS} H={h} F={f} "
+                    f"{str(dtype).split('.')[1]} dropout {rate}: max|err| "
+                    f"{r['errs']}")
+            if "fwd_ms" in r:
+                r.update(_ffn_bounds(FFN_ROWS, h, f, dtype))
+                line += "".join(
+                    f"; {name} kernel {r[k + '_ms']:.3f} ms, plain "
+                    f"{r[k + '_plain_ms']:.3f}, {lib} "
+                    f"{r[k + '_library_ms']:.3f}, bound "
+                    f"{r[k + '_bound'][0]:.3f} by {r[k + '_bound'][1]}"
+                    for name, k, lib in (
+                        ("B6f", "fwd", "torch FFN+LN"),
+                        ("B6b", "bwd", "torch FFN+LN fwd+bwd"),
+                        ("B7 with h", "b7", "torch FFN")))
+                line += f"; B7 without h {r['b7_eval_ms']:.3f} ms"
+            print(line, flush=True)
+        del t
+        torch.cuda.empty_cache()
+    edge = []
+    for m, h_e, f_e in FFN_EDGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            t = _ffn_inputs(m, h_e, f_e, dtype, SEED + 8)
+            for rate in (DROPOUT, 0.0):
+                r = _ffn_case(t, rate, timed=False)
+                edge.append(max(r["fwd_err"], r["bwd_err"], r["b7_err"]))
+    print(f"kernel_ffn: edge shapes (M, H, F) {FFN_EDGE_SHAPES}, fp32 and "
+          f"bf16, dropout {DROPOUT} and 0: {len(edge)} cases, max|err| "
+          f"{max(edge):.3g} (tol {KERNEL_TOL}, {SCALE_TOL} x max)", flush=True)
+    return results[torch.bfloat16, DROPOUT]
+
+
+# bench steps timed per run (after its 3 warm-up steps)
+BENCH_STEPS = 3
+
+
+def _bench(env, counted):
+    """The port's bench run(env) with every wrapper in `counted` set to 0
+    just before: (its record, launches by wrapper name, steps run)."""
+    from weathermodel_tpu_torch import bench
+
+    for fn in counted:
+        fn.launches = 0
+    record = bench.run({"BENCH_MODEL_SIZE": MODEL_SIZE,
+                        "BENCH_DROPOUT_RATE": str(DROPOUT),
+                        "BENCH_STEPS": str(BENCH_STEPS), **env}, "cuda")
+    if not np.isfinite(record["loss"]):
+        raise AssertionError(f"bench {env}: non-finite loss {record}")
+    launches = {fn.__name__: fn.launches for fn in counted}
+    return record, launches, 3 + BENCH_STEPS
+
+
+def phase_bench(smi: str):
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(MODEL_SIZE, compute_dtype="bfloat16")
+    per_step = GRAD_ACCUM * cfg.num_layers
+    counted = _all_kernels()
+    zero = {fn.__name__: 0 for fn in counted}
+    launches, lines = {}, []
+    for impl in ("torch", "fused_ffn_ln", "fused_ffn"):
+        record, got, steps = _bench({"BENCH_FFN_IMPL": impl}, counted)
+        n = per_step * steps
+        ffn = {"torch": {}, "fused_ffn_ln": dict(fused_ffn_ln=n,
+                                                 fused_ffn_ln_bwd=n),
+               "fused_ffn": dict(fused_ffn=n)}[impl]
+        _check_launches(got, {**zero, "fused_qkv_attention_train": n,
+                              "fused_qkv_attention_bwd": n, **ffn}, steps, 0)
+        launches[impl] = got
+        lines.append(f"{impl}: {record['value']} samples/s, "
+                     f"{record['tflops']} TFLOP/s, mfu {record['mfu']}, loss "
+                     f"{record['loss']:.4f}")
+    for impl, name in (("fused_ffn_ln", "fused_ffn_ln"),
+                       ("fused_ffn", "fused_ffn")):
+        record, got, steps = _bench({"BENCH_FFN_IMPL": impl,
+                                     "BENCH_MODE": "eval"}, counted)
+        n = cfg.num_layers * steps
+        _check_launches(got, {**zero, "fused_qkv_attention": n, name: n},
+                        steps, 0)
+        lines.append(f"{impl} eval: {record['value']} samples/s, "
+                     f"{record['tflops']} TFLOP/s, loss {record['loss']:.4f}")
+    print(f"bench: WeatherBERT-{MODEL_SIZE} bf16, {TRAIN_BATCH} = {GRAD_ACCUM} "
+          f"x {MICRO}, dropout {DROPOUT}, 3 warm-up + {BENCH_STEPS} timed "
+          f"steps a run: " + "; ".join(lines) + f"; launches {launches}; card "
+          f"{smi}", flush=True)
+    for impl in ("fused_ffn_ln", "fused_ffn"):
+        print(f"bench: {impl} " + _profile_step(
+            "weatherbert", cfg, "fused_qkv", TRAIN_BATCH, GRAD_ACCUM,
+            ffn_impl=impl), flush=True)
+        print(f"bench: {impl} " + _check_step_parity(
+            "weatherbert", MODEL_SIZE, "fused_qkv", ffn_impl=impl), flush=True)
+    return launches
+
+
 def _record(name, source, replaces, launches, k, prefix):
-    """One kernel's entry of the JSON line: `k` is a kernel phase's result
-    and `prefix` ("fwd" or "bwd") picks the kernel's numbers in it."""
+    """One kernel's entry of the JSON line: `replaces` is "file:line" under
+    weathermodel_tpu/ops/, `k` a kernel phase's result and `prefix` ("fwd",
+    "bwd", ...) picks the kernel's numbers in it."""
     bound_ms, bound_by = k[prefix + "_bound"]
     return dict(name=name, route="cuda",
                 source="weathermodel_tpu_torch/csrc/" + source,
-                replaces="weathermodel_tpu/ops/pallas_attention.py:" + replaces,
+                replaces="weathermodel_tpu/ops/" + replaces,
                 launches=launches, max_abs_err=k[prefix + "_err"],
                 ms=k[prefix + "_ms"], plain_ms=k[prefix + "_plain_ms"],
                 bound_ms=bound_ms, bound_by=bound_by,
@@ -1180,6 +1443,8 @@ def main():
         former_launches = phase_train_former(smi, data)
         gmm_kernel, tgmm_kernel = phase_kernel_gmm()
         moe_launches = phase_train_moe(smi, data)
+    ffn_kernels = phase_kernel_ffn()
+    bench_launches = phase_bench(smi)
     tk, fk = train_kernels, flash_kernels
     records = [
         dict(name="fused_qkv_attention", route="cuda",
@@ -1189,13 +1454,16 @@ def main():
              ms=kernel["ms"], plain_ms=kernel["plain_ms"],
              bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"],
              library_ms=kernel["library_ms"]),
-        _record("fused_qkv_attention_train", "fused_qkv_attention.cu", "242",
+        _record("fused_qkv_attention_train", "fused_qkv_attention.cu",
+                "pallas_attention.py:242",
                 train_launches["fused_qkv_attention_train"], tk, "fwd"),
         _record("fused_qkv_attention_bwd", "fused_qkv_attention_bwd.cu",
-                "391", train_launches["fused_qkv_attention_bwd"], tk, "bwd"),
-        _record("flash_attention_fwd", "flash_attention.cu", "199",
+                "pallas_attention.py:391", train_launches["fused_qkv_attention_bwd"], tk, "bwd"),
+        _record("flash_attention_fwd", "flash_attention.cu",
+                "pallas_attention.py:199",
                 former_launches["flash_attention_fwd"], fk, "fwd"),
-        _record("flash_attention_bwd", "flash_attention_bwd.cu", "288",
+        _record("flash_attention_bwd", "flash_attention_bwd.cu",
+                "pallas_attention.py:288",
                 former_launches["flash_attention_bwd"], fk, "bwd"),
         *(dict(name=name, route="cuda",
                source=f"weathermodel_tpu_torch/csrc/{name}.cu",
@@ -1203,6 +1471,14 @@ def main():
                launches=moe_launches[name], **k)
           for name, line, k in (("gmm", 155, gmm_kernel),
                                 ("tgmm", 233, tgmm_kernel))),
+        _record("fused_ffn_ln", "fused_ffn_ln.cu", "pallas_ffn.py:63",
+                bench_launches["fused_ffn_ln"]["fused_ffn_ln"], ffn_kernels,
+                "fwd"),
+        _record("fused_ffn_ln_bwd", "fused_ffn_ln_bwd.cu", "pallas_ffn.py:94",
+                bench_launches["fused_ffn_ln"]["fused_ffn_ln_bwd"],
+                ffn_kernels, "bwd"),
+        _record("fused_ffn", "fused_ffn.cu", "pallas_ffn2.py:55",
+                bench_launches["fused_ffn"]["fused_ffn"], ffn_kernels, "b7"),
     ]
     print(f"card: {smi}")
     print(json.dumps({"kernels": records}))

@@ -20,6 +20,7 @@ from weathermodel_tpu_torch.ops.flash_attention import (
 from weathermodel_tpu_torch.ops.fused_qkv_attention import (
     fused_qkv_attention_train_reference,
 )
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 
 
 def _inputs(b, t, h, seed=0):

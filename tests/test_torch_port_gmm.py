@@ -17,6 +17,8 @@ from weathermodel_tpu_torch.ops.gmm import (
     group_offsets,
     tgmm,
 )
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
+
 
 # (S, group sizes), as tests/test_pallas_gmm.py:36-44: boundaries inside
 # tiles, empty first/last group, empty middle group with S % bm != 0, one

@@ -18,6 +18,18 @@ from weathermodel_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_fwd_reference,
 )
+from weathermodel_tpu_torch.ops.fused_ffn import (
+    FusedFFN,
+    fused_ffn,
+    fused_ffn_reference,
+)
+from weathermodel_tpu_torch.ops.fused_ffn_ln import (
+    FusedFFNLN,
+    fused_ffn_ln,
+    fused_ffn_ln_bwd,
+    fused_ffn_ln_bwd_reference,
+    fused_ffn_ln_reference,
+)
 from weathermodel_tpu_torch.ops.fused_qkv_attention import (
     fused_qkv_attention,
     fused_qkv_attention_bwd,
@@ -33,6 +45,7 @@ from weathermodel_tpu_torch.ops.gmm import (
     tgmm,
     tgmm_reference,
 )
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 from weathermodel_tpu_torch.train.state import make_optimizer
 from weathermodel_tpu_torch.train.steps import (
     Batch,
@@ -40,6 +53,7 @@ from weathermodel_tpu_torch.train.steps import (
     make_train_step,
 )
 from weathermodel_tpu_torch.utils.config import model_config_for_size
+
 
 pytestmark = pytest.mark.gpu
 
@@ -407,3 +421,147 @@ def test_serve_entry_point_launches_kernel(cuda, tmp_path):
     with np.load(tmp_path / "o.npz") as z:
         out = z["output"]
     assert out.shape == (45, 24, 31) and np.isfinite(out).all()
+
+
+# fused FFN kernels: rows not a multiple of the 32-row block, H and F not
+# multiples of 16 or 128; the last at WeatherBERT-large's widths
+FFN_SHAPES = [(300, 48, 192), (1000, 200, 800), (730, 576, 2304)]
+# against each output's own scale: a flipped bf16 rounding of an
+# intermediate moves an output by about one ulp (2^-8 relative); fp32 sums
+# in another order only
+FFN_SCALE_TOL = {torch.float32: 2.0 ** -16, torch.bfloat16: 2.0 ** -6}
+
+
+def _ffn_inputs(m, h, f, dtype, device, seed=0):
+    """x [m, h], W1, b1, W2, b2, LN scale and bias (fp32 vectors), and a
+    cotangent of a mean loss's scale (the weight gradients O(1))."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=dtype):
+        return torch.tensor(a, dtype=dt, device=device)
+
+    return (t(rng.normal(size=(m, h))),
+            t(rng.uniform(-1, 1, (h, f)) / h ** 0.5),
+            t(rng.uniform(-1, 1, f) / h ** 0.5, torch.float32),
+            t(rng.uniform(-1, 1, (f, h)) / f ** 0.5),
+            t(rng.uniform(-1, 1, h) / f ** 0.5, torch.float32),
+            t(1 + 0.1 * rng.normal(size=h), torch.float32),
+            t(0.1 * rng.normal(size=h), torch.float32),
+            t(rng.normal(size=(m, h)) / m ** 0.5))
+
+
+def _assert_scaled_close(name, got, want, dtype):
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, **TOL[dtype], msg=lambda m: name + m)
+    err = (got - want).abs().max().item()
+    assert err <= FFN_SCALE_TOL[dtype] * want.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,h,f", FFN_SHAPES)
+def test_ffn_kernels_match_plain(cuda, dtype, rate, m, h, f):
+    x, w1, b1, w2, b2, ls, lb, do = _ffn_inputs(m, h, f, dtype, cuda)
+    seeds = (11, 2 ** 32 - 5)
+    counts = (fused_ffn_ln.launches, fused_ffn_ln_bwd.launches,
+              fused_ffn.launches)
+    ln_args = (x, w1, b1, w2, b2, ls, lb)
+    _assert_scaled_close("B6f out", fused_ffn_ln(*ln_args, rate, seeds),
+                         fused_ffn_ln_reference(*ln_args, rate, seeds), dtype)
+    got = fused_ffn_ln_bwd(*ln_args, do, rate, seeds)
+    want = fused_ffn_ln_bwd_reference(*ln_args, do, rate, seeds)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb"),
+                          got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        _assert_scaled_close("B6b " + name, a, b, dtype)
+    f_k, h_k = fused_ffn(x, w1, b1, w2, b2, rate, seeds, want_h=True)
+    f_p, h_p = fused_ffn_reference(x, w1, b1, w2, b2, rate, seeds, True)
+    _assert_scaled_close("B7 f", f_k, f_p, dtype)
+    _assert_scaled_close("B7 h", h_k, h_p, dtype)
+    f_only, none = fused_ffn(x, w1, b1, w2, b2, rate, seeds)
+    assert none is None and torch.equal(f_only, f_k)
+    if rate > 0:  # the kernels drop exactly where the plain versions do
+        assert torch.equal(f_k == 0, f_p == 0)
+        assert torch.equal(h_k == 0, h_p == 0)
+    assert (fused_ffn_ln.launches, fused_ffn_ln_bwd.launches,
+            fused_ffn.launches) == (counts[0] + 1, counts[1] + 1,
+                                    counts[2] + 2)
+
+
+def test_ffn_functions_match_autograd_of_plain(cuda):
+    """FusedFFNLN's and FusedFFN's gradients against autograd through the
+    plain versions (fp32, dropout on: the same masks)."""
+    x, w1, b1, w2, b2, ls, lb, do = _ffn_inputs(300, 200, 800,
+                                                 torch.float32, cuda)
+    seeds = (3, 4)
+    for fn, ref, args in (
+            (lambda *a: FusedFFNLN.apply(*a, 0.1, seeds),
+             lambda *a: fused_ffn_ln_reference(*a, 0.1, seeds),
+             (x, w1, b1, w2, b2, ls, lb)),
+            (lambda *a: FusedFFN.apply(*a, 0.1, seeds),
+             lambda *a: fused_ffn_reference(*a, 0.1, seeds)[0],
+             (x, w1, b1, w2, b2))):
+        leaves = [a.detach().requires_grad_() for a in args]
+        got = torch.autograd.grad(fn(*leaves), leaves, do)
+        leaves = [a.detach().requires_grad_() for a in args]
+        want = torch.autograd.grad(ref(*leaves), leaves, do)
+        for a, b in zip(got, want):
+            _assert_scaled_close("grad", a, b, torch.float32)
+
+
+def test_ffn_kernels_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
+    from weathermodel_tpu_torch.ops import fused_ffn as b7_ops
+    from weathermodel_tpu_torch.ops import fused_ffn_ln as b6_ops
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(b6_ops, "fused_ffn_ln_reference", refuse)
+    monkeypatch.setattr(b6_ops, "fused_ffn_ln_bwd_reference", refuse)
+    monkeypatch.setattr(b7_ops, "fused_ffn_reference", refuse)
+    x, w1, b1, w2, b2, ls, lb, do = _ffn_inputs(40, 48, 192, torch.float32,
+                                                 cuda)
+    b6_ops.fused_ffn_ln(x, w1, b1, w2, b2, ls, lb)
+    b6_ops.fused_ffn_ln_bwd(x, w1, b1, w2, b2, ls, lb, do)
+    b7_ops.fused_ffn(x, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="dtype"):
+        b7_ops.fused_ffn(x.half(), w1.half(), b1, w2.half(), b2)
+    with pytest.raises(ValueError, match="contiguous"):
+        b7_ops.fused_ffn(x, w2.T, b1, w1.T, b2)
+    wide = torch.zeros(4, 656, device=cuda)
+    with pytest.raises(ValueError, match="640"):
+        b7_ops.fused_ffn(wide, torch.zeros(656, 8, device=cuda), b1[:8],
+                         torch.zeros(8, 656, device=cuda),
+                         torch.zeros(656, device=cuda))
+
+
+@pytest.mark.parametrize("ffn_impl", ["fused_ffn_ln", "fused_ffn"])
+def test_model_ffn_kernel_paths_match_plain_path(cuda, ffn_impl):
+    """WeatherBERT-small, fp32: the eval forward of each fused FFN impl
+    against the plain FFN at 5e-5; then one training step with dropout and
+    grad_accum 2 launches B6f and B6b (or B7) once per layer and
+    microbatch."""
+    cfg = model_config_for_size("small", max_len=64)
+    rng = np.random.default_rng(0)
+    batch = batch_to_device(Batch(
+        rng.normal(size=(4, 64, 31)), rng.uniform(-90, 90, (4, 2)),
+        np.full((4, 64), 1995.0), np.full((4, 1), 7.0)), cuda)
+    mask = torch.tensor(rng.random((4, 64, 31)) < 0.15, device=cuda)
+    fused = make_model("weatherbert", cfg, "fused_qkv", ffn_impl).to(cuda)
+    plain = make_model("weatherbert", cfg, "fused_qkv").to(cuda)
+    plain.load_state_dict(fused.state_dict())
+    with torch.inference_mode():
+        got = fused.eval()(*batch[:4], mask)
+        want = plain.eval()(*batch[:4], mask)
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-4)
+    before = (fused_ffn_ln.launches, fused_ffn_ln_bwd.launches,
+              fused_ffn.launches)
+    step = make_train_step(fused, make_optimizer(fused), "weatherbert",
+                           grad_accum=2)
+    out = step(batch, torch.Generator().manual_seed(1), 1e-4, 1)
+    assert np.isfinite(out["total_loss"].item())
+    n = 2 * cfg.num_layers
+    expect = (n, n, 0) if ffn_impl == "fused_ffn_ln" else (0, 0, n)
+    assert tuple(a - b for a, b in zip(
+        (fused_ffn_ln.launches, fused_ffn_ln_bwd.launches,
+         fused_ffn.launches), before)) == expect

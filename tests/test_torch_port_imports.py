@@ -8,6 +8,7 @@ from pathlib import Path
 
 from weathermodel_tpu.utils import config as jax_config
 from weathermodel_tpu.utils import constants as jax_constants
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 from weathermodel_tpu_torch.utils import config as port_config
 from weathermodel_tpu_torch.utils import constants as port_constants
 
@@ -19,7 +20,10 @@ def test_port_imports_no_jax():
         ".".join(path.relative_to(ROOT).with_suffix("").parts)
         for path in (ROOT / "weathermodel_tpu_torch").rglob("*.py")
         if path.name != "__init__.py")
-    assert "weathermodel_tpu_torch.train.trainer" in modules
+    assert {"weathermodel_tpu_torch.train.trainer",
+            "weathermodel_tpu_torch.bench",
+            "weathermodel_tpu_torch.ops.fused_ffn",
+            "weathermodel_tpu_torch.ops.fused_ffn_ln"} <= set(modules)
     code = (
         "import sys\n"
         "import chip_smoke\n"

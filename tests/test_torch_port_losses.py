@@ -8,6 +8,8 @@ import torch
 
 from weathermodel_tpu.ops import losses as jax_losses
 from weathermodel_tpu_torch.ops import losses
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
+
 
 B, K, T, F = 3, 4, 11, 7
 

@@ -12,6 +12,8 @@ from weathermodel_tpu_torch.ops.masking import (
     make_mask,
     segment_mask,
 )
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
+
 
 B, T, F = 64, 365, 31
 

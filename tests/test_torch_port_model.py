@@ -14,23 +14,10 @@ from weathermodel_tpu.utils.config import (
 )
 from weathermodel_tpu_torch.cli.pretrain import make_model
 from weathermodel_tpu_torch.models.transfer import state_dict_from_jax_params
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 from weathermodel_tpu_torch.utils.config import model_config_for_size
 
 T = 24
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's side runs at small shapes, where one thread is about as
-    fast as a pool; under the suite's parallel workers, which share the
-    host's cores, an oversubscribed pool made this file several times
-    slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _inputs(b=3, t=T, seed=0):

@@ -39,6 +39,7 @@ from weathermodel_tpu_torch.models.transfer import (
     state_dict_from_jax_params,
 )
 from weathermodel_tpu_torch.serve import load_weather_predictor
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 from weathermodel_tpu_torch.train.state import make_optimizer
 from weathermodel_tpu_torch.train.steps import (
     Batch,
@@ -49,20 +50,6 @@ from weathermodel_tpu_torch.utils.config import model_config_for_size
 
 T, E, K = 24, 4, 2
 MOE = dict(num_experts=E, moe_top_k=K)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's side runs at small shapes, where one thread is about as
-    fast as a pool; under the suite's parallel workers, which share the
-    host's cores, an oversubscribed pool made this file several times
-    slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _ffn_params(ffn: MoEFFN, p):

@@ -11,22 +11,9 @@ import torch
 from weathermodel_tpu.cli import pretrain as jax_pretrain
 from weathermodel_tpu_torch.cli import pretrain, serve
 from weathermodel_tpu_torch.data.chunks import write_synthetic_dataset
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 
 T = 24
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's side runs at small shapes, where one thread is about as
-    fast as a pool; under the suite's parallel workers, which share the
-    host's cores, an oversubscribed pool made this file several times
-    slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ from weathermodel_tpu.data import chunks as jax_chunks
 from weathermodel_tpu.data import pretraining as jax_pretraining
 from weathermodel_tpu_torch.data import chunks as port_chunks
 from weathermodel_tpu_torch.data import pretraining as port_pretraining
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 
 T = 24
 REPO = Path(__file__).resolve().parents[1]

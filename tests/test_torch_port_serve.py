@@ -9,7 +9,9 @@ from weathermodel_tpu.cli import serve as jax_serve
 from weathermodel_tpu_torch.cli import serve as port_serve
 from weathermodel_tpu_torch.cli.pretrain import make_model
 from weathermodel_tpu_torch.serve import load_weather_predictor
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 from weathermodel_tpu_torch.utils.config import model_config_for_size
+
 
 T, N = 24, 45
 

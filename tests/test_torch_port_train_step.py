@@ -27,6 +27,7 @@ from weathermodel_tpu.utils.config import (
 from weathermodel_tpu_torch.cli.pretrain import make_model
 from weathermodel_tpu_torch.models.transfer import state_dict_from_jax_params
 from weathermodel_tpu_torch.ops.schedules import epoch_lr_schedule
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 from weathermodel_tpu_torch.train.state import make_optimizer
 from weathermodel_tpu_torch.train.steps import (
     Batch,
@@ -39,20 +40,14 @@ from weathermodel_tpu_torch.utils.config import model_config_for_size
 B, T, F = 8, 16, 31
 LR = 1e-3
 N_STEPS = 20
+# small keeps its widths (H=200, 10 heads of 20) at 2 of its 4 layers: the
+# JAX side's interpret-mode kernels compile once per layer
+LAYERS = {"small": 2}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's side runs at small shapes, where one thread is about as
-    fast as a pool; under the suite's parallel workers, which share the
-    host's cores, an oversubscribed pool made this file several times
-    slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
+def _sized(config_for_size, size):
+    overrides = {"num_layers": LAYERS[size]} if size in LAYERS else {}
+    return config_for_size(size, max_len=T, **overrides)
 
 
 def _data(seed=0, n=N_STEPS, b=B):
@@ -77,7 +72,7 @@ BETA = 0.5
 def _jax_params(name, size, data):
     init = [jnp.asarray(a[0]) if a.ndim == 4 else jnp.asarray(a)
             for a in data]
-    params = MODELS[name][0](jax_config_for_size(size, max_len=T)).init(
+    params = MODELS[name][0](_sized(jax_config_for_size, size)).init(
         jax.random.PRNGKey(0), *init)
     return jax.tree.map(np.asarray, params)
 
@@ -86,7 +81,7 @@ def _jax_run(size, impl, params, data, name="weatherbert"):
     """(losses, step-0 grads) of N_STEPS optax-Adam steps."""
     weather, coords, year, interval, masks = data
     jax_model, objective = MODELS[name]
-    model = jax_model(jax_config_for_size(size, max_len=T),
+    model = jax_model(_sized(jax_config_for_size, size),
                       attention_impl=impl)
     tx = optax.adam(LR)
 
@@ -118,7 +113,7 @@ def _jax_run(size, impl, params, data, name="weatherbert"):
 
 def _port_run(size, impl, params, data, name="weatherbert"):
     weather, coords, year, interval, masks = data
-    model = make_model(name, model_config_for_size(size, max_len=T), impl)
+    model = make_model(name, _sized(model_config_for_size, size), impl)
     model.load_state_dict(state_dict_from_jax_params(params))
     step = make_train_step(model, make_optimizer(model), "weatherbert",
                            objective=MODELS[name][1], beta=BETA)

@@ -19,6 +19,7 @@ from weathermodel_tpu.utils.config import (
 )
 from weathermodel_tpu_torch.cli.pretrain import make_model
 from weathermodel_tpu_torch.models.transfer import state_dict_from_jax_params
+from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 from weathermodel_tpu_torch.utils.config import model_config_for_size
 
 T = 24
@@ -28,20 +29,6 @@ JAX_MODELS = {"weatherformer": JaxWeatherFormer,
 # prior components: the sinusoid's default and the mixture's (the CLI's k)
 K = {"weatherformer": 4, "weatherformersinusoid": 4,
      "weatherformermixture": 7}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's side runs at small shapes, where one thread is about as
-    fast as a pool; under the suite's parallel workers, which share the
-    host's cores, an oversubscribed pool made this file several times
-    slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _inputs(b=3, t=T, seed=0):
@@ -95,7 +82,9 @@ def test_forward_matches_jax_fp32(name, size, port_impl, jax_impl, atol):
     params = _jax_params(name, size)
     inputs = _inputs()
     cfg = jax_config_for_size(size, max_len=T, k=K[name])
-    want = JAX_MODELS[name](cfg, attention_impl=jax_impl).apply(
+    # jitted: one compile instead of the interpreted kernels' op-by-op
+    # dispatch (1-3 s less a case on the CPU)
+    want = jax.jit(JAX_MODELS[name](cfg, attention_impl=jax_impl).apply)(
         params, *(jnp.asarray(a) for a in inputs))
     model = make_model(name, model_config_for_size(size, max_len=T,
                                                    k=K[name]), port_impl)

@@ -1,7 +1,7 @@
-// Tile machinery shared by the grouped matmul (B4, gmm.cu) and its weight gradient
-// (B4t, tgmm.cu).
+// Tile machinery shared by the grouped matmul (B4, gmm.cu), its weight gradient (B4t,
+// tgmm.cu) and the tile passes of the fused FFN's backward (B6b, fused_ffn_ln_bwd.cu).
 //
-// Both kernels compute one 128 x 128 output tile per thread block of 256 threads and
+// The kernels compute one 128 x 128 output tile per thread block of 256 threads and
 // reduce over a dimension in slabs of 32: each slab of both operands is staged from
 // device memory into shared memory (rows outside the active group and columns past the
 // matrix edge read as zeros), then multiplied into fp32 accumulators:
@@ -11,7 +11,8 @@
 //             scratch in shared memory.
 //   float32   fp32 FMA (no tensor core keeps full fp32). Each thread owns an 8 x 8
 //             register block at rows ty + 16i, columns tx + 16j.
-// Every product is accumulated in fp32 and rounded once to the element type at the end.
+// Every product is accumulated in fp32 and rounded once to the element type at the end
+// (store_tile), or handed to the caller's epilogue in fp32 (tile_epilogue).
 //
 // Shared-memory rows are padded: bf16 by 8 elements (16 bytes; WMMA needs a leading
 // dimension that is a multiple of 8 and 32-byte aligned fragment pointers), fp32 by one
@@ -167,12 +168,12 @@ __device__ __forceinline__ void mma_slab(Acc<T>& acc, const T* a, int ld_a, cons
   }
 }
 
-// Write the tile: element (m, n) of the accumulators goes to out[m * ld + n], rounded
-// once to T, for m < rows and n < cols (the tile's part inside the output).
+// Hand each element of the tile to fn(m, n, value), the value the fp32 accumulator holds,
+// for m < rows and n < cols (the tile's part inside the output).
 // `scratch` is kWarps x 256 floats of shared memory, 32-byte aligned (bf16 path only).
-template <typename T>
-__device__ __forceinline__ void store_tile(Acc<T>& acc, T* __restrict__ out, long long ld,
-                                           int rows, int cols, float* scratch) {
+template <typename T, class Fn>
+__device__ __forceinline__ void tile_epilogue(Acc<T>& acc, int rows, int cols, float* scratch,
+                                              Fn fn) {
   if constexpr (kIsBf16<T>) {
     namespace w = nvcuda::wmma;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -187,7 +188,7 @@ __device__ __forceinline__ void store_tile(Acc<T>& acc, T* __restrict__ out, lon
         const int m0 = wm * 32 + i * 16, n0 = wn * 64 + j * 16;
         for (int idx = lane; idx < 256; idx += 32) {
           const int m = m0 + idx / 16, n = n0 + idx % 16;
-          if (m < rows && n < cols) out[m * ld + n] = from_float<T>(sc[idx]);
+          if (m < rows && n < cols) fn(m, n, sc[idx]);
         }
         __syncwarp();
       }
@@ -200,10 +201,19 @@ __device__ __forceinline__ void store_tile(Acc<T>& acc, T* __restrict__ out, lon
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int n = tx + 16 * j;
-        if (n < cols) out[m * ld + n] = from_float<T>(acc.v[i][j]);
+        if (n < cols) fn(m, n, acc.v[i][j]);
       }
     }
   }
+}
+
+// Write the tile: element (m, n) of the accumulators goes to out[m * ld + n], rounded
+// once to T, for m < rows and n < cols.
+template <typename T>
+__device__ __forceinline__ void store_tile(Acc<T>& acc, T* __restrict__ out, long long ld,
+                                           int rows, int cols, float* scratch) {
+  tile_epilogue<T>(acc, rows, cols, scratch,
+                   [&](int m, int n, float v) { out[m * ld + n] = from_float<T>(v); });
 }
 
 // 16-byte loads need the base pointer 16-byte aligned and the row length a whole number

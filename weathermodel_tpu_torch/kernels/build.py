@@ -103,6 +103,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     # dtype, lhs, dy, offsets, out, s, k, n, e, stream
     lib.wm_tgmm.argtypes = [i, p, p, p, p, i, i, i, i, p]
     lib.wm_tgmm.restype = i
+    # dtype, x, w1, b1, w2, b2, f, h (or None), m, h, f, dropout_on, seed1,
+    # seed2, threshold, inv_keep, stream
+    lib.wm_fused_ffn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, u, u, u,
+                                 f, p]
+    lib.wm_fused_ffn.restype = i
+    # dtype, x, w1, b1, w2, b2, ln_scale, ln_bias, out, m, h, f, dropout_on,
+    # seed1, seed2, threshold, keep_prob, stream
+    lib.wm_fused_ffn_ln.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, u,
+                                    u, u, f, p]
+    lib.wm_fused_ffn_ln.restype = i
+    # dtype, x, w1, b1, w2, b2, ln_scale, do, dx, dw1, db1, dw2, db2,
+    # dln_scale, dln_bias, scratch hd, df, dy, dz, ln_part, w_part, m, h, f,
+    # dropout_on, seed1, seed2, threshold, inv_keep, splits1, splits2, stream
+    lib.wm_fused_ffn_ln_bwd.argtypes = [i, *[p] * 20, i, i, i, i, u, u, u, f,
+                                        i, i, p]
+    lib.wm_fused_ffn_ln_bwd.restype = i
     lib.wm_cuda_error_string.argtypes = [i]
     lib.wm_cuda_error_string.restype = ctypes.c_char_p
 

@@ -15,6 +15,18 @@ experts' hidden in a MoE layer, models/moe.py) and the FFN output. Each site
 takes its own seed from the CPU generator the caller passes (ops/dropout.py).
 With dropout 0 and no gradient the eval path is the one the serving path
 runs.
+
+`ffn_impl` picks the dense FFN (blocks.py:313-396 of the JAX package; a MoE
+layer ignores it, as there):
+  "torch"         plain ops (the JAX "xla")
+  "fused_ffn_ln"  kernel B6f returns LN(x + FFN(x)) directly, B6b is its
+                  backward (the JAX "pallas", ops/fused_ffn_ln.py)
+  "fused_ffn"     kernel B7 computes the FFN with both dropouts, then the
+                  layer's own residual + LN tail; plain-op backward (the JAX
+                  "pallas2", ops/fused_ffn.py)
+Each draws two seeds when dropout is on, hidden site then output site, as
+"torch" does, so later layers' seeds do not depend on the impl. The
+parameters are the same for every impl.
 """
 
 import numpy as np
@@ -29,12 +41,15 @@ from weathermodel_tpu_torch.ops.flash_attention import (
     FlashAttention,
     flash_attention_fwd,
 )
+from weathermodel_tpu_torch.ops.fused_ffn import FusedFFN, fused_ffn
+from weathermodel_tpu_torch.ops.fused_ffn_ln import FusedFFNLN
 from weathermodel_tpu_torch.ops.fused_qkv_attention import (
     FusedQKVAttention,
     fused_qkv_attention,
 )
 
 LN_EPS = 1e-5
+FFN_IMPLS = ("torch", "fused_ffn_ln", "fused_ffn")
 
 
 def sinusoidal_positional_encoding(max_len: int, hidden_dim: int) -> torch.Tensor:
@@ -62,6 +77,12 @@ def torch_linear_init_(weight, bias, generator=None) -> None:
 def linear(x, layer: nn.Linear):
     """`layer` applied in x's dtype (fp32 parameters cast at use)."""
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+def needs_grad(x, *params) -> bool:
+    """Whether autograd will ask for a gradient through x or params."""
+    return torch.is_grad_enabled() and any(a.requires_grad
+                                           for a in (x, *params))
 
 
 class SelfAttention(nn.Module):
@@ -95,8 +116,7 @@ class SelfAttention(nn.Module):
         w = self.in_proj_weight.to(x.dtype)
         b = self.in_proj_bias.to(x.dtype)
         seed = draw_seed(generator) if dropout_rate > 0.0 else 0
-        train = dropout_rate > 0.0 or (torch.is_grad_enabled() and (
-            x.requires_grad or w.requires_grad or b.requires_grad))
+        train = dropout_rate > 0.0 or needs_grad(x, w, b)
         if self.attention_impl == "fused_qkv" and train:
             out = FusedQKVAttention.apply(x, w.contiguous(), b,
                                           self.num_heads, dropout_rate, seed)
@@ -130,11 +150,14 @@ class TransformerEncoderLayer(nn.Module):
                  attention_impl: str = "torch", ffn_impl: str = "torch",
                  moe: dict = None):
         super().__init__()
-        if ffn_impl != "torch":
+        if ffn_impl in ("int8", "int8_static", "calibrate"):
             raise NotImplementedError(
-                f"ffn_impl={ffn_impl!r} (int8 serving or the Pallas FFN "
-                "kernels B6/B7) is not ported yet; see ROADMAP.md queue A "
-                "item 13 and queue B")
+                f"ffn_impl={ffn_impl!r} (int8 serving) is not ported yet; see "
+                "ROADMAP.md queue A item 13")
+        if ffn_impl not in FFN_IMPLS:
+            raise ValueError(f"Unknown ffn impl {ffn_impl!r}; choose one of "
+                             f"{FFN_IMPLS}")
+        self.ffn_impl = ffn_impl
         self.self_attn = SelfAttention(hidden_dim, num_heads, attention_impl)
         if moe:
             self.moe = MoEFFN(hidden_dim, ffn_dim, **moe)
@@ -161,8 +184,26 @@ class TransformerEncoderLayer(nn.Module):
         if self.moe is not None:
             ff, aux = self.moe(x, dropout_rate, generator)
             return layer_norm(x + drop(ff), self.norm2), aux
-        ff = drop(F.relu(linear(x, self.linear1)))
-        ff = drop(linear(ff, self.linear2))
+        if self.ffn_impl == "torch":
+            ff = drop(F.relu(linear(x, self.linear1)))
+            ff = drop(linear(ff, self.linear2))
+        else:
+            seeds = ((draw_seed(generator), draw_seed(generator))
+                     if dropout_rate > 0.0 else (0, 0))
+            w1 = self.linear1.weight.to(dtype).t().contiguous()
+            w2 = self.linear2.weight.to(dtype).t().contiguous()
+            b1, b2 = self.linear1.bias, self.linear2.bias
+            if self.ffn_impl == "fused_ffn_ln":
+                return FusedFFNLN.apply(x, w1, b1, w2, b2, self.norm2.weight,
+                                        self.norm2.bias, dropout_rate,
+                                        seeds), None
+            rows = x.reshape(-1, x.shape[-1])
+            # with no gradient and no dropout B7 skips the write of h
+            if dropout_rate > 0.0 or needs_grad(x, w1, b1, w2, b2):
+                ff = FusedFFN.apply(rows, w1, b1, w2, b2, dropout_rate, seeds)
+            else:
+                ff = fused_ffn(rows, w1, b1, w2, b2)[0]
+            ff = ff.reshape(x.shape)
         y = x + ff
         mu = y.mean(dim=-1, keepdim=True)
         var = (y - mu).square().mean(dim=-1, keepdim=True)

@@ -20,10 +20,10 @@ import torch
 
 ATTENTION_IMPLS = ("fused_qkv", "flash", "torch")
 
-_M32 = 0xFFFFFFFF
+M32 = 0xFFFFFFFF
 # keep-mask elements per chunk of batch rows: bounds the int64 temporaries
 # (2^24 elements = 128 MiB each)
-_MASK_CHUNK = 1 << 24
+MASK_CHUNK = 1 << 24
 
 
 def dropout_params(rate: float):
@@ -42,10 +42,10 @@ def _mul32(x, c: int):
     """x * c mod 2^32 for int64 x in [0, 2^32) and a constant c < 2^32,
     exact in int64: x's 16-bit halves keep every partial product < 2^49."""
     lo, hi = x & 0xFFFF, x >> 16
-    return (lo * c + ((hi * (c & 0xFFFF)) << 16)) & _M32
+    return (lo * c + ((hi * (c & 0xFFFF)) << 16)) & M32
 
 
-def _mix32(x):
+def mix32(x):
     """Chris Wellons' lowbias32 hash on int64 tensors holding uint32 values
     (`mix32` in csrc/attention_common.cuh)."""
     x = x ^ (x >> 16)
@@ -60,19 +60,19 @@ def attention_keep_mask(seed: int, batch: int, num_heads: int, t: int,
     """Bool keep-mask [batch, num_heads, t, t] of the attention weights for
     `seed` (an integer in [0, 2^32))."""
     _, threshold, _, _ = dropout_params(rate)
-    if not 0 <= seed <= _M32:
+    if not 0 <= seed <= M32:
         raise ValueError(f"dropout seed must be in [0, 2^32), got {seed}")
     i = torch.arange(t, device=device).view(1, 1, t, 1)
     j = torch.arange(t, device=device)
-    rows = max(1, _MASK_CHUNK // (num_heads * t * t))
+    rows = max(1, MASK_CHUNK // (num_heads * t * t))
     out = []
     for r0 in range(0, batch, rows):
         n = min(rows, batch - r0)
         row_head = torch.arange(r0 * num_heads, (r0 + n) * num_heads,
                                 device=device).view(n, num_heads, 1, 1)
-        head_key = _mix32(seed ^ _mix32((row_head + 0x9E3779B9) & _M32))
-        row_key = _mix32(head_key ^ i)
-        out.append(_mix32(row_key ^ j) < threshold)
+        head_key = mix32(seed ^ mix32((row_head + 0x9E3779B9) & M32))
+        row_key = mix32(head_key ^ i)
+        out.append(mix32(row_key ^ j) < threshold)
     return torch.cat(out)
 
 

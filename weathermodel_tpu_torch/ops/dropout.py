@@ -6,9 +6,24 @@ seeds (`draw_seed`, host only, so no device sync), and each dropout site
 draws its mask on the tensor's device from a generator seeded with its own
 seed. The attention-weight site runs inside the attention kernels and
 takes its seed directly (ops/fused_qkv_attention.py, ops/flash_attention.py).
+
+The FFN sites of the fused FFN kernels (ops/fused_ffn.py, ops/fused_ffn_ln.py)
+draw no mask from a generator: element (row, col) of a site is kept iff
+mix32(mix32(seed ^ mix32(row + 0x9E3779B9)) ^ col) < (1 - p) * 2^32, the
+attention hash (ops/attention.py) on a (row, col) pair, with one seed per
+site. `ffn_keep_mask` computes those bits with int64 tensor ops, exactly as
+`csrc/ffn_common.cuh` does in the kernels, so a kernel and its plain version
+draw the same mask and the backward kernel regenerates the forward's.
 """
 
 import torch
+
+from weathermodel_tpu_torch.ops.attention import (
+    M32,
+    MASK_CHUNK,
+    dropout_params,
+    mix32,
+)
 
 SEED_BOUND = 2 ** 31 - 1
 
@@ -29,3 +44,23 @@ def dropout(x, rate: float, seed: int):
     keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def ffn_keep_mask(seed: int, rows: int, cols: int, rate: float,
+                  device) -> torch.Tensor:
+    """Bool keep-mask [rows, cols] of an FFN dropout site for `seed` (an
+    integer in [0, 2^32)); row is the flattened row of the layer's input."""
+    on, threshold, _, _ = dropout_params(rate)
+    if not 0 <= seed <= M32:
+        raise ValueError(f"dropout seed must be in [0, 2^32), got {seed}")
+    if not on:
+        return torch.ones(rows, cols, dtype=torch.bool, device=device)
+    col = torch.arange(cols, device=device)
+    step = max(1, MASK_CHUNK // max(cols, 1))  # rows per chunk
+    out = []
+    for r0 in range(0, rows, step):
+        row = torch.arange(r0, min(rows, r0 + step), device=device)[:, None]
+        key = mix32(seed ^ mix32((row + 0x9E3779B9) & M32))
+        out.append(mix32(key ^ col) < threshold)
+    return torch.cat(out) if out else torch.ones(0, cols, dtype=torch.bool,
+                                                  device=device)
