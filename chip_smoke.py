@@ -9,19 +9,35 @@ Phases, each printing one line; any failure raises and exits non-zero:
   3. kernel  - the fused QKV attention kernel vs its plain PyTorch version at
                WeatherBERT-large's serving shapes (B=256, T=365, H=576, 16
                heads) in fp32 and bf16, with CUDA-event times of both
-  4. serve   - a seeded WeatherBERT-large saved as a reference .pth and 300
+  4. kernel_outproj - the fused QKV attention + out-projection kernel B5 vs
+               its plain version at the same shapes in fp32 and bf16, and with
+               dropout 0.1 at B=32 (the same seed on both sides); CUDA-event
+               times of the kernel, the plain version, the library call
+               (F.linear + scaled_dot_product_attention + F.linear) and B1's
+               eval form + F.linear
+  5. serve   - a seeded WeatherBERT-large saved as a reference .pth and 300
                seeded windows served through the `wm-serve-torch` entry point
-               in bf16 (a 256 chunk + 44 rows padded to the 128 bucket); the
-               kernel must launch 16 times (8 layers x 2 chunks) and agree with
-               the plain attention path, in bf16 and in fp32
-  5. kernel_train - the fused QKV attention kernel's training form (B1
+               in bf16 (a 256 chunk + 44 rows padded to the 128 bucket), with
+               --attention-impl auto (B1 eval must launch 16 times: 8 layers x
+               2 chunks) and fused_qkv_op (B5 16 times, B1 none); both agree
+               with the plain attention path, in bf16 and in fp32
+  6. serve_daemon - `python -m weathermodel_tpu_torch.cli.serve --daemon` as
+               a process serving the same .pth through B5 (fused_qkv_op,
+               --batch-size 256, --allow-reload): 8 client threads x 4
+               requests x 32 windows, each answer held against the offline
+               predictor's for the same windows; /stats must show 1024 rows
+               coalesced into batches of more than 32 (p50/p95/p99 latency and
+               windows/s printed); POST /reload of a second checkpoint, after
+               which an answer matches the new weights; SIGTERM, after which
+               the process must exit 0
+  7. kernel_train - the fused QKV attention kernel's training form (B1
                train) and its backward kernel (B2) vs their plain versions at
                the training microbatch (B=288, T=365, H=576, 16 heads) in fp32
                and bf16, dropout 0.1 (the same seed on both sides) and 0; CUDA-
                event times of the kernel, the plain version and the library
                call (F.linear + scaled_dot_product_attention, forward; forward
                and backward for B2), naming the SDPA backend
-  6. train   - a seeded synthetic chunk store written by the port's writer;
+  8. train   - a seeded synthetic chunk store written by the port's writer;
                `wm-pretrain-torch`'s run(args) trains WeatherBERT-large in
                bf16, --batch-size 576 --grad-accum 2, dropout 0.1, 2 epochs:
                16 launches of each training kernel per step and 8 of the eval
@@ -29,21 +45,21 @@ Phases, each printing one line; any failure raises and exits non-zero:
                step, samples/s, TFLOP/s and peak memory; a torch.profiler
                capture of one step; one step of the kernel path against the
                plain attention path at 16 windows, dropout off, fp32 and bf16
-  7. kernel_flash - the attention kernels on separate q, k, v, B3f and its
+  9. kernel_flash - the attention kernels on separate q, k, v, B3f and its
                backward B3b, vs their plain versions at WeatherFormer-small's
                batch (B=256, T=365, H=200, 10 heads), on the column slices of
                a packed projection as the model passes them, fp32 and bf16,
                dropout 0.1 (the same seed on both sides) and 0; CUDA-event
                times of the kernel, the plain version and SDPA (forward;
                forward and backward for B3b)
-  8. train_former - `wm-pretrain-torch`'s run(args) with the JAX CLI's
+  10. train_former - `wm-pretrain-torch`'s run(args) with the JAX CLI's
                defaults (WeatherFormer-small, ELBO, beta 0.5, 10 masked
                features, --attention-impl auto) in bf16 at --batch-size 256,
                2 epochs, on the same synthetic store: 4 launches of B3f per
                training step and per validation batch, 4 of B3b per step,
                none of B1/B2; finite losses, the train loss falls; the same
-               timings, profile and one-step comparison as phase 6
-  9. kernel_gmm - the grouped matmul B4 (forward, and with rhs^T as the
+               timings, profile and one-step comparison as phase 8
+  11. kernel_gmm - the grouped matmul B4 (forward, and with rhs^T as the
                backward's d_lhs) and its weight gradient B4t vs their plain
                versions at the MoE microbatch's shapes (S = 96 x 365 x 2 =
                70080 routed rows, E=8, K x N = 576 x 2304 and 2304 x 576),
@@ -54,7 +70,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                times of the kernel, the plain version and the library
                yardstick (torch._grouped_mm where it takes the inputs, else
                one cuBLAS matmul per group)
-  10. train_moe - `wm-pretrain-torch`'s run(args) for the flagship MoE
+  12. train_moe - `wm-pretrain-torch`'s run(args) for the flagship MoE
                configuration: WeatherBERT-large, --moe-experts 8 --moe-top-k 2
                (ragged dispatch), bf16, --batch-size 288 --grad-accum 3,
                dropout 0.1, 2 epochs, on the same store: per step 96 launches
@@ -62,8 +78,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                batch 16 of B4 and 8 of B1 eval; finite losses and moe_aux, the
                train loss falls; the same timings (TFLOP/s from the MoE
                analytic count), profile and one-step comparison with the plain
-               path (plain grouped matmuls, plain attention) as phase 6
-  11. kernel_ffn - the fused FFN + residual + LayerNorm B6f, its backward
+               path (plain grouped matmuls, plain attention) as phase 8
+  13. kernel_ffn - the fused FFN + residual + LayerNorm B6f, its backward
                B6b and the fused FFN B7 (with and without its hidden output)
                vs their plain versions at the bench microbatch's shapes (M =
                288 x 365 = 105120 rows, H=576, F=2304) in bf16 and fp32,
@@ -73,24 +89,31 @@ Phases, each printing one line; any failure raises and exits non-zero:
                version and the yardstick (the port's "torch" FFN: F.linear,
                ReLU, F.linear, and for B6 the residual and F.layer_norm; its
                autograd backward for B6b)
-  12. bench - `python -m weathermodel_tpu_torch.bench`'s run(env) at
+  14. bench - `python -m weathermodel_tpu_torch.bench`'s run(env) at
                WeatherBERT-large, 2 x 288, bf16, dropout 0.1, for
                BENCH_FFN_IMPL torch, fused_ffn_ln and fused_ffn (each JSON
                line printed): per step 16 launches of B1 train and B2 in all
                three, of B6f and B6b with fused_ffn_ln, of B7 with fused_ffn;
                BENCH_MODE=eval runs of the two fused impls (8 launches of B6f
-               or B7, without its hidden output, per batch); finite losses; a
+               or B7, without its hidden output, per batch) and a
+               BENCH_ATTENTION=fused_qkv_op eval run at batch 576 (8 launches
+               of B5 per batch, none of B1); finite losses; a
                torch.profiler step of each fused impl; one step of each fused
                path against the plain path (plain attention and FFN) at 16
                windows, dropout off, fp32 and bf16
-The card's name and power limit are printed by phase 1 and again before the
-kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+The seconds each phase took are printed after the phases; the card's name
+and power limit are printed by phase 1 and again before the kernels' JSON
+record; the last line is {"ok": true, "device": {...}}.
 """
 
+import io
 import json
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -151,6 +174,13 @@ FORMER_SIZE, FORMER_BATCH = "small", 256
 # tensor-core rate, fp32 rate outside the tensor cores, HBM bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
+# B5 with dropout on is checked at a smaller batch: its plain version builds
+# the int64 keep-mask of [B, 16, 365, 365]
+OUTPROJ_DROPOUT_BATCH = 32
+# the online daemon: client threads x requests each x windows a request, and
+# the seconds it may take to answer /healthz and to exit after SIGTERM
+DAEMON_CLIENTS, DAEMON_REQUESTS, DAEMON_WINDOWS = 8, 4, 32
+DAEMON_START_S, DAEMON_STOP_S = 180, 60
 
 
 def train_flops_per_sample(cfg, out_dim=None) -> float:
@@ -180,6 +210,15 @@ def _attention_bound(b, t, h, nh, dtype, train: bool):
     return _bound(flops, elems * dtype.itemsize, dtype)
 
 
+def _outproj_bound(b, t, h, nh, dtype):
+    """B5's bound: B1's projection and attention products and the
+    out-projection's 2 B T H^2; it reads x, w, b, wo and bo and writes y."""
+    flops = (2.0 * b * t * h * 3 * h + 4.0 * b * nh * t * t * (h // nh)
+             + 2.0 * b * t * h * h)
+    elems = 2 * b * t * h + 4 * h * h + 4 * h
+    return _bound(flops, elems * dtype.itemsize, dtype)
+
+
 def _flash_bound(b, t, h, nh, dtype):
     """B3f's bound: two T x T x hd products per (row, head); it reads q, k
     and v and writes o."""
@@ -204,6 +243,13 @@ def _library_attention(x, w, b, nh, dropout_p=0.0):
     scaled_dot_product_attention (timed only, never the port's path)."""
     q, k, v = (_heads(a, nh) for a in F.linear(x, w, b).chunk(3, dim=-1))
     return F.scaled_dot_product_attention(q, k, v, dropout_p=dropout_p)
+
+
+def _library_attention_outproj(x, w, b, wo, bo, nh):
+    """The library call beside B5: F.linear, scaled_dot_product_attention and
+    F.linear (timed only, never the port's path)."""
+    o = _library_attention(x, w, b, nh).transpose(1, 2).reshape(x.shape)
+    return F.linear(o, wo, bo)
 
 
 def _sdpa_backend(q, k, v):
@@ -326,17 +372,64 @@ def phase_kernel():
     return results[torch.bfloat16]
 
 
-def _write_inputs(tmp: Path):
-    from weathermodel_tpu_torch.models.weatherbert import WeatherBERT
+def phase_kernel_outproj():
+    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+        fused_qkv_attention,
+        fused_qkv_attention_outproj,
+        fused_qkv_attention_outproj_reference,
+    )
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
-    model = WeatherBERT(model_config_for_size(MODEL_SIZE, max_len=SEQ_LEN))
-    model.reset_parameters(torch.Generator().manual_seed(SEED))
-    torch.save(model.state_dict(), tmp / "weatherbert_large.pth")
-    rng = np.random.default_rng(SEED)
-    n, t = N_WINDOWS, SEQ_LEN
-    np.savez(
-        tmp / "windows.npz",
+    cfg = model_config_for_size(MODEL_SIZE)
+    h, nh = cfg.hidden_dim, cfg.num_heads
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    bound = 1.0 / h ** 0.5
+
+    def uniform(*shape):
+        return (torch.rand(*shape, device="cuda", generator=g) * 2 - 1) * bound
+
+    x = torch.randn(BATCH, SEQ_LEN, h, device="cuda", generator=g)
+    params = (uniform(3 * h, h), uniform(3 * h), uniform(h, h), uniform(h))
+    seed = 20260105
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (x.to(dtype), *(a.to(dtype) for a in params))
+        errs = {"y": _check_kernel(
+            f"B5 y {dtype}", fused_qkv_attention_outproj(*args, nh),
+            fused_qkv_attention_outproj_reference(*args, nh), dtype)}
+        small = (args[0][:OUTPROJ_DROPOUT_BATCH], *args[1:])
+        errs[f"y dropout {DROPOUT} B={OUTPROJ_DROPOUT_BATCH}"] = _check_kernel(
+            f"B5 y {dtype} dropout {DROPOUT}",
+            fused_qkv_attention_outproj(*small, nh, DROPOUT, seed),
+            fused_qkv_attention_outproj_reference(*small, nh, DROPOUT, seed),
+            dtype)
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = _outproj_bound(BATCH, SEQ_LEN, h, nh, dtype)
+        results[dtype] = dict(
+            max_abs_err=errs["y"][0], errs=_errs_text(errs),
+            ms=_cuda_ms(lambda: fused_qkv_attention_outproj(*args, nh)),
+            plain_ms=_cuda_ms(lambda: fused_qkv_attention_outproj_reference(
+                *args, nh)),
+            library_ms=_cuda_ms(lambda: _library_attention_outproj(*args,
+                                                                   nh)),
+            b1_ms=_cuda_ms(lambda: F.linear(
+                fused_qkv_attention(*args[:3], nh), args[3], args[4])),
+            bound_ms=bound_ms, bound_by=bound_by)
+    print("kernel_outproj: fused_qkv_attention_outproj B=%d T=%d H=%d "
+          "heads=%d | " % (BATCH, SEQ_LEN, h, nh) + " | ".join(
+              f"{str(d).split('.')[1]}: max|err| {r['errs']} (tol "
+              f"{KERNEL_TOL[d]}, {SCALE_TOL[d]:.3g} x max), kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"F.linear+SDPA+F.linear {r['library_ms']:.3f} ms, B1 eval + "
+              f"F.linear {r['b1_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
+              f"{r['bound_by']}" for d, r in results.items()), flush=True)
+    return results[torch.bfloat16]
+
+
+def _windows(rng, n):
+    """n seeded windows with every input of the request schema."""
+    t = SEQ_LEN
+    return dict(
         weather=rng.standard_normal((n, t, N_FEATURES), dtype=np.float32),
         coords=np.stack([rng.uniform(-60, 60, n), rng.uniform(-180, 180, n)],
                         axis=-1).astype(np.float32),
@@ -344,6 +437,21 @@ def _write_inputs(tmp: Path):
               ).astype(np.float32),
         interval=np.full((n, 1), 1.0, np.float32),
         mask=rng.random((n, t, N_FEATURES)) < 0.15)
+
+
+def _write_checkpoint(path: Path, seed: int):
+    from weathermodel_tpu_torch.models.weatherbert import WeatherBERT
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    model = WeatherBERT(model_config_for_size(MODEL_SIZE, max_len=SEQ_LEN))
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    torch.save(model.state_dict(), path)
+
+
+def _write_inputs(tmp: Path):
+    _write_checkpoint(tmp / "weatherbert_large.pth", SEED)
+    np.savez(tmp / "windows.npz",
+             **_windows(np.random.default_rng(SEED), N_WINDOWS))
 
 
 def _serve(tmp: Path, impl: str, dtype: str):
@@ -364,53 +472,216 @@ def _serve(tmp: Path, impl: str, dtype: str):
     return out, res["predict_s"], wall
 
 
-def phase_serve(smi: str):
+def _serve_err(got, want):
+    """(max, RMS) of |got - want| over the RMS of want."""
+    diff = got - want
+    rms = float(np.sqrt(np.mean(np.square(want))))
+    return (float(np.abs(diff).max()) / rms,
+            float(np.sqrt(np.mean(np.square(diff)))) / rms)
+
+
+def _check_serve_err(what, err, dtype):
+    if not all(e <= tol for e, tol in zip(err, SERVE_TOL[dtype])):
+        raise AssertionError(f"{what} {dtype}: (max, RMS) of |diff| / RMS = "
+                             f"{err} exceeds {SERVE_TOL[dtype]}")
+
+
+def phase_serve(smi: str, tmp: Path):
     from weathermodel_tpu_torch.ops.fused_qkv_attention import (
         fused_qkv_attention,
+        fused_qkv_attention_outproj,
     )
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
     n_layers = model_config_for_size(MODEL_SIZE).num_layers
     expected = n_layers * -(-N_WINDOWS // BATCH)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        _write_inputs(tmp)
-        _serve(tmp, "auto", "bfloat16")  # warm-up: lazy CUDA module loads
-        fused_qkv_attention.launches = 0
-        out, predict_s, wall = _serve(tmp, "auto", "bfloat16")
-        launches = fused_qkv_attention.launches
-        if launches != expected:
-            raise AssertionError(f"kernel launched {launches} times on the "
-                                 f"serve path, expected {expected}")
+    counted = (fused_qkv_attention, fused_qkv_attention_outproj)
+    launches, outs, rates = {}, {}, {}
+    _serve(tmp, "auto", "bfloat16")  # warm-up: lazy CUDA module loads
+    for impl in ("auto", "fused_qkv_op"):
+        for fn in counted:
+            fn.launches = 0
+        out, predict_s, wall = _serve(tmp, impl, "bfloat16")
+        launches[impl] = {fn.__name__: fn.launches for fn in counted}
         if out.shape != (N_WINDOWS, SEQ_LEN, N_FEATURES):
-            raise AssertionError(f"output shape {out.shape}")
+            raise AssertionError(f"{impl}: output shape {out.shape}")
         if not np.isfinite(out).all():
-            raise AssertionError("non-finite served output")
-        errs = {}
-        plain_predict_s = None
-        for dtype in ("bfloat16", "float32"):
-            got = out if dtype == "bfloat16" else _serve(tmp, "fused_qkv",
-                                                         dtype)[0]
-            ref, ref_s, _ = _serve(tmp, "torch", dtype)
-            if dtype == "bfloat16":
-                plain_predict_s = ref_s
-            diff = got - ref
-            rms = float(np.sqrt(np.mean(np.square(ref))))
-            errs[dtype] = (float(np.abs(diff).max()) / rms,
-                           float(np.sqrt(np.mean(np.square(diff)))) / rms)
-            if not all(e <= tol for e, tol in zip(errs[dtype],
-                                                  SERVE_TOL[dtype])):
-                raise AssertionError(
-                    f"{dtype}: served output (max, RMS) of |kernel - plain| "
-                    f"/ RMS = {errs[dtype]} exceeds {SERVE_TOL[dtype]}")
+            raise AssertionError(f"{impl}: non-finite served output")
+        outs[impl, "bfloat16"] = out
+        rates[impl] = (N_WINDOWS / predict_s, predict_s, wall)
+    want = {"auto": dict(fused_qkv_attention=expected,
+                         fused_qkv_attention_outproj=0),
+            "fused_qkv_op": dict(fused_qkv_attention=0,
+                                 fused_qkv_attention_outproj=expected)}
+    if launches != want:
+        raise AssertionError(f"kernel launches on the serve path {launches}, "
+                             f"expected {want}")
+    errs = {}
+    for dtype in ("bfloat16", "float32"):
+        ref, ref_s, _ = _serve(tmp, "torch", dtype)
+        if dtype == "bfloat16":
+            rates["torch"] = (N_WINDOWS / ref_s, ref_s, None)
+        for impl, key in (("fused_qkv", "auto"),
+                          ("fused_qkv_op", "fused_qkv_op")):
+            got = outs.get((key, dtype))
+            if got is None:
+                got = _serve(tmp, impl, dtype)[0]
+            errs[impl, dtype] = _serve_err(got, ref)
+            _check_serve_err(f"served output of {impl} vs the plain path",
+                             errs[impl, dtype], dtype)
     print(f"serve: {N_WINDOWS} windows WeatherBERT-{MODEL_SIZE} bf16 "
-          f"--batch-size {BATCH}: {launches} kernel launches; "
-          f"{N_WINDOWS / predict_s:.1f} windows/s (predict {predict_s:.3f} s,"
-          f" run {wall:.3f} s), plain attention path "
-          f"{N_WINDOWS / plain_predict_s:.1f} windows/s; |kernel - plain| "
-          f"(max, RMS)/RMS bf16 {errs['bfloat16']}, fp32 {errs['float32']};"
-          f" card {smi}", flush=True)
+          f"--batch-size {BATCH}: kernel launches {launches}; "
+          + "; ".join(f"{impl} {r[0]:.1f} windows/s (predict {r[1]:.3f} s)"
+                      for impl, r in rates.items())
+          + f"; |kernel - plain| (max, RMS)/RMS {errs} (bars {SERVE_TOL}); "
+          f"card {smi}", flush=True)
     return launches
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http(port, method, path, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _npz_bytes(arrays) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def _predict(port, arrays):
+    status, data = _http(port, "POST", "/predict", _npz_bytes(arrays))
+    if status != 200:
+        raise AssertionError(f"/predict answered {status}: {data[:300]}")
+    with np.load(io.BytesIO(data)) as z:
+        return z["output"]
+
+
+def _wait_healthy(proc, port, log_path):
+    deadline = time.perf_counter() + DAEMON_START_S
+    while True:
+        try:
+            if _http(port, "GET", "/healthz")[0] == 200:
+                return
+        except OSError:
+            pass
+        if proc.poll() is not None:
+            raise AssertionError(f"the daemon exited with {proc.returncode}: "
+                                 f"{log_path.read_text()[-2000:]}")
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"no /healthz within {DAEMON_START_S} s")
+        time.sleep(0.5)
+
+
+def _offline(path: Path, windows):
+    """The offline predictor's bf16 answers through B5 for `windows`."""
+    from weathermodel_tpu_torch.serve import load_weather_predictor
+
+    predictor = load_weather_predictor(
+        str(path), MODEL_SIZE, attention_impl="fused_qkv_op",
+        max_len=SEQ_LEN, buckets=(8, 32, 128, BATCH), device="cuda")
+    return predictor(windows["weather"], windows["coords"], windows["year"],
+                     windows["interval"], windows["mask"])
+
+
+def phase_serve_daemon(smi: str, tmp: Path):
+    first, second = tmp / "weatherbert_large.pth", tmp / "second.pth"
+    _write_checkpoint(second, SEED + 1)
+    n = DAEMON_CLIENTS * DAEMON_REQUESTS * DAEMON_WINDOWS
+    windows = _windows(np.random.default_rng(SEED + 3), n)
+    port = _free_port()
+    log_path = tmp / "daemon.log"
+    cmd = [sys.executable, "-m", "weathermodel_tpu_torch.cli.serve",
+           "--daemon", "--checkpoint", str(first), "--model", "weatherbert",
+           "--model-size", MODEL_SIZE, "--attention-impl", "fused_qkv_op",
+           "--batch-size", str(BATCH), "--seq-len", str(SEQ_LEN),
+           "--allow-reload", "--port", str(port), "--device", "cuda"]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=Path(__file__).resolve().parent)
+    try:
+        _wait_healthy(proc, port, log_path)
+        start_s = time.perf_counter() - t0
+        answers, errors = {}, []
+
+        def client(c):
+            try:
+                for r in range(DAEMON_REQUESTS):
+                    i0 = (c * DAEMON_REQUESTS + r) * DAEMON_WINDOWS
+                    answers[i0] = _predict(port, {
+                        k: v[i0:i0 + DAEMON_WINDOWS]
+                        for k, v in windows.items()})
+            except Exception as e:  # re-raised below, in the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(DAEMON_CLIENTS)]
+        t1 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t1
+        if errors:
+            raise errors[0]
+        got = np.concatenate([answers[i] for i in sorted(answers)])
+        err = _serve_err(got, _offline(first, windows))
+        _check_serve_err("daemon answers vs the offline predictor", err,
+                         "bfloat16")
+        stats = json.loads(_http(port, "GET", "/stats")[1])
+        if stats["n_rows"] != n or not stats["rows_per_batch"] > \
+                DAEMON_WINDOWS:
+            raise AssertionError(f"/stats {stats}: expected {n} rows in "
+                                 f"batches of more than {DAEMON_WINDOWS}")
+        status, data = _http(port, "POST", "/reload", json.dumps(
+            {"checkpoint": str(second)}).encode())
+        if status != 200:
+            raise AssertionError(f"/reload answered {status}: {data[:300]}")
+        head = {k: v[:DAEMON_WINDOWS] for k, v in windows.items()}
+        reloaded = _predict(port, head)
+        reload_err = _serve_err(reloaded, _offline(second, head))
+        _check_serve_err("daemon answer after /reload vs the new weights",
+                         reload_err, "bfloat16")
+        if np.allclose(reloaded, got[:DAEMON_WINDOWS]):
+            raise AssertionError("/reload did not change the answers")
+        t2 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=DAEMON_STOP_S)
+        if rc != 0:
+            raise AssertionError(f"the daemon exited with {rc} on SIGTERM: "
+                                 f"{log_path.read_text()[-2000:]}")
+        stop_s = time.perf_counter() - t2
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lat = stats["latency_ms"]
+    print(f"serve_daemon: wm-serve-torch --daemon WeatherBERT-{MODEL_SIZE} "
+          f"bf16 --attention-impl fused_qkv_op --batch-size {BATCH}: "
+          f"/healthz after {start_s:.1f} s (start, load, warm-up of buckets "
+          f"8/32/128/{BATCH}); {DAEMON_CLIENTS} clients x {DAEMON_REQUESTS} "
+          f"requests x {DAEMON_WINDOWS} windows: {n / wall:.1f} windows/s "
+          f"({wall:.3f} s), latency p50 {lat['p50']} ms, p95 {lat['p95']} "
+          f"ms, p99 {lat['p99']} ms, {stats['n_batches']} batches of "
+          f"{stats['rows_per_batch']} rows; vs the offline predictor "
+          f"(max, RMS)/RMS {err}, after /reload {reload_err} (bar "
+          f"{SERVE_TOL['bfloat16']}); exit 0 {stop_s:.1f} s after SIGTERM; "
+          f"card {smi}", flush=True)
+    return stats
 
 
 def _train_kernels_case(x, w, b, do, nh, dtype, rate, seed, timed: bool):
@@ -703,6 +974,7 @@ def _all_kernels():
     from weathermodel_tpu_torch.ops.fused_qkv_attention import (
         fused_qkv_attention,
         fused_qkv_attention_bwd,
+        fused_qkv_attention_outproj,
         fused_qkv_attention_train,
     )
     from weathermodel_tpu_torch.ops.fused_ffn import fused_ffn
@@ -714,11 +986,14 @@ def _all_kernels():
 
     return (fused_qkv_attention, fused_qkv_attention_train,
             fused_qkv_attention_bwd, flash_attention_fwd, flash_attention_bwd,
-            gmm, tgmm, fused_ffn_ln, fused_ffn_ln_bwd, fused_ffn)
+            gmm, tgmm, fused_ffn_ln, fused_ffn_ln_bwd, fused_ffn,
+            fused_qkv_attention_outproj)
 
 
-# the FFN kernels, launched on no path but the bench's
-NO_FFN = {"fused_ffn_ln": 0, "fused_ffn_ln_bwd": 0, "fused_ffn": 0}
+# the kernels no training run launches: the FFN kernels (the bench's only)
+# and B5 (serving and the bench's eval mode only)
+NOT_IN_TRAINING = {"fused_ffn_ln": 0, "fused_ffn_ln_bwd": 0, "fused_ffn": 0,
+                   "fused_qkv_attention_outproj": 0}
 
 
 def _check_record(record, keys=("total_loss",)):
@@ -772,7 +1047,7 @@ def phase_train(smi: str, data: Path):
         "fused_qkv_attention_train": per_step * steps,
         "fused_qkv_attention_bwd": per_step * steps,
         "flash_attention_fwd": 0, "flash_attention_bwd": 0, "gmm": 0,
-        "tgmm": 0, **NO_FFN}, steps, val_batches)
+        "tgmm": 0, **NOT_IN_TRAINING}, steps, val_batches)
     train_loss, val_loss = _check_record(record)
     ms, rate, tflops, gflop = _throughput(result, cfg, TRAIN_BATCH)
     print(f"train: wm-pretrain-torch WeatherBERT-{MODEL_SIZE} bf16 "
@@ -908,8 +1183,8 @@ def phase_train_former(smi: str, data: Path):
         "fused_qkv_attention": 0, "fused_qkv_attention_train": 0,
         "fused_qkv_attention_bwd": 0,
         "flash_attention_fwd": n * (steps + val_batches),
-        "flash_attention_bwd": n * steps, "gmm": 0, "tgmm": 0, **NO_FFN},
-        steps, val_batches)
+        "flash_attention_bwd": n * steps, "gmm": 0, "tgmm": 0,
+        **NOT_IN_TRAINING}, steps, val_batches)
     train_loss, val_loss = _check_record(
         record, ("total_loss", "reconstruction", "kl_term"))
     out_dim = 2 * cfg.output_dim
@@ -1158,7 +1433,8 @@ def phase_train_moe(smi: str, data: Path):
         "fused_qkv_attention_bwd": per_step * steps,
         "flash_attention_fwd": 0, "flash_attention_bwd": 0,
         "gmm": 4 * per_step * steps + 2 * cfg.num_layers * val_batches,
-        "tgmm": 2 * per_step * steps, **NO_FFN}, steps, val_batches)
+        "tgmm": 2 * per_step * steps, **NOT_IN_TRAINING}, steps,
+        val_batches)
     train_loss, val_loss = _check_record(record, ("total_loss", "moe_aux"))
     ms, rate, tflops, gflop = _throughput(result, cfg, MOE_BATCH)
     aux = record["losses"]["train"]["moe_aux"]
@@ -1392,14 +1668,18 @@ def phase_bench(smi: str):
         lines.append(f"{impl}: {record['value']} samples/s, "
                      f"{record['tflops']} TFLOP/s, mfu {record['mfu']}, loss "
                      f"{record['loss']:.4f}")
-    for impl, name in (("fused_ffn_ln", "fused_ffn_ln"),
-                       ("fused_ffn", "fused_ffn")):
-        record, got, steps = _bench({"BENCH_FFN_IMPL": impl,
-                                     "BENCH_MODE": "eval"}, counted)
+    for name, env, kernels in (
+            ("fused_ffn_ln", {"BENCH_FFN_IMPL": "fused_ffn_ln"},
+             ("fused_qkv_attention", "fused_ffn_ln")),
+            ("fused_ffn", {"BENCH_FFN_IMPL": "fused_ffn"},
+             ("fused_qkv_attention", "fused_ffn")),
+            ("fused_qkv_op", {"BENCH_ATTENTION": "fused_qkv_op"},
+             ("fused_qkv_attention_outproj",))):
+        record, got, steps = _bench({**env, "BENCH_MODE": "eval"}, counted)
         n = cfg.num_layers * steps
-        _check_launches(got, {**zero, "fused_qkv_attention": n, name: n},
-                        steps, 0)
-        lines.append(f"{impl} eval: {record['value']} samples/s, "
+        _check_launches(got, {**zero, **dict.fromkeys(kernels, n)}, steps, 0)
+        launches[name + " eval"] = got
+        lines.append(f"{name} eval: {record['value']} samples/s, "
                      f"{record['tflops']} TFLOP/s, loss {record['loss']:.4f}")
     print(f"bench: WeatherBERT-{MODEL_SIZE} bf16, {TRAIN_BATCH} = {GRAD_ACCUM} "
           f"x {MICRO}, dropout {DROPOUT}, 3 warm-up + {BENCH_STEPS} timed "
@@ -1431,26 +1711,39 @@ def _record(name, source, replaces, launches, k, prefix):
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device()
-    phase_build()
-    kernel = phase_kernel()
-    serve_launches = phase_serve(smi)
-    train_kernels = phase_kernel_train()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    kernel = timed("kernel", phase_kernel)
+    outproj_kernel = timed("kernel_outproj", phase_kernel_outproj)
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_inputs(Path(tmp))
+        serve_launches = timed("serve", phase_serve, smi, Path(tmp))
+        timed("serve_daemon", phase_serve_daemon, smi, Path(tmp))
+    train_kernels = timed("kernel_train", phase_kernel_train)
     with tempfile.TemporaryDirectory() as tmp:
         data = _write_store(Path(tmp))
-        train_launches = phase_train(smi, data)
-        flash_kernels = phase_kernel_flash()
-        former_launches = phase_train_former(smi, data)
-        gmm_kernel, tgmm_kernel = phase_kernel_gmm()
-        moe_launches = phase_train_moe(smi, data)
-    ffn_kernels = phase_kernel_ffn()
-    bench_launches = phase_bench(smi)
+        train_launches = timed("train", phase_train, smi, data)
+        flash_kernels = timed("kernel_flash", phase_kernel_flash)
+        former_launches = timed("train_former", phase_train_former, smi, data)
+        gmm_kernel, tgmm_kernel = timed("kernel_gmm", phase_kernel_gmm)
+        moe_launches = timed("train_moe", phase_train_moe, smi, data)
+    ffn_kernels = timed("kernel_ffn", phase_kernel_ffn)
+    bench_launches = timed("bench", phase_bench, smi)
     tk, fk = train_kernels, flash_kernels
     records = [
         dict(name="fused_qkv_attention", route="cuda",
              source="weathermodel_tpu_torch/csrc/fused_qkv_attention.cu",
              replaces="weathermodel_tpu/ops/pallas_attention.py:242",
-             launches=serve_launches, max_abs_err=kernel["max_abs_err"],
+             launches=serve_launches["auto"]["fused_qkv_attention"],
+             max_abs_err=kernel["max_abs_err"],
              ms=kernel["ms"], plain_ms=kernel["plain_ms"],
              bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"],
              library_ms=kernel["library_ms"]),
@@ -1479,7 +1772,17 @@ def main():
                 ffn_kernels, "bwd"),
         _record("fused_ffn", "fused_ffn.cu", "pallas_ffn2.py:55",
                 bench_launches["fused_ffn"]["fused_ffn"], ffn_kernels, "b7"),
+        dict(name="fused_qkv_attention_outproj", route="cuda",
+             source="weathermodel_tpu_torch/csrc/"
+                    "fused_qkv_attention_outproj.cu",
+             replaces="weathermodel_tpu/ops/pallas_attention.py:258",
+             launches=serve_launches["fused_qkv_op"][
+                 "fused_qkv_attention_outproj"],
+             **{k: outproj_kernel[k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}),
     ]
+    print(f"phase seconds: {seconds}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,8 @@ from weathermodel_tpu_torch.ops.fused_qkv_attention import (
     fused_qkv_attention,
     fused_qkv_attention_bwd,
     fused_qkv_attention_bwd_reference,
+    fused_qkv_attention_outproj,
+    fused_qkv_attention_outproj_reference,
     fused_qkv_attention_reference,
     fused_qkv_attention_train,
     fused_qkv_attention_train_reference,
@@ -565,3 +567,88 @@ def test_model_ffn_kernel_paths_match_plain_path(cuda, ffn_impl):
     assert tuple(a - b for a, b in zip(
         (fused_ffn_ln.launches, fused_ffn_ln_bwd.launches,
          fused_ffn.launches), before)) == expect
+
+
+# kernel B5 (attention + out-projection) against its plain version: every
+# head dim, T = 365 and a short T, dropout off (the eval form) and on (the
+# training form's attention, the same seed on both sides); B1's bars, and
+# against the output's own scale
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,nh", [(4, 365, 576, 16), (3, 37, 336, 12),
+                                      (2, 365, 200, 10), (3, 37, 48, 4)])
+def test_outproj_kernel_matches_plain(cuda, dtype, rate, b, t, h, nh):
+    x, w, bias = _inputs(b, t, h, dtype, cuda)
+    rng = np.random.default_rng(1)
+    wo = torch.tensor(rng.uniform(-1, 1, (h, h)) / h ** 0.5, dtype=dtype,
+                      device=cuda)
+    bo = torch.tensor(rng.uniform(-1, 1, h) / h ** 0.5, dtype=dtype,
+                      device=cuda)
+    before = fused_qkv_attention_outproj.launches
+    got = fused_qkv_attention_outproj(x, w, bias, wo, bo, nh, rate, 1234567)
+    want = fused_qkv_attention_outproj_reference(x, w, bias, wo, bo, nh, rate,
+                                                 1234567)
+    torch.cuda.synchronize()
+    assert fused_qkv_attention_outproj.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _assert_scaled_close("B5 y", got, want, dtype)
+
+
+def test_outproj_kernel_rejects_what_it_does_not_take(cuda, monkeypatch):
+    x, w, bias = _inputs(2, 5, 48, torch.float32, cuda)
+    wo, bo = torch.zeros(48, 48, device=cuda), torch.zeros(48, device=cuda)
+    with pytest.raises(ValueError, match="inference-only"):
+        fused_qkv_attention_outproj(x, w, bias, wo.requires_grad_(), bo, 4)
+    wo = wo.detach()
+    with pytest.raises(ValueError, match="dtype"):
+        fused_qkv_attention_outproj(x, w, bias, wo.to(torch.bfloat16), bo, 4)
+    with pytest.raises(ValueError, match="wo must be"):
+        fused_qkv_attention_outproj(x, w, bias, wo[:, :24], bo, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_qkv_attention_outproj(x, w, bias, wo.T, bo, 4)
+    with pytest.raises(RuntimeError, match="CUDA kernel launch failed"):
+        # more keys than phase 1's shared memory holds: bound-checked, no
+        # padding and no fallback
+        x_long = _inputs(1, 2000, 576, torch.float32, cuda)[0]
+        fused_qkv_attention_outproj(x_long, *_inputs(1, 1, 576,
+                                                     torch.float32, cuda)[1:],
+                                    torch.zeros(576, 576, device=cuda),
+                                    torch.zeros(576, device=cuda), 16)
+    # a CUDA tensor never takes the plain version
+    import weathermodel_tpu_torch.ops.fused_qkv_attention as fqa
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version on a CUDA tensor")
+
+    monkeypatch.setattr(fqa, "fused_qkv_attention_outproj_reference", refuse)
+    fused_qkv_attention_outproj(x, w, bias, wo, bo, 4)
+
+
+def test_serve_entry_point_launches_outproj_kernel(cuda, tmp_path):
+    """`wm-serve-torch --attention-impl fused_qkv_op`: B5 in every layer and
+    no B1 eval, the output within the fp32 kernel bar of the plain path."""
+    cfg = model_config_for_size("small", max_len=37)
+    torch.save(make_model("weatherbert", cfg, "torch").state_dict(),
+               tmp_path / "m.pth")
+    rng = np.random.default_rng(0)
+    np.savez(tmp_path / "w.npz",
+             weather=rng.normal(size=(45, 37, 31)).astype(np.float32))
+    outs = {}
+    for impl in ("fused_qkv_op", "torch"):
+        args = serve.build_parser().parse_args([
+            "--checkpoint", str(tmp_path / "m.pth"), "--model-size", "small",
+            "--input", str(tmp_path / "w.npz"), "--output",
+            str(tmp_path / f"{impl}.npz"), "--batch-size", "32",
+            "--compute-dtype", "float32", "--attention-impl", impl,
+            "--device", "cuda"])
+        before = (fused_qkv_attention_outproj.launches,
+                  fused_qkv_attention.launches)
+        serve.run(args)
+        if impl == "fused_qkv_op":
+            assert (fused_qkv_attention_outproj.launches - before[0],
+                    fused_qkv_attention.launches - before[1]) == \
+                (cfg.num_layers * 2, 0)
+        with np.load(tmp_path / f"{impl}.npz") as z:
+            outs[impl] = z["output"]
+    torch.testing.assert_close(outs["fused_qkv_op"], outs["torch"],
+                               atol=1e-4, rtol=1e-3)

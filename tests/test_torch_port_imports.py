@@ -23,7 +23,8 @@ def test_port_imports_no_jax():
     assert {"weathermodel_tpu_torch.train.trainer",
             "weathermodel_tpu_torch.bench",
             "weathermodel_tpu_torch.ops.fused_ffn",
-            "weathermodel_tpu_torch.ops.fused_ffn_ln"} <= set(modules)
+            "weathermodel_tpu_torch.ops.fused_ffn_ln",
+            "weathermodel_tpu_torch.serving_daemon"} <= set(modules)
     code = (
         "import sys\n"
         "import chip_smoke\n"

@@ -86,7 +86,9 @@ def test_port_serve_matches_jax_serve_for_weatherformer(files, tmp_path):
                                        err_msg=key)
 
 
-@pytest.mark.parametrize("flag", [["--daemon"], ["--bundle", "x.wmx"],
+# the daemon is ported (test_torch_port_daemon.py), its bundle source not
+@pytest.mark.parametrize("flag", [["--daemon", "--bundle", "x.wmx"],
+                                  ["--bundle", "x.wmx"],
                                   ["--quantize", "int8"],
                                   ["--tensor-parallel", "2"]])
 def test_unported_flags_exit_naming_the_roadmap(files, tmp_path, flag):

@@ -22,8 +22,9 @@ The variables are bench.py's, with the port's impl names:
   BENCH_GRAD_ACCUM      microbatches per update (default 2 at large when
                         neither the batch nor MoE is set, else 1)
   BENCH_STEPS           timed steps (default 20)
-  BENCH_ATTENTION       auto/fused_qkv/flash/torch (JAX auto/pallas_qkv/
-                        pallas/xla); pallas_qkv_op is not ported
+  BENCH_ATTENTION       auto/fused_qkv/fused_qkv_op/flash/torch (JAX auto/
+                        pallas_qkv/pallas_qkv_op/pallas/xla); fused_qkv_op
+                        (kernel B5) is inference-only: BENCH_MODE=eval
   BENCH_OBJECTIVE       masked_mse (WeatherBERT) or elbo (WeatherFormer)
   BENCH_MODE            train or eval (the forward only, no grad)
   BENCH_DROPOUT_RATE    overrides the model's dropout rate
@@ -66,8 +67,6 @@ DEFAULT_BATCH = {"mini": 1024, "small": 512, "medium": 384, "large": 576}
 DEFAULT_ACCUM = {"large": 2}
 # values of bench.py's variables the port does not have yet
 _UNPORTED = {
-    ("BENCH_ATTENTION", "pallas_qkv_op"):
-        "the fused attention + out-projection kernel B5 (ROADMAP.md queue B)",
     ("BENCH_FFN_IMPL", "int8"): "int8 serving (ROADMAP.md queue A item 13)",
     ("BENCH_FFN_IMPL", "int8_static"):
         "int8 serving (ROADMAP.md queue A item 13)",

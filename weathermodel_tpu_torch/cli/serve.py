@@ -1,12 +1,22 @@
-"""Offline batch inference (port of weathermodel_tpu/cli/serve.py):
-load a reference-format `.pth` encoder checkpoint and run the bucketed
-`WeatherPredictor` (weathermodel_tpu_torch/serve.py) over an input `.npz`
-of weather windows, writing the reconstructions to an output `.npz` with
-the JAX entry point's keys: `output`, or `mu` and `var` for the
-WeatherFormer family.
+"""Batch inference and the online daemon (port of
+weathermodel_tpu/cli/serve.py): load a reference-format `.pth` encoder
+checkpoint and run the bucketed `WeatherPredictor`
+(weathermodel_tpu_torch/serve.py) over an input `.npz` of weather windows,
+writing the reconstructions to an output `.npz` with the JAX entry point's
+keys: `output`, or `mu` and `var` for the WeatherFormer family.
 
     wm-serve-torch --checkpoint wb_large.pth --model weatherbert \
                    --model-size large --input windows.npz --output preds.npz
+
+`--daemon` serves online over HTTP instead, with request micro-batching,
+load shedding, hot reload and a SIGTERM drain (serving_daemon.py):
+
+    wm-serve-torch --daemon --port 8476 --checkpoint wb_large.pth \
+                   --model weatherbert --model-size large --allow-reload
+    # clients: POST /predict with .npz bytes; GET /healthz /stats
+
+`--attention-impl fused_qkv_op` runs each layer's projection, attention and
+out-projection as one kernel (B5, inference only).
 
 Input schema: weather [N, T, F] (+ optional coords [N, 2], year [N, T],
 interval [N, 1], mask [N, T, F]; missing ones get the pretraining
@@ -27,7 +37,6 @@ logger = logging.getLogger(__name__)
 
 # flags of the JAX entry point whose feature the port does not have yet
 _UNPORTED = {
-    "daemon": "the online HTTP daemon (ROADMAP.md queue A item 13)",
     "bundle": "exported bundles (ROADMAP.md queue A item 13)",
     "quantize": "int8 serving (ROADMAP.md queue A item 13)",
     "tensor_parallel": "tensor-parallel serving (ROADMAP.md queue A item 14)",
@@ -40,12 +49,46 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="weatherbert")
     p.add_argument("--model-size", default="small")
     p.add_argument("--input", help=".npz with weather [N,T,F] (+ optional "
-                                   "coords/year/interval/mask)")
-    p.add_argument("--output", help="output .npz path")
+                                   "coords/year/interval/mask); required "
+                                   "unless --daemon")
+    p.add_argument("--output", help="output .npz path; required unless "
+                                    "--daemon")
+    p.add_argument("--daemon", action="store_true",
+                   help="serve online over HTTP instead of one offline "
+                        "batch: POST /predict with .npz bytes; concurrent "
+                        "requests are micro-batched onto the device "
+                        "(serving_daemon.py)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", default=8476, type=int)
+    p.add_argument("--max-wait-ms", default=5.0, type=float,
+                   help="micro-batching window: max extra latency a lone "
+                        "request pays waiting to be coalesced")
+    p.add_argument("--max-queue-rows", default=None, type=int,
+                   help="daemon mode: bound on pending request rows "
+                        "(default 8 x --batch-size); beyond it /predict "
+                        "sheds load with 429 + Retry-After")
+    p.add_argument("--request-timeout-s", default=None, type=float,
+                   help="daemon mode: end-to-end budget for any accepted "
+                        "request; expiry answers 503 and abandons the "
+                        "rows (default: no timeout)")
+    p.add_argument("--allow-reload", action="store_true",
+                   help="daemon mode: enable POST /reload "
+                        '{"checkpoint": path}: hot-swap the served '
+                        "weights (same architecture, no dropped traffic)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="daemon mode: skip running every padding bucket "
+                        "at startup (the first request of each bucket then "
+                        "pays the kernels' build and load)")
+    p.add_argument("--seq-len", default=365, type=int,
+                   help="daemon mode: the model's max_len (requests must "
+                        "have T <= this; offline mode infers it from "
+                        "--input)")
     p.add_argument("--attention-impl", default="auto",
-                   choices=("auto", "fused_qkv", "flash", "torch"),
+                   choices=("auto", "fused_qkv", "fused_qkv_op", "flash",
+                            "torch"),
                    help="auto = the fused QKV CUDA kernel (plain PyTorch "
-                        "ops on a CPU tensor)")
+                        "ops on a CPU tensor); fused_qkv_op also runs the "
+                        "out-projection inside the kernel (B5)")
     p.add_argument("--batch-size", default=256, type=int,
                    help="max padding bucket (see serve.DEFAULT_BUCKETS)")
     p.add_argument("--compute-dtype", default="bfloat16",
@@ -57,7 +100,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) needs a card; cpu runs the kernels' "
                         "plain versions")
-    p.add_argument("--daemon", action="store_true", help="not ported yet")
     p.add_argument("--bundle", help="not ported yet")
     p.add_argument("--quantize", default="none",
                    choices=("none", "int8", "int8_static"),
@@ -110,11 +152,16 @@ def run(args: argparse.Namespace) -> dict:
         if getattr(args, flag) != getattr(defaults, flag):
             raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not "
                              "ported to weathermodel_tpu_torch yet")
-    if not (args.checkpoint and args.input and args.output):
-        raise SystemExit("--checkpoint, --input and --output are required")
+    if not args.checkpoint:
+        raise SystemExit("--checkpoint is required")
     from weathermodel_tpu_torch.cli.pretrain import resolve_device
 
     device = resolve_device(args.device)
+    if args.daemon:
+        return _run_daemon(args, device)
+    if not (args.input and args.output):
+        raise SystemExit("--input and --output are required (or pass "
+                         "--daemon)")
     weather, coords, year, interval, mask = _load_windows_npz(args.input)
     n, t, _ = weather.shape
     predictor = _make_predictor(args, t, device)
@@ -133,6 +180,26 @@ def run(args: argparse.Namespace) -> dict:
                 args.output, list(out), n, predict_s, summary)
     return {"n": n, "keys": list(out), "mean": summary,
             "predict_s": predict_s}
+
+
+def _run_daemon(args: argparse.Namespace, device) -> dict:
+    """Serve `args.checkpoint` over HTTP until SIGTERM/SIGINT."""
+    from weathermodel_tpu_torch.serve import reload_predictor_params
+    from weathermodel_tpu_torch.serving_daemon import serve_forever
+
+    predictor = _make_predictor(args, args.seq_len, device)
+    reload_fn = None
+    if args.allow_reload:
+        def reload_fn(path):
+            return reload_predictor_params(predictor, path)
+
+    serve_forever(predictor, args.host, args.port,
+                  max_batch=args.batch_size, max_wait_ms=args.max_wait_ms,
+                  do_warmup=not args.no_warmup, seq_len=args.seq_len,
+                  reload_fn=reload_fn, checkpoint=args.checkpoint,
+                  max_queue_rows=args.max_queue_rows,
+                  request_timeout_s=args.request_timeout_s)
+    return {"daemon": True}
 
 
 def main():

@@ -23,6 +23,10 @@
 //   o = p . v                  fp32 accumulation, rounded to the element type
 // The eval form keeps qkv on chip, as on the TPU.
 //
+// The kernel B5 (fused_qkv_attention_outproj.cu) runs this kernel as its first phase
+// through `wm::fused_qkv_attention_o`: the eval form, or with dropout the training form's
+// rounding and mask without the qkv output (kEmitQkv = false).
+//
 // Design: one thread block per (batch row, head), 512 threads.
 //   Phase 1 projects that head's q, k and v slices ([T, hd] each) from x[b] into shared
 //   memory. x and the head's 3*hd weight rows are staged through shared memory in
@@ -84,9 +88,9 @@ size_t smem_bytes(int t) {
   return (qkv + shared) * sizeof(float);
 }
 
-// kTrain selects the training form (module comment); the eval instantiations compile
-// exactly the eval form's code.
-template <typename T, int HD, bool kTrain>
+// kTrain selects the training form (module comment); kEmitQkv (training form only)
+// writes the packed qkv. The eval instantiations compile exactly the eval form's code.
+template <typename T, int HD, bool kTrain, bool kEmitQkv>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
                            const T* __restrict__ bias, T* __restrict__ out,
@@ -163,9 +167,10 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
         int r = r0 + ty + 32 * i;
         if (r >= t) continue;
         float v = round_to<T>(acc[i][j] + bv);
-        if constexpr (kTrain) {
+        if constexpr (kEmitQkv)
           qkv_out[((size_t)row_b * t + r) * 3 * h + part * h + head * HD + dd] =
               from_float<T>(v);
+        if constexpr (kTrain) {
           if (part == 0) v = round_to<T>(v * scale_t);
         }
         dst[r * L::kStride + dd] = v;
@@ -179,11 +184,11 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                  t, h, scale, drop, blockIdx.x);
 }
 
-template <typename T, int HD, bool kTrain>
+template <typename T, int HD, bool kTrain, bool kEmitQkv>
 cudaError_t launch(const void* x, const void* w, const void* b, void* o, void* qkv,
                    int batch, int t, int h, int num_heads, Dropout drop,
                    cudaStream_t stream) {
-  auto kernel = fused_qkv_attention_kernel<T, HD, kTrain>;
+  auto kernel = fused_qkv_attention_kernel<T, HD, kTrain, kEmitQkv>;
   size_t smem = smem_bytes<HD>(t);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -197,30 +202,39 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* o, void* q
   return cudaGetLastError();
 }
 
-template <typename T, bool kTrain>
+template <typename T, bool kTrain, bool kEmitQkv>
 cudaError_t dispatch_head_dim(const void* x, const void* w, const void* b, void* o,
                               void* qkv, int batch, int t, int h, int num_heads,
                               Dropout drop, cudaStream_t stream) {
   switch (h / num_heads) {
-    case 12: return launch<T, 12, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
-    case 20: return launch<T, 20, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
-    case 28: return launch<T, 28, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
-    case 36: return launch<T, 36, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
+    case 12:
+      return launch<T, 12, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads, drop,
+                                            stream);
+    case 20:
+      return launch<T, 20, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads, drop,
+                                            stream);
+    case 28:
+      return launch<T, 28, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads, drop,
+                                            stream);
+    case 36:
+      return launch<T, 36, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads, drop,
+                                            stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kTrain>
+template <bool kTrain, bool kEmitQkv>
 int dispatch(int dtype, const void* x, const void* w, const void* b, void* o, void* qkv,
              int batch, int t, int h, int num_heads, Dropout drop, void* stream) {
   if (batch <= 0 || t <= 0 || num_heads <= 0 || h % num_heads != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_head_dim<float, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads, drop, s);
+    return dispatch_head_dim<float, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads,
+                                                      drop, s);
   if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16, kTrain>(x, w, b, o, qkv, batch, t, h, num_heads,
-                                                    drop, s);
+    return dispatch_head_dim<__nv_bfloat16, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h,
+                                                              num_heads, drop, s);
   return cudaErrorInvalidValue;
 }
 
@@ -232,8 +246,8 @@ extern "C" {
 // all contiguous on the current device. Returns a cudaError_t (0 on success).
 int wm_fused_qkv_attention(int dtype, const void* x, const void* w, const void* b, void* o,
                            int batch, int t, int h, int num_heads, void* stream) {
-  return dispatch<false>(dtype, x, w, b, o, nullptr, batch, t, h, num_heads, Dropout{},
-                         stream);
+  return dispatch<false, false>(dtype, x, w, b, o, nullptr, batch, t, h, num_heads,
+                                Dropout{}, stream);
 }
 
 // The training form: as above, plus qkv [batch, t, 3h] written out, and dropout on the
@@ -244,8 +258,28 @@ int wm_fused_qkv_attention_train(int dtype, const void* x, const void* w, const 
                                  int num_heads, int dropout_on, unsigned int seed,
                                  unsigned int threshold, float keep_prob, void* stream) {
   Dropout drop{dropout_on, seed, threshold, keep_prob, 0.f};
-  return dispatch<true>(dtype, x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
+  return dispatch<true, true>(dtype, x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
 }
+
+}  // extern "C"
+
+namespace wm {
+
+// B5's first phase: o [batch, t, h] as above with no qkv output, the eval form when
+// drop.on == 0, else the training form's rounding and dropout mask.
+int fused_qkv_attention_o(int dtype, const void* x, const void* w, const void* b, void* o,
+                          int batch, int t, int h, int num_heads, Dropout drop,
+                          void* stream) {
+  if (drop.on)
+    return dispatch<true, false>(dtype, x, w, b, o, nullptr, batch, t, h, num_heads, drop,
+                                 stream);
+  return dispatch<false, false>(dtype, x, w, b, o, nullptr, batch, t, h, num_heads, drop,
+                                stream);
+}
+
+}  // namespace wm
+
+extern "C" {
 
 const char* wm_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -87,6 +87,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wm_fused_qkv_attention_bwd.argtypes = [i, p, p, p, p, i, i, i, i, i, u,
                                                u, f, p]
     lib.wm_fused_qkv_attention_bwd.restype = i
+    # dtype, x, w, b, wo, bo, o (workspace), y, batch, t, h, heads,
+    # dropout_on, seed, threshold, keep_prob, stream
+    lib.wm_fused_qkv_attention_outproj.argtypes = [i, p, p, p, p, p, p, p, i,
+                                                   i, i, i, i, u, u, f, p]
+    lib.wm_fused_qkv_attention_outproj.restype = i
     # dtype, q, k, v, row stride, o, batch, t, h, heads, dropout_on, seed,
     # threshold, keep_prob, stream
     lib.wm_flash_attention.argtypes = [i, p, p, p, i, p, i, i, i, i, i, u, u,

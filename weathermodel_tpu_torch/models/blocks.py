@@ -46,6 +46,7 @@ from weathermodel_tpu_torch.ops.fused_ffn_ln import FusedFFNLN
 from weathermodel_tpu_torch.ops.fused_qkv_attention import (
     FusedQKVAttention,
     fused_qkv_attention,
+    fused_qkv_attention_outproj,
 )
 
 LN_EPS = 1e-5
@@ -94,7 +95,12 @@ class SelfAttention(nn.Module):
     runs the projection as a plain matmul in the compute dtype and the
     attention on its three column slices as kernel B3f (with B3b as its
     backward when dropout is on or a gradient is needed; blocks.py:170-185
-    of the JAX package); "torch" runs both as plain ops."""
+    of the JAX package); "torch" runs both as plain ops. "fused_qkv_op"
+    runs the projection, the attention and the out-projection as kernel
+    B5 and returns its output directly; it is for inference only (the JAX
+    layer's "pallas_qkv_op", blocks.py:121-145) and raises when dropout is
+    on or a gradient is needed. The parameters are the same for every
+    impl."""
 
     def __init__(self, hidden_dim: int, num_heads: int,
                  attention_impl: str = "torch"):
@@ -117,6 +123,16 @@ class SelfAttention(nn.Module):
         b = self.in_proj_bias.to(x.dtype)
         seed = draw_seed(generator) if dropout_rate > 0.0 else 0
         train = dropout_rate > 0.0 or needs_grad(x, w, b)
+        if self.attention_impl == "fused_qkv_op":
+            wo, bo = self.out_proj.weight.to(x.dtype), self.out_proj.bias
+            if train or needs_grad(x, wo, bo):
+                raise ValueError(
+                    "attention_impl 'fused_qkv_op' (kernel B5) is for "
+                    "inference only: it has no backward and no training "
+                    "form; train with attention_impl 'fused_qkv'")
+            return fused_qkv_attention_outproj(
+                x, w.contiguous(), b, wo.contiguous(), bo.to(x.dtype),
+                self.num_heads)
         if self.attention_impl == "fused_qkv" and train:
             out = FusedQKVAttention.apply(x, w.contiguous(), b,
                                           self.num_heads, dropout_rate, seed)

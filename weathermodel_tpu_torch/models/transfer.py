@@ -1,5 +1,6 @@
-"""Reference checkpoints in and out of the port (port of
-weathermodel_tpu/models/transfer.py:107-171).
+"""Reference checkpoints in and out of the port, and pretrained-parameter
+transfer between model variants (port of
+weathermodel_tpu/models/transfer.py:53-171).
 
 The port's models' `state_dict()`s use the reference's keys and torch's
 [out, in] weight layout, so a reference `.pth` loads with no conversion.
@@ -9,10 +10,20 @@ inverse of the JAX package's `convert_torch_state_dict`. MoE layers
 (`layer_i/moe`, models/moe.py) map to `....moe.router.{weight,bias}` (the
 kernel transposed) and `....moe.expert_{w1,b1,w2,b2}` in the JAX layout,
 which is what the grouped matmul takes.
+
+`load_pretrained` applies the JAX package's transfer rules to these state
+dicts: the encoder trunk (`in_proj.*`, `transformer_encoder.*`) always
+transfers; `out_proj.*` only when every shape matches (a WeatherFormer from a
+WeatherBERT keeps its own [2F, H] head); each prior transfers when both sides
+hold it.
 """
+
+import logging
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 _LAYER_KEYS = {"self_attn", "linear1", "linear2", "norm1", "norm2"}
 _MOE_LAYER_KEYS = {"self_attn", "moe", "norm1", "norm2"}
@@ -43,6 +54,71 @@ def load_reference_checkpoint(path: str) -> dict:
 def has_moe_layers(state_dict) -> bool:
     """True if a state dict holds MoE expert layers (`.moe.` keys)."""
     return any(".moe." in k for k in state_dict)
+
+
+def _is_trunk(key: str) -> bool:
+    return key.startswith(("in_proj.", "transformer_encoder."))
+
+
+def load_pretrained(model_name: str, target_state: dict,
+                    pretrained_state: dict,
+                    load_out_proj: bool = True) -> dict:
+    """`target_state` with its transferable entries replaced by the
+    pretrained ones (weathermodel_tpu/models/transfer.py:53-100): the
+    encoder trunk always; `out_proj.*` when `load_out_proj` and every shape
+    matches; each prior of PRIOR_PARAM_NAMES that both hold, raising on a
+    shape (k) mismatch. An input-projection or MoE-ness mismatch raises.
+    `model_name` is the trainer's key, kept for the JAX signature."""
+    del model_name  # the rules do not depend on it, as in the JAX package
+    for name, state in (("target", target_state),
+                        ("pretrained", pretrained_state)):
+        if "in_proj.weight" not in state:
+            raise ValueError(f"both state dicts must contain an encoder "
+                             f"trunk; the {name} state lacks "
+                             "'in_proj.weight'")
+    # shapes as the JAX kernel's [in, out], so the message reads the same
+    tgt_in = tuple(target_state["in_proj.weight"].shape[::-1])
+    src_in = tuple(pretrained_state["in_proj.weight"].shape[::-1])
+    if tgt_in != src_in:
+        raise ValueError(
+            f"expected input dimension {tgt_in} but received {src_in}")
+    if has_moe_layers(pretrained_state) != has_moe_layers(target_state):
+        raise ValueError(
+            "FFN architecture mismatch: one checkpoint uses MoE layers "
+            "(--moe-experts) and the other a dense FFN; build the target "
+            "with the same num_experts as the pretrained encoder")
+    trunk = {k for k in target_state if _is_trunk(k)}
+    src_trunk = {k for k in pretrained_state if _is_trunk(k)}
+    if trunk != src_trunk:
+        missing = sorted(trunk - src_trunk)
+        extra = sorted(src_trunk - trunk)
+        raise ValueError(
+            f"pretrained state lacks {len(missing)} and adds {len(extra)} "
+            f"encoder trunk parameters of the model (first: "
+            f"{(missing + extra)[:3]}); another --model-size?")
+    out = {k: (pretrained_state[k] if k in trunk else v)
+           for k, v in target_state.items()}
+
+    heads = [k for k in target_state if k.startswith("out_proj.")]
+    src_heads = [k for k in pretrained_state if k.startswith("out_proj.")]
+    if heads and src_heads:
+        if load_out_proj and sorted(heads) == sorted(src_heads) and all(
+                target_state[k].shape == pretrained_state[k].shape
+                for k in heads):
+            logger.info("Loading out_proj from pretrained model")
+            out.update({k: pretrained_state[k] for k in heads})
+        else:
+            logger.info("Not loading out_proj from pretrained model")
+
+    for name in PRIOR_PARAM_NAMES:
+        if name in pretrained_state and name in target_state:
+            tgt_shape = tuple(target_state[name].shape)
+            src_shape = tuple(pretrained_state[name].shape)
+            if tgt_shape != src_shape:
+                raise ValueError(f"{name} shape mismatch: {tgt_shape} != "
+                                 f"{src_shape} (k mismatch?)")
+            out[name] = pretrained_state[name]
+    return out
 
 
 def _tensor(a) -> torch.Tensor:

@@ -2,7 +2,9 @@
 attention-weight dropout rule (port of weathermodel_tpu/ops/attention.py).
 
 Impl names in the port: "fused_qkv" is the hand-written CUDA kernel of
-`ops/fused_qkv_attention.py` (the JAX package's "pallas_qkv"); "flash" is
+`ops/fused_qkv_attention.py` (the JAX package's "pallas_qkv");
+"fused_qkv_op" its inference-only kernel B5 with the out-projection inside
+(the JAX package's "pallas_qkv_op"); "flash" is
 the attention kernel on separate q, k, v of `ops/flash_attention.py` (the
 JAX package's "pallas"); "torch" is `torch_attention` below (the JAX
 package's "xla").
@@ -18,7 +20,7 @@ version draw the same mask and the backward regenerates the forward's.
 
 import torch
 
-ATTENTION_IMPLS = ("fused_qkv", "flash", "torch")
+ATTENTION_IMPLS = ("fused_qkv", "fused_qkv_op", "flash", "torch")
 
 M32 = 0xFFFFFFFF
 # keep-mask elements per chunk of batch rows: bounds the int64 temporaries

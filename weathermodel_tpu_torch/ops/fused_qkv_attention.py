@@ -23,6 +23,13 @@ what the kernel is checked against on the card.
 * `FusedQKVAttention` - the autograd Function joining the two (the custom
   VJP `_attention_fused_bth`); dx, dW and db are plain matmuls and a sum
   outside the kernels, as in the JAX package (pallas_attention.py:682-692).
+* `fused_qkv_attention_outproj` - kernel B5
+  (`csrc/fused_qkv_attention_outproj.cu`, `_fused_fwd_outproj_kernel` of
+  `flash_attention_fused_outproj`): the eval form (or, with dropout, the
+  training form's attention) and then y = o . wo^T + bo inside the kernel,
+  o rounded to x's dtype, y summed in fp32 with the bias and rounded once.
+  Inference only: it has no backward and refuses a tensor that needs a
+  gradient.
 
 The training form's and B2's plain versions are B3's
 (ops/flash_attention.py) on the three column slices of the packed qkv:
@@ -216,3 +223,66 @@ class FusedQKVAttention(torch.autograd.Function):
         dw = dqkv.reshape(-1, 3 * h).T @ x.reshape(-1, h)
         db = dqkv.float().sum(dim=(0, 1)).to(w_qkv.dtype)
         return dx, dw, db, None, None, None
+
+
+def _check_outproj_shapes(x, w_qkv, b_qkv, wo, bo, num_heads):
+    _check_shapes(x, w_qkv, b_qkv, num_heads)
+    h = x.shape[-1]
+    if tuple(wo.shape) != (h, h) or tuple(bo.shape) != (h,):
+        raise ValueError(f"wo must be [{h}, {h}] and bo [{h}], got "
+                         f"{tuple(wo.shape)} and {tuple(bo.shape)}")
+
+
+def fused_qkv_attention_outproj_reference(x, w_qkv, b_qkv, wo, bo,
+                                          num_heads: int,
+                                          dropout_rate: float = 0.0,
+                                          seed: int = 0):
+    """Plain PyTorch version of kernel B5: the eval form's plain version
+    (with dropout, the training form's), then y = o . wo^T + bo in fp32,
+    rounded once to x.dtype. wo [H, H] in torch's [out, in] layout."""
+    _check_outproj_shapes(x, w_qkv, b_qkv, wo, bo, num_heads)
+    if dropout_rate > 0.0:
+        o = fused_qkv_attention_train_reference(x, w_qkv, b_qkv, num_heads,
+                                                dropout_rate, seed)[0]
+    else:
+        o = fused_qkv_attention_reference(x, w_qkv, b_qkv, num_heads)
+    return (o.float() @ wo.float().T + bo.float()).to(x.dtype)
+
+
+def fused_qkv_attention_outproj(x, w_qkv, b_qkv, wo, bo, num_heads: int,
+                                dropout_rate: float = 0.0, seed: int = 0):
+    """Kernel B5: x [B, T, H]; w_qkv [3H, H]; b_qkv [3H]; wo [H, H]; bo [H]
+    -> y = attention(x . w_qkv^T + b_qkv) . wo^T + bo [B, T, H], with
+    dropout at `dropout_rate` on the attention weights drawn from `seed`.
+
+    Inference only: raises ValueError if a gradient is needed through any
+    input. CUDA tensors launch the kernel (counted in
+    `fused_qkv_attention_outproj.launches`) or raise; CPU tensors take the
+    plain version."""
+    _check_outproj_shapes(x, w_qkv, b_qkv, wo, bo, num_heads)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (x, w_qkv, b_qkv, wo, bo)):
+        raise ValueError("fused_qkv_attention_outproj (kernel B5) is "
+                         "inference-only: it has no backward; train with "
+                         "fused_qkv_attention's FusedQKVAttention")
+    if not _on_cuda("fused_qkv_attention_outproj",
+                   x.shape[-1] // num_heads, x, w_qkv, b_qkv, wo, bo):
+        return fused_qkv_attention_outproj_reference(
+            x, w_qkv, b_qkv, wo, bo, num_heads, dropout_rate, seed)
+    on, threshold, keep_prob, _ = dropout_params(dropout_rate)
+    bsz, t, h = x.shape
+    lib = build.load_library().lib
+    o = torch.empty_like(x)  # phase 1's output, phase 2's input
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.wm_fused_qkv_attention_outproj(
+            build.DTYPE_CODES[x.dtype], x.data_ptr(), w_qkv.data_ptr(),
+            b_qkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), o.data_ptr(),
+            y.data_ptr(), bsz, t, h, num_heads, on, seed, threshold,
+            keep_prob, build.cuda_stream(x.device))
+    build.check(err)
+    fused_qkv_attention_outproj.launches += 1
+    return y
+
+
+fused_qkv_attention_outproj.launches = 0

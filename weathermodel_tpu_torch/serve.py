@@ -1,4 +1,4 @@
-"""Batched inference (port of weathermodel_tpu/serve.py:23-135,194-261).
+"""Batched inference (port of weathermodel_tpu/serve.py:23-135,194-295).
 
 Loads a reference-format `.pth` checkpoint and returns an eval-mode
 predictor on one device. Requests are padded with zero rows up to a small
@@ -9,8 +9,15 @@ the largest bucket are chunked by it.
     predictor = load_weather_predictor("wb_large.pth", "large",
                                        device="cuda")
     out = predictor(weather, coords, year, interval, mask)
+
+`reload_predictor_params` hot-swaps a predictor's weights from a new `.pth`
+(the online daemon's POST /reload): the new weights are loaded into a
+second copy of the module on the device and the predictor's one reference
+to its module is swapped, so a batch in flight finishes on the weights it
+started with.
 """
 
+import copy
 import logging
 from typing import Sequence
 
@@ -28,7 +35,8 @@ class WeatherPredictor:
     """Deterministic batched forward of `model` on `device` with batch
     bucketing. Inputs and outputs are numpy arrays; a model with several
     outputs (the WeatherFormer family: mu, var, ...) gives a tuple of
-    them."""
+    them. Each call reads `self.model` once, so `swap_state` may replace it
+    from another thread."""
 
     def __init__(self, model: torch.nn.Module,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -36,6 +44,33 @@ class WeatherPredictor:
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.buckets = tuple(sorted(buckets))
+
+    def swap_state(self, state_dict) -> int:
+        """Replace the served parameters with `state_dict` (the model's
+        keys, shapes and dtypes; a mismatch raises before anything is
+        touched). The new weights go into a copy of the module on the
+        device, and the device is synchronized before the predictor's
+        reference moves to it: a batch in flight finishes on the module it
+        read, never on a mix. Returns the number of parameters."""
+        model = self.model
+        current = model.state_dict()
+        if set(state_dict) != set(current):
+            raise ValueError(
+                "checkpoint parameter tree does not match the serving "
+                "model (wrong --model/--model-size/--moe-experts?)")
+        bad = [f"{k}: {tuple(current[k].shape)}/{current[k].dtype} != "
+               f"{tuple(v.shape)}/{v.dtype}"
+               for k, v in state_dict.items()
+               if v.shape != current[k].shape or v.dtype != current[k].dtype]
+        if bad:
+            raise ValueError("checkpoint leaf mismatch vs serving model: "
+                             + "; ".join(bad[:5]))
+        staged = copy.deepcopy(model)
+        staged.load_state_dict(state_dict)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # resident before the swap
+        self.model = staged
+        return sum(v.numel() for v in state_dict.values())
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -65,8 +100,9 @@ class WeatherPredictor:
             x = np.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1))
             return torch.from_numpy(x).to(self.device)
 
+        model = self.model  # read once: swap_state may replace it
         with torch.inference_mode():
-            out = self.model(
+            out = model(
                 place(weather, np.float32), place(coords, np.float32),
                 place(year, np.float32), place(interval, np.float32),
                 place(weather_feature_mask, bool))
@@ -127,7 +163,37 @@ def load_weather_predictor(
             f"checkpoint {checkpoint_path} lacks {len(missing)} parameters "
             f"of {model_name}-{model_size} (first: {missing[:3]}); wrong "
             "--model/--model-size?")
-    # keys the model does not have (e.g. a reference PE buffer) are ignored,
-    # as the JAX package's converter ignores them
-    model.load_state_dict({k: state_dict[k] for k in model.state_dict()})
+    model.load_state_dict(_model_keys(model, state_dict))
     return WeatherPredictor(model, buckets, device=device)
+
+
+def _model_keys(model, state_dict) -> dict:
+    """The entries of `state_dict` that `model` has: keys the model does
+    not have (e.g. a reference PE buffer) are ignored, as the JAX package's
+    converter ignores them."""
+    return {k: state_dict[k] for k in model.state_dict() if k in state_dict}
+
+
+def reload_predictor_params(predictor: WeatherPredictor,
+                            checkpoint_path: str) -> int:
+    """Hot-reload `predictor` from a new reference `.pth` of the same
+    architecture (`swap_state` checks keys, shapes and dtypes; MoE-ness is
+    checked here with `load_weather_predictor`'s message), without
+    dropping traffic: the daemon's POST /reload. Returns the parameter
+    count."""
+    from weathermodel_tpu_torch.cli.pretrain import load_pretrained_params
+    from weathermodel_tpu_torch.models.transfer import has_moe_layers
+
+    cfg = getattr(predictor.model, "cfg", None)
+    if cfg is None:
+        raise ValueError("predictor.model has no cfg; cannot reload")
+    state_dict = load_pretrained_params(checkpoint_path)
+    if has_moe_layers(state_dict) != (cfg.num_experts > 0):
+        raise ValueError(
+            f"checkpoint {checkpoint_path} "
+            f"{'contains' if has_moe_layers(state_dict) else 'lacks'} MoE "
+            f"expert params but the serving model was built with "
+            f"num_experts={cfg.num_experts}")
+    n = predictor.swap_state(_model_keys(predictor.model, state_dict))
+    logger.info("hot-reloaded %d params from %s", n, checkpoint_path)
+    return n

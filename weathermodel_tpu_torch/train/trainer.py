@@ -22,6 +22,7 @@ from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
+from weathermodel_tpu_torch.models.transfer import load_pretrained
 from weathermodel_tpu_torch.ops.schedules import epoch_lr_schedule
 from weathermodel_tpu_torch.train.checkpoint import (
     save_best_params,
@@ -63,8 +64,9 @@ class PretrainTrainer:
         not the CLI's `weatherformersinusoid`): it picks the objective and
         the masking policy and names the output json. The model is
         initialised from `train_cfg.seed` (or loaded from
-        `pretrained_state`, a state dict with the model's keys) and moved
-        to `device`."""
+        `pretrained_state`, a reference-format state dict, through the JAX
+        trainer's transfer rules, models/transfer.py's `load_pretrained`)
+        and moved to `device`."""
         if model_name not in OBJECTIVE_FOR_MODEL:
             raise NotImplementedError(
                 f"pretraining {model_name!r} is not ported yet; see "
@@ -82,14 +84,8 @@ class PretrainTrainer:
 
         model.reset_parameters(torch.Generator().manual_seed(train_cfg.seed))
         if pretrained_state is not None:
-            missing = [k for k in model.state_dict()
-                       if k not in pretrained_state]
-            if missing:
-                raise ValueError(f"pretrained state lacks {len(missing)} "
-                                 f"parameters of the model (first: "
-                                 f"{missing[:3]})")
-            model.load_state_dict({k: pretrained_state[k]
-                                   for k in model.state_dict()})
+            model.load_state_dict(load_pretrained(
+                model_name, model.state_dict(), pretrained_state))
         self.model = model.to(self.device)
         self.optimizer = make_optimizer(self.model)
         self._train_step = make_train_step(
