@@ -89,11 +89,29 @@ Phases, each printing one line; any failure raises and exits non-zero:
                version and the yardstick (the port's "torch" FFN: F.linear,
                ReLU, F.linear, and for B6 the residual and F.layer_norm; its
                autograd backward for B6b)
-  14. bench - `python -m weathermodel_tpu_torch.bench`'s run(env) at
+  14. kernel_maskgen - the keep-mask family at the FFN hidden site of the
+               bench microbatch (M = 105120 rows, C = 2304, rate 0.1): B8
+               (forward and backward) and B8m launched through their public
+               functions `kernel_dropout` and `random_keep_mask` with the
+               counts at 0 (they have no other path), then B9b, B9p, B8m and
+               B8 (bf16 and fp32) held bitwise against their plain versions
+               (B9p unpacked against B9b, B8 and its gradient against B8m's
+               mask x the dtype-rounded scale x x or dy), keep rates within
+               1e-3 of 0.9; CUDA-event times of the kernel, the plain version
+               and the library call (bernoulli_ for the bool masks,
+               F.dropout for B8, none for B9p) and both bounds (bytes, the
+               hash's integer operations)
+  15. bench - `python -m weathermodel_tpu_torch.bench`'s run(env) at
                WeatherBERT-large, 2 x 288, bf16, dropout 0.1, for
                BENCH_FFN_IMPL torch, fused_ffn_ln and fused_ffn (each JSON
                line printed): per step 16 launches of B1 train and B2 in all
                three, of B6f and B6b with fused_ffn_ln, of B7 with fused_ffn;
+               the torch FFN again under the dropout impls maskgen and
+               maskgen_bool (ops.dropout.set_impl, as the JAX ablation
+               scripts select them): 16 launches per step of B9p or B9b at
+               the FFN hidden sites, none of the other kernels of the family
+               (the sites with C = 576 take "auto"), and a torch.profiler
+               step of maskgen_bool with B9b's and torch.rand's device time;
                BENCH_MODE=eval runs of the two fused impls (8 launches of B6f
                or B7, without its hidden output, per batch) and a
                BENCH_ATTENTION=fused_qkv_op eval run at batch 576 (8 launches
@@ -826,9 +844,11 @@ def _train_step_fn(name, cfg, impl, device, grad_accum=1, gmm_impl="kernel",
 
 
 def _profile_step(name, cfg, impl, batch_size, grad_accum=1,
-                  ffn_impl="torch"):
+                  ffn_impl="torch", named=()):
     """torch.profiler over one train step (after a warm-up step): device
-    time by op and the device's busy share of the step."""
+    time by op and the device's busy share of the step; for each
+    (label, substring) in `named`, the device time and count of the kernels
+    whose name holds the substring."""
     from weathermodel_tpu_torch.train.steps import batch_to_device
 
     _, step = _train_step_fn(name, cfg, impl, "cuda", grad_accum,
@@ -848,9 +868,14 @@ def _profile_step(name, cfg, impl, batch_size, grad_accum=1,
     total = sum(_device_ms(e) for e in events)
     top = ", ".join(f"{e.key[:60]} {_device_ms(e):.1f} ms x{e.count}"
                     for e in events[:12])
+    picked = "".join(
+        f"; {label}: "
+        f"{sum(_device_ms(e) for e in events if sub in e.key):.2f} ms x"
+        f"{sum(e.count for e in events if sub in e.key)}"
+        for label, sub in named)
     return (f"profile of one step: kernels {total:.1f} ms of device time in "
-            f"{wall_ms:.1f} ms profiled (busy {total / wall_ms:.2f}); top: "
-            f"{top or 'none'}")
+            f"{wall_ms:.1f} ms profiled (busy {total / wall_ms:.2f}){picked}; "
+            f"top: {top or 'none'}")
 
 
 def _grad_rel(a, b):
@@ -983,17 +1008,30 @@ def _all_kernels():
         fused_ffn_ln_bwd,
     )
     from weathermodel_tpu_torch.ops.gmm import gmm, tgmm
+    from weathermodel_tpu_torch.ops.kernel_dropout import (
+        lane_dropout,
+        random_keep_mask,
+    )
+    from weathermodel_tpu_torch.ops.maskgen import (
+        bool_keep_mask,
+        packed_keep_mask,
+    )
 
     return (fused_qkv_attention, fused_qkv_attention_train,
             fused_qkv_attention_bwd, flash_attention_fwd, flash_attention_bwd,
             gmm, tgmm, fused_ffn_ln, fused_ffn_ln_bwd, fused_ffn,
-            fused_qkv_attention_outproj)
+            fused_qkv_attention_outproj, packed_keep_mask, bool_keep_mask,
+            lane_dropout, random_keep_mask)
 
 
-# the kernels no training run launches: the FFN kernels (the bench's only)
-# and B5 (serving and the bench's eval mode only)
+# the kernels no training run launches: the FFN kernels (the bench's only),
+# B5 (serving and the bench's eval mode only) and the keep-mask family (the
+# maskgen dropout impls, which only the bench's maskgen lines select, and
+# B8/B8m, which no layer calls)
 NOT_IN_TRAINING = {"fused_ffn_ln": 0, "fused_ffn_ln_bwd": 0, "fused_ffn": 0,
-                   "fused_qkv_attention_outproj": 0}
+                   "fused_qkv_attention_outproj": 0, "packed_keep_mask": 0,
+                   "bool_keep_mask": 0, "lane_dropout": 0,
+                   "random_keep_mask": 0}
 
 
 def _check_record(record, keys=("total_loss",)):
@@ -1628,6 +1666,156 @@ def phase_kernel_ffn():
     return results[torch.bfloat16, DROPOUT]
 
 
+# the keep-mask family at the bench microbatch's FFN hidden site (288 x 365
+# rows of 2304): seeds of the masks and of B8's input
+MASK_SEEDS = (20260201, 20260202)
+# 32-bit integer instructions per second: one per lane and clock on each of
+# the 128 lanes of the 132 SMs, the data sheet's fp32 rate off the tensor
+# cores (67 TFLOP/s, which counts an FMA as two operations) counted in
+# instructions
+INT_OPS_PER_S = PEAK_FLOPS[torch.float32] / 2
+# integer operations per element (mix32 is 8: three shift-xors and two
+# multiplies; one xor with the column key; the compare), plus B9p's shift
+# and or, B8's multiply and select; a row's key costs 18 more per row
+MASK_OPS, PACK_OPS, APPLY_OPS, KEY_OPS = 10, 2, 2, 18
+
+
+def _mask_bound(elements, rows, ops_per_element, nbytes):
+    """(ms, "operations" or "bytes"), and both times: the hash's integer
+    operations at INT_OPS_PER_S against the bytes at the memory rate."""
+    ops_ms = (elements * ops_per_element + rows * KEY_OPS) / INT_OPS_PER_S * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                                "bytes")
+    return bound, ops_ms, bytes_ms
+
+
+def _check_equal(what, got, want):
+    if not torch.equal(got, want):
+        bad = (got != want).sum().item()
+        raise AssertionError(f"{what}: {bad} of {want.numel()} elements "
+                             "differ from the plain version")
+
+
+def _keep_rate(what, keep):
+    rate = keep.float().mean().item()
+    if abs(rate - (1 - DROPOUT)) > 1e-3:
+        raise AssertionError(f"{what}: keep rate {rate}, want "
+                             f"{1 - DROPOUT} +- 1e-3")
+    return rate
+
+
+def phase_kernel_maskgen():
+    """B9b, B9p, B8m and B8 at the FFN hidden site of the bench microbatch
+    [105120, 2304]: B8 (forward and backward) and B8m launched once each
+    through their public functions with the counts at 0 (their only path),
+    then each kernel held bitwise against its plain version, keep rates,
+    CUDA-event times of kernel, plain version and library call, bounds."""
+    from weathermodel_tpu_torch.ops import kernel_dropout as kd
+    from weathermodel_tpu_torch.ops import maskgen as mg
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    m, c = FFN_ROWS, model_config_for_size(MODEL_SIZE).ffn_dim
+    shape, n, rate = (MICRO, SEQ_LEN, c), FFN_ROWS * c, DROPOUT
+    s1, s2 = MASK_SEEDS
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+    dy = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+
+    for fn in (kd.lane_dropout, kd.random_keep_mask):
+        fn.launches = 0
+    leaf = x.detach().requires_grad_()
+    y = kd.kernel_dropout(leaf, rate, s1)
+    y.backward(dy)
+    keep8 = kd.random_keep_mask(shape, rate, s1, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(lane_dropout=kd.lane_dropout.launches,
+                    random_keep_mask=kd.random_keep_mask.launches)
+    if launches != dict(lane_dropout=2, random_keep_mask=1):
+        raise AssertionError(f"kernel_dropout forward + backward and "
+                             f"random_keep_mask launched {launches}")
+
+    r = {"launches": launches}
+    _check_equal("B8m", keep8, kd.random_keep_mask_reference(shape, rate, s1,
+                                                             "cuda"))
+    scale = torch.tensor(1 / (1 - rate), dtype=torch.bfloat16, device="cuda")
+    zero = torch.zeros((), dtype=torch.bfloat16, device="cuda")
+    _check_equal("B8 bf16 vs its mask x scale", y, torch.where(keep8,
+                                                               x * scale, zero))
+    _check_equal("B8 gradient vs its forward mask x scale x dy", leaf.grad,
+                 torch.where(keep8, dy * scale, zero))
+    del leaf, y
+    rates = {"B8m": _keep_rate("B8m", keep8)}
+    r["b8m_ms"] = _cuda_ms(lambda: kd.random_keep_mask(shape, rate, s1,
+                                                      "cuda"))
+    r["b8m_plain_ms"] = _cuda_ms(lambda: kd.random_keep_mask_reference(
+        shape, rate, s1, "cuda"), iters=3, warmup=1)
+    r["b8m_library_ms"] = _cuda_ms(lambda: torch.empty(
+        shape, dtype=torch.bool, device="cuda").bernoulli_(1 - rate))
+    r["b8m_bound"], r["b8m_ops_ms"], r["b8m_bytes_ms"] = _mask_bound(
+        n, -(-n // kd.LANES), MASK_OPS, n)
+    del keep8
+
+    keep = mg.bool_keep_mask(m, c, rate, s2, "cuda")
+    _check_equal("B9b", keep, mg.bool_keep_mask_reference(m, c, rate, s2,
+                                                          "cuda"))
+    packed = mg.packed_keep_mask(m, c, rate, s2, "cuda")
+    _check_equal("B9p", packed, mg.packed_keep_mask_reference(m, c, rate, s2,
+                                                              "cuda"))
+    _check_equal("B9p unpacked vs B9b", mg.unpack_keep(packed, m), keep)
+    rates["B9b"] = _keep_rate("B9b", keep)
+    del keep, packed
+    for key, fn, lib, nbytes, ops in (
+            ("b9b", mg.bool_keep_mask, lambda: torch.empty(
+                m, c, dtype=torch.bool, device="cuda").bernoulli_(1 - rate),
+             m * c, MASK_OPS),
+            ("b9p", mg.packed_keep_mask, None, m * c // 8,
+             MASK_OPS + PACK_OPS)):
+        ref = getattr(mg, fn.__name__ + "_reference")
+        r[key + "_ms"] = _cuda_ms(lambda: fn(m, c, rate, s2, "cuda"))
+        r[key + "_plain_ms"] = _cuda_ms(lambda: ref(m, c, rate, s2, "cuda"),
+                                        iters=3, warmup=1)
+        r[key + "_library_ms"] = _cuda_ms(lib) if lib else None
+        r[key + "_bound"], r[key + "_ops_ms"], r[key + "_bytes_ms"] = \
+            _mask_bound(m * c, m, ops, nbytes)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        got = kd.lane_dropout(xd, rate, s1)
+        _check_equal(f"B8 {dtype}", got, kd.lane_dropout_reference(xd, rate,
+                                                                   s1))
+        rates[f"B8 {dtype}"] = _keep_rate(f"B8 {dtype}", got != 0)
+        del got
+        k = "b8" if dtype == torch.bfloat16 else "b8_fp32"
+        r[k + "_ms"] = _cuda_ms(lambda: kd.lane_dropout(xd, rate, s1))
+        r[k + "_plain_ms"] = _cuda_ms(lambda: kd.lane_dropout_reference(
+            xd, rate, s1), iters=3, warmup=1)
+        r[k + "_library_ms"] = _cuda_ms(lambda: F.dropout(xd, rate,
+                                                          training=True))
+        r[k + "_bound"], r[k + "_ops_ms"], r[k + "_bytes_ms"] = _mask_bound(
+            n, -(-n // kd.LANES), MASK_OPS + APPLY_OPS, 2 * n * dtype.itemsize)
+        del xd
+    for key in ("b9b", "b9p", "b8m", "b8", "b8_fp32"):
+        r[key + "_err"] = 0.0  # held bitwise above
+    torch.cuda.empty_cache()
+    print(f"kernel_maskgen: [{m}, {c}] (B8/B8m on {list(shape)}), rate "
+          f"{rate}: every kernel bitwise equal to its plain version, B8's "
+          f"gradient its forward mask x scale x dy; keep rates {rates}; "
+          f"launches of the public functions {launches}; " + "; ".join(
+              f"{name} kernel {r[k + '_ms']:.4f} ms, plain "
+              f"{r[k + '_plain_ms']:.3f}, {lib} "
+              + ("none" if r[k + "_library_ms"] is None
+                 else f"{r[k + '_library_ms']:.4f}")
+              + f", bound {r[k + '_bound'][0]:.4f} by {r[k + '_bound'][1]} "
+              f"(operations {r[k + '_ops_ms']:.4f}, bytes "
+              f"{r[k + '_bytes_ms']:.4f})"
+              for name, k, lib in (
+                  ("B9b", "b9b", "bernoulli_"), ("B9p", "b9p", "library"),
+                  ("B8m", "b8m", "bernoulli_"), ("B8 bf16", "b8", "F.dropout"),
+                  ("B8 fp32", "b8_fp32", "F.dropout"))), flush=True)
+    return r
+
+
 # bench steps timed per run (after its 3 warm-up steps)
 BENCH_STEPS = 3
 
@@ -1648,7 +1836,13 @@ def _bench(env, counted):
     return record, launches, 3 + BENCH_STEPS
 
 
+def _nonzero(launches):
+    return {run: {k: n for k, n in got.items() if n}
+            for run, got in launches.items()}
+
+
 def phase_bench(smi: str):
+    from weathermodel_tpu_torch.ops import dropout
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
     cfg = model_config_for_size(MODEL_SIZE, compute_dtype="bfloat16")
@@ -1668,6 +1862,23 @@ def phase_bench(smi: str):
         lines.append(f"{impl}: {record['value']} samples/s, "
                      f"{record['tflops']} TFLOP/s, mfu {record['mfu']}, loss "
                      f"{record['loss']:.4f}")
+    for impl, kernel in (("maskgen", "packed_keep_mask"),
+                         ("maskgen_bool", "bool_keep_mask")):
+        dropout.set_impl(impl)
+        try:
+            record, got, steps = _bench({"BENCH_FFN_IMPL": "torch"}, counted)
+        finally:
+            dropout.set_impl("auto")
+        n = per_step * steps
+        # the FFN hidden site of each layer and microbatch; the attention-out
+        # and FFN-out sites (C = 576, not a multiple of 128) take "auto"
+        _check_launches(got, {**zero, "fused_qkv_attention_train": n,
+                              "fused_qkv_attention_bwd": n, kernel: n},
+                        steps, 0)
+        launches[impl] = got
+        lines.append(f"torch + dropout {impl}: {record['value']} samples/s, "
+                     f"{record['tflops']} TFLOP/s, mfu {record['mfu']}, loss "
+                     f"{record['loss']:.4f}")
     for name, env, kernels in (
             ("fused_ffn_ln", {"BENCH_FFN_IMPL": "fused_ffn_ln"},
              ("fused_qkv_attention", "fused_ffn_ln")),
@@ -1683,8 +1894,20 @@ def phase_bench(smi: str):
                      f"{record['tflops']} TFLOP/s, loss {record['loss']:.4f}")
     print(f"bench: WeatherBERT-{MODEL_SIZE} bf16, {TRAIN_BATCH} = {GRAD_ACCUM} "
           f"x {MICRO}, dropout {DROPOUT}, 3 warm-up + {BENCH_STEPS} timed "
-          f"steps a run: " + "; ".join(lines) + f"; launches {launches}; card "
-          f"{smi}", flush=True)
+          f"steps a run: " + "; ".join(lines) + "; launches (the nonzero "
+          f"counts; every other kernel 0) {_nonzero(launches)}; card {smi}",
+          flush=True)
+    dropout.set_impl("maskgen_bool")
+    try:
+        print("bench: torch + dropout maskgen_bool " + _profile_step(
+            "weatherbert", cfg, "fused_qkv", TRAIN_BATCH, GRAD_ACCUM,
+            named=(("B9b at the FFN hidden sites", "bool_mask_kernel"),
+                   ("torch's distribution kernels (the auto sites' "
+                    "torch.rand and the step's own draws)",
+                    "distribution_"))),
+            flush=True)
+    finally:
+        dropout.set_impl("auto")
     for impl in ("fused_ffn_ln", "fused_ffn"):
         print(f"bench: {impl} " + _profile_step(
             "weatherbert", cfg, "fused_qkv", TRAIN_BATCH, GRAD_ACCUM,
@@ -1736,6 +1959,7 @@ def main():
         gmm_kernel, tgmm_kernel = timed("kernel_gmm", phase_kernel_gmm)
         moe_launches = timed("train_moe", phase_train_moe, smi, data)
     ffn_kernels = timed("kernel_ffn", phase_kernel_ffn)
+    mask_kernels = timed("kernel_maskgen", phase_kernel_maskgen)
     bench_launches = timed("bench", phase_bench, smi)
     tk, fk = train_kernels, flash_kernels
     records = [
@@ -1781,6 +2005,19 @@ def main():
              **{k: outproj_kernel[k] for k in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")}),
+        # B9p and B9b launched by the bench's maskgen lines; B8 and B8m by
+        # their public functions in kernel_maskgen, their only path
+        _record("packed_keep_mask", "keep_mask.cu", "pallas_maskgen.py:35",
+                bench_launches["maskgen"]["packed_keep_mask"], mask_kernels,
+                "b9p"),
+        _record("bool_keep_mask", "keep_mask.cu", "pallas_maskgen.py:113",
+                bench_launches["maskgen_bool"]["bool_keep_mask"],
+                mask_kernels, "b9b"),
+        _record("lane_dropout", "keep_mask.cu", "pallas_dropout.py:38",
+                mask_kernels["launches"]["lane_dropout"], mask_kernels, "b8"),
+        _record("random_keep_mask", "keep_mask.cu", "pallas_dropout.py:89",
+                mask_kernels["launches"]["random_keep_mask"], mask_kernels,
+                "b8m"),
     ]
     print(f"phase seconds: {seconds}")
     print(f"card: {smi}")

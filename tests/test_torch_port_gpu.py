@@ -652,3 +652,132 @@ def test_serve_entry_point_launches_outproj_kernel(cuda, tmp_path):
             outs[impl] = z["output"]
     torch.testing.assert_close(outs["fused_qkv_op"], outs["torch"],
                                atol=1e-4, rtol=1e-3)
+
+
+# the keep-mask family (B9b, B9p, B8m, B8): integer hashes and one rounding,
+# so kernel and plain version agree bitwise
+MASK_SHAPES = [(2048, 2304), (96, 128), (33, 384), (0, 256)]
+
+
+@pytest.mark.parametrize("m,c", MASK_SHAPES)
+def test_maskgen_kernels_match_plain(cuda, m, c):
+    from weathermodel_tpu_torch.ops import maskgen
+
+    keep = maskgen.bool_keep_mask(m, c, 0.1, 11, cuda)
+    assert torch.equal(keep, maskgen.bool_keep_mask_reference(m, c, 0.1, 11,
+                                                              cuda))
+    if m % maskgen.GROUP == 0:
+        packed = maskgen.packed_keep_mask(m, c, 0.1, 11, cuda)
+        assert packed.dtype == torch.int32 and packed.shape == (m // 32, c)
+        assert torch.equal(packed, maskgen.packed_keep_mask_reference(
+            m, c, 0.1, 11, cuda))
+        assert torch.equal(maskgen.unpack_keep(packed, m), keep)
+
+
+@pytest.mark.parametrize("shape", [(2, 365, 2304), (3, 5, 37), (1,), (512,),
+                                   (1000, 513), (0, 4)])
+def test_random_keep_mask_matches_plain(cuda, shape):
+    from weathermodel_tpu_torch.ops.kernel_dropout import (
+        random_keep_mask,
+        random_keep_mask_reference,
+    )
+
+    got = random_keep_mask(shape, 0.25, 5, cuda)
+    assert got.shape == shape
+    assert torch.equal(got, random_keep_mask_reference(shape, 0.25, 5, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 365, 2304), (3, 5, 37), (1000, 513)])
+def test_lane_dropout_matches_plain(cuda, dtype, shape):
+    """B8 forward and backward bitwise against its plain version; the
+    gradient is the forward's mask times the dtype-rounded scale times dy;
+    an offset view (not 16-byte aligned) takes the scalar path."""
+    from weathermodel_tpu_torch.ops.kernel_dropout import (
+        kernel_dropout,
+        lane_dropout,
+        lane_dropout_reference,
+        random_keep_mask,
+    )
+
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(size=shape), dtype=dtype, device=cuda)
+    y = lane_dropout(x, 0.1, 9)
+    assert torch.equal(y, lane_dropout_reference(x, 0.1, 9))
+    keep = random_keep_mask(shape, 0.1, 9, cuda)
+    scale = torch.tensor(1 / 0.9, dtype=dtype, device=cuda)
+    assert torch.equal(y, torch.where(keep, x * scale, torch.zeros_like(x)))
+    leaf = x.detach().requires_grad_()
+    dy = torch.tensor(rng.normal(size=shape), dtype=dtype, device=cuda)
+    (dx,) = torch.autograd.grad(kernel_dropout(leaf, 0.1, 9), leaf, dy)
+    assert torch.equal(dx, torch.where(keep, dy * scale,
+                                       torch.zeros_like(dy)))
+    flat = x.reshape(-1)[1:]
+    assert torch.equal(lane_dropout(flat, 0.1, 9),
+                       lane_dropout_reference(flat, 0.1, 9))
+
+
+def test_keep_mask_kernels_never_take_the_plain_path_on_cuda(cuda,
+                                                             monkeypatch):
+    from weathermodel_tpu_torch.ops import kernel_dropout, maskgen
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for module, name in ((maskgen, "bool_keep_mask_reference"),
+                         (maskgen, "packed_keep_mask_reference"),
+                         (kernel_dropout, "random_keep_mask_reference"),
+                         (kernel_dropout, "lane_dropout_reference")):
+        monkeypatch.setattr(module, name, refuse)
+    before = (maskgen.bool_keep_mask.launches,
+              maskgen.packed_keep_mask.launches,
+              kernel_dropout.random_keep_mask.launches,
+              kernel_dropout.lane_dropout.launches)
+    maskgen.bool_keep_mask(64, 128, 0.1, 1, cuda)
+    maskgen.packed_keep_mask(64, 128, 0.1, 1, cuda)
+    kernel_dropout.random_keep_mask((7, 9), 0.1, 1, cuda)
+    kernel_dropout.lane_dropout(torch.ones(7, 9, device=cuda), 0.1, 1)
+    assert (maskgen.bool_keep_mask.launches,
+            maskgen.packed_keep_mask.launches,
+            kernel_dropout.random_keep_mask.launches,
+            kernel_dropout.lane_dropout.launches) == tuple(
+                n + 1 for n in before)
+    with pytest.raises(ValueError, match="c % 128"):
+        maskgen.bool_keep_mask(64, 100, 0.1, 1, cuda)
+    with pytest.raises(ValueError, match="m % 32"):
+        maskgen.packed_keep_mask(40, 128, 0.1, 1, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel_dropout.lane_dropout(torch.ones(4, device=cuda,
+                                               dtype=torch.half), 0.1, 1)
+
+
+@pytest.mark.parametrize("impl,kernel", [("maskgen", "packed_keep_mask"),
+                                         ("maskgen_bool", "bool_keep_mask")])
+def test_train_step_maskgen_launches_the_mask_kernel(cuda, impl, kernel):
+    """A WeatherBERT step at hidden 128 (every plain site takes the kernel:
+    rows 4 x 16 = 64, C 128 or 512) launches the impl's mask kernel at the
+    three sites of each layer, none in the backward (the plain attention:
+    head dim 32 is not one of the attention kernels')."""
+    from weathermodel_tpu_torch.ops import dropout, maskgen
+    from weathermodel_tpu_torch.utils.config import ModelConfig
+
+    cfg = ModelConfig(num_heads=4, hidden_dim_factor=32, num_layers=2,
+                      max_len=16)
+    model = make_model("weatherbert", cfg, "torch")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(cuda)
+    step = make_train_step(model, make_optimizer(model), "weatherbert")
+    rng = np.random.default_rng(0)
+    batch = batch_to_device(Batch(
+        rng.normal(size=(4, 16, 31)), rng.uniform(-90, 90, (4, 2)),
+        np.full((4, 16), 1995.0), np.full((4, 1), 7.0)), cuda)
+    fn = getattr(maskgen, kernel)
+    old = dropout.get_impl()
+    dropout.set_impl(impl)
+    try:
+        before = fn.launches
+        out = step(batch, torch.Generator().manual_seed(0), 1e-4, 1)
+    finally:
+        dropout.set_impl(old)
+    assert np.isfinite(out["total_loss"].item())
+    assert fn.launches - before == 3 * cfg.num_layers

@@ -24,6 +24,8 @@ def test_port_imports_no_jax():
             "weathermodel_tpu_torch.bench",
             "weathermodel_tpu_torch.ops.fused_ffn",
             "weathermodel_tpu_torch.ops.fused_ffn_ln",
+            "weathermodel_tpu_torch.ops.maskgen",
+            "weathermodel_tpu_torch.ops.kernel_dropout",
             "weathermodel_tpu_torch.serving_daemon"} <= set(modules)
     code = (
         "import sys\n"

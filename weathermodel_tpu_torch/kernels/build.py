@@ -124,6 +124,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wm_fused_ffn_ln_bwd.argtypes = [i, *[p] * 20, i, i, i, i, u, u, u, f,
                                         i, i, p]
     lib.wm_fused_ffn_ln_bwd.restype = i
+    # out, m, c, seed, threshold, stream (B9b: bool [m, c]; B9p: int32
+    # [m / 32, c])
+    lib.wm_bool_keep_mask.argtypes = [p, i, i, u, u, p]
+    lib.wm_bool_keep_mask.restype = i
+    lib.wm_packed_keep_mask.argtypes = [p, i, i, u, u, p]
+    lib.wm_packed_keep_mask.restype = i
+    # out, n, seed, threshold, stream (B8m)
+    lib.wm_random_keep_mask.argtypes = [p, ctypes.c_longlong, u, u, p]
+    lib.wm_random_keep_mask.restype = i
+    # dtype, x, y, n, seed, threshold, scale, stream (B8)
+    lib.wm_lane_dropout.argtypes = [i, p, p, ctypes.c_longlong, u, u, f, p]
+    lib.wm_lane_dropout.restype = i
     lib.wm_cuda_error_string.argtypes = [i]
     lib.wm_cuda_error_string.restype = ctypes.c_char_p
 
@@ -190,6 +202,16 @@ def check(err: int) -> None:
         raise RuntimeError(f"CUDA kernel launch failed: error {err} ({msg})")
 
 
+def device_on_cuda(device: torch.device) -> bool:
+    """False for the CPU (the plain version runs), True for a CUDA device;
+    raises on anything else."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return True
+
+
 def on_cuda(name, head_dim, *tensors) -> bool:
     """False for CPU tensors (the plain version runs); True for CUDA
     tensors of one dtype and a head dim the kernels take (None for kernels
@@ -198,11 +220,8 @@ def on_cuda(name, head_dim, *tensors) -> bool:
     devices = {a.device for a in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs on different devices: {devices}")
-    device = devices.pop()
-    if device.type == "cpu":
+    if not device_on_cuda(devices.pop()):
         return False
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
     dtypes = {a.dtype for a in tensors}
     if len(dtypes) != 1 or tensors[0].dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: inputs must share one dtype of "
