@@ -101,7 +101,24 @@ Phases, each printing one line; any failure raises and exits non-zero:
                and the library call (bernoulli_ for the bool masks,
                F.dropout for B8, none for B9p) and both bounds (bytes, the
                hash's integer operations)
-  15. bench - `python -m weathermodel_tpu_torch.bench`'s run(env) at
+  15. probes - the ablation probes through the port's ablation scripts,
+               `python -m weathermodel_tpu_torch.scripts.abl_headpack`'s and
+               `.abl_gemm_probe`'s main() at the JAX scripts' full shapes
+               with 5 timed steps: P1 and P2 (per-head and head-packed
+               attention matmuls without softmax, q, k, v [224, 384, 576]
+               bf16, 16 heads of 36) and P3 (the blocked GEMM at [70144, 576]
+               x [576, 2304] bf16, five (bm, bn) arms, beside torch.matmul),
+               with the counts at 0: 7 launches each of P1 and P2 (the
+               cross-check, a warm-up, 5 timed) and 30 of P3 (5 arms x 6),
+               none of the other kernels; then each kernel held against its
+               plain version on the region it computes (P2: heads 0-14; P3:
+               each arm's covered region) at 2^-6 of the plain output's
+               largest magnitude, with at most 1% of the entries differing;
+               CUDA-event times of the kernel, the plain
+               version and the library call (two batched torch.matmul over
+               the head views with S in bf16 for P1 and P2, torch.matmul for
+               P3) and the bounds
+  16. bench - `python -m weathermodel_tpu_torch.bench`'s run(env) at
                WeatherBERT-large, 2 x 288, bf16, dropout 0.1, for
                BENCH_FFN_IMPL torch, fused_ffn_ln and fused_ffn (each JSON
                line printed): per step 16 launches of B1 train and B2 in all
@@ -1007,7 +1024,9 @@ def _all_kernels():
         fused_ffn_ln,
         fused_ffn_ln_bwd,
     )
+    from weathermodel_tpu_torch.ops.blocked_mm import blocked_mm
     from weathermodel_tpu_torch.ops.gmm import gmm, tgmm
+    from weathermodel_tpu_torch.ops.headpack import headpack_v0, headpack_v1
     from weathermodel_tpu_torch.ops.kernel_dropout import (
         lane_dropout,
         random_keep_mask,
@@ -1021,17 +1040,19 @@ def _all_kernels():
             fused_qkv_attention_bwd, flash_attention_fwd, flash_attention_bwd,
             gmm, tgmm, fused_ffn_ln, fused_ffn_ln_bwd, fused_ffn,
             fused_qkv_attention_outproj, packed_keep_mask, bool_keep_mask,
-            lane_dropout, random_keep_mask)
+            lane_dropout, random_keep_mask, headpack_v0, headpack_v1,
+            blocked_mm)
 
 
 # the kernels no training run launches: the FFN kernels (the bench's only),
-# B5 (serving and the bench's eval mode only) and the keep-mask family (the
+# B5 (serving and the bench's eval mode only), the keep-mask family (the
 # maskgen dropout impls, which only the bench's maskgen lines select, and
-# B8/B8m, which no layer calls)
+# B8/B8m, which no layer calls) and the probes (the ablation scripts' only)
 NOT_IN_TRAINING = {"fused_ffn_ln": 0, "fused_ffn_ln_bwd": 0, "fused_ffn": 0,
                    "fused_qkv_attention_outproj": 0, "packed_keep_mask": 0,
                    "bool_keep_mask": 0, "lane_dropout": 0,
-                   "random_keep_mask": 0}
+                   "random_keep_mask": 0, "headpack_v0": 0, "headpack_v1": 0,
+                   "blocked_mm": 0}
 
 
 def _check_record(record, keys=("total_loss",)):
@@ -1816,6 +1837,132 @@ def phase_kernel_maskgen():
     return r
 
 
+# timed steps of each probe in the ablation scripts (theirs default to 30)
+PROBE_STEPS = 5
+# the most entries of a probe's output that may differ from its plain
+# version's (fp32 sums in another order flip a few roundings)
+PROBE_DIFFER_SHARE = 1e-2
+
+
+def _library_headpack(q, k, v, nh):
+    """The library call beside P1 and P2: two batched torch.matmul over the
+    [B, NH, T, HD] head views, S materialised in bf16 (timed only)."""
+    qh, kh, vh = (_heads(a, nh) for a in (q, k, v))
+    return torch.matmul(torch.matmul(qh, kh.transpose(-1, -2)), vh)
+
+
+def _check_probe(what, got, want):
+    """A probe's output against its plain version's at SCALE_TOL (bf16) of
+    the plain output's largest magnitude, with at most PROBE_DIFFER_SHARE of
+    the entries differing at all (the gpu tests' bar: a kernel that skipped
+    rounding S stays within the scale bar at P1/P2's output scale, but
+    changes ~40% of the entries): (max|diff|, the share of entries that
+    differ, max|plain|)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    share = (got != want).float().mean().item()
+    if not err <= SCALE_TOL[torch.bfloat16] * peak:
+        raise AssertionError(f"{what}: max|kernel - plain| {err:.3g} exceeds "
+                             f"{SCALE_TOL[torch.bfloat16]:.3g} x max|plain| "
+                             f"{peak:.3g}")
+    if not share <= PROBE_DIFFER_SHARE:
+        raise AssertionError(f"{what}: {share:.3g} of the entries differ "
+                             f"from the plain version's, over "
+                             f"{PROBE_DIFFER_SHARE:.3g}")
+    return err, share, peak
+
+
+def phase_probes(smi: str):
+    """The port's two ablation scripts at the JAX scripts' full shapes with
+    PROBE_STEPS timed steps, every count at 0 just before; then P1, P2 and
+    P3 against their plain versions, the plain and library times and the
+    bounds."""
+    from weathermodel_tpu_torch.ops import blocked_mm as bmm
+    from weathermodel_tpu_torch.ops import headpack as hp
+    from weathermodel_tpu_torch.scripts import abl_gemm_probe, abl_headpack
+
+    counted = _all_kernels()
+    for fn in counted:
+        fn.launches = 0
+    head = abl_headpack.main("cuda", abl_headpack.B, PROBE_STEPS)
+    gemm = abl_gemm_probe.main("cuda", abl_gemm_probe.M, PROBE_STEPS)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    # the cross-check, then one warm-up and the timed steps; P3 per arm
+    want = {**{fn.__name__: 0 for fn in counted},
+            "headpack_v0": 2 + PROBE_STEPS, "headpack_v1": 2 + PROBE_STEPS,
+            "blocked_mm": len(abl_gemm_probe.ARMS) * (1 + PROBE_STEPS)}
+    if launches != want:
+        raise AssertionError(f"the ablation scripts launched {launches}, "
+                             f"expected {want}")
+    if not head["rel_err"] <= SCALE_TOL[torch.bfloat16]:
+        raise AssertionError(f"abl_headpack: v0 vs v1 rel err "
+                             f"{head['rel_err']}")
+
+    b, t, nh, hd, g = (abl_headpack.B, abl_headpack.T, abl_headpack.NH,
+                       abl_headpack.HD, abl_headpack.G)
+    q, k, v = abl_headpack.inputs(b, "cuda")
+    r, errs = {"launches": launches}, {}
+    library_ms = _cuda_ms(lambda: _library_headpack(q, k, v, nh))
+    for key, fn, heads in (("p1", hp.headpack_v0, nh),
+                           ("p2", hp.headpack_v1, nh // g * g)):
+        ref = getattr(hp, fn.__name__ + "_reference")
+        live = heads * hd
+        r[key + "_err"], share, peak = _check_probe(
+            fn.__name__, fn(q, k, v)[..., :live], ref(q, k, v)[..., :live])
+        errs[fn.__name__] = f"{r[key + '_err']:.3g} of max {peak:.4g} " \
+            f"({share:.2e} of the entries differ)"
+        r[key + "_ms"] = head["v0_ms" if key == "p1" else "v1_ms"]
+        r[key + "_plain_ms"] = _cuda_ms(lambda: ref(q, k, v), iters=3,
+                                        warmup=1)
+        r[key + "_library_ms"] = library_ms
+        # the function's work: the heads it writes (P2's 15), each input
+        # read once and o written once
+        r[key + "_bound"] = _bound(4.0 * b * heads * t * t * hd,
+                                   4 * b * t * live * 2, torch.bfloat16)
+    # what P2 multiplies: S3 and O3 over the block-diagonal operands
+    packed_flops = 4.0 * b * (nh // g) * t * g * t * g * hd
+    r["p2_packed_ms"] = packed_flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    del q, k, v
+
+    x, w = abl_gemm_probe.inputs(abl_gemm_probe.M, "cuda")
+    kk, n = abl_gemm_probe.K, abl_gemm_probe.N
+    arm_errs = {}
+    for arm in gemm["arms"]:
+        bm, bn, rows, cols = arm["bm"], arm["bn"], arm["rows"], arm["cols"]
+        err, share, peak = _check_probe(
+            f"blocked_mm bm={bm} bn={bn}",
+            bmm.blocked_mm(x, w, bm, bn)[:rows, :cols],
+            bmm.blocked_mm_reference(x, w, bm, bn)[:rows, :cols])
+        arm_errs[bm, bn] = f"{err:.3g} of max {peak:.3g} ({share:.2e})"
+        if (bm, bn) == abl_gemm_probe.ARMS[0]:  # the arm the record reports
+            r["p3_err"], r["p3_ms"] = err, arm["ms"]
+            r["p3_plain_ms"] = _cuda_ms(lambda: bmm.blocked_mm_reference(
+                x, w, bm, bn), iters=3, warmup=1)
+            r["p3_library_ms"] = gemm["matmul_ms"]
+            r["p3_bound"] = _bound(2.0 * rows * kk * cols,
+                                   (rows * kk + kk * cols + rows * cols) * 2,
+                                   torch.bfloat16)
+    del x, w
+    torch.cuda.empty_cache()
+    print("probes: " + " | ".join(head["lines"][1:] + gemm["lines"][1:]),
+          flush=True)
+    print(f"probes: launches of the scripts' run {launches}; max|kernel - "
+          f"plain| (tol {SCALE_TOL[torch.bfloat16]:.3g} x max|plain|) "
+          f"{errs}, P3 arms {arm_errs}; " + "; ".join(
+              f"{name} kernel {r[k + '_ms']:.4f} ms, plain "
+              f"{r[k + '_plain_ms']:.3f}, {lib} {r[k + '_library_ms']:.4f}, "
+              f"bound {r[k + '_bound'][0]:.4f} by {r[k + '_bound'][1]}"
+              for name, k, lib in (
+                  ("P1", "p1", "torch.matmul x2"),
+                  ("P2", "p2", "torch.matmul x2"),
+                  (f"P3 {abl_gemm_probe.ARMS[0]}", "p3", "torch.matmul")))
+          + f"; P2's packed products alone {r['p2_packed_ms']:.4f} ms at "
+          f"the bf16 peak; card {smi}", flush=True)
+    return r
+
+
 # bench steps timed per run (after its 3 warm-up steps)
 BENCH_STEPS = 3
 
@@ -1917,14 +2064,15 @@ def phase_bench(smi: str):
     return launches
 
 
-def _record(name, source, replaces, launches, k, prefix):
+def _record(name, source, replaces, launches, k, prefix,
+            folder="weathermodel_tpu/ops/"):
     """One kernel's entry of the JSON line: `replaces` is "file:line" under
-    weathermodel_tpu/ops/, `k` a kernel phase's result and `prefix` ("fwd",
-    "bwd", ...) picks the kernel's numbers in it."""
+    `folder`, `k` a kernel phase's result and `prefix` ("fwd", "bwd", ...)
+    picks the kernel's numbers in it."""
     bound_ms, bound_by = k[prefix + "_bound"]
     return dict(name=name, route="cuda",
                 source="weathermodel_tpu_torch/csrc/" + source,
-                replaces="weathermodel_tpu/ops/" + replaces,
+                replaces=folder + replaces,
                 launches=launches, max_abs_err=k[prefix + "_err"],
                 ms=k[prefix + "_ms"], plain_ms=k[prefix + "_plain_ms"],
                 bound_ms=bound_ms, bound_by=bound_by,
@@ -1960,6 +2108,7 @@ def main():
         moe_launches = timed("train_moe", phase_train_moe, smi, data)
     ffn_kernels = timed("kernel_ffn", phase_kernel_ffn)
     mask_kernels = timed("kernel_maskgen", phase_kernel_maskgen)
+    probes = timed("probes", phase_probes, smi)
     bench_launches = timed("bench", phase_bench, smi)
     tk, fk = train_kernels, flash_kernels
     records = [
@@ -2018,6 +2167,15 @@ def main():
         _record("random_keep_mask", "keep_mask.cu", "pallas_dropout.py:89",
                 mask_kernels["launches"]["random_keep_mask"], mask_kernels,
                 "b8m"),
+        # launched by the ablation scripts, their only path; P3's times are
+        # its (512, 1152) arm's, its launches all five arms'
+        *(_record(name, source, replaces, probes["launches"][name], probes,
+                  prefix, folder="scripts/")
+          for name, source, replaces, prefix in (
+              ("headpack_v0", "headpack.cu", "abl_headpack.py:115", "p1"),
+              ("headpack_v1", "headpack.cu", "abl_headpack.py:125", "p2"),
+              ("blocked_mm", "blocked_mm.cu", "abl_gemm_probe.py:46",
+               "p3"))),
     ]
     print(f"phase seconds: {seconds}")
     print(f"card: {smi}")

@@ -781,3 +781,123 @@ def test_train_step_maskgen_launches_the_mask_kernel(cuda, impl, kernel):
         dropout.set_impl(old)
     assert np.isfinite(out["total_loss"].item())
     assert fn.launches - before == 3 * cfg.num_layers
+
+
+# the probes P1, P2 (bf16) and P3: kernel against plain version on the
+# computed region, at SCALE 2^-6 of the plain output's largest magnitude
+# (the fp32 sums run in another order, so an entry's rounding, or one S's in
+# P1/P2, can flip: one bf16 ulp at the output's scale), and at most 1% of
+# the entries differing at all (a missing rounding of S changes ~40%)
+PROBE_SCALE_TOL = 2.0 ** -6
+PROBE_DIFFER_SHARE = 1e-2
+# (B, T, NH): the script's shape; T not a multiple of the 128-row tile or the
+# 64-row chunk; 7 heads, one whole group of 3 and a head left over in P2
+HEADPACK_SHAPES = [(224, 384, 16), (3, 100, 16), (2, 37, 7)]
+
+
+def _assert_probe_close(name, got, want):
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    assert err <= PROBE_SCALE_TOL * want.abs().max().item(), (name, err)
+    share = (got != want).float().mean().item()
+    assert share <= PROBE_DIFFER_SHARE, (name, share)
+
+
+def _refill_freed(shape, dtype, device):
+    """Free a NaN-filled block of this size, so that the caching allocator
+    hands it to the next allocation of the size: what a kernel leaves
+    unwritten then reads NaN."""
+    torch.full(shape, float("nan"), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("b,t,nh", HEADPACK_SHAPES)
+@pytest.mark.parametrize("name", ["headpack_v0", "headpack_v1"])
+def test_headpack_kernels_match_plain(cuda, name, b, t, nh):
+    from weathermodel_tpu_torch.ops import headpack
+
+    fn = getattr(headpack, name)
+    ref = getattr(headpack, name + "_reference")
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.tensor(rng.normal(size=(b, t, nh * 36)),
+                            dtype=torch.bfloat16, device=cuda)
+               for _ in range(3))
+    before = fn.launches
+    _refill_freed(q.shape, q.dtype, cuda)
+    got = fn(q, k, v, num_heads=nh)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    live = nh * 36 if name == "headpack_v0" else nh // 3 * 3 * 36
+    _assert_probe_close(name, got[..., :live],
+                        ref(q, k, v, num_heads=nh)[..., :live])
+    assert got[..., live:].isnan().all()  # P2's last head: never written
+
+
+def test_headpack_kernels_reject_what_they_do_not_take(cuda):
+    from weathermodel_tpu_torch.ops import headpack
+
+    q = torch.randn(2, 64, 576, device=cuda, dtype=torch.bfloat16)
+    for fn in (headpack.headpack_v0, headpack.headpack_v1):
+        before = fn.launches
+        with pytest.raises(ValueError, match="bfloat16"):
+            fn(q.float(), q.float(), q.float())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q.transpose(0, 1), q.transpose(0, 1), q.transpose(0, 1))
+        with pytest.raises(ValueError, match="head dim"):
+            fn(q, q, q, num_heads=12)
+        with pytest.raises(ValueError, match="devices"):
+            fn(q, q.cpu(), q)
+        assert fn.launches == before
+
+
+# (m, k, n, bm, bn, dtype): the script's first and last arms; covered
+# regions that end inside a 128-tile, k not a multiple of the 32-deep slab,
+# and k, n whose rows are not whole 16-byte chunks (the scalar staging path)
+BLOCKED_MM_CASES = [(70144, 576, 2304, 512, 1152, torch.bfloat16),
+                    (70144, 576, 2304, 1024, 2304, torch.bfloat16),
+                    (1000, 200, 500, 300, 128, torch.bfloat16),
+                    (1000, 200, 500, 300, 128, torch.float32),
+                    (130, 37, 70, 65, 35, torch.bfloat16),
+                    (130, 37, 70, 65, 35, torch.float32)]
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,dtype", BLOCKED_MM_CASES)
+def test_blocked_mm_kernel_matches_plain(cuda, m, k, n, bm, bn, dtype):
+    from weathermodel_tpu_torch.ops.blocked_mm import (
+        blocked_mm,
+        blocked_mm_reference,
+        covered,
+    )
+
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(size=(m, k)) * 0.1, dtype=dtype, device=cuda)
+    w = torch.tensor(rng.normal(size=(k, n)) * 0.05, dtype=dtype,
+                     device=cuda)
+    rows, cols = covered(m, n, bm, bn)
+    before = blocked_mm.launches
+    _refill_freed((m, n), dtype, cuda)
+    got = blocked_mm(x, w, bm, bn)
+    torch.cuda.synchronize()
+    assert blocked_mm.launches == before + 1
+    want = blocked_mm_reference(x, w, bm, bn)
+    if dtype == torch.float32:  # fp32 sums in another order only
+        torch.testing.assert_close(got[:rows, :cols], want[:rows, :cols],
+                                   atol=1e-5, rtol=1e-4)
+    else:
+        _assert_probe_close("blocked_mm", got[:rows, :cols],
+                            want[:rows, :cols])
+    assert got[rows:].isnan().all() and got[:, cols:].isnan().all()
+
+
+def test_blocked_mm_rejects_what_it_does_not_take(cuda):
+    from weathermodel_tpu_torch.ops.blocked_mm import blocked_mm
+
+    x = torch.randn(256, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(64, 128, device=cuda, dtype=torch.bfloat16)
+    before = blocked_mm.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        blocked_mm(x.T.contiguous().T, w, 128, 128)
+    with pytest.raises(ValueError, match="dtype"):
+        blocked_mm(x.half(), w.half(), 128, 128)
+    assert blocked_mm.launches == before
+    blocked_mm(x[:100], w, 128, 128)  # no whole bm block: nothing to launch
+    assert blocked_mm.launches == before

@@ -26,6 +26,10 @@ def test_port_imports_no_jax():
             "weathermodel_tpu_torch.ops.fused_ffn_ln",
             "weathermodel_tpu_torch.ops.maskgen",
             "weathermodel_tpu_torch.ops.kernel_dropout",
+            "weathermodel_tpu_torch.ops.headpack",
+            "weathermodel_tpu_torch.ops.blocked_mm",
+            "weathermodel_tpu_torch.scripts.abl_headpack",
+            "weathermodel_tpu_torch.scripts.abl_gemm_probe",
             "weathermodel_tpu_torch.serving_daemon"} <= set(modules)
     code = (
         "import sys\n"

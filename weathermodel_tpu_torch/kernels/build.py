@@ -136,6 +136,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     # dtype, x, y, n, seed, threshold, scale, stream (B8)
     lib.wm_lane_dropout.argtypes = [i, p, p, ctypes.c_longlong, u, u, f, p]
     lib.wm_lane_dropout.restype = i
+    # q, k, v, o, batch, t, h, stream (P1, P2; bfloat16 only)
+    for fn in (lib.wm_headpack_v0, lib.wm_headpack_v1):
+        fn.argtypes = [p, p, p, p, i, i, i, p]
+        fn.restype = i
+    # dtype, x, w, y, covered rows, k, n, covered columns, stream (P3)
+    lib.wm_blocked_mm.argtypes = [i, p, p, p, i, i, i, i, p]
+    lib.wm_blocked_mm.restype = i
     lib.wm_cuda_error_string.argtypes = [i]
     lib.wm_cuda_error_string.restype = ctypes.c_char_p
 
