@@ -79,13 +79,16 @@ Phases, each printing one line; any failure raises and exits non-zero:
                train loss falls; the same timings (TFLOP/s from the MoE
                analytic count), profile and one-step comparison with the plain
                path (plain grouped matmuls, plain attention) as phase 8
-  13. kernel_ffn - the fused FFN + residual + LayerNorm B6f, its backward
-               B6b and the fused FFN B7 (with and without its hidden output)
-               vs their plain versions at the bench microbatch's shapes (M =
-               288 x 365 = 105120 rows, H=576, F=2304) in bf16 and fp32,
-               dropout 0.1 (the same seeds on both sides) and 0, then at the
-               edge shapes H=200/F=800 and H=48/F=192 with M not a multiple
-               of the 32-row block; CUDA-event times of the kernel, the plain
+  13. kernel_ffn - the bf16 wgmma body's (ffn_wgmma_kernel) ptxas registers
+               and spills and its shared memory; then the fused FFN +
+               residual + LayerNorm B6f, its backward B6b and the fused FFN
+               B7 (with and without its hidden output) vs their plain
+               versions at the bench microbatch's shapes (M = 288 x 365 =
+               105120 rows, H=576, F=2304) in bf16 and fp32, dropout 0.1 (the
+               same seeds on both sides) and 0, then at the edge shapes
+               H=200/F=800, H=48/F=192, H=576/F=2304 and H=640/F=2560 with M
+               not a multiple of the 32-row or the 64-row block (1001, 333,
+               65, 97); CUDA-event times of the kernel, the plain
                version and the yardstick (the port's "torch" FFN: F.linear,
                ReLU, F.linear, and for B6 the residual and F.layer_norm; its
                autograd backward for B6b)
@@ -133,7 +136,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
                or B7, without its hidden output, per batch) and a
                BENCH_ATTENTION=fused_qkv_op eval run at batch 576 (8 launches
                of B5 per batch, none of B1); finite losses; a
-               torch.profiler step of each fused impl; one step of each fused
+               torch.profiler train and eval step of each fused impl, which
+               fails unless bf16 B6f, B7 with h (train) and B7 without
+               (eval) launch the wgmma body (ffn_wgmma_kernel) and the row
+               kernel (ffn_rows_kernel) runs only B6b; one step of each fused
                path against the plain path (plain attention and FFN) at 16
                windows, dropout off, fp32 and bf16
 The seconds each phase took are printed after the phases; the card's name
@@ -861,15 +867,29 @@ def _train_step_fn(name, cfg, impl, device, grad_accum=1, gmm_impl="kernel",
 
 
 def _profile_step(name, cfg, impl, batch_size, grad_accum=1,
-                  ffn_impl="torch", named=()):
-    """torch.profiler over one train step (after a warm-up step): device
-    time by op and the device's busy share of the step; for each
-    (label, substring) in `named`, the device time and count of the kernels
-    whose name holds the substring."""
-    from weathermodel_tpu_torch.train.steps import batch_to_device
+                  ffn_impl="torch", named=(), mode="train", require=(),
+                  forbid=()):
+    """torch.profiler over one train step, or one eval step with mode
+    "eval" (after a warm-up step): device time by op and the device's busy
+    share of the step; for each (label, substring) in `named`, the device
+    time and count of the kernels whose name holds the substring. Fails
+    unless each substring in `require` is in some kernel's name and none in
+    `forbid` is."""
+    from weathermodel_tpu_torch.train.steps import (
+        OBJECTIVE_FOR_MODEL,
+        batch_to_device,
+        make_eval_step,
+    )
 
-    _, step = _train_step_fn(name, cfg, impl, "cuda", grad_accum,
-                             ffn_impl=ffn_impl)
+    model, step = _train_step_fn(name, cfg, impl, "cuda", grad_accum,
+                                 ffn_impl=ffn_impl)
+    if mode == "eval":
+        objective, masking = OBJECTIVE_FOR_MODEL[name]
+        eval_step = make_eval_step(model, masking, objective=objective)
+
+        def step(batch, gen, lr, n_masked):
+            return eval_step(batch, gen, n_masked)
+
     batch = batch_to_device(_windows_batch(batch_size, SEED)[0], "cuda")
     gen = torch.Generator().manual_seed(SEED)
     float(step(batch, gen, 1e-4, 10)["total_loss"])  # warm-up
@@ -882,6 +902,13 @@ def _profile_step(name, cfg, impl, batch_size, grad_accum=1,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = _kernel_events(prof)
+    keys = [e.key for e in events]
+    missing = [sub for sub in require if not any(sub in k for k in keys)]
+    banned = [k for k in keys if any(sub in k for sub in forbid)]
+    if missing or banned:
+        raise AssertionError(f"{name} {mode} step ({impl}, {ffn_impl}): no "
+                             f"kernel holds {missing}, or {banned} launched "
+                             f"(kernels: {keys})")
     total = sum(_device_ms(e) for e in events)
     top = ", ".join(f"{e.key[:60]} {_device_ms(e):.1f} ms x{e.count}"
                     for e in events[:12])
@@ -1516,10 +1543,15 @@ def phase_train_moe(smi: str, data: Path):
 
 
 # the bench microbatch's FFN rows (2 x 288 windows of 365 steps: 288 x 365)
-# and the edge shapes (M, H, F): M not a multiple of the 32-row block, H and
-# F not multiples of 16 or 128
+# and the edge shapes (M, H, F): M not a multiple of the 32-row block (fp32)
+# or of the 64-row block (bf16: 65 = 64 + 1), H and F not multiples of 16 or
+# 128; the last at the widest H the kernels take
 FFN_ROWS = MICRO * SEQ_LEN
-FFN_EDGE_SHAPES = [(1001, 200, 800), (333, 48, 192)]
+FFN_EDGE_SHAPES = [(1001, 200, 800), (333, 48, 192), (65, 576, 2304),
+                   (97, 640, 2560)]
+# the bf16 FFN body's kernel symbol, and the row kernel's, which bf16 B7 and
+# B6f no longer launch
+FFN_BODY, FFN_ROWS_KERNEL = "ffn_wgmma_kernel", "ffn_rows_kernel"
 FFN_SEEDS = (20260103, 20260104)
 
 
@@ -1645,11 +1677,48 @@ def _ffn_case(t, rate, timed: bool):
     return r
 
 
+def _ffn_body_ptxas(h):
+    """The bf16 body's ptxas report (registers and spills of each
+    instantiation) and its dynamic shared memory by width."""
+    import re
+
+    from weathermodel_tpu_torch.kernels import build
+
+    built = build.load_library()
+    lines = built.ptxas_log.splitlines()
+    report = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '.*" + FFN_BODY +
+                      r"ILi(\d)ELi(\d+)E", line)
+        if m is None:
+            continue
+        block = []
+        for nxt in lines[i + 1:i + 6]:
+            if "Compiling entry" in nxt:
+                break
+            block.append(nxt)
+        block = " ".join(block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        report.append(f"{('B7', 'B6f')[int(m.group(1))]} atoms {m.group(2)}: "
+                      f"{regs.group(1) if regs else '?'} registers, spill "
+                      f"{'/'.join(spill.groups()) if spill else '?'} B")
+    # the model sizes' widths and the widest the body takes
+    smem = {w: built.lib.wm_ffn_wgmma_smem(w) for w in (48, 200, 336, h, 640)}
+    return report, smem
+
+
 def phase_kernel_ffn():
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
     cfg = model_config_for_size(MODEL_SIZE)
     h, f = cfg.hidden_dim, cfg.ffn_dim
+    report, smem = _ffn_body_ptxas(h)
+    print(f"kernel_ffn: {FFN_BODY} (bf16 B6f and B7; its symbol is checked "
+          f"in the bench's profiles) ptxas: {'; '.join(report)}; dynamic "
+          f"shared memory a block by H: {smem} B; cluster 1 (no multicast)",
+          flush=True)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         t = _ffn_inputs(FFN_ROWS, h, f, dtype, SEED + 7)
@@ -1684,7 +1753,12 @@ def phase_kernel_ffn():
     print(f"kernel_ffn: edge shapes (M, H, F) {FFN_EDGE_SHAPES}, fp32 and "
           f"bf16, dropout {DROPOUT} and 0: {len(edge)} cases, max|err| "
           f"{max(edge):.3g} (tol {KERNEL_TOL}, {SCALE_TOL} x max)", flush=True)
-    return results[torch.bfloat16, DROPOUT]
+    bf16 = results[torch.bfloat16, DROPOUT]
+    print(f"kernel_ffn: bf16 B7 at M={FFN_ROWS}: with h {bf16['b7_ms']:.3f} ms,"
+          f" without h {bf16['b7_eval_ms']:.3f} ms (the h write "
+          f"{bf16['b7_ms'] - bf16['b7_eval_ms']:.3f} ms); B6f "
+          f"{bf16['fwd_ms']:.3f} ms", flush=True)
+    return bf16
 
 
 # the keep-mask family at the bench microbatch's FFN hidden site (288 x 365
@@ -2055,10 +2129,17 @@ def phase_bench(smi: str):
             flush=True)
     finally:
         dropout.set_impl("auto")
-    for impl in ("fused_ffn_ln", "fused_ffn"):
-        print(f"bench: {impl} " + _profile_step(
-            "weatherbert", cfg, "fused_qkv", TRAIN_BATCH, GRAD_ACCUM,
-            ffn_impl=impl), flush=True)
+    # bf16 B6f, B7 with h (train) and B7 without (eval) launch the wgmma
+    # body; the row kernel runs only B6b's recompute pass (kModeBwd = 2)
+    rows_fwd = tuple(f"{FFN_ROWS_KERNEL}<__nv_bfloat16, {mode}>"
+                     for mode in (0, 1))
+    for impl, body in (("fused_ffn_ln", f"{FFN_BODY}<1,"),
+                       ("fused_ffn", f"{FFN_BODY}<0,")):
+        for mode, accum in (("train", GRAD_ACCUM), ("eval", 1)):
+            print(f"bench: {impl} {mode} " + _profile_step(
+                "weatherbert", cfg, "fused_qkv", TRAIN_BATCH, accum,
+                ffn_impl=impl, mode=mode, named=((body, body),),
+                require=(body,), forbid=rows_fwd), flush=True)
         print(f"bench: {impl} " + _check_step_parity(
             "weatherbert", MODEL_SIZE, "fused_qkv", ffn_impl=impl), flush=True)
     return launches

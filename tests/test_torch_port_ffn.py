@@ -34,6 +34,8 @@ from weathermodel_tpu_torch.ops.dropout import ffn_keep_mask
 from weathermodel_tpu_torch.ops.fused_ffn import FusedFFN, fused_ffn_reference
 from weathermodel_tpu_torch.ops.fused_ffn_ln import (
     FusedFFNLN,
+    check_wgmma_layout,
+    fp32_vectors,
     fused_ffn_ln_reference,
 )
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
@@ -297,3 +299,42 @@ def test_backward_with_dropout_is_autograd_of_the_plain_version(op):
         assert 0.05 < dropped < 0.15
     for name, a, w in zip(GRAD_NAMES, got_grads, want_grads):
         np.testing.assert_allclose(a, w, atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("h,f,shift,match", [
+    (52, 192, 0, "multiples of 8"),     # H not a multiple of 8
+    (48, 100, 0, "multiples of 8"),     # F not a multiple of 8
+    (48, 192, 1, "16-byte aligned"),    # x 2 bytes off a 16-byte boundary
+    (576, 2304, 0, None),               # WeatherBERT-large: taken
+    (200, 800, 0, None),                # small: taken
+])
+def test_wgmma_layout_rule(h, f, shift, match):
+    """The bf16 forward body's layout rule (H and F multiples of 8, 16-byte
+    aligned x and weights, as TMA needs), which the wrappers apply to CUDA
+    tensors before any launch; float32 takes any width."""
+    buf = torch.zeros(4 * h + shift, dtype=torch.bfloat16)
+    x = buf[shift:].view(4, h)
+    w1 = torch.zeros(h, f, dtype=torch.bfloat16)
+    w2 = torch.zeros(f, h, dtype=torch.bfloat16)
+    if match is None:
+        check_wgmma_layout("fused_ffn", x, w1, w2)
+    else:
+        with pytest.raises(ValueError, match=match):
+            check_wgmma_layout("fused_ffn", x, w1, w2)
+    check_wgmma_layout("fused_ffn", x.float(), w1.float(), w2.float())
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_kernel_vectors_are_8_byte_aligned_fp32(offset):
+    """The wrappers hand the kernels their biases and LN parameters as
+    contiguous fp32 at an 8-byte boundary (the bf16 body reads them in
+    pairs): a view at an odd offset is copied, values unchanged; an aligned
+    fp32 vector is passed as it is."""
+    buf = torch.arange(10, dtype=torch.float32)
+    v = buf[offset:offset + 6]
+    got, = fp32_vectors(v)
+    assert got.dtype == torch.float32 and got.data_ptr() % 8 == 0
+    assert torch.equal(got, v)
+    assert (got.data_ptr() == v.data_ptr()) == (v.data_ptr() % 8 == 0)
+    half, = fp32_vectors(v.bfloat16())
+    assert half.dtype == torch.float32 and half.data_ptr() % 8 == 0

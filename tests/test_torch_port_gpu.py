@@ -426,8 +426,14 @@ def test_serve_entry_point_launches_kernel(cuda, tmp_path):
 
 
 # fused FFN kernels: rows not a multiple of the 32-row block, H and F not
-# multiples of 16 or 128; the last at WeatherBERT-large's widths
-FFN_SHAPES = [(300, 48, 192), (1000, 200, 800), (730, 576, 2304)]
+# multiples of 16 or 128; the third at WeatherBERT-large's widths; then rows
+# not a multiple of the bf16 body's 64-row block and of its cluster (65 =
+# 64 + 1, 1001), small's H = 200 (halves of 100, F = 800 = 6 x 128 + 32) and
+# medium's (336, 1344); last the widest H the kernels take (the bf16 body's
+# 10-atom instantiation)
+FFN_SHAPES = [(300, 48, 192), (1000, 200, 800), (730, 576, 2304),
+              (65, 576, 2304), (1001, 200, 800), (333, 336, 1344),
+              (97, 640, 2560)]
 # against each output's own scale: a flipped bf16 rounding of an
 # intermediate moves an output by about one ulp (2^-8 relative); fp32 sums
 # in another order only
@@ -535,6 +541,64 @@ def test_ffn_kernels_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
         b7_ops.fused_ffn(wide, torch.zeros(656, 8, device=cuda), b1[:8],
                          torch.zeros(8, 656, device=cuda),
                          torch.zeros(656, device=cuda))
+
+
+def test_ffn_kernels_reject_what_they_do_not_take(cuda):
+    """The bf16 forward body needs H and F multiples of 8 and 16-byte aligned
+    x and weights (TMA); it raises on anything else, before any launch, and
+    never falls back. H > 640 raises in both dtypes; fp32 takes any H and F
+    up to it."""
+    counts = (fused_ffn_ln.launches, fused_ffn.launches)
+    for m, h, f in ((64, 52, 192), (64, 48, 100)):
+        x, w1, b1, w2, b2, ls, lb, _ = _ffn_inputs(m, h, f, torch.bfloat16,
+                                                    cuda)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fused_ffn(x, w1, b1, w2, b2)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fused_ffn_ln(x, w1, b1, w2, b2, ls, lb)
+    x, w1, b1, w2, b2, ls, lb, _ = _ffn_inputs(64, 48, 192, torch.bfloat16,
+                                                cuda)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=cuda)[1:].view_as(x)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_ffn(shifted, w1, b1, w2, b2, want_h=True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_ffn_ln(shifted, w1, b1, w2, b2, ls, lb)
+    for dtype in (torch.bfloat16, torch.float32):
+        wide = torch.zeros(4, 648, device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="640"):
+            fused_ffn(wide, torch.zeros(648, 8, device=cuda, dtype=dtype),
+                      b1[:8], torch.zeros(8, 648, device=cuda, dtype=dtype),
+                      torch.zeros(648, device=cuda))
+    assert (fused_ffn_ln.launches, fused_ffn.launches) == counts
+    x, w1, b1, w2, b2, ls, lb, _ = _ffn_inputs(64, 52, 100, torch.float32,
+                                                cuda)
+    _assert_scaled_close("fp32 B7 f", fused_ffn(x, w1, b1, w2, b2)[0],
+                         fused_ffn_reference(x, w1, b1, w2, b2)[0],
+                         torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_kernels_take_vectors_at_odd_offsets(cuda, dtype):
+    """Biases and LN parameters that are views 4 bytes off an 8-byte
+    boundary (the bf16 body reads them in pairs): the wrappers copy them,
+    and the kernels match their plain versions."""
+    x, w1, b1, w2, b2, ls, lb, _ = _ffn_inputs(97, 48, 192, dtype, cuda)
+
+    def shifted(v):
+        out = torch.zeros(v.numel() + 1, device=cuda)[1:]
+        assert out.data_ptr() % 8 == 4
+        return out.copy_(v)
+
+    b1o, b2o, lso, lbo = (shifted(v) for v in (b1, b2, ls, lb))
+    _assert_scaled_close(
+        "B6f out", fused_ffn_ln(x, w1, b1o, w2, b2o, lso, lbo, 0.1, (1, 2)),
+        fused_ffn_ln_reference(x, w1, b1, w2, b2, ls, lb, 0.1, (1, 2)), dtype)
+    for got, want in zip(
+            fused_ffn(x, w1, b1o, w2, b2o, 0.1, (1, 2), want_h=True),
+            fused_ffn_reference(x, w1, b1, w2, b2, 0.1, (1, 2), True)):
+        _assert_scaled_close("B7", got, want, dtype)
 
 
 @pytest.mark.parametrize("ffn_impl", ["fused_ffn_ln", "fused_ffn"])

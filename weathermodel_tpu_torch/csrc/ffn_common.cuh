@@ -1,6 +1,7 @@
-// The row-block FFN kernel shared by the fused FFN (B7, fused_ffn.cu), the fused FFN +
-// residual + LayerNorm (B6f, fused_ffn_ln.cu) and the recompute pass of its backward (B6b,
-// fused_ffn_ln_bwd.cu).
+// The row-block FFN kernel for float32 B7 (fused_ffn.cu) and B6f (fused_ffn_ln.cu), and
+// for the recompute pass of B6b (fused_ffn_ln_bwd.cu) in both dtypes. bfloat16 B7 and B6f
+// run ffn_hopper.cuh's wgmma body instead; the kModeFfn and kModeLn instantiations here
+// are their float32 forms (FMA pipes: TF32 would change their numerics).
 //
 // One thread block of 256 threads owns kRows = 32 rows of x [M, H] and every one of their H
 // output columns, so the LayerNorm epilogue (and its backward) sees whole rows, as the TPU
@@ -411,17 +412,23 @@ cudaError_t launch_rows(const RowsArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Fill the shared part of RowsArgs and launch the float32 body.
+template <int kMode>
+cudaError_t launch_rows_fp32(RowsArgs a, cudaStream_t stream) {
+  if (a.m < 0 || a.h <= 0 || a.f <= 0 || a.h > kMaxH) return cudaErrorInvalidValue;
+  if (a.m == 0) return cudaSuccess;
+  a.vec_x = gmm_tiles::vec_ok<float>(a.x, a.h);
+  a.vec_w1 = gmm_tiles::vec_ok<float>(a.w1, a.f);
+  a.vec_w2 = gmm_tiles::vec_ok<float>(a.w2, a.h);
+  return launch_rows<float, kMode>(a, stream);
+}
+
 // Fill the shared part of RowsArgs and dispatch on the dtype (0 = float32, 1 = bfloat16).
 template <int kMode>
 cudaError_t launch_rows_dtype(int dtype, RowsArgs a, cudaStream_t stream) {
+  if (dtype == 0) return launch_rows_fp32<kMode>(a, stream);
   if (a.m < 0 || a.h <= 0 || a.f <= 0 || a.h > kMaxH) return cudaErrorInvalidValue;
   if (a.m == 0) return cudaSuccess;
-  if (dtype == 0) {
-    a.vec_x = gmm_tiles::vec_ok<float>(a.x, a.h);
-    a.vec_w1 = gmm_tiles::vec_ok<float>(a.w1, a.f);
-    a.vec_w2 = gmm_tiles::vec_ok<float>(a.w2, a.h);
-    return launch_rows<float, kMode>(a, stream);
-  }
   if (dtype == 1) {
     a.vec_x = gmm_tiles::vec_ok<__nv_bfloat16>(a.x, a.h);
     a.vec_w1 = gmm_tiles::vec_ok<__nv_bfloat16>(a.w1, a.f);

@@ -10,15 +10,20 @@
 // [M, F] hidden never leaves the block's shared memory. The backward is plain ops in the
 // port, as in the JAX package: it reads the masks back from the zeros of f and h.
 //
-// Design: ffn_common.cuh's row-block kernel (32 rows x all H columns per block, the hidden
-// in 128-column chunks). The TPU pads M to its 256-row block; here the block bound-checks M,
-// H and F. What bounds it on the card: 4 M H F operations (558 GFLOP at the bench
-// microbatch, M = 105,120, H = 576, F = 2304: 0.56 ms at the bf16 tensor-core peak) against
-// 242 MB of x and f (and 484 MB of h) in bf16, so operations. This first version feeds the
-// tensor cores through WMMA from one shared-memory stage and re-reads both weight matrices
-// from L2 for every 32 rows; later work: a wgmma/TMA pipeline and taller row blocks.
+// Design. bfloat16 runs ffn_hopper.cuh's body: 64-row blocks of two consumer warpgroups,
+// wgmma fed by a TMA ring of W1 and W2 slabs per warpgroup, x resident in shared memory, h
+// written by TMA store from its swizzled tile. What bounds it on the card: 4 M H F
+// operations (558 GFLOP at the bench microbatch, M = 105,120, H = 576, F = 2304: 0.564 ms
+// at the bf16 tensor-core peak) against 242 MB of x and f (and 484 MB of h) in bf16, so
+// operations; the weights' L2 reads fall from 17.4 GB a call (32-row blocks) to 8.7 GB
+// (64-row blocks). float32 stays on ffn_common.cuh's row kernel (32 rows x all H columns a
+// block, FMA pipes). The TPU pads M to its 256-row block; here TMA clips the ragged edges.
+// ptxas (-Xptxas -v, chip_smoke.py's build phase, sm_90a, CUDA 12.8), kModeFfn by kAtoms:
+// 1: 104 registers, 4: 150, 6: 186, 9: 232, 10: 254, no spills; dynamic shared memory at
+// H = 48, 200, 336, 576, 640: 92,232, 116,808, 133,192, 165,960, 182,344 bytes a block.
 
 #include "ffn_common.cuh"
+#include "ffn_hopper.cuh"
 
 extern "C" {
 
@@ -46,7 +51,16 @@ int wm_fused_ffn(int dtype, const void* x, const void* w1, const void* b1, const
   a.seed2 = seed2;
   a.threshold = threshold;
   a.scale = inv_keep;
-  return ffn::launch_rows_dtype<ffn::kModeFfn>(dtype, a, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return ffn_hopper::launch<ffn::kModeFfn>(a, st);
+  if (dtype == 0) return ffn::launch_rows_fp32<ffn::kModeFfn>(a, st);
+  return cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory, in bytes, of the bfloat16 body's block at width h (-1 past
+// 640), for reports.
+int wm_ffn_wgmma_smem(int h) {
+  return h > 0 && h <= ffn_hopper::kMaxH ? ffn_hopper::smem_bytes(h) : -1;
 }
 
 }  // extern "C"

@@ -8,15 +8,23 @@
 //   out = LN(x + f) . scale + bias             fp32 statistics, eps 1e-5, rounded once
 // with fp32 accumulation; a kept value is divided by (1 - p), as the TPU forward does.
 //
-// Design: ffn_common.cuh's row-block kernel. LayerNorm needs every column of a row, so a
-// block owns 32 whole rows (the TPU kernel owns whole batch items); its [32, H] fp32
-// accumulators are finished in shared memory, where a warp per row takes the statistics.
-// The hidden never leaves the block. The TPU pads T to 128 and B to its block; here the
-// block bound-checks M, H and F, so nothing is padded. What bounds it on the card: 4 M H F
-// operations (558 GFLOP at the bench microbatch, 0.56 ms at the bf16 peak) against 242 MB
-// of x and out in bf16: operations. Later work as for B7 (fused_ffn.cu).
+// Design. LayerNorm needs every column of a row, so a block owns whole rows (the TPU kernel
+// owns whole batch items). bfloat16 runs ffn_hopper.cuh's body: 64 rows a block, two
+// consumer warpgroups each with its own TMA ring of W1 and W2 slabs feeding wgmma, x
+// resident in shared memory as the first product's A and the residual, the [64, H] fp32
+// accumulators in the two warpgroups' registers, which exchange row sums through shared
+// memory for the statistics. float32 stays on ffn_common.cuh's row kernel. The hidden never
+// leaves the block. Nothing is padded: TMA zero-fills reads past M, H and F and clips
+// writes. What bounds it on the card: 4 M H F operations (558 GFLOP at the bench
+// microbatch, 0.564 ms at the bf16 peak) against 242 MB of x and out in bf16: operations;
+// the weights' L2 reads fall from 17.4 GB a call (32-row blocks) to 8.7 GB (64-row
+// blocks). ptxas (-Xptxas -v, chip_smoke.py's build phase, sm_90a, CUDA 12.8), kModeLn by
+// kAtoms: 1: 105 registers, 4: 158, 6: 192, no spills; 9: 255 registers and 140 bytes of
+// spill stores and loads; 10: 255
+// and 540 / 532; shared memory as fused_ffn.cu's (165,960 bytes a block at H = 576).
 
 #include "ffn_common.cuh"
+#include "ffn_hopper.cuh"
 
 extern "C" {
 
@@ -45,7 +53,10 @@ int wm_fused_ffn_ln(int dtype, const void* x, const void* w1, const void* b1, co
   a.seed2 = seed2;
   a.threshold = threshold;
   a.scale = keep_prob;
-  return ffn::launch_rows_dtype<ffn::kModeLn>(dtype, a, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return ffn_hopper::launch<ffn::kModeLn>(a, st);
+  if (dtype == 0) return ffn::launch_rows_fp32<ffn::kModeLn>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -11,6 +11,8 @@ on rows x [M, H]; the residual and LayerNorm stay with the layer.
   the hidden h [M, F] when `want_h` (the backward's residual); without it
   the kernel skips that write, as `_run_fwd(want_h=False)` does. Both
   products accumulate in fp32; a kept value is multiplied by 1/(1 - p).
+  bf16 runs the wgmma/TMA body (`csrc/ffn_hopper.cuh`, the layout rule of
+  `check_wgmma_layout`), float32 the row kernel.
 * `fused_ffn_bwd` - the backward, plain ops as in the JAX package
   (pallas_ffn2.py:148-178): the masks come back from the zeros of f and h
   (f == 0 where dropped, h != 0 exactly where kept and relu' > 0), so
@@ -34,7 +36,9 @@ from weathermodel_tpu_torch.ops.attention import dropout_params
 from weathermodel_tpu_torch.ops.dropout import ffn_keep_mask
 from weathermodel_tpu_torch.ops.fused_ffn_ln import (
     check_ffn_shapes,
+    check_wgmma_layout,
     ffn_on_cuda,
+    fp32_vectors,
 )
 
 
@@ -76,8 +80,9 @@ def fused_ffn(x, w1, b1, w2, b2, dropout_rate: float = 0.0, seeds=(0, 0),
     if not ffn_on_cuda("fused_ffn", x, w1, w2, b1, b2):
         return fused_ffn_reference(x, w1, b1, w2, b2, dropout_rate, seeds,
                                    want_h)
+    check_wgmma_layout("fused_ffn", x, w1, w2)
     on, threshold, _, inv = dropout_params(dropout_rate)
-    b1, b2 = (v.float().contiguous() for v in (b1, b2))
+    b1, b2 = fp32_vectors(b1, b2)
     m = x.shape[0]
     out = torch.empty_like(x)
     hid = x.new_empty(m, f) if want_h else None

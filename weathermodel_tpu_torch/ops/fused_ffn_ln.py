@@ -29,7 +29,11 @@ hand-written Hopper kernel on CUDA tensors (counting the launch in its
 `launches` attribute) or raises, and runs its plain PyTorch version
 (`*_reference`) on CPU tensors; the plain version is also what the kernel is
 checked against on the card. Nothing is padded: the kernels bound-check the
-rows and both widths (H at most 640).
+rows and both widths (H at most 640). In bf16 the forward runs the wgmma/TMA
+body (`csrc/ffn_hopper.cuh`), which needs H and F multiples of 8 and 16-byte
+aligned x and weights (`check_wgmma_layout` raises otherwise) and reads the
+fp32 vectors in pairs (`fp32_vectors` copies one at an odd offset); float32
+and B6b run the row kernel of `csrc/ffn_common.cuh`.
 """
 
 import math
@@ -41,7 +45,8 @@ from weathermodel_tpu_torch.ops.attention import dropout_params
 from weathermodel_tpu_torch.ops.dropout import ffn_keep_mask
 
 LN_EPS = 1e-5
-# the widest H the kernels' row blocks hold (csrc/ffn_common.cuh kMaxH)
+# the widest H the kernels' row blocks hold (kMaxH of csrc/ffn_common.cuh
+# and csrc/ffn_hopper.cuh)
 MAX_HIDDEN = 640
 # target blocks per SM of the weight-gradient products, and the fewest rows
 # a slice of their rows gets
@@ -85,8 +90,26 @@ def ffn_on_cuda(name, x, w1, w2, *vectors) -> bool:
     return True
 
 
-def _fp32(*vectors):
-    return [v.float().contiguous() for v in vectors]
+def check_wgmma_layout(name, x, w1, w2):
+    """The bf16 forward body's (csrc/ffn_hopper.cuh) rule on top of
+    `ffn_on_cuda`'s: H and F multiples of 8 and x, W1 and W2 16-byte
+    aligned, as TMA's 16-byte strides and addresses need. The fp32 body and
+    B6b take any width."""
+    if x.dtype != torch.bfloat16:
+        return
+    h, f = w1.shape
+    if h % 8 or f % 8:
+        raise ValueError(f"{name}: bf16 needs H and F multiples of 8 (TMA's "
+                         f"16-byte row strides), got H={h}, F={f}")
+    if any(a.data_ptr() % 16 for a in (x, w1, w2)):
+        raise ValueError(f"{name}: bf16 needs x, w1 and w2 16-byte aligned")
+
+
+def fp32_vectors(*vectors):
+    """The vectors as contiguous fp32 the kernels take: 8-byte aligned, as
+    the bf16 body reads them in pairs (a view at an odd offset is copied)."""
+    out = [v.float().contiguous() for v in vectors]
+    return [v.clone() if v.data_ptr() % 8 else v for v in out]
 
 
 def _ln_stats(y):
@@ -134,8 +157,9 @@ def fused_ffn_ln(x, w1, b1, w2, b2, ln_scale, ln_bias,
     if not ffn_on_cuda("fused_ffn_ln", x, w1, w2, b1, b2, ln_scale, ln_bias):
         return fused_ffn_ln_reference(x, w1, b1, w2, b2, ln_scale, ln_bias,
                                       dropout_rate, seeds)
+    check_wgmma_layout("fused_ffn_ln", x, w1, w2)
     on, threshold, keep_prob, _ = dropout_params(dropout_rate)
-    b1, b2, ln_scale, ln_bias = _fp32(b1, b2, ln_scale, ln_bias)
+    b1, b2, ln_scale, ln_bias = fp32_vectors(b1, b2, ln_scale, ln_bias)
     m = x.numel() // h
     out = torch.empty_like(x)
     lib = build.load_library().lib
@@ -228,7 +252,7 @@ def fused_ffn_ln_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
     if do.dtype != x.dtype or not do.is_contiguous():
         raise ValueError("fused_ffn_ln_bwd needs a contiguous do of x's dtype")
     on, threshold, _, inv = dropout_params(dropout_rate)
-    b1, b2, ln_scale = _fp32(b1, b2, ln_scale)
+    b1, b2, ln_scale = fp32_vectors(b1, b2, ln_scale)
     m = x.numel() // h
     fp32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
