@@ -6,21 +6,31 @@ Phases, each printing one line; any failure raises and exits non-zero:
   1. device  - requires CUDA; prints the card and its power limit
   2. build   - compiles csrc/*.cu with nvcc for sm_90a; build time and the
                ptxas report (registers, spills)
-  3. kernel  - the fused QKV attention kernel vs its plain PyTorch version at
-               WeatherBERT-large's serving shapes (B=256, T=365, H=576, 16
-               heads) in fp32 and bf16, with CUDA-event times of both
+  3. kernel  - the bf16 attention body's (qkv_attention_wgmma_kernel, B1 and
+               B5's first phase) ptxas registers and spills of the eval form
+               and its shared memory; the fused QKV attention kernel vs its
+               plain PyTorch version at WeatherBERT-large's serving shapes
+               (B=256, T=365, H=576, 16 heads) in fp32 and bf16, with
+               CUDA-event times of both; then at the edge shapes (T = 1, 64,
+               65, 383, 384 at the four head dims, 453, and 512 in bf16)
   4. kernel_outproj - the fused QKV attention + out-projection kernel B5 vs
                its plain version at the same shapes in fp32 and bf16, and with
                dropout 0.1 at B=32 (the same seed on both sides); CUDA-event
                times of the kernel, the plain version, the library call
                (F.linear + scaled_dot_product_attention + F.linear) and B1's
-               eval form + F.linear
+               eval form + F.linear; the body's ptxas report for B5's two
+               forms; one profiled bf16 call split into phase 1 (the body)
+               and phase 2 (outproj_kernel); the edge shapes, dropout 0 and
+               0.1
   5. serve   - a seeded WeatherBERT-large saved as a reference .pth and 300
                seeded windows served through the `wm-serve-torch` entry point
                in bf16 (a 256 chunk + 44 rows padded to the 128 bucket), with
                --attention-impl auto (B1 eval must launch 16 times: 8 layers x
                2 chunks) and fused_qkv_op (B5 16 times, B1 none); both agree
-               with the plain attention path, in bf16 and in fp32
+               with the plain attention path, in bf16 and in fp32; a
+               profiled bf16 call of each must launch the attention body
+               and no bf16 instantiation of the scalar
+               fused_qkv_attention_kernel
   6. serve_daemon - `python -m weathermodel_tpu_torch.cli.serve --daemon` as
                a process serving the same .pth through B5 (fused_qkv_op,
                --batch-size 256, --allow-reload): 8 client threads x 4
@@ -36,15 +46,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
                and bf16, dropout 0.1 (the same seed on both sides) and 0; CUDA-
                event times of the kernel, the plain version and the library
                call (F.linear + scaled_dot_product_attention, forward; forward
-               and backward for B2), naming the SDPA backend
+               and backward for B2), naming the SDPA backend; the body's
+               ptxas report for the training form; B1 train (o and qkv) at
+               the edge shapes, dropout 0.1 and 0
   8. train   - a seeded synthetic chunk store written by the port's writer;
                `wm-pretrain-torch`'s run(args) trains WeatherBERT-large in
                bf16, --batch-size 576 --grad-accum 2, dropout 0.1, 2 epochs:
                16 launches of each training kernel per step and 8 of the eval
                form per validation batch, finite losses that fall; ms per
                step, samples/s, TFLOP/s and peak memory; a torch.profiler
-               capture of one step; one step of the kernel path against the
-               plain attention path at 16 windows, dropout off, fp32 and bf16
+               capture of one step, which fails unless B1 train launches the
+               attention body and no bf16 scalar fused_qkv_attention_kernel;
+               one step of the kernel path against the plain attention path
+               at 16 windows, dropout off, fp32 and bf16
   9. kernel_flash - the attention kernels on separate q, k, v, B3f and its
                backward B3b, vs their plain versions at WeatherFormer-small's
                batch (B=256, T=365, H=200, 10 heads), on the column slices of
@@ -77,7 +91,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                of B4, 48 of B4t, 24 of B1 train and 24 of B2; per validation
                batch 16 of B4 and 8 of B1 eval; finite losses and moe_aux, the
                train loss falls; the same timings (TFLOP/s from the MoE
-               analytic count), profile and one-step comparison with the plain
+               analytic count), profile (the attention body required, as in
+               phase 8) and one-step comparison with the plain
                path (plain grouped matmuls, plain attention) as phase 8
   13. kernel_ffn - the bf16 wgmma body's (ffn_wgmma_kernel) ptxas registers
                and spills and its shared memory; then the fused FFN +
@@ -138,9 +153,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
                of B5 per batch, none of B1); finite losses; a
                torch.profiler train and eval step of each fused impl, which
                fails unless bf16 B6f, B7 with h (train) and B7 without
-               (eval) launch the wgmma body (ffn_wgmma_kernel) and the row
-               kernel (ffn_rows_kernel) runs only B6b; one step of each fused
-               path against the plain path (plain attention and FFN) at 16
+               (eval) launch the wgmma body (ffn_wgmma_kernel), the row
+               kernel (ffn_rows_kernel) runs only B6b, and B1 (train and
+               eval) launches the attention body (qkv_attention_wgmma_kernel)
+               and no bf16 scalar fused_qkv_attention_kernel; one step of each
+               fused path against the plain path (plain attention and FFN) at 16
                windows, dropout off, fp32 and bf16
 The seconds each phase took are printed after the phases; the card's name
 and power limit are printed by phase 1 and again before the kernels' JSON
@@ -218,6 +235,17 @@ PEAK_BYTES_PER_S = 3.35e12
 # B5 with dropout on is checked at a smaller batch: its plain version builds
 # the int64 keep-mask of [B, 16, 365, 365]
 OUTPROJ_DROPOUT_BATCH = 32
+# the bf16 body of B1 and of B5's first phase (csrc/attention_hopper.cuh), and
+# the scalar body's bf16 instantiation, which no bf16 profile may show
+ATTN_BODY = "qkv_attention_wgmma_kernel"
+ATTN_SCALAR_BF16 = "fused_qkv_attention_kernel<__nv_bfloat16"
+# (B, T, H, heads) at the bf16 body's 64-row tile edges (T = 1, 64, 65, 383,
+# 384), one at each head dim, then the longest T the fp32 body takes at hd 36
+# (453) and the bf16 body's (512, bf16 only)
+ATTN_EDGE_SHAPES = [(4, 1, 576, 16), (4, 64, 336, 12), (4, 65, 200, 10),
+                    (4, 383, 48, 4), (4, 384, 576, 16), (2, 453, 576, 16),
+                    (1, 512, 576, 16)]
+FP32_ATTN_MAX_T = 453
 # the online daemon: client threads x requests each x windows a request, and
 # the seconds it may take to answer /healthz and to exit after SIGTERM
 DAEMON_CLIENTS, DAEMON_REQUESTS, DAEMON_WINDOWS = 8, 4, 32
@@ -372,6 +400,96 @@ def _cuda_ms(fn, iters=5, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def _attention_inputs(b, t, h, seed):
+    """x N(0, 1), w and b U(+-1/sqrt(h)) for B1 and B5, in fp32 on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bound = 1.0 / h ** 0.5
+    x = torch.randn(b, t, h, device="cuda", generator=g)
+    w = (torch.rand(3 * h, h, device="cuda", generator=g) * 2 - 1) * bound
+    bias = (torch.rand(3 * h, device="cuda", generator=g) * 2 - 1) * bound
+    return x, w, bias
+
+
+def _attention_edges(what, run, plain, seed):
+    """`run` and `plain` (each taking x, w, b, heads in one dtype and returning
+    a tuple of outputs) on ATTN_EDGE_SHAPES, fp32 where its body takes T and
+    bf16: the number of cases and the largest max|kernel - plain|."""
+    errs = []
+    for b, t, h, nh in ATTN_EDGE_SHAPES:
+        x, w, bias = _attention_inputs(b, t, h, seed)
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.float32 and t > FP32_ATTN_MAX_T:
+                continue
+            args = (x.to(dtype), w.to(dtype), bias.to(dtype), nh)
+            for i, (got, want) in enumerate(zip(run(*args), plain(*args))):
+                errs.append(_check_kernel(
+                    f"{what} {i} {dtype} {(b, t, h, nh)}", got, want,
+                    dtype)[0])
+    return (f"edge shapes (B, T, H, heads) {ATTN_EDGE_SHAPES}, fp32 (T <= "
+            f"{FP32_ATTN_MAX_T}) and bf16: {len(errs)} outputs, max|err| "
+            f"{max(errs):.3g}")
+
+
+def _attention_body_report(forms):
+    """The bf16 attention body's ptxas report for the instantiations whose
+    (kTrain, kEmitQkv) is in `forms`, and its dynamic shared memory a block at
+    T = 365 and at its longest T, by head dim."""
+    import re
+
+    from weathermodel_tpu_torch.kernels import build
+    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+        bf16_max_context,
+    )
+
+    built = build.load_library()
+    lines = built.ptxas_log.splitlines()
+    report = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '.*" + ATTN_BODY +
+                      r"ILi(\d+)ELb(\d)ELb(\d)E", line)
+        if m is None or (int(m.group(2)), int(m.group(3))) not in forms:
+            continue
+        block = []
+        for nxt in lines[i + 1:i + 6]:
+            if "Compiling entry" in nxt:
+                break
+            block.append(nxt)
+        block = " ".join(block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        report.append(f"<{m.group(1)}, {m.group(2)}, {m.group(3)}>: "
+                      f"{regs.group(1) if regs else '?'} registers, spill "
+                      f"{'/'.join(spill.groups()) if spill else '?'} B")
+    smem_at = built.lib.wm_qkv_attention_wgmma_smem
+    smem = {hd: (smem_at(hd, SEQ_LEN), bf16_max_context(hd),
+                 smem_at(hd, bf16_max_context(hd)))
+            for hd in (12, 20, 28, 36)}
+    return (f"{ATTN_BODY}<hd, kTrain, kEmitQkv> ptxas: {'; '.join(report)}; "
+            f"dynamic shared memory a block by hd: (at T={SEQ_LEN}, longest "
+            f"T, at it) {smem} B")
+
+
+def _check_kernel_names(what, keys, require=(), forbid=()):
+    """Fails unless each substring in `require` is in some kernel's name and
+    none in `forbid` is."""
+    missing = [sub for sub in require if not any(sub in k for k in keys)]
+    banned = [k for k in keys if any(sub in k for sub in forbid)]
+    if missing or banned:
+        raise AssertionError(f"{what}: no kernel holds {missing}, or "
+                             f"{banned} launched (kernels: {keys})")
+
+
+def _profiled(fn):
+    """torch.profiler's device kernels over one call of fn."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _kernel_events(prof)
+
+
 def phase_kernel():
     from weathermodel_tpu_torch.ops.fused_qkv_attention import (
         fused_qkv_attention,
@@ -383,11 +501,7 @@ def phase_kernel():
     torch.backends.cudnn.allow_tf32 = False
     cfg = model_config_for_size(MODEL_SIZE)
     h, nh = cfg.hidden_dim, cfg.num_heads
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    bound = 1.0 / h ** 0.5
-    x = torch.randn(BATCH, SEQ_LEN, h, device="cuda", generator=g)
-    w = (torch.rand(3 * h, h, device="cuda", generator=g) * 2 - 1) * bound
-    b = (torch.rand(3 * h, device="cuda", generator=g) * 2 - 1) * bound
+    x, w, b = _attention_inputs(BATCH, SEQ_LEN, h, SEED)
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         args = (x.to(dtype), w.to(dtype), b.to(dtype), nh)
@@ -403,6 +517,7 @@ def phase_kernel():
             plain_ms=_cuda_ms(lambda: fused_qkv_attention_reference(*args)),
             library_ms=_cuda_ms(lambda: _library_attention(*args)),
             bound_ms=bound_ms, bound_by=bound_by)
+    print("kernel: " + _attention_body_report({(0, 0)}), flush=True)
     print("kernel: fused_qkv_attention B=%d T=%d H=%d heads=%d | " % (
         BATCH, SEQ_LEN, h, nh) + " | ".join(
         f"{str(d).split('.')[1]}: max|err| {r['errs']} (tol {KERNEL_TOL[d]}"
@@ -410,6 +525,10 @@ def phase_kernel():
         f"{r['plain_ms']:.3f} ms, F.linear+SDPA {r['library_ms']:.3f} ms, "
         f"bound {r['bound_ms']:.3f} ms by {r['bound_by']}"
         for d, r in results.items()), flush=True)
+    print("kernel: B1 eval " + _attention_edges(
+        "B1 eval o", lambda *a: (fused_qkv_attention(*a),),
+        lambda *a: (fused_qkv_attention_reference(*a),), SEED + 20),
+        flush=True)
     return results[torch.bfloat16]
 
 
@@ -456,6 +575,19 @@ def phase_kernel_outproj():
             b1_ms=_cuda_ms(lambda: F.linear(
                 fused_qkv_attention(*args[:3], nh), args[3], args[4])),
             bound_ms=bound_ms, bound_by=bound_by)
+    # phase 1 (the attention body) and phase 2 (the out-projection tiles)
+    # of one bf16 call, by the profiler's device time
+    args = (x.to(torch.bfloat16), *(a.to(torch.bfloat16) for a in params))
+    events = _profiled(lambda: fused_qkv_attention_outproj(*args, nh))
+    _check_kernel_names("B5 bf16", [e.key for e in events],
+                        (ATTN_BODY, "outproj_kernel"), (ATTN_SCALAR_BF16,))
+    split = {name: sum(_device_ms(e) for e in events if sub in e.key)
+             for name, sub in (("phase 1", ATTN_BODY),
+                               ("phase 2", "outproj_kernel"))}
+    results[torch.bfloat16]["phase2_share"] = split["phase 2"] / sum(
+        split.values())
+    print("kernel_outproj: " + _attention_body_report({(0, 0), (1, 0)}),
+          flush=True)
     print("kernel_outproj: fused_qkv_attention_outproj B=%d T=%d H=%d "
           "heads=%d | " % (BATCH, SEQ_LEN, h, nh) + " | ".join(
               f"{str(d).split('.')[1]}: max|err| {r['errs']} (tol "
@@ -464,7 +596,27 @@ def phase_kernel_outproj():
               f"F.linear+SDPA+F.linear {r['library_ms']:.3f} ms, B1 eval + "
               f"F.linear {r['b1_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
               f"{r['bound_by']}" for d, r in results.items()), flush=True)
+    share = results[torch.bfloat16]["phase2_share"]
+    print(f"kernel_outproj: bf16 B5 by phase (profiled device ms of one "
+          f"call): {split}, phase 2 {share:.3f} of the call", flush=True)
+    for rate in (0.0, DROPOUT):
+        print(f"kernel_outproj: B5 dropout {rate} " + _attention_edges(
+            "B5 y", lambda *a: (fused_qkv_attention_outproj(
+                *a[:3], *_outproj_weights(a[0]), a[3], rate, seed),),
+            lambda *a: (fused_qkv_attention_outproj_reference(
+                *a[:3], *_outproj_weights(a[0]), a[3], rate, seed),),
+            SEED + 21), flush=True)
     return results[torch.bfloat16]
+
+
+def _outproj_weights(x):
+    """wo [H, H] and bo [H] for B5's edge shapes: U(+-1/sqrt(H)) from a seed,
+    in x's dtype (the same for the kernel and its plain version)."""
+    h = x.shape[-1]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    wo = (torch.rand(h, h, device="cuda", generator=g) * 2 - 1) / h ** 0.5
+    bo = (torch.rand(h, device="cuda", generator=g) * 2 - 1) / h ** 0.5
+    return wo.to(x.dtype), bo.to(x.dtype)
 
 
 def _windows(rng, n):
@@ -550,6 +702,15 @@ def phase_serve(smi: str, tmp: Path):
             raise AssertionError(f"{impl}: non-finite served output")
         outs[impl, "bfloat16"] = out
         rates[impl] = (N_WINDOWS / predict_s, predict_s, wall)
+    # B1 eval (auto) and B5's first phase (fused_qkv_op) run the bf16 body
+    served = {}
+    for impl in ("auto", "fused_qkv_op"):
+        events = _profiled(lambda: _serve(tmp, impl, "bfloat16"))
+        _check_kernel_names(f"serve {impl} bf16", [e.key for e in events],
+                            (ATTN_BODY,), (ATTN_SCALAR_BF16,))
+        body = [e for e in events if ATTN_BODY in e.key]
+        served[impl] = (f"{sum(_device_ms(e) for e in body):.1f} ms x"
+                        f"{sum(e.count for e in body)}")
     want = {"auto": dict(fused_qkv_attention=expected,
                          fused_qkv_attention_outproj=0),
             "fused_qkv_op": dict(fused_qkv_attention=0,
@@ -575,7 +736,8 @@ def phase_serve(smi: str, tmp: Path):
           + "; ".join(f"{impl} {r[0]:.1f} windows/s (predict {r[1]:.3f} s)"
                       for impl, r in rates.items())
           + f"; |kernel - plain| (max, RMS)/RMS {errs} (bars {SERVE_TOL}); "
-          f"card {smi}", flush=True)
+          f"{ATTN_BODY} in a profiled bf16 call {served}; card {smi}",
+          flush=True)
     return launches
 
 
@@ -808,9 +970,22 @@ def phase_kernel_train():
                 f"{r['bwd_library_ms']:.3f}, bound {r['bwd_bound'][0]:.3f} by "
                 f"{r['bwd_bound'][1]}; SDPA backend {r['sdpa_backend']}")
         lines.append(line)
+    print("kernel_train: " + _attention_body_report({(1, 1)}), flush=True)
     print(f"kernel_train: B={MICRO} T={SEQ_LEN} H={h} heads={nh} (tol "
           f"{KERNEL_TOL}, {SCALE_TOL} x max) | " + " | ".join(lines),
           flush=True)
+    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+        fused_qkv_attention_train,
+        fused_qkv_attention_train_reference,
+    )
+
+    for rate in (DROPOUT, 0.0):
+        print(f"kernel_train: B1 train (o, qkv) dropout {rate} "
+              + _attention_edges(
+                  "B1 train", lambda *a: fused_qkv_attention_train(
+                      *a, rate, seed),
+                  lambda *a: fused_qkv_attention_train_reference(
+                      *a, rate, seed), SEED + 23), flush=True)
     return results[torch.bfloat16, DROPOUT]
 
 
@@ -902,13 +1077,8 @@ def _profile_step(name, cfg, impl, batch_size, grad_accum=1,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = _kernel_events(prof)
-    keys = [e.key for e in events]
-    missing = [sub for sub in require if not any(sub in k for k in keys)]
-    banned = [k for k in keys if any(sub in k for sub in forbid)]
-    if missing or banned:
-        raise AssertionError(f"{name} {mode} step ({impl}, {ffn_impl}): no "
-                             f"kernel holds {missing}, or {banned} launched "
-                             f"(kernels: {keys})")
+    _check_kernel_names(f"{name} {mode} step ({impl}, {ffn_impl})",
+                        [e.key for e in events], require, forbid)
     total = sum(_device_ms(e) for e in events)
     top = ", ".join(f"{e.key[:60]} {_device_ms(e):.1f} ms x{e.count}"
                     for e in events[:12])
@@ -1145,8 +1315,10 @@ def phase_train(smi: str, data: Path):
           f"({gflop:.1f} GFLOP/sample); epoch seconds "
           f"{record['metrics']['epoch_seconds']}; run {wall:.1f} s; peak "
           f"memory {peak_gb:.1f} GB; card {smi}", flush=True)
-    print("train: " + _profile_step("weatherbert", cfg, "fused_qkv",
-                                    TRAIN_BATCH, GRAD_ACCUM), flush=True)
+    print("train: " + _profile_step(
+        "weatherbert", cfg, "fused_qkv", TRAIN_BATCH, GRAD_ACCUM,
+        named=(("B1 train (the bf16 body)", ATTN_BODY),),
+        require=(ATTN_BODY,), forbid=(ATTN_SCALAR_BF16,)), flush=True)
     print("train: " + _check_step_parity("weatherbert", MODEL_SIZE,
                                          "fused_qkv"), flush=True)
     return launches
@@ -1534,8 +1706,10 @@ def phase_train_moe(smi: str, data: Path):
           f"GFLOP/sample); epoch seconds {record['metrics']['epoch_seconds']}"
           f"; run {wall:.1f} s; peak memory {peak_gb:.1f} GB; card {smi}",
           flush=True)
-    print("train_moe: " + _profile_step("weatherbert", cfg, "fused_qkv",
-                                        MOE_BATCH, MOE_ACCUM), flush=True)
+    print("train_moe: " + _profile_step(
+        "weatherbert", cfg, "fused_qkv", MOE_BATCH, MOE_ACCUM,
+        named=(("B1 train (the bf16 body)", ATTN_BODY),),
+        require=(ATTN_BODY,), forbid=(ATTN_SCALAR_BF16,)), flush=True)
     print("train_moe: " + _check_step_parity("weatherbert", MODEL_SIZE,
                                              "fused_qkv", MOE), flush=True)
     print("train_moe: " + _check_moe_no_host_sync(cfg), flush=True)
@@ -2130,7 +2304,8 @@ def phase_bench(smi: str):
     finally:
         dropout.set_impl("auto")
     # bf16 B6f, B7 with h (train) and B7 without (eval) launch the wgmma
-    # body; the row kernel runs only B6b's recompute pass (kModeBwd = 2)
+    # body; the row kernel runs only B6b's recompute pass (kModeBwd = 2). B1
+    # (train and eval) runs the attention's wgmma body, never the scalar one
     rows_fwd = tuple(f"{FFN_ROWS_KERNEL}<__nv_bfloat16, {mode}>"
                      for mode in (0, 1))
     for impl, body in (("fused_ffn_ln", f"{FFN_BODY}<1,"),
@@ -2138,8 +2313,10 @@ def phase_bench(smi: str):
         for mode, accum in (("train", GRAD_ACCUM), ("eval", 1)):
             print(f"bench: {impl} {mode} " + _profile_step(
                 "weatherbert", cfg, "fused_qkv", TRAIN_BATCH, accum,
-                ffn_impl=impl, mode=mode, named=((body, body),),
-                require=(body,), forbid=rows_fwd), flush=True)
+                ffn_impl=impl, mode=mode,
+                named=((body, body), (ATTN_BODY, ATTN_BODY)),
+                require=(body, ATTN_BODY),
+                forbid=(*rows_fwd, ATTN_SCALAR_BF16)), flush=True)
         print(f"bench: {impl} " + _check_step_parity(
             "weatherbert", MODEL_SIZE, "fused_qkv", ffn_impl=impl), flush=True)
     return launches

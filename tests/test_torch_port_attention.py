@@ -9,6 +9,8 @@ import torch
 from weathermodel_tpu.ops.pallas_attention import flash_attention_fused
 from weathermodel_tpu_torch.ops.attention import resolve_attention_impl
 from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+    bf16_max_context,
+    check_wgmma_layout,
     fused_qkv_attention,
     fused_qkv_attention_reference,
 )
@@ -56,3 +58,31 @@ def test_resolve_attention_impl():
     assert resolve_attention_impl("auto", "small", mode="train") == "flash"
     with pytest.raises(ValueError):
         resolve_attention_impl("pallas_qkv")
+
+
+def test_bf16_max_context():
+    """The bf16 body's longest T at each head dim, from its shared-memory plan
+    (csrc/attention_hopper.cuh: K^T, V^T and the q fragments of every 64-row
+    tile beside a two-stage ring); the float32 body's is 453 at hd 36."""
+    assert [bf16_max_context(hd) for hd in (12, 20, 28, 36)] == \
+        [1728, 896, 768, 512]
+
+
+@pytest.mark.parametrize("t,h,nh,shift,match", [
+    (365, 576, 16, 0, None), (512, 576, 16, 0, None),
+    (513, 576, 16, 0, "T up to 512 "), (1728, 48, 4, 0, None),
+    (1729, 48, 4, 0, "T up to 1728 "), (24, 36, 3, 0, "multiple of 8"),
+    (24, 48, 4, 1, "16-byte aligned")])
+def test_wgmma_layout_rule(t, h, nh, shift, match):
+    """The bf16 body's rule (H a multiple of 8, x and w_qkv 16-byte aligned,
+    T up to `bf16_max_context`), which the three forward wrappers apply to
+    CUDA tensors before any launch; float32 is not held to it."""
+    buf = torch.zeros(t * h + shift, dtype=torch.bfloat16)
+    x = buf[shift:].view(1, t, h)
+    w = torch.zeros(3 * h, h, dtype=torch.bfloat16)
+    if match is None:
+        check_wgmma_layout("fused_qkv_attention", x, w, nh)
+    else:
+        with pytest.raises(ValueError, match=match):
+            check_wgmma_layout("fused_qkv_attention", x, w, nh)
+    check_wgmma_layout("fused_qkv_attention", x.float(), w.float(), nh)

@@ -85,10 +85,17 @@ TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3),
 
 
 # one geometry per model size, so every head-dim instantiation (36, 28, 20,
-# 12) runs; large and medium at the full T=365
+# 12) runs; large and medium at the full T=365. Then T at the bf16 body's
+# 64-row tile edges (1, 64, 65, 383, 384), one at each head dim, and the
+# longest T the float32 body takes at hd 36 (453)
+ATTENTION_SHAPES = [(8, 365, 576, 16), (4, 365, 336, 12), (4, 100, 200, 10),
+                    (3, 24, 48, 4), (2, 1, 576, 16), (2, 64, 336, 12),
+                    (2, 65, 200, 10), (2, 383, 48, 4), (2, 384, 576, 16),
+                    (1, 453, 576, 16)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,h,nh", [(8, 365, 576, 16), (4, 365, 336, 12),
-                                      (4, 100, 200, 10), (3, 24, 48, 4)])
+@pytest.mark.parametrize("b,t,h,nh", ATTENTION_SHAPES)
 def test_kernel_matches_plain(cuda, dtype, b, t, h, nh):
     x, w, bias = _inputs(b, t, h, dtype, cuda)
     before = fused_qkv_attention.launches
@@ -98,6 +105,7 @@ def test_kernel_matches_plain(cuda, dtype, b, t, h, nh):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    _assert_scaled_close("B1 o", got, want, dtype)
 
 
 # the training form and B2 against their plain versions, dropout off and on
@@ -106,7 +114,10 @@ def test_kernel_matches_plain(cuda, dtype, b, t, h, nh):
 # a rounding of q/k/v, of a weight or of ds (2^-8 relative)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,h,nh", [(4, 365, 576, 16), (3, 24, 48, 4)])
+@pytest.mark.parametrize("b,t,h,nh", [(4, 365, 576, 16), (3, 24, 48, 4),
+                                      (2, 1, 200, 10), (2, 64, 48, 4),
+                                      (2, 65, 336, 12), (1, 384, 576, 16),
+                                      (1, 453, 576, 16)])
 def test_train_kernels_match_plain(cuda, dtype, rate, b, t, h, nh):
     x, w, bias = _inputs(b, t, h, dtype, cuda)
     seed = 1234567
@@ -179,6 +190,89 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
                             .transpose(0, 1), 4, 0.0, 0)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_fwd(q, k, v, 3, 0.0, 0)  # hd 16 is not instantiated
+
+
+@pytest.mark.parametrize("b,t,h,nh", [(2, 365, 576, 16), (3, 65, 200, 10)])
+def test_bf16_train_kernel_draws_the_scalar_bodys_mask(cuda, b, t, h, nh):
+    """One seed, one keep-mask across the two bodies: in bf16 B1's training
+    form (the wgmma body) against B3f (the scalar body, attention_fwd.cuh)
+    on the same qkv, with dropout 0.1; a mask that differed in one bit would
+    move o far past the bars. Then B2 on the wgmma body's qkv residual
+    against its plain version."""
+    x, w, bias = _inputs(b, t, h, torch.bfloat16, cuda)
+    o, qkv = fused_qkv_attention_train(x, w, bias, nh, 0.1, 77)
+    o_flash = flash_attention_fwd(*qkv.chunk(3, dim=-1), nh, 0.1, 77)
+    _assert_scaled_close("B1 train vs B3f", o, o_flash, torch.bfloat16)
+    do = torch.randn(o.shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(2)
+                     ).to(torch.bfloat16)
+    _assert_scaled_close(
+        "B2", fused_qkv_attention_bwd(qkv, do, nh, 0.1, 77),
+        fused_qkv_attention_bwd_reference(qkv, do, nh, 0.1, 77),
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("h,nh", [(48, 4), (200, 10), (336, 12), (576, 16)])
+def test_bf16_body_takes_t_up_to_its_limit(cuda, h, nh):
+    """The bf16 body at the longest T it takes at each head dim (the wrapper's
+    rule, which the library's own shared-memory plan agrees with), then one
+    more: a ValueError naming the limit from B1's two forms and B5, before
+    any launch, and no fallback."""
+    from weathermodel_tpu_torch.kernels import build
+    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+        bf16_max_context,
+    )
+
+    hd = h // nh
+    limit = bf16_max_context(hd)
+    lib = build.load_library().lib
+    assert lib.wm_qkv_attention_wgmma_smem(hd, limit) > 0
+    assert lib.wm_qkv_attention_wgmma_smem(hd, limit + 1) == 0
+    x, w, bias = _inputs(1, limit, h, torch.bfloat16, cuda)
+    _assert_scaled_close("B1 o at the limit",
+                         fused_qkv_attention(x, w, bias, nh),
+                         fused_qkv_attention_reference(x, w, bias, nh),
+                         torch.bfloat16)
+    x = _inputs(1, limit + 1, h, torch.bfloat16, cuda)[0]
+    wo = torch.zeros(h, h, dtype=x.dtype, device=cuda)
+    bo = torch.zeros(h, dtype=x.dtype, device=cuda)
+    counts = (fused_qkv_attention.launches,
+              fused_qkv_attention_train.launches,
+              fused_qkv_attention_outproj.launches)
+    with pytest.raises(ValueError, match=f"T up to {limit} "):
+        fused_qkv_attention(x, w, bias, nh)
+    with pytest.raises(ValueError, match=f"T up to {limit} "):
+        fused_qkv_attention_train(x, w, bias, nh, 0.1, 1)
+    with pytest.raises(ValueError, match=f"T up to {limit} "):
+        fused_qkv_attention_outproj(x, w, bias, wo, bo, nh)
+    assert (fused_qkv_attention.launches, fused_qkv_attention_train.launches,
+            fused_qkv_attention_outproj.launches) == counts
+
+
+def test_bf16_body_rejects_what_it_does_not_take(cuda):
+    """H not a multiple of 8 (3 heads of 12) and x or w_qkv off a 16-byte
+    boundary raise a ValueError in bf16, before any launch; float32 takes
+    both on the scalar body."""
+    counts = (fused_qkv_attention.launches,
+              fused_qkv_attention_train.launches)
+    x, w, bias = _inputs(2, 24, 36, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_qkv_attention(x, w, bias, 3)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_qkv_attention_train(x, w, bias, 3, 0.0, 0)
+    x, w, bias = _inputs(2, 24, 48, torch.bfloat16, cuda)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=cuda)[1:].view_as(x)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_qkv_attention(shifted, w, bias, 4)
+    assert (fused_qkv_attention.launches,
+            fused_qkv_attention_train.launches) == counts
+    x, w, bias = _inputs(2, 24, 36, torch.float32, cuda)
+    _assert_scaled_close("fp32 B1 o at H = 36",
+                         fused_qkv_attention(x, w, bias, 3),
+                         fused_qkv_attention_reference(x, w, bias, 3),
+                         torch.float32)
 
 
 def test_train_kernel_dropout_is_the_seeds(cuda):
@@ -640,7 +734,10 @@ def test_model_ffn_kernel_paths_match_plain_path(cuda, ffn_impl):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,h,nh", [(4, 365, 576, 16), (3, 37, 336, 12),
-                                      (2, 365, 200, 10), (3, 37, 48, 4)])
+                                      (2, 365, 200, 10), (3, 37, 48, 4),
+                                      (2, 1, 576, 16), (2, 64, 200, 10),
+                                      (2, 65, 48, 4), (2, 384, 336, 12),
+                                      (1, 453, 576, 16)])
 def test_outproj_kernel_matches_plain(cuda, dtype, rate, b, t, h, nh):
     x, w, bias = _inputs(b, t, h, dtype, cuda)
     rng = np.random.default_rng(1)

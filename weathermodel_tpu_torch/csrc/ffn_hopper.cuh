@@ -69,8 +69,11 @@
 #include <stdint.h>
 
 #include "ffn_common.cuh"
+#include "hopper_common.cuh"
 
 namespace ffn_hopper {
+
+using namespace hopper;
 
 constexpr int kRows = 64;         // rows of x per block: one wgmma M tile
 constexpr int kChunk = 128;       // hidden columns per pass, 64 per consumer
@@ -80,7 +83,6 @@ constexpr int kSlabs2 = kChunk / kSlab2;
 constexpr int kThreads = 256;     // two consumer warpgroups
 constexpr int kBox = 64 * 64 * 2;             // a [64 x 64] bf16 box, 128-byte swizzle
 constexpr int kAtomBox = kSlab2 * 32 * 2;     // a [16 x 32] W2 block, 64-byte swizzle
-constexpr int kSmemMax = 232448;              // a block's shared memory on the H100
 constexpr int kMaxH = 640;
 
 struct Params {
@@ -129,241 +131,12 @@ __host__ __device__ inline Smem smem_layout(int nxb) {
   return s;
 }
 
-// ---- PTX building blocks
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait for the phase of parity `parity` to complete. A wait of more than 10 s can only be
-// a broken pipeline: it traps, so the launch fails instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t start = 0;
-  for (uint32_t spin = 0; !done; ++spin) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && (spin & 1023) == 1023) {
-      const uint64_t now = global_ns();
-      if (start == 0) start = now;
-      else if (now - start > 10000000000ull) __trap();
-    }
-  }
-}
-
-// TMA: a 2-D box at (c0 = inner, c1 = outer), or a 3-D box at (0, c1, c2), into shared
-// memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* tm, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* tm, uint32_t bar,
-                                          int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(tm)), "r"(0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* tm, uint32_t src, int c0, int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
-                   reinterpret_cast<uint64_t>(tm)),
-               "r"(src), "r"(c0), "r"(c1)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void tma_store3(const CUtensorMap* tm, uint32_t src, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
-          reinterpret_cast<uint64_t>(tm)),
-      "r"(src), "r"(0), "r"(c1), "r"(0)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-// make this thread's generic-proxy shared-memory writes visible to wgmma and TMA
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride byte offsets
-// (16-byte units), swizzle (1: 128-byte, 2: 64-byte). For a K-major operand the stride
-// offset steps over 8-row groups; for an N-major one the leading offset steps over
-// swizzle atoms along N and the stride offset over 8-row groups along K.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t swizzle) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (swizzle << 62);
-}
-
-#define WM_ACC8(d, i)                                                                     \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// D[64 x N] (+)= A[64 x 16] . B[16 x N], bf16 in, fp32 accumulators; A K-major, B N-major
-// (the transpose bit), both from shared memory; scale_d = 0 overwrites D.
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
-      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
-      : WM_ACC8(d, 0), WM_ACC8(d, 8)
-      : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : WM_ACC8(d, 0), WM_ACC8(d, 8), WM_ACC8(d, 16), WM_ACC8(d, 24)
-      : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<96> {
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47 "
-      "}, %48, %49, p, 1, 1, 0, 1;\n}\n"
-      : WM_ACC8(d, 0), WM_ACC8(d, 8), WM_ACC8(d, 16), WM_ACC8(d, 24), WM_ACC8(d, 32),
-        WM_ACC8(d, 40)
-      : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : WM_ACC8(d, 0), WM_ACC8(d, 8), WM_ACC8(d, 16), WM_ACC8(d, 24), WM_ACC8(d, 32),
-        WM_ACC8(d, 40), WM_ACC8(d, 48), WM_ACC8(d, 56)
-      : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<160> {
-  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79 "
-      "}, %80, %81, p, 1, 1, 0, 1;\n}\n"
-      : WM_ACC8(d, 0), WM_ACC8(d, 8), WM_ACC8(d, 16), WM_ACC8(d, 24), WM_ACC8(d, 32),
-        WM_ACC8(d, 40), WM_ACC8(d, 48), WM_ACC8(d, 56), WM_ACC8(d, 64), WM_ACC8(d, 72)
-      : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-#undef WM_ACC8
-
 // A consumer's kAtoms output atoms as at most two wgmma N widths (in atoms).
 template <int kAtoms>
 struct Pieces {
   static constexpr int first = kAtoms <= 5 ? kAtoms : (kAtoms + 1) / 2;
   static constexpr int second = kAtoms - first;
 };
-
-// byte offset of bf16 element (r, c) in a [64 x 64] box with the 128-byte swizzle
-__device__ __forceinline__ uint32_t sw128(int r, int c) {
-  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&v);
-  return __bfloat1622float2(b);
-}
 
 // A kept value: v * scale (kModeFfn: scale = 1/(1-p)), or v / scale (kModeLn: scale = 1-p)
 // as a correctly rounded quotient from the reciprocal `inv` = 1/scale and one FMA
@@ -420,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_wgmma_kernel(const __grid_con
       const int row = c * kChunk + (r - nks) * kSlab2, a0 = wg * kAtoms;
       mbar_expect_tx(bar, kAtoms * kAtomBox);
       if (a0 + kAtoms <= p.nfw2) {
-        tma_load3(dst, &p.tm_w23, bar, row, a0);
+        tma_load3d(dst, &p.tm_w23, bar, 0, row, a0);
       } else {
         for (int a = 0; a < kAtoms; ++a)
           tma_load(dst + a * kAtomBox, &p.tm_w2, bar, 32 * (a0 + a), row);
@@ -430,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_wgmma_kernel(const __grid_con
   if (t == 0) {
     if (wg == 0) {
       mbar_expect_tx(x_full, p.nxb * kBox);
-      if (p.nfx > 0) tma_load3(xs, &p.tm_x3, x_full, row0, 0);
+      if (p.nfx > 0) tma_load3d(xs, &p.tm_x3, x_full, 0, row0, 0);
       if (p.nfx < p.nxb) tma_load(xs + p.nfx * kBox, &p.tm_x, x_full, 64 * p.nfx, row0);
     }
     for (int n = 0; n < S && n < n_total; ++n) load(n);
@@ -636,57 +409,6 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_wgmma_kernel(const __grid_con
 }
 
 // ---- host side
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found at run time (the library links only the
-// CUDA runtime)
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym, 12000,
-                                         cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(sym);
-  }
-  return fn;
-}
-
-// A row-major bf16 matrix [rows, cols] read or written in boxes [box_rows, box_cols].
-inline bool make_map(CUtensorMap* tm, const void* ptr, int rows, int cols, int box_rows,
-                     int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return encode(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-                box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The same matrix as (width, rows, blocks): `blocks` blocks of `width` columns, boxes of
-// [box_rows x width] x box_blocks, laid out block after block in shared memory.
-inline bool make_map3(CUtensorMap* tm, const void* ptr, int rows, int cols, int width,
-                      int blocks, int box_rows, int box_blocks, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)blocks};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)width * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)width, (cuuint32_t)box_rows, (cuuint32_t)box_blocks};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return encode(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // The instantiation that takes width h: 32-column atoms per consumer.
 inline int atoms_for(int h) {

@@ -27,7 +27,11 @@
 // through `wm::fused_qkv_attention_o`: the eval form, or with dropout the training form's
 // rounding and mask without the qkv output (kEmitQkv = false).
 //
-// Design: one thread block per (batch row, head), 512 threads.
+// Two bodies. bfloat16 runs attention_hopper.cuh's (wgmma fed by TMA: the projection and
+// both attention products on the tensor cores; its note has the design). float32 runs the
+// scalar body below: TF32 would change its numerics.
+//
+// The float32 body: one thread block per (batch row, head), 512 threads.
 //   Phase 1 projects that head's q, k and v slices ([T, hd] each) from x[b] into shared
 //   memory. x and the head's 3*hd weight rows are staged through shared memory in
 //   K-chunks of 32; each thread keeps a 4-row by CPT-column register tile.
@@ -41,21 +45,26 @@
 // walking keys hit distinct banks. At T = 365, hd = 36 that is 162 KB of the 227 KB a
 // block may use; the phase-1 staging tiles and the phase-2 score rows share what is left.
 //
-// What bounds it on the card: this is scalar-FMA first. It uses no tensor cores, so it is
+// What bounds the float32 body on the card: scalar FMA. It uses no tensor cores, so it is
 // bound by fp32 FMA issue and by shared-memory load bandwidth (phase 1 does 11 shared
 // loads per 28 FMAs, phase 2 one per FMA), at one 512-thread block per SM. Each block
 // re-reads x[b] from L2 once per head. The training form adds the qkv write (3x the bytes
-// of o) and one hash per attention weight. Later work: the projection as a wgmma GEMM fed
-// by TMA, and the two attention products on tensor cores.
+// of o) and one hash per attention weight.
 //
 // Head dims 12/20/28/36 are = 4 mod 8 and the per-head slice offset is not 16-byte
-// aligned, so every global access is a scalar load; T is bounds-checked here (no padding
-// to 384 as on the TPU, hence no pad-column softmax correction and no bias row mask).
+// aligned, so every global access of the float32 body is a scalar load. T is
+// bounds-checked (no padding to 384 as on the TPU, hence no pad-column softmax correction
+// and no bias row mask): the float32 body takes T while its q, k, v and score rows fit in
+// shared memory (453 at hd 36), the bfloat16 body up to `attn_hopper::max_t` (512 at
+// hd 36).
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "attention_common.cuh"
 #include "attention_fwd.cuh"
+#include "attention_hopper.cuh"
 
 namespace {
 
@@ -184,22 +193,28 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                  t, h, scale, drop, blockIdx.x);
 }
 
+// bfloat16 on attention_hopper.cuh's body, float32 on the scalar body above
 template <typename T, int HD, bool kTrain, bool kEmitQkv>
 cudaError_t launch(const void* x, const void* w, const void* b, void* o, void* qkv,
                    int batch, int t, int h, int num_heads, Dropout drop,
                    cudaStream_t stream) {
-  auto kernel = fused_qkv_attention_kernel<T, HD, kTrain, kEmitQkv>;
-  size_t smem = smem_bytes<HD>(t);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   // the training form takes 1/sqrt(hd) rounded once from double, as the JAX
   // package's Python float is (the eval form keeps its fp32 quotient)
   float scale = kTrain ? (float)(1.0 / sqrt((double)HD)) : 1.0f / sqrtf((float)HD);
-  kernel<<<(unsigned)batch * num_heads, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(o), static_cast<T*>(qkv), t, h, num_heads, scale, drop);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return attn_hopper::launch<HD, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads,
+                                                     scale, drop, stream);
+  } else {
+    auto kernel = fused_qkv_attention_kernel<T, HD, kTrain, kEmitQkv>;
+    size_t smem = smem_bytes<HD>(t);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)batch * num_heads, kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
+        static_cast<T*>(o), static_cast<T*>(qkv), t, h, num_heads, scale, drop);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, bool kTrain, bool kEmitQkv>
@@ -280,6 +295,12 @@ int fused_qkv_attention_o(int dtype, const void* x, const void* w, const void* b
 }  // namespace wm
 
 extern "C" {
+
+// The bfloat16 body's dynamic shared memory a block at (head_dim, t), in bytes, or 0 where
+// it does not take t (attn_hopper::max_t).
+int wm_qkv_attention_wgmma_smem(int head_dim, int t) {
+  return attn_hopper::smem_bytes(head_dim, t);
+}
 
 const char* wm_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -17,8 +17,9 @@
 // Design: two phases, launched one after the other on the caller's stream.
 //   Phase 1 is B1's kernel without its qkv output (`wm::fused_qkv_attention_o`): one
 //   block per (batch row, head) projects that head's q, k and v into shared memory and
-//   runs the attention body shared with B3f (`wm::attend_rows`, attention_fwd.cuh). It
-//   writes o in the element type into a workspace [B, T, H] that the wrapper allocates.
+//   runs the attention, in bf16 on attention_hopper.cuh's wgmma/TMA body, in fp32 on the
+//   scalar body shared with B3f (`wm::attend_rows`, attention_fwd.cuh). It writes o in
+//   the element type into a workspace [B, T, H] that the wrapper allocates.
 //   Phase 2 is the out-projection, one 128 x 128 tile of y per block of 256 threads on the
 //   tile code of the grouped matmul (gmm_common.cuh, one group): o's rows and wo's rows
 //   (y's columns) are staged in 32-deep slabs, multiplied on the tensor cores through
@@ -26,14 +27,16 @@
 // Every element of y needs o from all heads of its row, and phase 1's grid gives each
 // block one head, so the out-projection cannot be an epilogue of phase 1's blocks. The
 // round trip of o through device memory (2 x 108 MB in bf16 at B = 256, T = 365,
-// H = 576) costs about 0.06 ms at the memory rate, next to ~19 ms of phase 1.
+// H = 576) costs about 0.06 ms at the memory rate. Phase 2 stays on the WMMA tiles, whose
+// redesign ROADMAP queues with B4, B4t and P3; PERF.md records its share of B5 (a third).
 //
 // Later work: keep o on chip. One way is a thread-block cluster of num_heads blocks per
 // batch row: each block keeps its head's o_j in shared memory and computes its column
 // slice of y from every head's o_j through distributed shared memory.
 //
-// T is bounds-checked (phase 1 takes T up to what its shared memory holds, 453 at
-// hd = 36; no padding to 384 as on the TPU); head dims 12/20/28/36 as B1.
+// T is bounds-checked (phase 1 takes T up to what its shared memory holds, at hd = 36
+// 453 in fp32 and 512 in bf16; no padding to 384 as on the TPU); head dims 12/20/28/36 as
+// B1.
 
 #include "attention_common.cuh"
 #include "gmm_common.cuh"

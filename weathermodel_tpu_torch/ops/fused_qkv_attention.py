@@ -31,6 +31,12 @@ what the kernel is checked against on the card.
   Inference only: it has no backward and refuses a tensor that needs a
   gradient.
 
+In bf16, B1 (both forms) and B5's first phase run a wgmma/TMA body
+(`csrc/attention_hopper.cuh`), which takes H a multiple of 8, x and w_qkv
+16-byte aligned and T up to `bf16_max_context(head_dim)` (512 at head dim
+36): `check_wgmma_layout` raises a ValueError otherwise, before any launch.
+float32 runs the scalar body.
+
 The training form's and B2's plain versions are B3's
 (ops/flash_attention.py) on the three column slices of the packed qkv:
 the same attention after the projection. The dropout keep bits are
@@ -46,6 +52,44 @@ from weathermodel_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_fwd_reference,
 )
+
+
+# The bf16 body's shared-memory plan (csrc/attention_hopper.cuh), restated
+# to find the longest T it takes: K^T, V^T and the q fragments of every
+# 64-row tile stay resident beside a ring of at least two stages, each x's
+# rows for three tiles and the head's weight rows, 64 columns deep.
+_SMEM_MAX, _TILE, _X_STAGE_BYTES, _MAX_STAGES = 232448, 64, 3 * 64 * 128, 4
+
+
+def bf16_max_context(head_dim: int) -> int:
+    """The longest T the bf16 body takes at `head_dim` (attn_hopper::max_t):
+    512 at 36, 768 at 28, 896 at 20, 1728 at 12."""
+    width = -(-head_dim // 8) * 8   # a part's weight rows, V^T rows
+    depth = -(-head_dim // 16) * 16  # q . k^T's depth, K^T rows
+    per_tile = 128 * (depth + width) + depth * 128
+    stage = _X_STAGE_BYTES + 3 * width * 128
+    budget = _SMEM_MAX - 1024 - 16 * _MAX_STAGES - 2 * stage
+    return budget // per_tile * _TILE
+
+
+def check_wgmma_layout(name, x, w_qkv, num_heads):
+    """The bf16 body's rule on top of `_on_cuda`'s: H a multiple of 8 and x
+    and w_qkv 16-byte aligned, as TMA's strides and addresses need, and T up
+    to `bf16_max_context`. float32 runs the scalar body, which the launch
+    itself bounds."""
+    if x.dtype != torch.bfloat16:
+        return
+    t, h = x.shape[1], x.shape[2]
+    if h % 8:
+        raise ValueError(f"{name}: bf16 needs H a multiple of 8 (TMA's "
+                         f"16-byte row strides), got H={h}")
+    limit = bf16_max_context(h // num_heads)
+    if t > limit:
+        raise ValueError(f"{name}: bf16 takes T up to {limit} at head dim "
+                         f"{h // num_heads} (the body's shared memory), got "
+                         f"T={t}")
+    if x.data_ptr() % 16 or w_qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: bf16 needs x and w_qkv 16-byte aligned")
 
 
 def _on_cuda(name, head_dim, *tensors) -> bool:
@@ -88,6 +132,7 @@ def fused_qkv_attention(x, w_qkv, b_qkv, num_heads: int):
     if not _on_cuda("fused_qkv_attention", x.shape[-1] // num_heads, x,
                    w_qkv, b_qkv):
         return fused_qkv_attention_reference(x, w_qkv, b_qkv, num_heads)
+    check_wgmma_layout("fused_qkv_attention", x, w_qkv, num_heads)
     bsz, t, h = x.shape
     lib = build.load_library().lib
     out = torch.empty_like(x)
@@ -129,6 +174,7 @@ def fused_qkv_attention_train(x, w_qkv, b_qkv, num_heads: int,
                    x, w_qkv, b_qkv):
         return fused_qkv_attention_train_reference(
             x, w_qkv, b_qkv, num_heads, dropout_rate, seed)
+    check_wgmma_layout("fused_qkv_attention_train", x, w_qkv, num_heads)
     on, threshold, keep_prob, _ = dropout_params(dropout_rate)
     bsz, t, h = x.shape
     lib = build.load_library().lib
@@ -269,6 +315,7 @@ def fused_qkv_attention_outproj(x, w_qkv, b_qkv, wo, bo, num_heads: int,
                    x.shape[-1] // num_heads, x, w_qkv, b_qkv, wo, bo):
         return fused_qkv_attention_outproj_reference(
             x, w_qkv, b_qkv, wo, bo, num_heads, dropout_rate, seed)
+    check_wgmma_layout("fused_qkv_attention_outproj", x, w_qkv, num_heads)
     on, threshold, keep_prob, _ = dropout_params(dropout_rate)
     bsz, t, h = x.shape
     lib = build.load_library().lib
