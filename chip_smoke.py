@@ -7,12 +7,15 @@ Phases, each printing one line; any failure raises and exits non-zero:
   2. build   - compiles csrc/*.cu with nvcc for sm_90a; build time and the
                ptxas report (registers, spills)
   3. kernel  - the bf16 attention body's (qkv_attention_wgmma_kernel, B1 and
-               B5's first phase) ptxas registers and spills of the eval form
-               and its shared memory; the fused QKV attention kernel vs its
-               plain PyTorch version at WeatherBERT-large's serving shapes
-               (B=256, T=365, H=576, 16 heads) in fp32 and bf16, with
-               CUDA-event times of both; then at the edge shapes (T = 1, 64,
-               65, 383, 384 at the four head dims, 453, and 512 in bf16)
+               B5's first phase) ptxas registers and spills of the eval form,
+               short-T and streaming, and its shared memory; the fused QKV
+               attention kernel vs its plain PyTorch version at
+               WeatherBERT-large's serving shapes (B=256, T=365, H=576, 16
+               heads) in fp32 and bf16, with CUDA-event times of both (bf16
+               beside the recorded ones); then at the edge shapes (T = 1, 64,
+               65, 383, 384 at the four head dims, 453, 512, and past what
+               stays on chip: 513, 730, 1024 at each head dim and the limit
+               1536), in both dtypes
   4. kernel_outproj - the fused QKV attention + out-projection kernel B5 vs
                its plain version at the same shapes in fp32 and bf16, and with
                dropout 0.1 at B=32 (the same seed on both sides); CUDA-event
@@ -20,8 +23,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                (F.linear + scaled_dot_product_attention + F.linear) and B1's
                eval form + F.linear; the body's ptxas report for B5's two
                forms; one profiled bf16 call split into phase 1 (the body)
-               and phase 2 (outproj_kernel); the edge shapes, dropout 0 and
-               0.1
+               and phase 2 (outproj_kernel); bf16 B5's time beside the recorded
+               one;
+               the edge shapes, dropout 0 and 0.1
   5. serve   - a seeded WeatherBERT-large saved as a reference .pth and 300
                seeded windows served through the `wm-serve-torch` entry point
                in bf16 (a 256 chunk + 44 rows padded to the 128 bucket), with
@@ -30,7 +34,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
                with the plain attention path, in bf16 and in fp32; a
                profiled bf16 call of each must launch the attention body
                and no bf16 instantiation of the scalar
-               fused_qkv_attention_kernel
+               fused_qkv_attention_kernel; then 64 windows of T = 730 (two
+               years) through the same entry point in bf16, auto (8 B1
+               eval) and fused_qkv_op (8 B5), each within the serving bound
+               of the plain path
   6. serve_daemon - `python -m weathermodel_tpu_torch.cli.serve --daemon` as
                a process serving the same .pth through B5 (fused_qkv_op,
                --batch-size 256, --allow-reload): 8 client threads x 4
@@ -47,8 +54,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
                event times of the kernel, the plain version and the library
                call (F.linear + scaled_dot_product_attention, forward; forward
                and backward for B2), naming the SDPA backend; the body's
-               ptxas report for the training form; B1 train (o and qkv) at
-               the edge shapes, dropout 0.1 and 0
+               ptxas report for the training form; bf16 B1 train's time
+               beside the recorded one; B1 train (o and qkv) at the edge
+               shapes, and
+               B2 at the backward's edge shapes (T = 365, 600, 1024 at each
+               head dim, 1536), dropout 0.1 and 0
   8. train   - a seeded synthetic chunk store written by the port's writer;
                `wm-pretrain-torch`'s run(args) trains WeatherBERT-large in
                bf16, --batch-size 576 --grad-accum 2, dropout 0.1, 2 epochs:
@@ -65,7 +75,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                a packed projection as the model passes them, fp32 and bf16,
                dropout 0.1 (the same seed on both sides) and 0; CUDA-event
                times of the kernel, the plain version and SDPA (forward;
-               forward and backward for B3b)
+               forward and backward for B3b); both at the backward's edge
+               shapes, dropout 0.1 and 0
   10. train_former - `wm-pretrain-torch`'s run(args) with the JAX CLI's
                defaults (WeatherFormer-small, ELBO, beta 0.5, 10 masked
                features, --attention-impl auto) in bf16 at --batch-size 256,
@@ -94,8 +105,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                analytic count), profile (the attention body required, as in
                phase 8) and one-step comparison with the plain
                path (plain grouped matmuls, plain attention) as phase 8
-  13. kernel_ffn - the bf16 wgmma body's (ffn_wgmma_kernel) ptxas registers
-               and spills and its shared memory; then the fused FFN +
+  13. kernel_ffn - the bf16 wgmma bodies' (ffn_wgmma_kernel: B6f and B7;
+               ffn_bwd_wgmma_kernel: B6b's row work) ptxas registers and
+               spills and their shared memory; then the fused FFN +
                residual + LayerNorm B6f, its backward B6b and the fused FFN
                B7 (with and without its hidden output) vs their plain
                versions at the bench microbatch's shapes (M = 288 x 365 =
@@ -106,7 +118,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                65, 97); CUDA-event times of the kernel, the plain
                version and the yardstick (the port's "torch" FFN: F.linear,
                ReLU, F.linear, and for B6 the residual and F.layer_norm; its
-               autograd backward for B6b)
+               autograd backward for B6b); one profiled bf16 B6b call split
+               into its row body and its tile passes
   14. kernel_maskgen - the keep-mask family at the FFN hidden site of the
                bench microbatch (M = 105120 rows, C = 2304, rate 0.1): B8
                (forward and backward) and B8m launched through their public
@@ -153,8 +166,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                of B5 per batch, none of B1); finite losses; a
                torch.profiler train and eval step of each fused impl, which
                fails unless bf16 B6f, B7 with h (train) and B7 without
-               (eval) launch the wgmma body (ffn_wgmma_kernel), the row
-               kernel (ffn_rows_kernel) runs only B6b, and B1 (train and
+               (eval) launch the wgmma body (ffn_wgmma_kernel), B6b its
+               backward body (ffn_bwd_wgmma_kernel), no bf16 row kernel
+               (ffn_rows_kernel) runs, and B1 (train and
                eval) launches the attention body (qkv_attention_wgmma_kernel)
                and no bf16 scalar fused_qkv_attention_kernel; one step of each
                fused path against the plain path (plain attention and FFN) at 16
@@ -240,12 +254,30 @@ OUTPROJ_DROPOUT_BATCH = 32
 ATTN_BODY = "qkv_attention_wgmma_kernel"
 ATTN_SCALAR_BF16 = "fused_qkv_attention_kernel<__nv_bfloat16"
 # (B, T, H, heads) at the bf16 body's 64-row tile edges (T = 1, 64, 65, 383,
-# 384), one at each head dim, then the longest T the fp32 body takes at hd 36
-# (453) and the bf16 body's (512, bf16 only)
+# 384), one at each head dim, then the longest T the fp32 body keeps in
+# shared memory at hd 36 (453) and the bf16 body's resident K^T and V^T
+# (512); past them the rows stream from a device workspace: T = 513, 730
+# (two years of daily windows) and 1024 at each head dim, and the kernels'
+# limit MAX_CONTEXT (1536)
 ATTN_EDGE_SHAPES = [(4, 1, 576, 16), (4, 64, 336, 12), (4, 65, 200, 10),
                     (4, 383, 48, 4), (4, 384, 576, 16), (2, 453, 576, 16),
-                    (1, 512, 576, 16)]
-FP32_ATTN_MAX_T = 453
+                    (1, 512, 576, 16), (1, 513, 576, 16), (2, 730, 576, 16),
+                    (1, 1024, 576, 16), (1, 1024, 336, 12),
+                    (1, 1024, 200, 10), (1, 1024, 48, 4), (1, 1536, 576, 16)]
+# the backward kernels' and B3f's edge shapes: past the rows B2's and B3b's
+# passes keep in shared memory (about 530 at hd 36), each head dim at 1024
+ATTN_BWD_EDGE_SHAPES = [(2, 365, 576, 16), (1, 600, 576, 16),
+                        (1, 1024, 576, 16), (1, 1024, 336, 12),
+                        (1, 1024, 200, 10), (1, 1024, 48, 4),
+                        (1, 1536, 576, 16)]
+# the bf16 times at T = 365 recorded for the attention body before its long-T
+# path (B1 eval and B5 at B = 256, B1 train at 288, dropout 0.1; PERF.md §6,
+# H100 80GB HBM3, 700 W), printed beside this run's: the short-T path must not
+# move
+SHORT_T_MS = {"B1 eval": 1.258, "B1 train": 2.073, "B5": 1.914}
+# WeatherBERT-large served on windows of two years (T = 730), the length
+# `wm-serve-torch` takes from its input file
+LONG_SEQ_LEN, LONG_WINDOWS = 730, 64
 # the online daemon: client threads x requests each x windows a request, and
 # the seconds it may take to answer /healthz and to exit after SIGTERM
 DAEMON_CLIENTS, DAEMON_REQUESTS, DAEMON_WINDOWS = 8, 4, 32
@@ -410,43 +442,42 @@ def _attention_inputs(b, t, h, seed):
     return x, w, bias
 
 
-def _attention_edges(what, run, plain, seed):
+def _attention_edges(what, run, plain, seed, shapes=ATTN_EDGE_SHAPES):
     """`run` and `plain` (each taking x, w, b, heads in one dtype and returning
-    a tuple of outputs) on ATTN_EDGE_SHAPES, fp32 where its body takes T and
-    bf16: the number of cases and the largest max|kernel - plain|."""
+    a tuple of outputs) on `shapes`, fp32 and bf16: the number of cases and
+    the largest max|kernel - plain|."""
     errs = []
-    for b, t, h, nh in ATTN_EDGE_SHAPES:
+    for b, t, h, nh in shapes:
         x, w, bias = _attention_inputs(b, t, h, seed)
         for dtype in (torch.float32, torch.bfloat16):
-            if dtype == torch.float32 and t > FP32_ATTN_MAX_T:
-                continue
             args = (x.to(dtype), w.to(dtype), bias.to(dtype), nh)
             for i, (got, want) in enumerate(zip(run(*args), plain(*args))):
                 errs.append(_check_kernel(
                     f"{what} {i} {dtype} {(b, t, h, nh)}", got, want,
                     dtype)[0])
-    return (f"edge shapes (B, T, H, heads) {ATTN_EDGE_SHAPES}, fp32 (T <= "
-            f"{FP32_ATTN_MAX_T}) and bf16: {len(errs)} outputs, max|err| "
-            f"{max(errs):.3g}")
+        del x, w, bias
+        torch.cuda.empty_cache()
+    return (f"edge shapes (B, T, H, heads) {shapes}, fp32 and bf16: "
+            f"{len(errs)} outputs, max|err| {max(errs):.3g}")
 
 
 def _attention_body_report(forms):
     """The bf16 attention body's ptxas report for the instantiations whose
-    (kTrain, kEmitQkv) is in `forms`, and its dynamic shared memory a block at
-    T = 365 and at its longest T, by head dim."""
+    (kTrain, kEmitQkv) is in `forms`, short-T (kStream 0) and long-T (1),
+    and its dynamic shared memory a block at T = 365, at the longest T whose
+    K^T and V^T stay resident (512 at hd 36) and at MAX_CONTEXT, by head
+    dim."""
     import re
 
     from weathermodel_tpu_torch.kernels import build
-    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
-        bf16_max_context,
-    )
+    from weathermodel_tpu_torch.ops.attention import MAX_CONTEXT
 
     built = build.load_library()
     lines = built.ptxas_log.splitlines()
     report = []
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '.*" + ATTN_BODY +
-                      r"ILi(\d+)ELb(\d)ELb(\d)E", line)
+                      r"ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", line)
         if m is None or (int(m.group(2)), int(m.group(3))) not in forms:
             continue
         block = []
@@ -458,16 +489,15 @@ def _attention_body_report(forms):
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
-        report.append(f"<{m.group(1)}, {m.group(2)}, {m.group(3)}>: "
+        report.append(f"<{', '.join(m.groups())}>: "
                       f"{regs.group(1) if regs else '?'} registers, spill "
                       f"{'/'.join(spill.groups()) if spill else '?'} B")
     smem_at = built.lib.wm_qkv_attention_wgmma_smem
-    smem = {hd: (smem_at(hd, SEQ_LEN), bf16_max_context(hd),
-                 smem_at(hd, bf16_max_context(hd)))
+    smem = {hd: tuple(smem_at(hd, t) for t in (SEQ_LEN, 512, MAX_CONTEXT))
             for hd in (12, 20, 28, 36)}
-    return (f"{ATTN_BODY}<hd, kTrain, kEmitQkv> ptxas: {'; '.join(report)}; "
-            f"dynamic shared memory a block by hd: (at T={SEQ_LEN}, longest "
-            f"T, at it) {smem} B")
+    return (f"{ATTN_BODY}<hd, kTrain, kEmitQkv, kStream> ptxas: "
+            f"{'; '.join(report)}; dynamic shared memory a block by hd at "
+            f"T = ({SEQ_LEN}, 512, {MAX_CONTEXT}): {smem} B")
 
 
 def _check_kernel_names(what, keys, require=(), forbid=()):
@@ -525,6 +555,9 @@ def phase_kernel():
         f"{r['plain_ms']:.3f} ms, F.linear+SDPA {r['library_ms']:.3f} ms, "
         f"bound {r['bound_ms']:.3f} ms by {r['bound_by']}"
         for d, r in results.items()), flush=True)
+    print(f"kernel: bf16 B1 eval at T={SEQ_LEN} "
+          f"{results[torch.bfloat16]['ms']:.3f} ms (recorded: "
+          f"{SHORT_T_MS['B1 eval']} ms)", flush=True)
     print("kernel: B1 eval " + _attention_edges(
         "B1 eval o", lambda *a: (fused_qkv_attention(*a),),
         lambda *a: (fused_qkv_attention_reference(*a),), SEED + 20),
@@ -598,7 +631,9 @@ def phase_kernel_outproj():
               f"{r['bound_by']}" for d, r in results.items()), flush=True)
     share = results[torch.bfloat16]["phase2_share"]
     print(f"kernel_outproj: bf16 B5 by phase (profiled device ms of one "
-          f"call): {split}, phase 2 {share:.3f} of the call", flush=True)
+          f"call): {split}, phase 2 {share:.3f} of the call; B5 at T="
+          f"{SEQ_LEN} {results[torch.bfloat16]['ms']:.3f} ms (recorded: "
+          f"{SHORT_T_MS['B5']} ms)", flush=True)
     for rate in (0.0, DROPOUT):
         print(f"kernel_outproj: B5 dropout {rate} " + _attention_edges(
             "B5 y", lambda *a: (fused_qkv_attention_outproj(
@@ -619,9 +654,8 @@ def _outproj_weights(x):
     return wo.to(x.dtype), bo.to(x.dtype)
 
 
-def _windows(rng, n):
-    """n seeded windows with every input of the request schema."""
-    t = SEQ_LEN
+def _windows(rng, n, t=SEQ_LEN):
+    """n seeded windows of T = t with every input of the request schema."""
     return dict(
         weather=rng.standard_normal((n, t, N_FEATURES), dtype=np.float32),
         coords=np.stack([rng.uniform(-60, 60, n), rng.uniform(-180, 180, n)],
@@ -645,16 +679,19 @@ def _write_inputs(tmp: Path):
     _write_checkpoint(tmp / "weatherbert_large.pth", SEED)
     np.savez(tmp / "windows.npz",
              **_windows(np.random.default_rng(SEED), N_WINDOWS))
+    np.savez(tmp / f"windows_{LONG_SEQ_LEN}.npz",
+             **_windows(np.random.default_rng(SEED + 1), LONG_WINDOWS,
+                        LONG_SEQ_LEN))
 
 
-def _serve(tmp: Path, impl: str, dtype: str):
+def _serve(tmp: Path, impl: str, dtype: str, windows: str = "windows"):
     from weathermodel_tpu_torch.cli import serve
 
-    out_path = tmp / f"out_{impl}_{dtype}.npz"
+    out_path = tmp / f"out_{windows}_{impl}_{dtype}.npz"
     args = serve.build_parser().parse_args([
         "--checkpoint", str(tmp / "weatherbert_large.pth"),
         "--model", "weatherbert", "--model-size", MODEL_SIZE,
-        "--input", str(tmp / "windows.npz"), "--output", str(out_path),
+        "--input", str(tmp / f"{windows}.npz"), "--output", str(out_path),
         "--batch-size", str(BATCH), "--compute-dtype", dtype,
         "--attention-impl", impl, "--device", "cuda"])
     t0 = time.perf_counter()
@@ -738,7 +775,45 @@ def phase_serve(smi: str, tmp: Path):
           + f"; |kernel - plain| (max, RMS)/RMS {errs} (bars {SERVE_TOL}); "
           f"{ATTN_BODY} in a profiled bf16 call {served}; card {smi}",
           flush=True)
+    _serve_long(tmp, n_layers)
     return launches
+
+
+def _serve_long(tmp: Path, n_layers: int):
+    """A file of T = 730 windows through `wm-serve-torch` at large in bf16,
+    with `auto` (B1 eval, its streaming body) and `fused_qkv_op` (B5), each
+    held against the plain path at the serving bound."""
+    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+        fused_qkv_attention,
+        fused_qkv_attention_outproj,
+    )
+
+    name = f"windows_{LONG_SEQ_LEN}"
+    ref = _serve(tmp, "torch", "bfloat16", name)[0]
+    expected = n_layers * -(-LONG_WINDOWS // BATCH)
+    report = []
+    for impl, fn in (("auto", fused_qkv_attention),
+                     ("fused_qkv_op", fused_qkv_attention_outproj)):
+        fn.launches = 0
+        out, predict_s, _ = _serve(tmp, impl, "bfloat16", name)
+        if fn.launches != expected:
+            raise AssertionError(f"serve T={LONG_SEQ_LEN} {impl}: "
+                                 f"{fn.launches} launches of {fn.__name__}, "
+                                 f"expected {expected}")
+        if out.shape != (LONG_WINDOWS, LONG_SEQ_LEN, N_FEATURES) or \
+                not np.isfinite(out).all():
+            raise AssertionError(
+                f"serve T={LONG_SEQ_LEN} {impl}: output {out.shape}, finite "
+                f"{np.isfinite(out).all()}")
+        err = _serve_err(out, ref)
+        _check_serve_err(f"T={LONG_SEQ_LEN} served output of {impl} vs the "
+                         f"plain path", err, "bfloat16")
+        report.append(f"{impl} {fn.__name__} x{fn.launches}, "
+                      f"{LONG_WINDOWS / predict_s:.1f} windows/s, |kernel - "
+                      f"plain| (max, RMS)/RMS ({err[0]:.4f}, {err[1]:.5f})")
+    print(f"serve: {LONG_WINDOWS} windows of T={LONG_SEQ_LEN} "
+          f"WeatherBERT-{MODEL_SIZE} bf16: " + "; ".join(report)
+          + f" (bar {SERVE_TOL['bfloat16']})", flush=True)
 
 
 def _free_port() -> int:
@@ -979,6 +1054,9 @@ def phase_kernel_train():
         fused_qkv_attention_train_reference,
     )
 
+    print(f"kernel_train: bf16 B1 train at T={SEQ_LEN} "
+          f"{results[torch.bfloat16, DROPOUT]['fwd_ms']:.3f} ms (recorded: "
+          f"{SHORT_T_MS['B1 train']} ms)", flush=True)
     for rate in (DROPOUT, 0.0):
         print(f"kernel_train: B1 train (o, qkv) dropout {rate} "
               + _attention_edges(
@@ -986,7 +1064,31 @@ def phase_kernel_train():
                       *a, rate, seed),
                   lambda *a: fused_qkv_attention_train_reference(
                       *a, rate, seed), SEED + 23), flush=True)
+        print(f"kernel_train: B2 (dqkv on the plain forward's qkv) dropout "
+              f"{rate} " + _attention_edges(
+                  "B2", lambda *a: _bwd_edge_case(a, rate, seed, False),
+                  lambda *a: _bwd_edge_case(a, rate, seed, True), SEED + 24,
+                  ATTN_BWD_EDGE_SHAPES), flush=True)
     return results[torch.bfloat16, DROPOUT]
+
+
+def _bwd_edge_case(args, rate, seed, plain: bool):
+    """(dqkv,) of B2 or of its plain version on the plain training forward's
+    qkv of (x, w, b, heads) and a cotangent from the seed."""
+    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+        fused_qkv_attention_bwd,
+        fused_qkv_attention_bwd_reference,
+        fused_qkv_attention_train_reference,
+    )
+
+    nh = args[3]
+    qkv = fused_qkv_attention_train_reference(*args, rate, seed)[1]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3,
+                     device="cuda", generator=g).to(qkv.dtype)
+    fn = fused_qkv_attention_bwd_reference if plain else \
+        fused_qkv_attention_bwd
+    return (fn(qkv, do, nh, rate, seed),)
 
 
 def _windows_batch(n, seed):
@@ -1418,7 +1520,28 @@ def phase_kernel_flash():
     print(f"kernel_flash: B={FORMER_BATCH} T={SEQ_LEN} H={h} heads={nh} (tol "
           f"{KERNEL_TOL}, {SCALE_TOL} x max) | " + " | ".join(lines),
           flush=True)
+    for rate in (DROPOUT, 0.0):
+        print(f"kernel_flash: B3f and B3b (o, dq, dk, dv) dropout {rate} "
+              + _attention_edges(
+                  "B3", lambda *a: _flash_edge_case(a, rate, seed, False),
+                  lambda *a: _flash_edge_case(a, rate, seed, True), SEED + 25,
+                  ATTN_BWD_EDGE_SHAPES), flush=True)
     return results[torch.bfloat16, DROPOUT]
+
+
+def _flash_edge_case(args, rate, seed, plain: bool):
+    """(o, dq, dk, dv) of B3f and B3b, or of their plain versions, on the
+    column slices of the projection x . w^T + b."""
+    from weathermodel_tpu_torch.ops import flash_attention as fa
+
+    x, w, b, nh = args
+    q, k, v = F.linear(x, w, b).chunk(3, dim=-1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn(x.shape, device="cuda", generator=g).to(x.dtype)
+    fwd, bwd = ((fa.flash_attention_fwd_reference,
+                 fa.flash_attention_bwd_reference) if plain else
+                (fa.flash_attention_fwd, fa.flash_attention_bwd))
+    return (fwd(q, k, v, nh, rate, seed), *bwd(q, k, v, do, nh, rate, seed))
 
 
 def phase_train_former(smi: str, data: Path):
@@ -1723,9 +1846,10 @@ def phase_train_moe(smi: str, data: Path):
 FFN_ROWS = MICRO * SEQ_LEN
 FFN_EDGE_SHAPES = [(1001, 200, 800), (333, 48, 192), (65, 576, 2304),
                    (97, 640, 2560)]
-# the bf16 FFN body's kernel symbol, and the row kernel's, which bf16 B7 and
-# B6f no longer launch
-FFN_BODY, FFN_ROWS_KERNEL = "ffn_wgmma_kernel", "ffn_rows_kernel"
+# the bf16 FFN bodies' kernel symbols (B7 and B6f; B6b's row work), and the
+# row kernel's, which no bf16 FFN kernel launches any more
+FFN_BODY, FFN_BWD_BODY = "ffn_wgmma_kernel", "ffn_bwd_wgmma_kernel"
+FFN_ROWS_KERNEL = "ffn_rows_kernel"
 FFN_SEEDS = (20260103, 20260104)
 
 
@@ -1852,8 +1976,9 @@ def _ffn_case(t, rate, timed: bool):
 
 
 def _ffn_body_ptxas(h):
-    """The bf16 body's ptxas report (registers and spills of each
-    instantiation) and its dynamic shared memory by width."""
+    """The bf16 bodies' ptxas report (registers and spills of each
+    instantiation: B7 and B6f, and B6b's row body) and their dynamic shared
+    memory by width (B6b's at F = 4 H)."""
     import re
 
     from weathermodel_tpu_torch.kernels import build
@@ -1862,8 +1987,8 @@ def _ffn_body_ptxas(h):
     lines = built.ptxas_log.splitlines()
     report = []
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '.*" + FFN_BODY +
-                      r"ILi(\d)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*(?:" + FFN_BODY +
+                      r"ILi(\d)E|" + FFN_BWD_BODY + r"I)Li(\d+)E", line)
         if m is None:
             continue
         block = []
@@ -1875,12 +2000,49 @@ def _ffn_body_ptxas(h):
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
-        report.append(f"{('B7', 'B6f')[int(m.group(1))]} atoms {m.group(2)}: "
+        kernel = ("B6b" if m.group(1) is None
+                  else ("B7", "B6f")[int(m.group(1))])
+        report.append(f"{kernel} atoms {m.group(2)}: "
                       f"{regs.group(1) if regs else '?'} registers, spill "
                       f"{'/'.join(spill.groups()) if spill else '?'} B")
-    # the model sizes' widths and the widest the body takes
-    smem = {w: built.lib.wm_ffn_wgmma_smem(w) for w in (48, 200, 336, h, 640)}
+    # the model sizes' widths and the widest the bodies take
+    widths = (48, 200, 336, h, 640)
+    smem = {w: (built.lib.wm_ffn_wgmma_smem(w),
+                built.lib.wm_ffn_bwd_wgmma_smem(w, 4 * w)) for w in widths}
     return report, smem
+
+
+def _ffn_bwd_split(t, rate):
+    """bf16 B6b's device ms by pass in one profiled call: its row body
+    (ffn_bwd_wgmma_kernel) and the tile passes (the weight gradients and the
+    ordered sums)."""
+    from weathermodel_tpu_torch.ops.fused_ffn_ln import fused_ffn_ln_bwd
+
+    args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["ls"], t["lb"],
+            t["do"], rate, FFN_SEEDS)
+    fused_ffn_ln_bwd(*args)
+    events = _profiled(lambda: fused_ffn_ln_bwd(*args))
+    keys = [e.key for e in events]
+    _check_kernel_names("B6b bf16", keys, (FFN_BWD_BODY, "wgrad_kernel"),
+                        (FFN_ROWS_KERNEL, "gemm_nt_kernel"))
+    row = sum(_device_ms(e) for e in events if FFN_BWD_BODY in e.key)
+    rest = sum(_device_ms(e) for e in events if FFN_BWD_BODY not in e.key)
+    return row, rest
+
+
+def _ffn_bwd_split_in_child(h, f):
+    """`_ffn_bwd_split` on this phase's bf16 inputs in a child process. In
+    this process, after the earlier phases, the profile of a B6b call came
+    back with no kernel events at all, twice, while a fresh process's profile
+    of the same call (and of it after this phase's own work) holds them."""
+    code = ("import sys, torch; import chip_smoke as cs; "
+            f"t = cs._ffn_inputs(cs.FFN_ROWS, {h}, {f}, torch.bfloat16, "
+            "cs.SEED + 7); print(*cs._ffn_bwd_split(t, cs.DROPOUT))")
+    out = subprocess.run([sys.executable, "-c", code], check=True, text=True,
+                         capture_output=True, timeout=600,
+                         cwd=Path(__file__).resolve().parent)
+    row, rest = (float(v) for v in out.stdout.split()[-2:])
+    return row, rest
 
 
 def phase_kernel_ffn():
@@ -1889,15 +2051,19 @@ def phase_kernel_ffn():
     cfg = model_config_for_size(MODEL_SIZE)
     h, f = cfg.hidden_dim, cfg.ffn_dim
     report, smem = _ffn_body_ptxas(h)
-    print(f"kernel_ffn: {FFN_BODY} (bf16 B6f and B7; its symbol is checked "
-          f"in the bench's profiles) ptxas: {'; '.join(report)}; dynamic "
-          f"shared memory a block by H: {smem} B; cluster 1 (no multicast)",
-          flush=True)
+    print(f"kernel_ffn: {FFN_BODY} (bf16 B6f and B7) and {FFN_BWD_BODY} "
+          f"(bf16 B6b's row work; their symbols are checked in the bench's "
+          f"profiles) ptxas: {'; '.join(report)}; dynamic shared memory a "
+          f"block by H (forward, B6b at F = 4 H): {smem} B; cluster 1 (no "
+          f"multicast)", flush=True)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         t = _ffn_inputs(FFN_ROWS, h, f, dtype, SEED + 7)
         for rate in (DROPOUT, 0.0):
             r = _ffn_case(t, rate, timed=rate == DROPOUT)
+            if dtype == torch.bfloat16 and rate == DROPOUT:
+                torch.cuda.empty_cache()  # room for the child's tensors
+                r["bwd_split"] = _ffn_bwd_split_in_child(h, f)
             results[dtype, rate] = r
             line = (f"kernel_ffn: M={FFN_ROWS} H={h} F={f} "
                     f"{str(dtype).split('.')[1]} dropout {rate}: max|err| "
@@ -1932,6 +2098,12 @@ def phase_kernel_ffn():
           f" without h {bf16['b7_eval_ms']:.3f} ms (the h write "
           f"{bf16['b7_ms'] - bf16['b7_eval_ms']:.3f} ms); B6f "
           f"{bf16['fwd_ms']:.3f} ms", flush=True)
+    row, rest = bf16["bwd_split"]
+    print(f"kernel_ffn: bf16 B6b at M={FFN_ROWS} {bf16['bwd_ms']:.3f} ms; "
+          f"profiled device ms of one call: row body ({FFN_BWD_BODY}) "
+          f"{row:.3f}, tile passes (weight gradients, ordered sums) "
+          f"{rest:.3f}, row body {row / (row + rest):.3f} of the call",
+          flush=True)
     return bf16
 
 
@@ -2304,19 +2476,23 @@ def phase_bench(smi: str):
     finally:
         dropout.set_impl("auto")
     # bf16 B6f, B7 with h (train) and B7 without (eval) launch the wgmma
-    # body; the row kernel runs only B6b's recompute pass (kModeBwd = 2). B1
-    # (train and eval) runs the attention's wgmma body, never the scalar one
-    rows_fwd = tuple(f"{FFN_ROWS_KERNEL}<__nv_bfloat16, {mode}>"
-                     for mode in (0, 1))
+    # body, B6b (fused_ffn_ln's train step) its backward body; no bf16 FFN
+    # kernel runs the row kernel. B1 (train and eval) runs the attention's
+    # wgmma body, never the scalar one
+    rows_bf16 = f"{FFN_ROWS_KERNEL}<__nv_bfloat16"
     for impl, body in (("fused_ffn_ln", f"{FFN_BODY}<1,"),
                        ("fused_ffn", f"{FFN_BODY}<0,")):
         for mode, accum in (("train", GRAD_ACCUM), ("eval", 1)):
+            need = (body, ATTN_BODY)
+            named = ()
+            if impl == "fused_ffn_ln" and mode == "train":
+                need += (FFN_BWD_BODY,)
+                named = (("B6b's tile passes", "wgrad"),)
             print(f"bench: {impl} {mode} " + _profile_step(
                 "weatherbert", cfg, "fused_qkv", TRAIN_BATCH, accum,
                 ffn_impl=impl, mode=mode,
-                named=((body, body), (ATTN_BODY, ATTN_BODY)),
-                require=(body, ATTN_BODY),
-                forbid=(*rows_fwd, ATTN_SCALAR_BF16)), flush=True)
+                named=tuple((n, n) for n in need) + named, require=need,
+                forbid=(rows_bf16, ATTN_SCALAR_BF16)), flush=True)
         print(f"bench: {impl} " + _check_step_parity(
             "weatherbert", MODEL_SIZE, "fused_qkv", ffn_impl=impl), flush=True)
     return launches

@@ -108,3 +108,14 @@ def test_rejects_bad_shapes_and_auto_picks_flash_for_small_training():
     assert resolve_attention_impl("auto", "small") == "flash"
     assert resolve_attention_impl("auto", "mini", mode="train") == "flash"
     assert resolve_attention_impl("auto", "small", mode="eval") == "fused_qkv"
+
+
+def test_long_context_t1024():
+    """Fault C4: B3f's plain version at T = 1024, which the JAX kernel takes
+    (tests/test_pallas_attention.py's test_long_context_t1024), at a narrow
+    width (4 heads of 12), with that test's tolerance."""
+    q, k, v, _ = _inputs(1, 1024, 48, seed=7)
+    want = np.asarray(flash_attention(q, k, v, num_heads=4))
+    got = flash_attention_fwd_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), 4, 0.0, 0)
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=1e-3)

@@ -214,39 +214,85 @@ def test_bf16_train_kernel_draws_the_scalar_bodys_mask(cuda, b, t, h, nh):
 
 @pytest.mark.parametrize("h,nh", [(48, 4), (200, 10), (336, 12), (576, 16)])
 def test_bf16_body_takes_t_up_to_its_limit(cuda, h, nh):
-    """The bf16 body at the longest T it takes at each head dim (the wrapper's
-    rule, which the library's own shared-memory plan agrees with), then one
-    more: a ValueError naming the limit from B1's two forms and B5, before
-    any launch, and no fallback."""
+    """Every attention kernel at the longest T it takes at each head dim
+    (MAX_CONTEXT, the library's own limit: the bf16 body's shared memory
+    there is its streaming layout's), in bf16, then one more: a ValueError
+    naming the limit from B1's two forms, B5, B2, B3f and B3b, in both
+    dtypes, before any launch, and no fallback."""
     from weathermodel_tpu_torch.kernels import build
-    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
-        bf16_max_context,
-    )
+    from weathermodel_tpu_torch.ops.attention import MAX_CONTEXT
 
     hd = h // nh
-    limit = bf16_max_context(hd)
     lib = build.load_library().lib
-    assert lib.wm_qkv_attention_wgmma_smem(hd, limit) > 0
-    assert lib.wm_qkv_attention_wgmma_smem(hd, limit + 1) == 0
-    x, w, bias = _inputs(1, limit, h, torch.bfloat16, cuda)
+    assert lib.wm_qkv_attention_wgmma_smem(hd, MAX_CONTEXT) > 0
+    assert lib.wm_qkv_attention_wgmma_smem(hd, MAX_CONTEXT + 1) == 0
+    x, w, bias = _inputs(1, MAX_CONTEXT, h, torch.bfloat16, cuda)
     _assert_scaled_close("B1 o at the limit",
                          fused_qkv_attention(x, w, bias, nh),
                          fused_qkv_attention_reference(x, w, bias, nh),
                          torch.bfloat16)
-    x = _inputs(1, limit + 1, h, torch.bfloat16, cuda)[0]
-    wo = torch.zeros(h, h, dtype=x.dtype, device=cuda)
-    bo = torch.zeros(h, dtype=x.dtype, device=cuda)
-    counts = (fused_qkv_attention.launches,
-              fused_qkv_attention_train.launches,
-              fused_qkv_attention_outproj.launches)
-    with pytest.raises(ValueError, match=f"T up to {limit} "):
-        fused_qkv_attention(x, w, bias, nh)
-    with pytest.raises(ValueError, match=f"T up to {limit} "):
-        fused_qkv_attention_train(x, w, bias, nh, 0.1, 1)
-    with pytest.raises(ValueError, match=f"T up to {limit} "):
-        fused_qkv_attention_outproj(x, w, bias, wo, bo, nh)
-    assert (fused_qkv_attention.launches, fused_qkv_attention_train.launches,
-            fused_qkv_attention_outproj.launches) == counts
+    kernels = (fused_qkv_attention, fused_qkv_attention_train,
+               fused_qkv_attention_outproj, fused_qkv_attention_bwd,
+               flash_attention_fwd, flash_attention_bwd)
+    counts = [k.launches for k in kernels]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, bias = _inputs(1, MAX_CONTEXT + 1, h, dtype, cuda)
+        wo = torch.zeros(h, h, dtype=dtype, device=cuda)
+        bo = torch.zeros(h, dtype=dtype, device=cuda)
+        qkv = torch.zeros(1, MAX_CONTEXT + 1, 3 * h, dtype=dtype, device=cuda)
+        q, k, v = qkv.chunk(3, dim=-1)
+        match = f"T up to {MAX_CONTEXT}, got T={MAX_CONTEXT + 1}"
+        for call in (lambda: fused_qkv_attention(x, w, bias, nh),
+                     lambda: fused_qkv_attention_train(x, w, bias, nh, 0.1, 1),
+                     lambda: fused_qkv_attention_outproj(x, w, bias, wo, bo,
+                                                         nh),
+                     lambda: fused_qkv_attention_bwd(qkv, x, nh, 0.1, 1),
+                     lambda: flash_attention_fwd(q, k, v, nh, 0.1, 1),
+                     lambda: flash_attention_bwd(q, k, v, x, nh, 0.1, 1)):
+            with pytest.raises(ValueError, match=match):
+                call()
+    assert [k.launches for k in kernels] == counts
+
+
+# every attention form past the T whose rows fit on chip (the bf16 body's
+# streamed K^T and V^T, the scalar bodies' device workspace): T = 730 (two
+# years of daily windows, as `wm-serve-torch` takes them) and 1024, at every
+# head dim, in both dtypes, forward and backward, dropout 0.1, against the
+# plain versions (the same seed on both sides)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,nh", [(48, 4), (200, 10), (336, 12), (576, 16)])
+@pytest.mark.parametrize("t", [730, 1024])
+def test_attention_kernels_take_long_context(cuda, t, h, nh, dtype):
+    x, w, bias = _inputs(1, t, h, dtype, cuda, seed=t)
+    rng = np.random.default_rng(h)
+    wo = torch.tensor(rng.normal(size=(h, h)) / h ** 0.5, dtype=dtype,
+                      device=cuda)
+    bo = torch.tensor(rng.normal(size=h) * 0.1, dtype=dtype, device=cuda)
+    do = torch.tensor(rng.normal(size=(1, t, h)), dtype=dtype, device=cuda)
+    seed, rate = 31337, 0.1
+    pairs = [("B1 eval", fused_qkv_attention(x, w, bias, nh),
+              fused_qkv_attention_reference(x, w, bias, nh)),
+             ("B5", fused_qkv_attention_outproj(x, w, bias, wo, bo, nh),
+              fused_qkv_attention_outproj_reference(x, w, bias, wo, bo, nh))]
+    o, qkv = fused_qkv_attention_train(x, w, bias, nh, rate, seed)
+    o_ref, qkv_ref = fused_qkv_attention_train_reference(x, w, bias, nh, rate,
+                                                         seed)
+    pairs += [("B1 train o", o, o_ref), ("B1 train qkv", qkv, qkv_ref),
+              ("B2", fused_qkv_attention_bwd(qkv_ref, do, nh, rate, seed),
+               fused_qkv_attention_bwd_reference(qkv_ref, do, nh, rate,
+                                                 seed))]
+    q, k, v = qkv_ref.chunk(3, dim=-1)
+    pairs.append(("B3f", flash_attention_fwd(q, k, v, nh, rate, seed),
+                  flash_attention_fwd_reference(q, k, v, nh, rate, seed)))
+    for name, got, want in zip(
+            ("B3b dq", "B3b dk", "B3b dv"),
+            flash_attention_bwd(q, k, v, do, nh, rate, seed),
+            flash_attention_bwd_reference(q, k, v, do, nh, rate, seed)):
+        pairs.append((name, got, want))
+    torch.cuda.synchronize()
+    for name, got, want in pairs:
+        assert got.dtype == dtype and got.shape == want.shape, name
+        _assert_scaled_close(f"{name} T={t}", got, want, dtype)
 
 
 def test_bf16_body_rejects_what_it_does_not_take(cuda):
@@ -638,10 +684,10 @@ def test_ffn_kernels_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
 
 
 def test_ffn_kernels_reject_what_they_do_not_take(cuda):
-    """The bf16 forward body needs H and F multiples of 8 and 16-byte aligned
-    x and weights (TMA); it raises on anything else, before any launch, and
-    never falls back. H > 640 raises in both dtypes; fp32 takes any H and F
-    up to it."""
+    """The bf16 bodies (forward, and B6b's) need H and F multiples of 8 and
+    16-byte aligned x and weights (TMA); they raise on anything else, before
+    any launch, and never fall back. H > 640 raises in both dtypes; fp32
+    takes any H and F up to it."""
     counts = (fused_ffn_ln.launches, fused_ffn.launches)
     for m, h, f in ((64, 52, 192), (64, 48, 100)):
         x, w1, b1, w2, b2, ls, lb, _ = _ffn_inputs(m, h, f, torch.bfloat16,
@@ -666,6 +712,26 @@ def test_ffn_kernels_reject_what_they_do_not_take(cuda):
                       b1[:8], torch.zeros(8, 648, device=cuda, dtype=dtype),
                       torch.zeros(648, device=cuda))
     assert (fused_ffn_ln.launches, fused_ffn.launches) == counts
+    # B6b's bf16 body: the same rule, do 16-byte aligned too, and F up to
+    # 2560 (its mask bits' shared memory)
+    count = fused_ffn_ln_bwd.launches
+    for m, h, f in ((64, 52, 192), (64, 48, 100)):
+        args = _ffn_inputs(m, h, f, torch.bfloat16, cuda)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fused_ffn_ln_bwd(*args)
+    x, w1, b1, w2, b2, ls, lb, do = _ffn_inputs(64, 48, 192, torch.bfloat16,
+                                                 cuda)
+    shifted_do = torch.empty(do.numel() + 1, dtype=do.dtype,
+                             device=cuda)[1:].view_as(do)
+    shifted_do.copy_(do)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_ffn_ln_bwd(x, w1, b1, w2, b2, ls, lb, shifted_do)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_ffn_ln_bwd(shifted, w1, b1, w2, b2, ls, lb, do)
+    args = _ffn_inputs(64, 48, 2568, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="F up to 2560"):
+        fused_ffn_ln_bwd(*args)
+    assert fused_ffn_ln_bwd.launches == count
     x, w1, b1, w2, b2, ls, lb, _ = _ffn_inputs(64, 52, 100, torch.float32,
                                                 cuda)
     _assert_scaled_close("fp32 B7 f", fused_ffn(x, w1, b1, w2, b2)[0],
@@ -767,9 +833,9 @@ def test_outproj_kernel_rejects_what_it_does_not_take(cuda, monkeypatch):
         fused_qkv_attention_outproj(x, w, bias, wo[:, :24], bo, 4)
     with pytest.raises(ValueError, match="contiguous"):
         fused_qkv_attention_outproj(x, w, bias, wo.T, bo, 4)
-    with pytest.raises(RuntimeError, match="CUDA kernel launch failed"):
-        # more keys than phase 1's shared memory holds: bound-checked, no
-        # padding and no fallback
+    with pytest.raises(ValueError, match="T up to 1536, got T=2000"):
+        # more keys than the attention kernels take: bound-checked before any
+        # launch, no padding and no fallback
         x_long = _inputs(1, 2000, 576, torch.float32, cuda)[0]
         fused_qkv_attention_outproj(x_long, *_inputs(1, 1, 576,
                                                      torch.float32, cuda)[1:],

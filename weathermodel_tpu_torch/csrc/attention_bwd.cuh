@@ -35,7 +35,13 @@
 //     and ds^T . qs. Writes dk and dv.
 // Shared memory at T = 365, hd = 36: pass A 2 x 365 x 37 + 2 x 16 x 365 floats = 155 KB,
 // pass B 2 x 365 x 37 + 4 x 365 + 2 x 16 x 365 words = 161 KB (hd = 20: 107 and 113 KB);
-// the same in both element types, since everything in shared memory is fp32.
+// the same in both element types, since everything in shared memory is fp32. Past the T
+// whose rows fit (pass A 548 and pass B 528 at hd 36), a pass keeps its two [t][hd + 1]
+// row arrays (K and V, or qs and dO) in a device workspace of the same layout (`kGlobal`,
+// 2 t (hd + 1) floats a block, reused by the two passes) and only the score rows (and pass
+// B's statistics) in shared memory: the same code reads them through the caches, in the
+// same fmaf order, so both passes still regenerate the forward's scores and mask bit for
+// bit. T up to wm::kMaxContext (1536).
 //
 // What bounds it on the card: scalar fp32 FMA and shared-memory loads, as the forward
 // (no tensor cores yet): 5 products of B x nh x T^2 x hd MACs plus the wasted lanes of
@@ -64,29 +70,41 @@ struct BwdArgs {
   T* dv;
   int out_stride;  // row stride of dq, dk and dv, in elements
   float* stats;    // [B, nh, 3, T] fp32 scratch
+  float* ws;       // bwd_workspace_bytes(t) a block, or null where that is 0
 };
 
-// shared-memory row stride HD + 1 words (odd for the even head dims)
+// shared-memory row stride HD + 1 words (odd for the even head dims); kGlobal leaves the two
+// row arrays out (they are in the workspace)
 template <int HD>
-size_t smem_dq_bytes(int t) {
-  return (2ull * t * (HD + 1) + 2ull * wm::kWarps * t) * sizeof(float);
+size_t smem_dq_bytes(int t, bool global) {
+  return ((global ? 0ull : 2ull * t * (HD + 1)) + 2ull * wm::kWarps * t) * sizeof(float);
 }
 
 template <int HD>
-size_t smem_dkdv_bytes(int t) {
-  return (2ull * t * (HD + 1) + 4ull * t + 2ull * wm::kWarps * t) * sizeof(float);
+size_t smem_dkdv_bytes(int t, bool global) {
+  return ((global ? 0ull : 2ull * t * (HD + 1)) + 4ull * t + 2ull * wm::kWarps * t) *
+         sizeof(float);
 }
 
-template <typename T, int HD>
+// The workspace a block needs in bytes, for whichever pass does not fit: 0 where both fit.
+template <int HD>
+size_t bwd_workspace_bytes(int t) {
+  const bool fit = smem_dq_bytes<HD>(t, false) <= wm::kSmemMax &&
+                   smem_dkdv_bytes<HD>(t, false) <= wm::kSmemMax;
+  return fit ? 0 : 2ull * t * (HD + 1) * sizeof(float);
+}
+
+template <typename T, int HD, bool kGlobal>
 __global__ void __launch_bounds__(wm::kThreads, 1)
 bwd_dq_kernel(BwdArgs<T> a, int t, int h, int num_heads, float scale, wm::Dropout drop) {
   using namespace wm;
   constexpr int S = HD + 1;
   extern __shared__ float smem[];
-  float* ks = smem;                          // [t][S]
-  float* vs = ks + (size_t)t * S;            // [t][S]
+  float* ks = kGlobal ? a.ws + (size_t)blockIdx.x * 2 * t * S : smem;  // [t][S]
+  float* vs = ks + (size_t)t * S;                                       // [t][S]
+  float* rows = kGlobal ? smem : vs + (size_t)t * S;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* srow = vs + (size_t)t * S + (size_t)warp * 2 * t;  // s -> e -> w -> ds
+  float* srow = rows + (size_t)warp * 2 * t;  // s -> e -> w -> ds
   float* dwrow = srow + t;                                  // dwd -> dw
 
   const int head = blockIdx.x % num_heads;
@@ -168,15 +186,15 @@ bwd_dq_kernel(BwdArgs<T> a, int t, int h, int num_heads, float scale, wm::Dropou
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kGlobal>
 __global__ void __launch_bounds__(wm::kThreads, 1)
 bwd_dkdv_kernel(BwdArgs<T> a, int t, int h, int num_heads, float scale, wm::Dropout drop) {
   using namespace wm;
   constexpr int S = HD + 1;
   extern __shared__ float smem[];
-  float* qs = smem;                          // [t][S], q * scale rounded
-  float* gs = qs + (size_t)t * S;            // [t][S], dO
-  float* mx = gs + (size_t)t * S;            // [t] row max
+  float* qs = kGlobal ? a.ws + (size_t)blockIdx.x * 2 * t * S : smem;  // [t][S], q * scale
+  float* gs = qs + (size_t)t * S;                                       // [t][S], dO
+  float* mx = kGlobal ? smem : gs + (size_t)t * S;                      // [t] row max
   float* rc = mx + t;                        // [t] row recip
   float* rsum = rc + t;                      // [t] rowsum(dw * w)
   uint32_t* rkey = reinterpret_cast<uint32_t*>(rsum + t);  // [t] dropout row keys
@@ -265,12 +283,13 @@ bwd_dkdv_kernel(BwdArgs<T> a, int t, int h, int num_heads, float scale, wm::Drop
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_bwd(BwdArgs<T> a, int batch, int t, int h, int num_heads,
-                       wm::Dropout drop, cudaStream_t stream) {
-  auto dq = bwd_dq_kernel<T, HD>;
-  auto dkdv = bwd_dkdv_kernel<T, HD>;
-  const size_t smem_a = smem_dq_bytes<HD>(t), smem_b = smem_dkdv_bytes<HD>(t);
+template <typename T, int HD, bool kGlobalA, bool kGlobalB>
+cudaError_t launch_passes(BwdArgs<T> a, int batch, int t, int h, int num_heads,
+                          wm::Dropout drop, cudaStream_t stream) {
+  auto dq = bwd_dq_kernel<T, HD, kGlobalA>;
+  auto dkdv = bwd_dkdv_kernel<T, HD, kGlobalB>;
+  const size_t smem_a = smem_dq_bytes<HD>(t, kGlobalA);
+  const size_t smem_b = smem_dkdv_bytes<HD>(t, kGlobalB);
   cudaError_t err =
       cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err != cudaSuccess) return err;
@@ -283,6 +302,18 @@ cudaError_t launch_bwd(BwdArgs<T> a, int batch, int t, int h, int num_heads,
   if (err != cudaSuccess) return err;
   dkdv<<<grid, wm::kThreads, smem_b, stream>>>(a, t, h, num_heads, scale, drop);
   return cudaGetLastError();
+}
+
+// Each pass keeps its rows in shared memory where they fit, else in the workspace.
+template <typename T, int HD>
+cudaError_t launch_bwd(BwdArgs<T> a, int batch, int t, int h, int num_heads,
+                       wm::Dropout drop, cudaStream_t stream) {
+  if (bwd_workspace_bytes<HD>(t) == 0)
+    return launch_passes<T, HD, false, false>(a, batch, t, h, num_heads, drop, stream);
+  if (a.ws == nullptr) return cudaErrorInvalidValue;
+  if (smem_dq_bytes<HD>(t, false) <= wm::kSmemMax)
+    return launch_passes<T, HD, false, true>(a, batch, t, h, num_heads, drop, stream);
+  return launch_passes<T, HD, true, true>(a, batch, t, h, num_heads, drop, stream);
 }
 
 template <typename T>
@@ -301,28 +332,45 @@ cudaError_t attention_bwd(BwdArgs<T> a, int batch, int t, int h, int num_heads,
 // 1 = bfloat16) on operands given as untyped pointers.
 inline int attention_bwd_entry(int dtype, const void* q, const void* k, const void* v,
                                int in_stride, const void* dout, void* dq, void* dk, void* dv,
-                               int out_stride, void* stats, int batch, int t, int h,
+                               int out_stride, void* stats, void* ws, int batch, int t, int h,
                                int num_heads, wm::Dropout drop, void* stream) {
-  if (batch <= 0 || t <= 0 || num_heads <= 0 || h % num_heads != 0 || in_stride < h ||
-      out_stride < h)
+  if (batch <= 0 || t <= 0 || t > wm::kMaxContext || num_heads <= 0 || h % num_heads != 0 ||
+      in_stride < h || out_stride < h)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* st = static_cast<float*>(stats);
+  auto* w = static_cast<float*>(ws);
   if (dtype == 0) {
     using T = float;
     BwdArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
                  static_cast<const T*>(v), in_stride, static_cast<const T*>(dout),
-                 static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), out_stride, st};
+                 static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), out_stride, st,
+                 w};
     return attention_bwd<T>(a, batch, t, h, num_heads, drop, s);
   }
   if (dtype == 1) {
     using T = __nv_bfloat16;
     BwdArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
                  static_cast<const T*>(v), in_stride, static_cast<const T*>(dout),
-                 static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), out_stride, st};
+                 static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), out_stride, st,
+                 w};
     return attention_bwd<T>(a, batch, t, h, num_heads, drop, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The workspace the backward needs for each (batch row, head) block at (head_dim, t), in
+// bytes (the same in both dtypes); 0 where both passes' rows fit in shared memory, -1
+// where the kernels do not take (head_dim, t).
+inline long long attention_bwd_workspace(int head_dim, int t) {
+  if (t <= 0 || t > wm::kMaxContext) return -1;
+  switch (head_dim) {
+    case 12: return (long long)bwd_workspace_bytes<12>(t);
+    case 20: return (long long)bwd_workspace_bytes<20>(t);
+    case 28: return (long long)bwd_workspace_bytes<28>(t);
+    case 36: return (long long)bwd_workspace_bytes<36>(t);
+    default: return -1;
+  }
 }
 
 }  // namespace

@@ -26,6 +26,14 @@ namespace wm {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+// The longest T every attention kernel takes, forward and backward, at every head dim
+// (ops/attention.py's MAX_CONTEXT): the bf16 forward body's q fragments at hd 36 beside a
+// two-stage ring (attention_hopper.cuh), and the scalar bodies' score rows.
+constexpr int kMaxContext = 1536;
+// A block's shared memory on the H100. Where a scalar body's per-head rows do not fit in
+// it beside the score rows, they live in a device workspace of the same fp32 layout
+// (`kGlobal`), read through the L1 and L2 caches in the same fmaf order.
+constexpr size_t kSmemMax = 232448;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -85,7 +93,8 @@ struct Dropout {
 };
 
 // Copy one head's [t, HD] slice (rows `stride` elements apart, starting at src) into
-// shared memory as fp32 [t][HD + 1]; kScaled stores rnd(v * scale_t).
+// shared memory (or a block's device workspace) as fp32 [t][HD + 1]; kScaled stores
+// rnd(v * scale_t).
 template <typename T, int HD, bool kScaled>
 __device__ __forceinline__ void load_head(const T* __restrict__ src, float* dst, int t,
                                           int stride, float scale_t) {

@@ -1,7 +1,6 @@
-// The row-block FFN kernel for float32 B7 (fused_ffn.cu) and B6f (fused_ffn_ln.cu), and
-// for the recompute pass of B6b (fused_ffn_ln_bwd.cu) in both dtypes. bfloat16 B7 and B6f
-// run ffn_hopper.cuh's wgmma body instead; the kModeFfn and kModeLn instantiations here
-// are their float32 forms (FMA pipes: TF32 would change their numerics).
+// The row-block FFN kernel for float32 B7 (fused_ffn.cu), B6f (fused_ffn_ln.cu) and the
+// recompute pass of B6b (fused_ffn_ln_bwd.cu), on the FMA pipes (TF32 would change their
+// numerics). bfloat16 runs ffn_hopper.cuh's and ffn_hopper_bwd.cuh's wgmma bodies instead.
 //
 // One thread block of 256 threads owns kRows = 32 rows of x [M, H] and every one of their H
 // output columns, so the LayerNorm epilogue (and its backward) sees whole rows, as the TPU
@@ -19,14 +18,10 @@
 //                    (the LN parameters' gradients, summed over blocks in a second pass)
 // The [M, F] hidden never goes through device memory in the forward unless asked for.
 //
-// Products: bfloat16 on the tensor cores through WMMA (16 x 16 x 16, fp32 accumulation);
-// the first product's [32, 128] chunk is 2 x 8 fragments, one column of fragments per warp;
-// the second's [32, H] accumulators are 2 x 5 fragments per warp (warp w owns the fragment
-// columns w, w + 8, ..., so H <= 640). float32 on the FMA pipes: thread (warp w, lane l)
-// owns rows w + 8i and columns l + 32j. The weights stream through shared memory in slabs
-// of 32 (W1 as [32][128], W2 as [32][H]); x's rows are staged once. Everything sits in
-// dynamic shared memory (RowsSmem; 109 KB in bf16 and 176 KB in fp32 at H = 576), which
-// needs cudaFuncSetAttribute above 48 KB.
+// Products on the FMA pipes: thread (warp w, lane l) owns rows w + 8i and columns l + 32j
+// (so H <= 640). The weights stream through shared memory in slabs of 32 (W1 as [32][128],
+// W2 as [32][H]); x's rows are staged once. Everything sits in dynamic shared memory
+// (RowsSmem; 176 KB at H = 576), which needs cudaFuncSetAttribute above 48 KB.
 //
 // Dropout keep bits of an FFN site: element (row, col) is kept iff
 //   mix32(dropout_head_key(seed, row) ^ col) < threshold,   threshold = (uint32)((1-p) 2^32)
@@ -49,9 +44,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 32;       // rows of x per block
 constexpr int kChunk = 128;     // hidden columns per pass
-constexpr int kColFrags = 5;    // bf16: fragment columns of the [32, H] accumulator per warp
-constexpr int kMaxH = kWarps * kColFrags * 16;  // 640
-constexpr int kFp32Cols = kMaxH / 32;           // fp32: columns per thread, l + 32j
+constexpr int kMaxH = 640;      // the widest H (the bf16 bodies' widest instantiation)
+constexpr int kFp32Cols = kMaxH / 32;  // columns per thread, l + 32j
 constexpr float kLnEps = 1e-5f;
 
 enum { kModeFfn = 0, kModeLn = 1, kModeBwd = 2 };
@@ -86,7 +80,7 @@ struct RowsArgs {
 // reuses the slabs' space once the products are done.
 struct RowsSmem {
   int hp, ldx, ld1, ldy;
-  int xs, w1s, hs, w2s, sc, ys, total;
+  int xs, w1s, hs, w2s, ys, total;
 };
 
 __host__ __device__ inline int round128(int bytes) { return (bytes + 127) / 128 * 128; }
@@ -101,15 +95,13 @@ __host__ __device__ inline RowsSmem rows_smem(int h) {
   const int e = sizeof(T);
   const int xs = round128(kRows * s.ldx * e), w1s = round128(kDepth * s.ld1 * e);
   const int hs = round128(kRows * s.ld1 * e), w2s = round128(kDepth * s.ldx * e);
-  const int sc = gmm_tiles::kIsBf16<T> ? kRows * kChunk * 4 : 0;
   const int ys = round128(kRows * s.ldy * 4);
   s.xs = 0;
   s.w1s = xs;
   s.hs = s.w1s + w1s;
   s.w2s = s.hs + hs;
-  s.sc = s.w2s + w2s;
   s.ys = xs;
-  const int slabs = w1s + hs + w2s + sc;
+  const int slabs = w1s + hs + w2s;
   s.total = xs + (slabs > ys ? slabs : ys);
   return s;
 }
@@ -134,14 +126,10 @@ __device__ __forceinline__ void stage_rows(T* dst, int ldd, const T* __restrict_
     T* d = dst + r * ldd + cc;
     if (row_in && vec && col + kVec <= col_end) {
       const uint4 v = *reinterpret_cast<const uint4*>(src + row * ld + col);
-      if constexpr (gmm_tiles::kIsBf16<T>) {
-        *reinterpret_cast<uint4*>(d) = v;  // bf16 row strides are whole 16-byte chunks
-      } else {
-        d[0] = __uint_as_float(v.x);
-        d[1] = __uint_as_float(v.y);
-        d[2] = __uint_as_float(v.z);
-        d[3] = __uint_as_float(v.w);
-      }
+      d[0] = __uint_as_float(v.x);
+      d[1] = __uint_as_float(v.y);
+      d[2] = __uint_as_float(v.z);
+      d[3] = __uint_as_float(v.w);
     } else {
 #pragma unroll
       for (int i = 0; i < kVec; ++i)
@@ -154,14 +142,12 @@ namespace {
 
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads, 1) ffn_rows_kernel(RowsArgs a) {
-  namespace w = nvcuda::wmma;
   extern __shared__ __align__(128) unsigned char smem[];
   const RowsSmem L = rows_smem<T>(a.h);
   T* xs = reinterpret_cast<T*>(smem + L.xs);
   T* w1s = reinterpret_cast<T*>(smem + L.w1s);
   T* hs = reinterpret_cast<T*>(smem + L.hs);
   T* w2s = reinterpret_cast<T*>(smem + L.w2s);
-  float* sc = reinterpret_cast<float*>(smem + L.sc);
   float* ys = reinterpret_cast<float*>(smem + L.ys);
 
   const T* x = static_cast<const T*>(a.x);
@@ -194,113 +180,57 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_rows_kernel(RowsArgs a) {
 
   stage_rows<T>(xs, L.ldx, x, h, r0, kRows, a.m, 0, hp, h, a.vec_x);
 
-  // second product's accumulators (one of the two layouts is used)
-  w::fragment<w::accumulator, 16, 16, 16, float> acc2[2][kColFrags];
+  // the second product's accumulators
   float acc2f[4][kFp32Cols];
-  if constexpr (gmm_tiles::kIsBf16<T>) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int s = 0; s < kColFrags; ++s) w::fill_fragment(acc2[i][s], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kFp32Cols; ++j) acc2f[i][j] = 0.f;
-  }
+    for (int j = 0; j < kFp32Cols; ++j) acc2f[i][j] = 0.f;
 
   for (int c0 = 0; c0 < f; c0 += kChunk) {
     // ---- first product: the [32, 128] hidden chunk
-    if constexpr (gmm_tiles::kIsBf16<T>) {
-      w::fragment<w::accumulator, 16, 16, 16, float> acc1[2];
-      w::fill_fragment(acc1[0], 0.f);
-      w::fill_fragment(acc1[1], 0.f);
-      for (int k0 = 0; k0 < hp; k0 += kDepth) {
-        stage_rows<T>(w1s, L.ld1, w1, f, k0, kDepth, h, c0, kChunk, f, a.vec_w1);
-        __syncthreads();
+    float acc1[4][4];
 #pragma unroll
-        for (int kk = 0; kk < kDepth; kk += 16) {
-          w::fragment<w::matrix_b, 16, 16, 16, __nv_bfloat16, w::row_major> fb;
-          w::load_matrix_sync(fb, w1s + kk * L.ld1 + 16 * warp, L.ld1);
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            w::fragment<w::matrix_a, 16, 16, 16, __nv_bfloat16, w::row_major> fa;
-            w::load_matrix_sync(fa, xs + 16 * i * L.ldx + k0 + kk, L.ldx);
-            w::mma_sync(acc1[i], fa, fb, acc1[i]);
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        w::store_matrix_sync(sc + 16 * i * kChunk + 16 * warp, acc1[i], kChunk,
-                             w::mem_row_major);
+      for (int j = 0; j < 4; ++j) acc1[i][j] = 0.f;
+    for (int k0 = 0; k0 < hp; k0 += kDepth) {
+      stage_rows<T>(w1s, L.ld1, w1, f, k0, kDepth, h, c0, kChunk, f, a.vec_w1);
       __syncthreads();
-      for (int idx = threadIdx.x; idx < kRows * kChunk; idx += kThreads)
-        hidden_elem(c0, idx / kChunk, idx % kChunk, sc[idx]);
-    } else {
-      float acc1[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc1[i][j] = 0.f;
-      for (int k0 = 0; k0 < hp; k0 += kDepth) {
-        stage_rows<T>(w1s, L.ld1, w1, f, k0, kDepth, h, c0, kChunk, f, a.vec_w1);
-        __syncthreads();
 #pragma unroll 4
-        for (int kk = 0; kk < kDepth; ++kk) {
-          float av[4], bv[4];
+      for (int kk = 0; kk < kDepth; ++kk) {
+        float av[4], bv[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) av[i] = to_float(xs[(warp + 8 * i) * L.ldx + k0 + kk]);
+        for (int i = 0; i < 4; ++i) av[i] = to_float(xs[(warp + 8 * i) * L.ldx + k0 + kk]);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = to_float(w1s[kk * L.ld1 + lane + 32 * j]);
+        for (int j = 0; j < 4; ++j) bv[j] = to_float(w1s[kk * L.ld1 + lane + 32 * j]);
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc1[i][j] = fmaf(av[i], bv[j], acc1[i][j]);
-        }
-        __syncthreads();
+          for (int j = 0; j < 4; ++j) acc1[i][j] = fmaf(av[i], bv[j], acc1[i][j]);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) hidden_elem(c0, warp + 8 * i, lane + 32 * j, acc1[i][j]);
+      __syncthreads();
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hidden_elem(c0, warp + 8 * i, lane + 32 * j, acc1[i][j]);
 
     // ---- second product: acc += h_c . W2[c0 : c0 + 128, :]
     for (int kk0 = 0; kk0 < kChunk; kk0 += kDepth) {
       stage_rows<T>(w2s, L.ldx, w2, h, c0 + kk0, kDepth, f, 0, hp, h, a.vec_w2);
       __syncthreads();
-      if constexpr (gmm_tiles::kIsBf16<T>) {
-#pragma unroll
-        for (int kk = 0; kk < kDepth; kk += 16) {
-          w::fragment<w::matrix_a, 16, 16, 16, __nv_bfloat16, w::row_major> fa[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            w::load_matrix_sync(fa[i], hs + 16 * i * L.ld1 + kk0 + kk, L.ld1);
-#pragma unroll
-          for (int s = 0; s < kColFrags; ++s) {
-            const int j = warp + kWarps * s;
-            if (16 * j >= hp) continue;  // uniform across the warp
-            w::fragment<w::matrix_b, 16, 16, 16, __nv_bfloat16, w::row_major> fb;
-            w::load_matrix_sync(fb, w2s + kk * L.ldx + 16 * j, L.ldx);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) w::mma_sync(acc2[i][s], fa[i], fb, acc2[i][s]);
-          }
-        }
-      } else {
 #pragma unroll 2
-        for (int kk = 0; kk < kDepth; ++kk) {
-          float av[4];
+      for (int kk = 0; kk < kDepth; ++kk) {
+        float av[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) av[i] = to_float(hs[(warp + 8 * i) * L.ld1 + kk0 + kk]);
+        for (int i = 0; i < 4; ++i) av[i] = to_float(hs[(warp + 8 * i) * L.ld1 + kk0 + kk]);
 #pragma unroll
-          for (int j = 0; j < kFp32Cols; ++j) {
-            if (32 * j >= hp) continue;  // uniform across the warp
-            const float bv = to_float(w2s[kk * L.ldx + lane + 32 * j]);
+        for (int j = 0; j < kFp32Cols; ++j) {
+          if (32 * j >= hp) continue;  // uniform across the warp
+          const float bv = to_float(w2s[kk * L.ldx + lane + 32 * j]);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) acc2f[i][j] = fmaf(av[i], bv, acc2f[i][j]);
-          }
+          for (int i = 0; i < 4; ++i) acc2f[i][j] = fmaf(av[i], bv, acc2f[i][j]);
         }
       }
       __syncthreads();
@@ -308,23 +238,11 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_rows_kernel(RowsArgs a) {
   }
 
   // ---- the finished products as fp32 rows in ys (over the slabs, which are done)
-  if constexpr (gmm_tiles::kIsBf16<T>) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int s = 0; s < kColFrags; ++s) {
-        const int j = warp + kWarps * s;
-        if (16 * j < hp)
-          w::store_matrix_sync(ys + 16 * i * L.ldy + 16 * j, acc2[i][s], L.ldy,
-                               w::mem_row_major);
-      }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kFp32Cols; ++j)
-        if (32 * j < hp) ys[(warp + 8 * i) * L.ldy + lane + 32 * j] = acc2f[i][j];
-  }
+    for (int j = 0; j < kFp32Cols; ++j)
+      if (32 * j < hp) ys[(warp + 8 * i) * L.ldy + lane + 32 * j] = acc2f[i][j];
   __syncthreads();
 
   // ---- row epilogues: a warp per row
@@ -421,21 +339,6 @@ cudaError_t launch_rows_fp32(RowsArgs a, cudaStream_t stream) {
   a.vec_w1 = gmm_tiles::vec_ok<float>(a.w1, a.f);
   a.vec_w2 = gmm_tiles::vec_ok<float>(a.w2, a.h);
   return launch_rows<float, kMode>(a, stream);
-}
-
-// Fill the shared part of RowsArgs and dispatch on the dtype (0 = float32, 1 = bfloat16).
-template <int kMode>
-cudaError_t launch_rows_dtype(int dtype, RowsArgs a, cudaStream_t stream) {
-  if (dtype == 0) return launch_rows_fp32<kMode>(a, stream);
-  if (a.m < 0 || a.h <= 0 || a.f <= 0 || a.h > kMaxH) return cudaErrorInvalidValue;
-  if (a.m == 0) return cudaSuccess;
-  if (dtype == 1) {
-    a.vec_x = gmm_tiles::vec_ok<__nv_bfloat16>(a.x, a.h);
-    a.vec_w1 = gmm_tiles::vec_ok<__nv_bfloat16>(a.w1, a.f);
-    a.vec_w2 = gmm_tiles::vec_ok<__nv_bfloat16>(a.w2, a.h);
-    return launch_rows<__nv_bfloat16, kMode>(a, stream);
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace

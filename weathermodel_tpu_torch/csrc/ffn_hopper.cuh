@@ -1,5 +1,6 @@
-// The bfloat16 forward body of the fused FFN for Hopper (sm_90a): kernels B7 (fused_ffn.cu,
-// kModeFfn) and B6f (fused_ffn_ln.cu, kModeLn).
+// The bfloat16 body of the fused FFN for Hopper (sm_90a): kernels B7 (fused_ffn.cu, kModeFfn)
+// and B6f (fused_ffn_ln.cu, kModeLn). B6b's row work (fused_ffn_ln_bwd.cu) runs a backward
+// body on the same layout, rings and helpers: ffn_hopper_bwd.cuh.
 //
 // Replaces the TPU kernels `_kernel` in weathermodel_tpu/ops/pallas_ffn2.py (B7, via
 // `fused_ffn`) and `_ffn_fwd_kernel` in weathermodel_tpu/ops/pallas_ffn.py (B6f, via
@@ -8,8 +9,8 @@
 //   f = dropout2(h . W2 + b2)         fp32
 //   B7:  f rounded, and h written when asked for; a kept value times 1/(1 - p)
 //   B6f: out = LN(x + f), fp32 two-pass statistics, eps 1e-5, rounded; a kept value / (1 - p)
-// with the keep bits of ffn_common.cuh's `keep_bit`. The fp32 instantiations and B6b's
-// recompute pass stay on ffn_common.cuh's row kernel.
+// with the keep bits of ffn_common.cuh's `keep_bit`. The fp32 instantiations (and fp32 B6b's
+// recompute pass) stay on ffn_common.cuh's row kernel.
 //
 // What bounds it: 4 M H F operations, 558 GFLOP at the bench microbatch (M = 105,120,
 // H = 576, F = 2304), 0.564 ms at the 989 TFLOP/s bf16 peak, against 242 MB of x and the

@@ -19,7 +19,11 @@
 // query rows. q, k and v are a base pointer each with one row stride, so the wrapper
 // passes either three [B, T, H] tensors (stride H) or the column slices of a packed
 // [B, T, 3H] projection (stride 3H) without copying them. Shared memory at T = 365:
-// 3 x 365 x 21 + 16 x 365 floats = 115 KB at hd = 20, 185 KB at hd = 36.
+// 3 x 365 x 21 + 16 x 365 floats = 115 KB at hd = 20, 185 KB at hd = 36. Past the T whose
+// rows fit (457 at hd 36, 735 at hd 20), the block's q, k and v rows go to a device
+// workspace of the same layout (`kGlobal`, 3 t (hd + 1) floats a block) and only the score
+// rows stay in shared memory: the same code reads them through the caches, in the same
+// fmaf order. T up to wm::kMaxContext (1536).
 //
 // What bounds it on the card: scalar fp32 FMA and shared-memory loads (no tensor cores
 // yet), one 512-thread block per SM. Per weight: hd FMAs for the score, an exp, a hash
@@ -34,22 +38,31 @@
 
 namespace {
 
+// The block's dynamic shared memory: q, k, v rows and the score rows, or (kGlobal) the
+// score rows alone.
 template <int HD>
-size_t smem_bytes(int t) {
-  return (3ull * t * (HD + 1) + (size_t)wm::kWarps * t) * sizeof(float);
+size_t smem_bytes(int t, bool global) {
+  return ((global ? 0ull : 3ull * t * (HD + 1)) + (size_t)wm::kWarps * t) * sizeof(float);
 }
 
-template <typename T, int HD>
+// A block's device workspace in bytes: 0 where its rows fit in shared memory.
+template <int HD>
+size_t workspace_bytes(int t) {
+  return smem_bytes<HD>(t, false) <= wm::kSmemMax ? 0 : 3ull * t * (HD + 1) * sizeof(float);
+}
+
+template <typename T, int HD, bool kGlobal>
 __global__ void __launch_bounds__(wm::kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, int stride, T* __restrict__ out, int t, int h,
-                       int num_heads, float scale, wm::Dropout drop) {
+                       int num_heads, float scale, wm::Dropout drop, float* ws) {
   constexpr int S = HD + 1;
   extern __shared__ float smem[];
-  float* qs = smem;                  // [t][S], q * scale rounded
-  float* ks = qs + (size_t)t * S;    // [t][S]
-  float* vs = ks + (size_t)t * S;    // [t][S]
-  float* scores = vs + (size_t)t * S;  // kWarps score rows of t
+  // [t][S] each: q * scale rounded, k, v; then kWarps score rows of t
+  float* qs = kGlobal ? ws + (size_t)blockIdx.x * 3 * t * S : smem;
+  float* ks = qs + (size_t)t * S;
+  float* vs = ks + (size_t)t * S;
+  float* scores = kGlobal ? smem : vs + (size_t)t * S;
 
   const int head = blockIdx.x % num_heads;
   const int row_b = blockIdx.x / num_heads;
@@ -58,16 +71,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   wm::load_head<T, HD, false>(k + off, ks, t, stride, 0.f);
   wm::load_head<T, HD, false>(v + off, vs, t, stride, 0.f);
   __syncthreads();
-  wm::attend_rows<T, HD, true>(qs, ks, vs, scores, out + (size_t)row_b * t * h + head * HD,
-                               t, h, scale, drop, blockIdx.x);
+  wm::attend_rows<T, HD>(qs, ks, vs, scores, out + (size_t)row_b * t * h + head * HD, t, h,
+                         drop, blockIdx.x);
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, int stride, void* o,
-                   int batch, int t, int h, int num_heads, wm::Dropout drop,
-                   cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, HD>;
-  const size_t smem = smem_bytes<HD>(t);
+template <typename T, int HD, bool kGlobal>
+cudaError_t launch_body(const void* q, const void* k, const void* v, int stride, void* o,
+                        int batch, int t, int h, int num_heads, wm::Dropout drop, void* ws,
+                        cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<T, HD, kGlobal>;
+  const size_t smem = smem_bytes<HD>(t, kGlobal);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -75,19 +88,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, int stride, void
   const float scale = (float)(1.0 / sqrt((double)HD));
   kernel<<<(unsigned)batch * num_heads, wm::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), stride,
-      static_cast<T*>(o), t, h, num_heads, scale, drop);
+      static_cast<T*>(o), t, h, num_heads, scale, drop, static_cast<float*>(ws));
   return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, int stride, void* o,
+                   int batch, int t, int h, int num_heads, wm::Dropout drop, void* ws,
+                   cudaStream_t stream) {
+  if (workspace_bytes<HD>(t) == 0)
+    return launch_body<T, HD, false>(q, k, v, stride, o, batch, t, h, num_heads, drop, ws,
+                                     stream);
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  return launch_body<T, HD, true>(q, k, v, stride, o, batch, t, h, num_heads, drop, ws,
+                                  stream);
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, int stride,
                               void* o, int batch, int t, int h, int num_heads,
-                              wm::Dropout drop, cudaStream_t s) {
+                              wm::Dropout drop, void* ws, cudaStream_t s) {
   switch (h / num_heads) {
-    case 12: return launch<T, 12>(q, k, v, stride, o, batch, t, h, num_heads, drop, s);
-    case 20: return launch<T, 20>(q, k, v, stride, o, batch, t, h, num_heads, drop, s);
-    case 28: return launch<T, 28>(q, k, v, stride, o, batch, t, h, num_heads, drop, s);
-    case 36: return launch<T, 36>(q, k, v, stride, o, batch, t, h, num_heads, drop, s);
+    case 12: return launch<T, 12>(q, k, v, stride, o, batch, t, h, num_heads, drop, ws, s);
+    case 20: return launch<T, 20>(q, k, v, stride, o, batch, t, h, num_heads, drop, ws, s);
+    case 28: return launch<T, 28>(q, k, v, stride, o, batch, t, h, num_heads, drop, ws, s);
+    case 36: return launch<T, 36>(q, k, v, stride, o, batch, t, h, num_heads, drop, ws, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -98,22 +123,39 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v: [batch, t, h] each with rows `stride`
 // elements apart (stride >= h, unit column stride), o [batch, t, h] contiguous, all on the
-// current device. Dropout on the attention weights when dropout_on != 0 (threshold,
-// keep_prob and seed as in attention_common.cuh). Returns a cudaError_t (0 on success).
+// current device; ws: wm_flash_attention_workspace(head_dim, t) bytes for each of the
+// batch x num_heads blocks (null where that is 0). Dropout on the attention weights when
+// dropout_on != 0 (threshold, keep_prob and seed as in attention_common.cuh). T up to
+// wm::kMaxContext. Returns a cudaError_t (0 on success).
 int wm_flash_attention(int dtype, const void* q, const void* k, const void* v, int stride,
-                       void* o, int batch, int t, int h, int num_heads, int dropout_on,
-                       unsigned int seed, unsigned int threshold, float keep_prob,
-                       void* stream) {
-  if (batch <= 0 || t <= 0 || num_heads <= 0 || h % num_heads != 0 || stride < h)
+                       void* o, void* ws, int batch, int t, int h, int num_heads,
+                       int dropout_on, unsigned int seed, unsigned int threshold,
+                       float keep_prob, void* stream) {
+  if (batch <= 0 || t <= 0 || t > wm::kMaxContext || num_heads <= 0 || h % num_heads != 0 ||
+      stride < h)
     return cudaErrorInvalidValue;
   wm::Dropout drop{dropout_on, seed, threshold, keep_prob, 0.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_head_dim<float>(q, k, v, stride, o, batch, t, h, num_heads, drop, s);
+    return dispatch_head_dim<float>(q, k, v, stride, o, batch, t, h, num_heads, drop, ws, s);
   if (dtype == 1)
     return dispatch_head_dim<__nv_bfloat16>(q, k, v, stride, o, batch, t, h, num_heads, drop,
-                                            s);
+                                            ws, s);
   return cudaErrorInvalidValue;
+}
+
+// The device workspace kernel B3f needs for each (batch row, head) block at (head_dim, t),
+// in bytes (the same in both dtypes: its rows are fp32); 0 where the rows fit in shared
+// memory, -1 where the kernel does not take (head_dim, t).
+long long wm_flash_attention_workspace(int head_dim, int t) {
+  if (t <= 0 || t > wm::kMaxContext) return -1;
+  switch (head_dim) {
+    case 12: return (long long)workspace_bytes<12>(t);
+    case 20: return (long long)workspace_bytes<20>(t);
+    case 28: return (long long)workspace_bytes<28>(t);
+    case 36: return (long long)workspace_bytes<36>(t);
+    default: return -1;
+  }
 }
 
 }  // extern "C"

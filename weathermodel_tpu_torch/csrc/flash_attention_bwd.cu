@@ -18,17 +18,24 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v [batch, t, h] with rows `stride` elements
 // apart (unit column stride); dout, dq, dk, dv [batch, t, h] contiguous (dq, dk, dv
-// written); stats [batch, num_heads, 3, t] fp32 scratch; all on the current device.
-// Dropout as in attention_common.cuh, with the forward's seed. Returns a cudaError_t
-// (0 on success).
+// written); stats [batch, num_heads, 3, t] fp32 scratch; ws wm_attention_bwd_workspace(
+// head_dim, t) bytes for each of the batch x num_heads blocks (null where that is 0); all on
+// the current device. Dropout as in attention_common.cuh, with the forward's seed. T up to
+// wm::kMaxContext. Returns a cudaError_t (0 on success).
 int wm_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                            int stride, const void* dout, void* dq, void* dk, void* dv,
-                           void* stats, int batch, int t, int h, int num_heads,
+                           void* stats, void* ws, int batch, int t, int h, int num_heads,
                            int dropout_on, unsigned int seed, unsigned int threshold,
                            float inv_keep, void* stream) {
   wm::Dropout drop{dropout_on, seed, threshold, 0.f, inv_keep};
-  return attention_bwd_entry(dtype, q, k, v, stride, dout, dq, dk, dv, h, stats, batch, t,
-                             h, num_heads, drop, stream);
+  return attention_bwd_entry(dtype, q, k, v, stride, dout, dq, dk, dv, h, stats, ws, batch,
+                             t, h, num_heads, drop, stream);
+}
+
+// The device workspace B2 and B3b need for each (batch row, head) block at (head_dim, t),
+// in bytes: 0 where their rows fit in shared memory, -1 where they do not take it.
+long long wm_attention_bwd_workspace(int head_dim, int t) {
+  return attention_bwd_workspace(head_dim, t);
 }
 
 }  // extern "C"

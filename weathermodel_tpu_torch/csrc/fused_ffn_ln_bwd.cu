@@ -10,31 +10,35 @@
 // The TPU kernel walks the batch items in order and accumulates the parameter gradients in
 // constant-index output blocks. Blocks on the card run in parallel, so the work is split
 // into passes on one stream (one launch of the wrapper):
-//   1. ffn_common.cuh's row kernel in its backward mode: recompute h and f, write the
-//      hidden hd [M, F], run the LayerNorm backward on whole rows: dy (fp32), df =
-//      dropout2(dy) rounded, and per-block column sums of do * xhat and do;
-//   2. sum those per-block rows in order: dln_scale, dln_bias;
-//   3. dz = mask1 . (df . W2^T), rounded (mask1 = kept and relu' > 0, read as hd != 0 and
-//      scaled by 1/(1-p) where dropout is on);
-//   4. dx = dz . W1^T + dy, rounded;
+//   1. the row work, one block per row block: recompute h and f, write the hidden hd
+//      [M, F], run the LayerNorm backward on whole rows (dy, df = dropout2(dy) rounded, and
+//      per-block column sums of do * xhat and do), then dz = mask1 . (df . W2^T), rounded
+//      (mask1 = kept and relu' > 0, scaled by 1/(1-p) where dropout is on), and
+//      dx = dz . W1^T + dy, rounded.
+//      bfloat16: ffn_hopper_bwd.cuh's wgmma/TMA body does all of it in one kernel (dy stays
+//      in its accumulators: the dx product starts from it), 64-row blocks.
+//      float32: ffn_common.cuh's row kernel in its backward mode (32-row blocks, dy to
+//      device memory), then products 3. dz and 4. dx on gmm_common.cuh's tiles (FMA), which
+//      read W1 and W2 in place, transposed by the staging; dz's mask is hd != 0;
+//   2. sum the per-block column sums in order: dln_scale, dln_bias;
 //   5. dW2 = hd^T . df and db2 = sum over rows of df, 6. dW1 = x^T . dz and db1 = sum of dz:
 //      one block per (128 x 128 output tile, slice of the rows), fp32 partials, then a pass
 //      that sums the slices in order and rounds. The bias gradient is the product's extra
 //      row against a row of ones staged beside the activations, so it comes out of the same
 //      tensor-core sums.
 // Nothing uses atomics: every sum runs in a fixed order, so the result does not depend on
-// scheduling. Products 3-6 use gmm_common.cuh's 128 x 128 tiles (WMMA in bf16, FMA in fp32)
-// and read W1 and W2 in place, transposed by the staging (no transposed copy). db1 and db2
-// sum dz and df after their rounding to x's dtype (the TPU sums them before it); in fp32
-// the two are the same.
+// scheduling. Products 5 and 6 use gmm_common.cuh's 128 x 128 tiles (WMMA in bf16, FMA in
+// fp32). db1 and db2 sum dz and df after their rounding to x's dtype (the TPU sums them
+// before it); in fp32 the two are the same.
 //
 // What bounds it on the card: 12 M H F operations (1674 GFLOP at the bench microbatch,
 // M = 105,120, H = 576, F = 2304: 1.69 ms at the bf16 peak) against 485 MB of x, do and dx
-// in bf16: operations. The passes also move hd, dz (484 MB each in bf16), df and dy (fp32)
-// through device memory, about 0.8 ms at the memory rate at those shapes. Later work: keep
-// more of that on chip, wgmma/TMA products.
+// in bf16: operations. The passes also move hd, dz (484 MB each in bf16) and df through
+// device memory (and in fp32 dy), about 0.6 ms at the memory rate at those shapes. Later
+// work: the weight-gradient tiles on wgmma/TMA (they now take most of the time).
 
 #include "ffn_common.cuh"
+#include "ffn_hopper_bwd.cuh"
 
 namespace {
 
@@ -156,7 +160,7 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ part, T* __restric
     db[i - (long long)k * n] = s;
 }
 
-// dln_scale, dln_bias: the row kernel's per-block column sums [blocks, 2, h], summed in order.
+// dln_scale, dln_bias: the row work's per-block column sums [blocks, 2, h], summed in order.
 __global__ void ln_reduce_kernel(const float* __restrict__ part, float* __restrict__ dls,
                                  float* __restrict__ dlb, int h, int blocks) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -194,8 +198,42 @@ struct BwdArgs {
   int splits1, splits2;
 };
 
+// Passes 5 and 6: the weight and bias gradients from hd, df and dz.
 template <typename T>
-cudaError_t backward(int dtype, const BwdArgs& p, cudaStream_t st) {
+cudaError_t weight_grads(const BwdArgs& p, cudaStream_t st) {
+  float* part = static_cast<float*>(p.w_part);
+  cudaError_t err = wgrad<T>(static_cast<const T*>(p.hd), static_cast<const T*>(p.df), part,
+                             static_cast<T*>(p.dw2), static_cast<float*>(p.db2), p.m, p.f, p.h,
+                             p.splits2, st);
+  if (err != cudaSuccess) return err;
+  return wgrad<T>(static_cast<const T*>(p.x), static_cast<const T*>(p.dz), part,
+                  static_cast<T*>(p.dw1), static_cast<float*>(p.db1), p.m, p.h, p.f, p.splits1,
+                  st);
+}
+
+cudaError_t ln_reduce(const BwdArgs& p, int blocks, cudaStream_t st) {
+  ln_reduce_kernel<<<(2 * p.h + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(p.ln_part), static_cast<float*>(p.dls),
+      static_cast<float*>(p.dlb), p.h, blocks);
+  return cudaGetLastError();
+}
+
+// bfloat16: the row work on ffn_hopper_bwd.cuh's body, then passes 2, 5 and 6
+cudaError_t backward_bf16(const BwdArgs& p, cudaStream_t st) {
+  cudaError_t err = ffn_hopper::launch_bwd(
+      p.x, p.w1, static_cast<const float*>(p.b1), p.w2, static_cast<const float*>(p.b2),
+      static_cast<const float*>(p.ls), p.dout, p.hd, p.dz, p.df, p.dx,
+      static_cast<float*>(p.ln_part), p.m, p.h, p.f, p.on, p.seed1, p.seed2, p.threshold,
+      p.inv_keep, st);
+  if (err != cudaSuccess) return err;
+  err = ln_reduce(p, (p.m + ffn_hopper::kRows - 1) / ffn_hopper::kRows, st);
+  if (err != cudaSuccess) return err;
+  return weight_grads<__nv_bfloat16>(p, st);
+}
+
+// float32: the row kernel's pass 1, then passes 2 to 6
+cudaError_t backward_fp32(const BwdArgs& p, cudaStream_t st) {
+  using T = float;
   ffn::RowsArgs a = {};
   a.x = p.x;
   a.w1 = p.w1;
@@ -216,21 +254,16 @@ cudaError_t backward(int dtype, const BwdArgs& p, cudaStream_t st) {
   a.seed2 = p.seed2;
   a.threshold = p.threshold;
   a.scale = p.inv_keep;
-  cudaError_t err = ffn::launch_rows_dtype<ffn::kModeBwd>(dtype, a, st);
+  cudaError_t err = ffn::launch_rows_fp32<ffn::kModeBwd>(a, st);
   if (err != cudaSuccess) return err;
-  const int blocks = (p.m + ffn::kRows - 1) / ffn::kRows;
-  ln_reduce_kernel<<<(2 * p.h + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(p.ln_part), static_cast<float*>(p.dls),
-      static_cast<float*>(p.dlb), p.h, blocks);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = ln_reduce(p, (p.m + ffn::kRows - 1) / ffn::kRows, st);
+  if (err != cudaSuccess) return err;
 
-  const T* x = static_cast<const T*>(p.x);
   const T* w1 = static_cast<const T*>(p.w1);
   const T* w2 = static_cast<const T*>(p.w2);
   const T* hd = static_cast<const T*>(p.hd);
   const T* df = static_cast<const T*>(p.df);
   T* dz = static_cast<T*>(p.dz);
-  float* part = static_cast<float*>(p.w_part);
   // 3. dz = mask1 (df . W2^T): W2 [F, H] is the [N, K] operand
   err = gemm_nt<T>(df, w2, p.m, p.h, p.f,
                    DzEpilogue<T>{hd, dz, p.f, p.on ? p.inv_keep : 1.f}, st);
@@ -240,12 +273,7 @@ cudaError_t backward(int dtype, const BwdArgs& p, cudaStream_t st) {
                    DxEpilogue<T>{static_cast<const float*>(p.dy), static_cast<T*>(p.dx), p.h},
                    st);
   if (err != cudaSuccess) return err;
-  // 5. dW2 = hd^T . df, db2; 6. dW1 = x^T . dz, db1
-  err = wgrad<T>(hd, df, part, static_cast<T*>(p.dw2), static_cast<float*>(p.db2), p.m, p.f,
-                 p.h, p.splits2, st);
-  if (err != cudaSuccess) return err;
-  return wgrad<T>(x, dz, part, static_cast<T*>(p.dw1), static_cast<float*>(p.db1), p.m, p.h,
-                  p.f, p.splits1, st);
+  return weight_grads<T>(p, st);
 }
 
 }  // namespace
@@ -255,10 +283,11 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (x, w1, w2, dout, dx, dw1, dw2 and the scratch hd, df,
 // dz); b1, b2, ln_scale and the gradients db1, db2, dln_scale, dln_bias float32. x, dout, dx
 // [m, h]; w1, dw1 [h, f]; w2, dw2 [f, h]. Scratch: hd, dz [m, f]; df [m, h]; dy [m, h]
-// fp32; ln_part [ceil(m / 32), 2, h] fp32; w_part [max(splits1 (h + 1) f, splits2 (f + 1)
-// h)] fp32, splits1/splits2 the row slices of the dW1/dW2 products. Contiguous, on the
-// current device. Dropout as wm_fused_ffn_ln's, kept values times inv_keep. Returns a
-// cudaError_t (0 on success).
+// fp32 (float32 only: bfloat16 keeps dy on chip, and takes null); ln_part [ceil(m / 32), 2,
+// h] fp32; w_part [max(splits1 (h + 1) f, splits2 (f + 1) h)] fp32, splits1/splits2 the row
+// slices of the dW1/dW2 products. Contiguous, on the current device; in bfloat16 16-byte
+// aligned with h and f multiples of 8 and wm_ffn_bwd_wgmma_smem(h, f) > 0. Dropout as
+// wm_fused_ffn_ln's, kept values times inv_keep. Returns a cudaError_t (0 on success).
 int wm_fused_ffn_ln_bwd(int dtype, const void* x, const void* w1, const void* b1,
                         const void* w2, const void* b2, const void* ln_scale, const void* dout,
                         void* dx, void* dw1, void* db1, void* dw2, void* db2, void* dln_scale,
@@ -272,9 +301,13 @@ int wm_fused_ffn_ln_bwd(int dtype, const void* x, const void* w1, const void* b1
                      dln_bias, hd, df, dy, dz, ln_part, w_part, m, h, f, dropout_on, seed1,
                      seed2, threshold, inv_keep, splits1, splits2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return backward<float>(dtype, p, st);
-  if (dtype == 1) return backward<__nv_bfloat16>(dtype, p, st);
+  if (dtype == 0) return backward_fp32(p, st);
+  if (dtype == 1) return backward_bf16(p, st);
   return cudaErrorInvalidValue;
 }
+
+// The dynamic shared memory a block of the bfloat16 row body takes at (h, f), or 0 where it
+// does not take them.
+int wm_ffn_bwd_wgmma_smem(int h, int f) { return ffn_hopper::bwd_smem_bytes(h, f); }
 
 }  // extern "C"

@@ -9,19 +9,17 @@
 //
 // What it computes, for x [B, T, H], w [3H, H] (torch [out, in] layout), b [3H]:
 //   qkv = x . w^T + b          fp32 accumulation, rounded to the element type
-//   eval form:
-//     s = q . k^T / sqrt(hd)   per head, fp32
-//     p = softmax(s)           max-subtracted, fp32, then rounded to the element type
-//   training form (the TPU kernel's rounding order, pallas_attention.py:158-178):
-//     qs = q * scale           scale rounded to the element type, product rounded
+//   both forms, the TPU kernel's rounding order (`_fwd_body`, pallas_attention.py:151-197):
+//     qs = q * scale           scale = 1/sqrt(hd) from double, rounded to the element
+//                              type; the product rounded
 //     s  = qs . k^T            fp32
 //     e = exp(s - max), recip = 1 / sum(e)
-//     p  = keep ? e * (recip / (1 - rate)) : 0, rounded   (dropout on)
-//     p  = e * recip, rounded                              (dropout off)
-//     and the packed qkv [B, T, 3H] is written out in the element type: the backward's
-//     residual (weathermodel_tpu_torch/csrc/fused_qkv_attention_bwd.cu).
+//     p  = keep ? e * (recip / (1 - rate)) : 0, rounded   (training form, dropout on)
+//     p  = e * recip, rounded                              (eval form; dropout off)
 //   o = p . v                  fp32 accumulation, rounded to the element type
-// The eval form keeps qkv on chip, as on the TPU.
+// The training form also writes the packed qkv [B, T, 3H] in the element type: the
+// backward's residual (weathermodel_tpu_torch/csrc/fused_qkv_attention_bwd.cu). The eval
+// form keeps qkv on chip, as on the TPU.
 //
 // The kernel B5 (fused_qkv_attention_outproj.cu) runs this kernel as its first phase
 // through `wm::fused_qkv_attention_o`: the eval form, or with dropout the training form's
@@ -54,9 +52,11 @@
 // Head dims 12/20/28/36 are = 4 mod 8 and the per-head slice offset is not 16-byte
 // aligned, so every global access of the float32 body is a scalar load. T is
 // bounds-checked (no padding to 384 as on the TPU, hence no pad-column softmax correction
-// and no bias row mask): the float32 body takes T while its q, k, v and score rows fit in
-// shared memory (453 at hd 36), the bfloat16 body up to `attn_hopper::max_t` (512 at
-// hd 36).
+// and no bias row mask), up to wm::kMaxContext (1536) in both bodies: the float32 body keeps
+// q, k and v in shared memory while they fit beside the score rows (453 at hd 36), and past
+// that in a device workspace of the same layout (`kGlobal`, 3 t (hd + 1) floats a block),
+// with only the phase-1 staging and the score rows in shared memory; the bfloat16 body
+// streams K^T and V^T past the T they fit at (`attn_hopper::resident`: 512 at hd 36).
 
 #include <math.h>
 
@@ -88,36 +88,44 @@ struct Layout {
   static constexpr int kStage = (kRowTile + kCols) * (kChunk + 1);   // phase-1 floats
 };
 
+// The block's dynamic shared memory: q, k, v rows, then the phase-1 staging or the score
+// rows; with kGlobal (q, k, v in the workspace) the latter alone.
 template <int HD>
-size_t smem_bytes(int t) {
+size_t smem_bytes(int t, bool global) {
   using L = Layout<HD>;
-  size_t qkv = 3ull * t * L::kStride;
+  size_t qkv = global ? 0 : 3ull * t * L::kStride;
   size_t scratch = (size_t)kWarps * t;
   size_t shared = scratch > (size_t)L::kStage ? scratch : (size_t)L::kStage;
   return (qkv + shared) * sizeof(float);
 }
 
-// kTrain selects the training form (module comment); kEmitQkv (training form only)
-// writes the packed qkv. The eval instantiations compile exactly the eval form's code.
-template <typename T, int HD, bool kTrain, bool kEmitQkv>
+// A float32 block's device workspace in bytes: 0 where its rows fit in shared memory.
+template <int HD>
+size_t scalar_workspace_bytes(int t) {
+  return smem_bytes<HD>(t, false) <= wm::kSmemMax ? 0 : 3ull * t * Layout<HD>::kStride * 4;
+}
+
+// kTrain selects the training form (dropout; module comment), kEmitQkv (training form
+// only) writes the packed qkv, kGlobal keeps q, k and v in the workspace `work`.
+template <typename T, int HD, bool kTrain, bool kEmitQkv, bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
                            const T* __restrict__ bias, T* __restrict__ out,
                            T* __restrict__ qkv_out, int t, int h, int num_heads, float scale,
-                           Dropout drop) {
+                           Dropout drop, float* work) {
   using L = Layout<HD>;
   extern __shared__ float smem[];
-  float* qs = smem;                       // [t][HD + 1]
+  float* qs = kGlobal ? work + (size_t)blockIdx.x * 3 * t * L::kStride : smem;  // [t][HD + 1]
   float* ks = qs + (size_t)t * L::kStride;
   float* vs = ks + (size_t)t * L::kStride;
-  float* shared = vs + (size_t)t * L::kStride;  // phase-1 staging, then phase-2 scores
+  float* shared = kGlobal ? smem : vs + (size_t)t * L::kStride;  // staging, then scores
 
   const int head = blockIdx.x % num_heads;
   const int row_b = blockIdx.x / num_heads;
   const int tid = threadIdx.x;
   const T* xb = x + (size_t)row_b * t * h;
-  // training form: q is scaled by the scale rounded to the element type, as the TPU
-  // kernel's `q * scale` is in x.dtype
+  // q is scaled by the scale rounded to the element type, as the TPU kernel's
+  // `q * scale` is in x.dtype
   const float scale_t = round_to<T>(scale);
 
   // ---- phase 1: this head's q, k, v = x[b] . W_head^T + b_head -------------------
@@ -179,78 +187,94 @@ fused_qkv_attention_kernel(const T* __restrict__ x, const T* __restrict__ w,
         if constexpr (kEmitQkv)
           qkv_out[((size_t)row_b * t + r) * 3 * h + part * h + head * HD + dd] =
               from_float<T>(v);
-        if constexpr (kTrain) {
-          if (part == 0) v = round_to<T>(v * scale_t);
-        }
+        if (part == 0) v = round_to<T>(v * scale_t);
         dst[r * L::kStride + dd] = v;
       }
     }
   }
   __syncthreads();
 
-  // ---- phase 2: per query row, softmax(q . K^T * scale) . V (attention_fwd.cuh) ----
-  wm::attend_rows<T, HD, kTrain>(qs, ks, vs, shared, out + (size_t)row_b * t * h + head * HD,
-                                 t, h, scale, drop, blockIdx.x);
+  // ---- phase 2: per query row, softmax(qs . K^T) . V (attention_fwd.cuh) ----
+  wm::attend_rows<T, HD>(qs, ks, vs, shared, out + (size_t)row_b * t * h + head * HD, t, h,
+                         kTrain ? drop : Dropout{}, blockIdx.x);
+}
+
+template <typename T, int HD, bool kTrain, bool kEmitQkv, bool kGlobal>
+cudaError_t launch_scalar(const void* x, const void* w, const void* b, void* o, void* qkv,
+                          void* ws, int batch, int t, int h, int num_heads, float scale,
+                          Dropout drop, cudaStream_t stream) {
+  auto kernel = fused_qkv_attention_kernel<T, HD, kTrain, kEmitQkv, kGlobal>;
+  size_t smem = smem_bytes<HD>(t, kGlobal);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)batch * num_heads, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
+      static_cast<T*>(o), static_cast<T*>(qkv), t, h, num_heads, scale, drop,
+      static_cast<float*>(ws));
+  return cudaGetLastError();
 }
 
 // bfloat16 on attention_hopper.cuh's body, float32 on the scalar body above
 template <typename T, int HD, bool kTrain, bool kEmitQkv>
-cudaError_t launch(const void* x, const void* w, const void* b, void* o, void* qkv,
+cudaError_t launch(const void* x, const void* w, const void* b, void* o, void* qkv, void* ws,
                    int batch, int t, int h, int num_heads, Dropout drop,
                    cudaStream_t stream) {
-  // the training form takes 1/sqrt(hd) rounded once from double, as the JAX
-  // package's Python float is (the eval form keeps its fp32 quotient)
-  float scale = kTrain ? (float)(1.0 / sqrt((double)HD)) : 1.0f / sqrtf((float)HD);
+  // 1/sqrt(hd) rounded once from double, as the JAX package's Python float is
+  const float scale = (float)(1.0 / sqrt((double)HD));
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return attn_hopper::launch<HD, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads,
-                                                     scale, drop, stream);
+    return attn_hopper::launch<HD, kTrain, kEmitQkv>(x, w, b, o, qkv, ws, batch, t, h,
+                                                     num_heads, scale, drop, stream);
   } else {
-    auto kernel = fused_qkv_attention_kernel<T, HD, kTrain, kEmitQkv>;
-    size_t smem = smem_bytes<HD>(t);
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<(unsigned)batch * num_heads, kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-        static_cast<T*>(o), static_cast<T*>(qkv), t, h, num_heads, scale, drop);
-    return cudaGetLastError();
+    if (scalar_workspace_bytes<HD>(t) == 0)
+      return launch_scalar<T, HD, kTrain, kEmitQkv, false>(x, w, b, o, qkv, ws, batch, t, h,
+                                                           num_heads, scale, drop, stream);
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    return launch_scalar<T, HD, kTrain, kEmitQkv, true>(x, w, b, o, qkv, ws, batch, t, h,
+                                                        num_heads, scale, drop, stream);
   }
 }
 
 template <typename T, bool kTrain, bool kEmitQkv>
 cudaError_t dispatch_head_dim(const void* x, const void* w, const void* b, void* o,
-                              void* qkv, int batch, int t, int h, int num_heads,
+                              void* qkv, void* ws, int batch, int t, int h, int num_heads,
                               Dropout drop, cudaStream_t stream) {
   switch (h / num_heads) {
     case 12:
-      return launch<T, 12, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads, drop,
-                                            stream);
+      return launch<T, 12, kTrain, kEmitQkv>(x, w, b, o, qkv, ws, batch, t, h, num_heads,
+                                            drop, stream);
     case 20:
-      return launch<T, 20, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads, drop,
-                                            stream);
+      return launch<T, 20, kTrain, kEmitQkv>(x, w, b, o, qkv, ws, batch, t, h, num_heads,
+                                            drop, stream);
     case 28:
-      return launch<T, 28, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads, drop,
-                                            stream);
+      return launch<T, 28, kTrain, kEmitQkv>(x, w, b, o, qkv, ws, batch, t, h, num_heads,
+                                            drop, stream);
     case 36:
-      return launch<T, 36, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads, drop,
-                                            stream);
+      return launch<T, 36, kTrain, kEmitQkv>(x, w, b, o, qkv, ws, batch, t, h, num_heads,
+                                            drop, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <bool kTrain, bool kEmitQkv>
 int dispatch(int dtype, const void* x, const void* w, const void* b, void* o, void* qkv,
-             int batch, int t, int h, int num_heads, Dropout drop, void* stream) {
-  if (batch <= 0 || t <= 0 || num_heads <= 0 || h % num_heads != 0)
+             void* ws, int batch, int t, int h, int num_heads, Dropout drop, void* stream) {
+  if (batch <= 0 || t <= 0 || t > wm::kMaxContext || num_heads <= 0 || h % num_heads != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_head_dim<float, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h, num_heads,
-                                                      drop, s);
+    return dispatch_head_dim<float, kTrain, kEmitQkv>(x, w, b, o, qkv, ws, batch, t, h,
+                                                      num_heads, drop, s);
   if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16, kTrain, kEmitQkv>(x, w, b, o, qkv, batch, t, h,
-                                                              num_heads, drop, s);
+    return dispatch_head_dim<__nv_bfloat16, kTrain, kEmitQkv>(x, w, b, o, qkv, ws, batch, t,
+                                                              h, num_heads, drop, s);
   return cudaErrorInvalidValue;
+}
+
+template <int HD>
+long long workspace_at(int dtype, int t) {
+  return dtype == 1 ? attn_hopper::workspace_bytes<HD>(t)
+                    : (long long)scalar_workspace_bytes<HD>(t);
 }
 
 }  // namespace
@@ -258,10 +282,12 @@ int dispatch(int dtype, const void* x, const void* w, const void* b, void* o, vo
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. x [batch, t, h], w [3h, h], b [3h], o [batch, t, h],
-// all contiguous on the current device. Returns a cudaError_t (0 on success).
+// all contiguous on the current device; ws wm_fused_qkv_attention_workspace(dtype,
+// head_dim, t) bytes for each of the batch x num_heads blocks (null where that is 0). T up
+// to wm::kMaxContext. Returns a cudaError_t (0 on success).
 int wm_fused_qkv_attention(int dtype, const void* x, const void* w, const void* b, void* o,
-                           int batch, int t, int h, int num_heads, void* stream) {
-  return dispatch<false, false>(dtype, x, w, b, o, nullptr, batch, t, h, num_heads,
+                           void* ws, int batch, int t, int h, int num_heads, void* stream) {
+  return dispatch<false, false>(dtype, x, w, b, o, nullptr, ws, batch, t, h, num_heads,
                                 Dropout{}, stream);
 }
 
@@ -269,11 +295,26 @@ int wm_fused_qkv_attention(int dtype, const void* x, const void* w, const void* 
 // attention weights when dropout_on != 0 (threshold, keep_prob and seed as in
 // attention_common.cuh).
 int wm_fused_qkv_attention_train(int dtype, const void* x, const void* w, const void* b,
-                                 void* o, void* qkv, int batch, int t, int h,
+                                 void* o, void* qkv, void* ws, int batch, int t, int h,
                                  int num_heads, int dropout_on, unsigned int seed,
                                  unsigned int threshold, float keep_prob, void* stream) {
   Dropout drop{dropout_on, seed, threshold, keep_prob, 0.f};
-  return dispatch<true, true>(dtype, x, w, b, o, qkv, batch, t, h, num_heads, drop, stream);
+  return dispatch<true, true>(dtype, x, w, b, o, qkv, ws, batch, t, h, num_heads, drop,
+                              stream);
+}
+
+// The device workspace the forward kernels (both forms, and B5's first phase) need for
+// each (batch row, head) block at (dtype, head_dim, t), in bytes: 0 where the block keeps
+// its rows on chip, -1 where the kernels do not take (head_dim, t).
+long long wm_fused_qkv_attention_workspace(int dtype, int head_dim, int t) {
+  if (t <= 0 || t > wm::kMaxContext || (dtype != 0 && dtype != 1)) return -1;
+  switch (head_dim) {
+    case 12: return workspace_at<12>(dtype, t);
+    case 20: return workspace_at<20>(dtype, t);
+    case 28: return workspace_at<28>(dtype, t);
+    case 36: return workspace_at<36>(dtype, t);
+    default: return -1;
+  }
 }
 
 }  // extern "C"
@@ -281,14 +322,14 @@ int wm_fused_qkv_attention_train(int dtype, const void* x, const void* w, const 
 namespace wm {
 
 // B5's first phase: o [batch, t, h] as above with no qkv output, the eval form when
-// drop.on == 0, else the training form's rounding and dropout mask.
+// drop.on == 0, else the training form's rounding and dropout mask; ws as above.
 int fused_qkv_attention_o(int dtype, const void* x, const void* w, const void* b, void* o,
-                          int batch, int t, int h, int num_heads, Dropout drop,
+                          void* ws, int batch, int t, int h, int num_heads, Dropout drop,
                           void* stream) {
   if (drop.on)
-    return dispatch<true, false>(dtype, x, w, b, o, nullptr, batch, t, h, num_heads, drop,
+    return dispatch<true, false>(dtype, x, w, b, o, nullptr, ws, batch, t, h, num_heads, drop,
                                  stream);
-  return dispatch<false, false>(dtype, x, w, b, o, nullptr, batch, t, h, num_heads, drop,
+  return dispatch<false, false>(dtype, x, w, b, o, nullptr, ws, batch, t, h, num_heads, drop,
                                 stream);
 }
 
@@ -297,7 +338,7 @@ int fused_qkv_attention_o(int dtype, const void* x, const void* w, const void* b
 extern "C" {
 
 // The bfloat16 body's dynamic shared memory a block at (head_dim, t), in bytes, or 0 where
-// it does not take t (attn_hopper::max_t).
+// it does not take t (past wm::kMaxContext).
 int wm_qkv_attention_wgmma_smem(int head_dim, int t) {
   return attn_hopper::smem_bytes(head_dim, t);
 }

@@ -17,10 +17,12 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. qkv [batch, t, 3h] (the training forward's residual),
 // dout [batch, t, h], dqkv [batch, t, 3h] (written), stats [batch, num_heads, 3, t] fp32
-// scratch; all contiguous on the current device. Dropout as in attention_common.cuh, with
-// the forward's seed. Returns a cudaError_t (0 on success).
+// scratch, ws wm_attention_bwd_workspace(head_dim, t) bytes a (batch row, head) block (null
+// where that is 0); all contiguous on the current device. Dropout as in
+// attention_common.cuh, with the forward's seed. T up to wm::kMaxContext. Returns a
+// cudaError_t (0 on success).
 int wm_fused_qkv_attention_bwd(int dtype, const void* qkv, const void* dout, void* dqkv,
-                               void* stats, int batch, int t, int h, int num_heads,
+                               void* stats, void* ws, int batch, int t, int h, int num_heads,
                                int dropout_on, unsigned int seed, unsigned int threshold,
                                float inv_keep, void* stream) {
   const size_t col = (size_t)h * (dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16));
@@ -28,7 +30,7 @@ int wm_fused_qkv_attention_bwd(int dtype, const void* qkv, const void* dout, voi
   char* out = static_cast<char*>(dqkv);
   wm::Dropout drop{dropout_on, seed, threshold, 0.f, inv_keep};
   return attention_bwd_entry(dtype, in, in + col, in + 2 * col, 3 * h, dout, out, out + col,
-                             out + 2 * col, 3 * h, stats, batch, t, h, num_heads, drop,
+                             out + 2 * col, 3 * h, stats, ws, batch, t, h, num_heads, drop,
                              stream);
 }
 

@@ -34,9 +34,9 @@
 // batch row: each block keeps its head's o_j in shared memory and computes its column
 // slice of y from every head's o_j through distributed shared memory.
 //
-// T is bounds-checked (phase 1 takes T up to what its shared memory holds, at hd = 36
-// 453 in fp32 and 512 in bf16; no padding to 384 as on the TPU); head dims 12/20/28/36 as
-// B1.
+// T is bounds-checked (phase 1 takes T up to wm::kMaxContext, 1536, with B1's device
+// workspace past what its shared memory holds; no padding to 384 as on the TPU); head dims
+// 12/20/28/36 as B1.
 
 #include "attention_common.cuh"
 #include "gmm_common.cuh"
@@ -44,7 +44,7 @@
 namespace wm {
 // fused_qkv_attention.cu
 int fused_qkv_attention_o(int dtype, const void* x, const void* w, const void* b, void* o,
-                          int batch, int t, int h, int num_heads, Dropout drop,
+                          void* ws, int batch, int t, int h, int num_heads, Dropout drop,
                           void* stream);
 }  // namespace wm
 
@@ -101,17 +101,19 @@ cudaError_t launch_outproj(const void* o, const void* wo, const void* bo, void* 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. x [batch, t, h], w [3h, h], b [3h], wo [h, h], bo [h],
-// the workspace o [batch, t, h] and y [batch, t, h], all contiguous on the current device.
-// Dropout on the attention weights when dropout_on != 0 (threshold, keep_prob and seed as
-// in attention_common.cuh). Returns a cudaError_t (0 on success).
+// the workspace o [batch, t, h] and y [batch, t, h], all contiguous on the current device;
+// ws phase 1's workspace (wm_fused_qkv_attention_workspace bytes a (batch row, head) block,
+// null where that is 0). Dropout on the attention weights when dropout_on != 0 (threshold,
+// keep_prob and seed as in attention_common.cuh). Returns a cudaError_t (0 on success).
 int wm_fused_qkv_attention_outproj(int dtype, const void* x, const void* w, const void* b,
-                                   const void* wo, const void* bo, void* o, void* y,
+                                   const void* wo, const void* bo, void* o, void* y, void* ws,
                                    int batch, int t, int h, int num_heads, int dropout_on,
                                    unsigned int seed, unsigned int threshold,
                                    float keep_prob, void* stream) {
   if (batch <= 0 || t <= 0 || h <= 0) return cudaErrorInvalidValue;
   wm::Dropout drop{dropout_on, seed, threshold, keep_prob, 0.f};
-  int err = wm::fused_qkv_attention_o(dtype, x, w, b, o, batch, t, h, num_heads, drop, stream);
+  int err = wm::fused_qkv_attention_o(dtype, x, w, b, o, ws, batch, t, h, num_heads, drop,
+                                      stream);
   if (err != cudaSuccess) return err;
   const long long m = (long long)batch * t;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

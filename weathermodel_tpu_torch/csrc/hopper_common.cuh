@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma/TMA bodies: the bf16 FFN body
-// (ffn_hopper.cuh: kernels B7 and B6f) and the bf16 fused QKV attention body
+// (ffn_hopper.cuh: kernels B7, B6f and B6b's row work) and the bf16 fused QKV attention body
 // (attention_hopper.cuh: kernels B1 and B5's first phase).
-//   device: mbarriers, TMA loads and stores, the async-proxy fence, named barriers, wgmma's
-//           fence / commit / wait, shared-memory matrix descriptors, wgmma at the widths the
-//           bodies use (both operands from shared memory, or A from registers), the
-//           128-byte swizzle's address function and bf16 packing
+//   device: mbarriers, TMA loads (tensor and bulk) and stores, the async-proxy fences,
+//           named barriers, wgmma's fence / commit / wait, shared-memory matrix
+//           descriptors, wgmma at the widths the bodies use (both operands from shared
+//           memory, or A from registers), the 128-byte swizzle's address function and bf16
+//           packing
 //   host:   cuTensorMapEncodeTiled, found at run time, and the tensor maps built with it
 
 #pragma once
@@ -84,6 +85,16 @@ __device__ __forceinline__ void tma_load3d(uint32_t dst, const CUtensorMap* tm, 
       : "memory");
 }
 
+// TMA's bulk copy (no tensor map): `bytes` (a multiple of 16) from 16-byte aligned device
+// memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store(const CUtensorMap* tm, uint32_t src, int c0, int c1) {
   asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
                    reinterpret_cast<uint64_t>(tm)),
@@ -108,6 +119,11 @@ __device__ __forceinline__ void tma_store_wait_read() {
 // make this thread's generic-proxy shared-memory writes visible to wgmma and TMA
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// make this thread's generic-proxy writes, device memory included, visible to TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;" ::: "memory");
 }
 
 __device__ __forceinline__ void named_sync(int id, int threads) {

@@ -75,33 +75,44 @@ def _declare(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     u = ctypes.c_uint
     f = ctypes.c_float
-    lib.wm_fused_qkv_attention.argtypes = [i, p, p, p, p, i, i, i, i, p]
+    ll = ctypes.c_longlong
+    # dtype, x, w, b, o, workspace, batch, t, h, heads, stream
+    lib.wm_fused_qkv_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
     lib.wm_fused_qkv_attention.restype = i
-    # dtype, x, w, b, o, qkv, batch, t, h, heads, dropout_on, seed, threshold,
-    # keep_prob, stream
-    lib.wm_fused_qkv_attention_train.argtypes = [i, p, p, p, p, p, i, i, i, i,
-                                                 i, u, u, f, p]
-    lib.wm_fused_qkv_attention_train.restype = i
-    # dtype, qkv, do, dqkv, stats, batch, t, h, heads, dropout_on, seed,
-    # threshold, inv_keep, stream
-    lib.wm_fused_qkv_attention_bwd.argtypes = [i, p, p, p, p, i, i, i, i, i, u,
-                                               u, f, p]
-    lib.wm_fused_qkv_attention_bwd.restype = i
-    # dtype, x, w, b, wo, bo, o (workspace), y, batch, t, h, heads,
-    # dropout_on, seed, threshold, keep_prob, stream
-    lib.wm_fused_qkv_attention_outproj.argtypes = [i, p, p, p, p, p, p, p, i,
-                                                   i, i, i, i, u, u, f, p]
-    lib.wm_fused_qkv_attention_outproj.restype = i
-    # dtype, q, k, v, row stride, o, batch, t, h, heads, dropout_on, seed,
+    # dtype, x, w, b, o, qkv, workspace, batch, t, h, heads, dropout_on, seed,
     # threshold, keep_prob, stream
-    lib.wm_flash_attention.argtypes = [i, p, p, p, i, p, i, i, i, i, i, u, u,
-                                       f, p]
+    lib.wm_fused_qkv_attention_train.argtypes = [i, p, p, p, p, p, p, i, i, i,
+                                                 i, i, u, u, f, p]
+    lib.wm_fused_qkv_attention_train.restype = i
+    # dtype, qkv, do, dqkv, stats, workspace, batch, t, h, heads, dropout_on,
+    # seed, threshold, inv_keep, stream
+    lib.wm_fused_qkv_attention_bwd.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
+                                               u, u, f, p]
+    lib.wm_fused_qkv_attention_bwd.restype = i
+    # dtype, x, w, b, wo, bo, o (phase 1's output), y, workspace, batch, t, h,
+    # heads, dropout_on, seed, threshold, keep_prob, stream
+    lib.wm_fused_qkv_attention_outproj.argtypes = [i, p, p, p, p, p, p, p, p,
+                                                   i, i, i, i, i, u, u, f, p]
+    lib.wm_fused_qkv_attention_outproj.restype = i
+    # dtype, q, k, v, row stride, o, workspace, batch, t, h, heads, dropout_on,
+    # seed, threshold, keep_prob, stream
+    lib.wm_flash_attention.argtypes = [i, p, p, p, i, p, p, i, i, i, i, i, u,
+                                       u, f, p]
     lib.wm_flash_attention.restype = i
-    # dtype, q, k, v, row stride, do, dq, dk, dv, stats, batch, t, h, heads,
-    # dropout_on, seed, threshold, inv_keep, stream
-    lib.wm_flash_attention_bwd.argtypes = [i, p, p, p, i, p, p, p, p, p, i, i,
-                                           i, i, i, u, u, f, p]
+    # dtype, q, k, v, row stride, do, dq, dk, dv, stats, workspace, batch, t,
+    # h, heads, dropout_on, seed, threshold, inv_keep, stream
+    lib.wm_flash_attention_bwd.argtypes = [i, p, p, p, i, p, p, p, p, p, p, i,
+                                           i, i, i, i, u, u, f, p]
     lib.wm_flash_attention_bwd.restype = i
+    # (dtype,) head dim, t -> the attention kernels' device workspace per
+    # (batch row, head) block in bytes: 0 where the block keeps its rows on
+    # chip, -1 where the kernels do not take t
+    lib.wm_fused_qkv_attention_workspace.argtypes = [i, i, i]
+    lib.wm_fused_qkv_attention_workspace.restype = ll
+    lib.wm_flash_attention_workspace.argtypes = [i, i]
+    lib.wm_flash_attention_workspace.restype = ll
+    lib.wm_attention_bwd_workspace.argtypes = [i, i]
+    lib.wm_attention_bwd_workspace.restype = ll
     # dtype, lhs, rhs, offsets, out, s, k, n, e, trans_rhs, stream
     lib.wm_gmm.argtypes = [i, p, p, p, p, i, i, i, i, i, p]
     lib.wm_gmm.restype = i
@@ -131,6 +142,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wm_fused_ffn_ln_bwd.argtypes = [i, *[p] * 20, i, i, i, i, u, u, u, f,
                                         i, i, p]
     lib.wm_fused_ffn_ln_bwd.restype = i
+    # (h, f) -> bf16 B6b's row body's dynamic shared memory per block in
+    # bytes, 0 where it does not take them
+    lib.wm_ffn_bwd_wgmma_smem.argtypes = [i, i]
+    lib.wm_ffn_bwd_wgmma_smem.restype = i
     # out, m, c, seed, threshold, stream (B9b: bool [m, c]; B9p: int32
     # [m / 32, c])
     lib.wm_bool_keep_mask.argtypes = [p, i, i, u, u, p]
@@ -248,3 +263,20 @@ def on_cuda(name, head_dim, *tensors) -> bool:
 
 def cuda_stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def workspace(per_block: int, blocks: int, device):
+    """A kernel's device workspace: `blocks` blocks of the bytes its library
+    query returned for one block, or None (a null pointer) where that is 0.
+    Allocated with torch.empty on the caller's stream, as every scratch."""
+    if per_block < 0:
+        raise ValueError("the kernels do not take this shape (workspace "
+                         "query returned -1)")
+    if per_block == 0:
+        return None
+    return torch.empty(per_block * blocks, dtype=torch.uint8, device=device)
+
+
+def data_ptr(a):
+    """a.data_ptr(), or None (a null pointer) for None."""
+    return None if a is None else a.data_ptr()

@@ -21,11 +21,23 @@ version draw the same mask and the backward regenerates the forward's.
 import torch
 
 ATTENTION_IMPLS = ("fused_qkv", "fused_qkv_op", "flash", "torch")
+# The longest T every attention kernel takes (B1 in both forms, B2, B3f,
+# B3b, B5), at every head dim and in both dtypes: csrc/attention_common.cuh's
+# kMaxContext. The plain versions take any T.
+MAX_CONTEXT = 1536
 
 M32 = 0xFFFFFFFF
 # keep-mask elements per chunk of batch rows: bounds the int64 temporaries
 # (2^24 elements = 128 MiB each)
 MASK_CHUNK = 1 << 24
+
+
+def check_context(name: str, t: int) -> None:
+    """The attention kernels' limit on T, which every wrapper applies to
+    CUDA tensors before any launch."""
+    if t > MAX_CONTEXT:
+        raise ValueError(f"{name}: the attention kernels take T up to "
+                         f"{MAX_CONTEXT}, got T={t}")
 
 
 def dropout_params(rate: float):

@@ -20,6 +20,9 @@ plain PyTorch version (`*_reference`) on CPU tensors; the plain version is
 also what the kernel is checked against on the card. The kernels take q, k
 and v as three pointers with one row stride, so the column slices of a
 packed [B, T, 3H] projection (`chunk(3, dim=-1)`) go in without a copy.
+They take T up to `ops.attention.MAX_CONTEXT` (1536; a ValueError past it,
+before any launch), keeping a block's rows in a device workspace that the
+wrapper allocates where they do not fit in its shared memory.
 
 The plain versions below are shared with the fused QKV attention
 (ops/fused_qkv_attention.py), whose training form and backward run the same
@@ -34,8 +37,10 @@ import torch
 from weathermodel_tpu_torch.kernels import build
 from weathermodel_tpu_torch.ops.attention import (
     attention_keep_mask,
+    check_context,
     dropout_params,
 )
+
 
 def _heads(a, num_heads):
     """[B, T, nh * hd] -> fp32 [B, nh, T, hd]."""
@@ -121,15 +126,19 @@ def flash_attention_fwd(q, k, v, num_heads: int, dropout_rate: float,
         return flash_attention_fwd_reference(q, k, v, num_heads, dropout_rate,
                                              seed)
     stride = _row_stride("flash_attention_fwd", q, k, v)
+    check_context("flash_attention_fwd", q.shape[1])
     on, threshold, keep_prob, _ = dropout_params(dropout_rate)
     bsz, t, h = q.shape
     lib = build.load_library().lib
     out = q.new_empty(bsz, t, h)
+    ws = build.workspace(lib.wm_flash_attention_workspace(h // num_heads, t),
+                         bsz * num_heads, q.device)
     with torch.cuda.device(q.device):
         err = lib.wm_flash_attention(
             build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), stride, out.data_ptr(), bsz, t, h, num_heads, on,
-            seed, threshold, keep_prob, build.cuda_stream(q.device))
+            v.data_ptr(), stride, out.data_ptr(), build.data_ptr(ws), bsz, t,
+            h, num_heads, on, seed, threshold, keep_prob,
+            build.cuda_stream(q.device))
     build.check(err)
     flash_attention_fwd.launches += 1
     return out
@@ -182,19 +191,22 @@ def flash_attention_bwd(q, k, v, do, num_heads: int, dropout_rate: float,
     stride = _row_stride("flash_attention_bwd", q, k, v)
     if not do.is_contiguous():
         raise ValueError("flash_attention_bwd needs a contiguous do")
+    check_context("flash_attention_bwd", q.shape[1])
     on, threshold, _, inv_keep = dropout_params(dropout_rate)
     bsz, t, h = q.shape
     lib = build.load_library().lib
     dq, dk, dv = (torch.empty_like(do) for _ in range(3))
     stats = torch.empty(bsz, num_heads, 3, t, dtype=torch.float32,
                         device=q.device)
+    ws = build.workspace(lib.wm_attention_bwd_workspace(h // num_heads, t),
+                         bsz * num_heads, q.device)
     with torch.cuda.device(q.device):
         err = lib.wm_flash_attention_bwd(
             build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), stride, do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), bsz, t, h,
-            num_heads, on, seed, threshold, inv_keep,
-            build.cuda_stream(q.device))
+            dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            build.data_ptr(ws), bsz, t, h, num_heads, on, seed, threshold,
+            inv_keep, build.cuda_stream(q.device))
     build.check(err)
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -29,11 +29,14 @@ hand-written Hopper kernel on CUDA tensors (counting the launch in its
 `launches` attribute) or raises, and runs its plain PyTorch version
 (`*_reference`) on CPU tensors; the plain version is also what the kernel is
 checked against on the card. Nothing is padded: the kernels bound-check the
-rows and both widths (H at most 640). In bf16 the forward runs the wgmma/TMA
-body (`csrc/ffn_hopper.cuh`), which needs H and F multiples of 8 and 16-byte
-aligned x and weights (`check_wgmma_layout` raises otherwise) and reads the
-fp32 vectors in pairs (`fp32_vectors` copies one at an odd offset); float32
-and B6b run the row kernel of `csrc/ffn_common.cuh`.
+rows and both widths (H at most 640). In bf16 both kernels run wgmma/TMA
+bodies (the forward `csrc/ffn_hopper.cuh`, B6b's row work
+`csrc/ffn_hopper_bwd.cuh`, B6b's weight gradients `csrc/gmm_common.cuh`'s
+tiles), which need H and F multiples of 8 and 16-byte aligned x, weights (and
+do) (`check_wgmma_layout` raises otherwise; B6b's body also F up to 2560,
+its mask bits' shared memory) and read the fp32 vectors in pairs
+(`fp32_vectors` copies one at an odd offset); float32 runs the row kernel
+of `csrc/ffn_common.cuh`.
 """
 
 import math
@@ -90,19 +93,20 @@ def ffn_on_cuda(name, x, w1, w2, *vectors) -> bool:
     return True
 
 
-def check_wgmma_layout(name, x, w1, w2):
-    """The bf16 forward body's (csrc/ffn_hopper.cuh) rule on top of
-    `ffn_on_cuda`'s: H and F multiples of 8 and x, W1 and W2 16-byte
-    aligned, as TMA's 16-byte strides and addresses need. The fp32 body and
-    B6b take any width."""
+def check_wgmma_layout(name, x, w1, w2, *more):
+    """The bf16 bodies' (csrc/ffn_hopper.cuh, csrc/ffn_hopper_bwd.cuh) rule
+    on top of `ffn_on_cuda`'s: H and F multiples of 8 and x, W1 and W2 (and
+    `more`, B6b's do) 16-byte aligned, as TMA's 16-byte strides and
+    addresses need. The fp32 body takes any width."""
     if x.dtype != torch.bfloat16:
         return
     h, f = w1.shape
     if h % 8 or f % 8:
         raise ValueError(f"{name}: bf16 needs H and F multiples of 8 (TMA's "
                          f"16-byte row strides), got H={h}, F={f}")
-    if any(a.data_ptr() % 16 for a in (x, w1, w2)):
-        raise ValueError(f"{name}: bf16 needs x, w1 and w2 16-byte aligned")
+    if any(a.data_ptr() % 16 for a in (x, w1, w2, *more)):
+        raise ValueError(f"{name}: bf16 needs x, w1 and w2 (and B6b's do) "
+                         f"16-byte aligned")
 
 
 def fp32_vectors(*vectors):
@@ -251,6 +255,12 @@ def fused_ffn_ln_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
                                           ln_bias, do, dropout_rate, seeds)
     if do.dtype != x.dtype or not do.is_contiguous():
         raise ValueError("fused_ffn_ln_bwd needs a contiguous do of x's dtype")
+    check_wgmma_layout("fused_ffn_ln_bwd", x, w1, w2, do)
+    lib = build.load_library().lib
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and lib.wm_ffn_bwd_wgmma_smem(h, f) == 0:
+        raise ValueError(f"fused_ffn_ln_bwd: bf16 takes F up to 2560 (its "
+                         f"row body's shared memory), got F={f}")
     on, threshold, _, inv = dropout_params(dropout_rate)
     b1, b2, ln_scale = fp32_vectors(b1, b2, ln_scale)
     m = x.numel() // h
@@ -260,20 +270,20 @@ def fused_ffn_ln_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
     db1, db2 = torch.empty(f, **fp32), torch.empty(h, **fp32)
     dls, dlb = torch.empty(h, **fp32), torch.empty(h, **fp32)
     hd, dz = x.new_empty(m, f), x.new_empty(m, f)
-    df, dy = x.new_empty(m, h), torch.empty(m, h, **fp32)
+    # dy goes through device memory in fp32 only (bf16 keeps it on chip)
+    df, dy = x.new_empty(m, h), None if bf16 else torch.empty(m, h, **fp32)
     ln_part = torch.empty(math.ceil(m / 32), 2, h, **fp32)
     splits1 = _wgrad_splits(m, h, f, x.device)
     splits2 = _wgrad_splits(m, f, h, x.device)
     w_part = torch.empty(max(splits1 * (h + 1) * f, splits2 * (f + 1) * h),
                          **fp32)
-    lib = build.load_library().lib
     with torch.cuda.device(x.device):
         err = lib.wm_fused_ffn_ln_bwd(
             build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln_scale.data_ptr(),
             do.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
             dw2.data_ptr(), db2.data_ptr(), dls.data_ptr(), dlb.data_ptr(),
-            hd.data_ptr(), df.data_ptr(), dy.data_ptr(), dz.data_ptr(),
+            hd.data_ptr(), df.data_ptr(), build.data_ptr(dy), dz.data_ptr(),
             ln_part.data_ptr(), w_part.data_ptr(), m, h, f, on, seeds[0],
             seeds[1], threshold, inv, splits1, splits2,
             build.cuda_stream(x.device))

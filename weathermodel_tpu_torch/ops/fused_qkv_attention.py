@@ -7,16 +7,17 @@ plain PyTorch version beside it on a CPU tensor; the plain version is also
 what the kernel is checked against on the card.
 
 * `fused_qkv_attention` - eval form (`csrc/fused_qkv_attention.cu`,
-  `_fused_fwd_kernel` with emit_qkv=False and dropout 0). Numerics: qkv =
-  x . w^T + b accumulated in fp32 and rounded to x's dtype; scores
-  q . k^T / sqrt(hd) in fp32; a max-subtracted fp32 softmax whose weights
-  are rounded to x's dtype; p . v accumulated in fp32; the output in x's
-  dtype.
+  `_fused_fwd_kernel` with emit_qkv=False and dropout 0). Numerics, the TPU
+  kernel's (`_fwd_body`, pallas_attention.py:151-197): qkv = x . w^T + b
+  accumulated in fp32 and rounded to x's dtype; qs = q * scale in x's dtype
+  (scale = 1/sqrt(hd) rounded to it too); scores qs . k^T and a
+  max-subtracted softmax in fp32, the weights e * recip rounded to x's
+  dtype; p . v accumulated in fp32; the output in x's dtype. That is the
+  training form's arithmetic at dropout 0, without the qkv output.
 * `fused_qkv_attention_train` - training form of the same kernel
   (emit_qkv=True, dropout on the attention weights): returns (o, qkv), qkv
-  being the backward's residual. Rounding as the TPU kernel
-  (pallas_attention.py:158-178): qs = q * scale in x's dtype; scores
-  qs . k^T in fp32; weights keep ? e * (recip / (1 - p)) : 0, rounded.
+  being the backward's residual. Rounding as the eval form, the weights
+  keep ? e * (recip / (1 - p)) : 0, rounded.
 * `fused_qkv_attention_bwd` - kernel B2 (`csrc/fused_qkv_attention_bwd.cu`,
   `_bwd_kernel_qkv`): the packed dqkv from qkv and dO, recomputing the
   softmax and the dropout mask (`_bwd_head_math`'s rounding points).
@@ -32,13 +33,16 @@ what the kernel is checked against on the card.
   gradient.
 
 In bf16, B1 (both forms) and B5's first phase run a wgmma/TMA body
-(`csrc/attention_hopper.cuh`), which takes H a multiple of 8, x and w_qkv
-16-byte aligned and T up to `bf16_max_context(head_dim)` (512 at head dim
-36): `check_wgmma_layout` raises a ValueError otherwise, before any launch.
-float32 runs the scalar body.
+(`csrc/attention_hopper.cuh`), which takes H a multiple of 8 and x and
+w_qkv 16-byte aligned: `check_wgmma_layout` raises a ValueError otherwise,
+before any launch. float32 runs the scalar body. Every kernel here takes T
+up to `ops.attention.MAX_CONTEXT` (1536) at every head dim; past the T whose
+per-head rows fit in a block's shared memory, it keeps them in a device
+workspace that the wrapper allocates (`_workspace`). A longer T raises a
+ValueError before any launch.
 
-The training form's and B2's plain versions are B3's
-(ops/flash_attention.py) on the three column slices of the packed qkv:
+The plain versions of both forms and of B2 are B3's (ops/flash_attention.py)
+on the three column slices of the packed qkv (the eval form's at dropout 0):
 the same attention after the projection. The dropout keep bits are
 `ops.attention.attention_keep_mask`'s hash of (seed, batch row, head, i,
 j), the same in the kernels and the plain versions.
@@ -47,59 +51,45 @@ j), the same in the kernels and the plain versions.
 import torch
 
 from weathermodel_tpu_torch.kernels import build
-from weathermodel_tpu_torch.ops.attention import dropout_params, torch_attention
+from weathermodel_tpu_torch.ops.attention import check_context, dropout_params
 from weathermodel_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_fwd_reference,
 )
 
 
-# The bf16 body's shared-memory plan (csrc/attention_hopper.cuh), restated
-# to find the longest T it takes: K^T, V^T and the q fragments of every
-# 64-row tile stay resident beside a ring of at least two stages, each x's
-# rows for three tiles and the head's weight rows, 64 columns deep.
-_SMEM_MAX, _TILE, _X_STAGE_BYTES, _MAX_STAGES = 232448, 64, 3 * 64 * 128, 4
-
-
-def bf16_max_context(head_dim: int) -> int:
-    """The longest T the bf16 body takes at `head_dim` (attn_hopper::max_t):
-    512 at 36, 768 at 28, 896 at 20, 1728 at 12."""
-    width = -(-head_dim // 8) * 8   # a part's weight rows, V^T rows
-    depth = -(-head_dim // 16) * 16  # q . k^T's depth, K^T rows
-    per_tile = 128 * (depth + width) + depth * 128
-    stage = _X_STAGE_BYTES + 3 * width * 128
-    budget = _SMEM_MAX - 1024 - 16 * _MAX_STAGES - 2 * stage
-    return budget // per_tile * _TILE
-
-
 def check_wgmma_layout(name, x, w_qkv, num_heads):
     """The bf16 body's rule on top of `_on_cuda`'s: H a multiple of 8 and x
-    and w_qkv 16-byte aligned, as TMA's strides and addresses need, and T up
-    to `bf16_max_context`. float32 runs the scalar body, which the launch
-    itself bounds."""
+    and w_qkv 16-byte aligned, as TMA's strides and addresses need. float32
+    runs the scalar body, which takes any layout `_on_cuda` takes."""
     if x.dtype != torch.bfloat16:
         return
-    t, h = x.shape[1], x.shape[2]
+    h = x.shape[2]
     if h % 8:
         raise ValueError(f"{name}: bf16 needs H a multiple of 8 (TMA's "
                          f"16-byte row strides), got H={h}")
-    limit = bf16_max_context(h // num_heads)
-    if t > limit:
-        raise ValueError(f"{name}: bf16 takes T up to {limit} at head dim "
-                         f"{h // num_heads} (the body's shared memory), got "
-                         f"T={t}")
     if x.data_ptr() % 16 or w_qkv.data_ptr() % 16:
         raise ValueError(f"{name}: bf16 needs x and w_qkv 16-byte aligned")
 
 
 def _on_cuda(name, head_dim, *tensors) -> bool:
     """`build.on_cuda`, and the layout these kernels take: contiguous
-    inputs."""
+    inputs and T (dim 1 of the first) up to MAX_CONTEXT."""
     if not build.on_cuda(name, head_dim, *tensors):
         return False
     if not all(a.is_contiguous() for a in tensors):
         raise ValueError(f"{name} needs contiguous inputs")
+    check_context(name, tensors[0].shape[1])
     return True
+
+
+def _workspace(x, num_heads):
+    """The forward kernels' device workspace for x [B, T, H] (None where
+    every block keeps its rows on chip)."""
+    bsz, t, h = x.shape
+    per_block = build.load_library().lib.wm_fused_qkv_attention_workspace(
+        build.DTYPE_CODES[x.dtype], h // num_heads, t)
+    return build.workspace(per_block, bsz * num_heads, x.device)
 
 
 def _check_shapes(x, w_qkv, b_qkv, num_heads):
@@ -119,7 +109,8 @@ def fused_qkv_attention_reference(x, w_qkv, b_qkv, num_heads: int):
     (torch [out, in] layout); b_qkv [3H]; returns [B, T, H] in x.dtype."""
     _check_shapes(x, w_qkv, b_qkv, num_heads)
     qkv = (x.float() @ w_qkv.float().T + b_qkv.float()).to(x.dtype)
-    return torch_attention(*qkv.chunk(3, dim=-1), num_heads)
+    return flash_attention_fwd_reference(*qkv.chunk(3, dim=-1), num_heads,
+                                         0.0, 0)
 
 
 def fused_qkv_attention(x, w_qkv, b_qkv, num_heads: int):
@@ -136,11 +127,12 @@ def fused_qkv_attention(x, w_qkv, b_qkv, num_heads: int):
     bsz, t, h = x.shape
     lib = build.load_library().lib
     out = torch.empty_like(x)
+    ws = _workspace(x, num_heads)
     with torch.cuda.device(x.device):
         err = lib.wm_fused_qkv_attention(
             build.DTYPE_CODES[x.dtype], x.data_ptr(), w_qkv.data_ptr(),
-            b_qkv.data_ptr(), out.data_ptr(), bsz, t, h, num_heads,
-            build.cuda_stream(x.device))
+            b_qkv.data_ptr(), out.data_ptr(), build.data_ptr(ws), bsz, t, h,
+            num_heads, build.cuda_stream(x.device))
     build.check(err)
     fused_qkv_attention.launches += 1
     return out
@@ -180,12 +172,13 @@ def fused_qkv_attention_train(x, w_qkv, b_qkv, num_heads: int,
     lib = build.load_library().lib
     out = torch.empty_like(x)
     qkv = x.new_empty(bsz, t, 3 * h)
+    ws = _workspace(x, num_heads)
     with torch.cuda.device(x.device):
         err = lib.wm_fused_qkv_attention_train(
             build.DTYPE_CODES[x.dtype], x.data_ptr(), w_qkv.data_ptr(),
-            b_qkv.data_ptr(), out.data_ptr(), qkv.data_ptr(), bsz, t, h,
-            num_heads, on, seed, threshold, keep_prob,
-            build.cuda_stream(x.device))
+            b_qkv.data_ptr(), out.data_ptr(), qkv.data_ptr(),
+            build.data_ptr(ws), bsz, t, h, num_heads, on, seed, threshold,
+            keep_prob, build.cuda_stream(x.device))
     build.check(err)
     fused_qkv_attention_train.launches += 1
     return out, qkv
@@ -233,11 +226,14 @@ def fused_qkv_attention_bwd(qkv, do, num_heads: int, dropout_rate: float,
     dqkv = torch.empty_like(qkv)
     stats = torch.empty(bsz, num_heads, 3, t, dtype=torch.float32,
                         device=qkv.device)
+    ws = build.workspace(lib.wm_attention_bwd_workspace(h // num_heads, t),
+                         bsz * num_heads, qkv.device)
     with torch.cuda.device(qkv.device):
         err = lib.wm_fused_qkv_attention_bwd(
             build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(), do.data_ptr(),
-            dqkv.data_ptr(), stats.data_ptr(), bsz, t, h, num_heads, on,
-            seed, threshold, inv_keep, build.cuda_stream(qkv.device))
+            dqkv.data_ptr(), stats.data_ptr(), build.data_ptr(ws), bsz, t, h,
+            num_heads, on, seed, threshold, inv_keep,
+            build.cuda_stream(qkv.device))
     build.check(err)
     fused_qkv_attention_bwd.launches += 1
     return dqkv
@@ -321,12 +317,13 @@ def fused_qkv_attention_outproj(x, w_qkv, b_qkv, wo, bo, num_heads: int,
     lib = build.load_library().lib
     o = torch.empty_like(x)  # phase 1's output, phase 2's input
     y = torch.empty_like(x)
+    ws = _workspace(x, num_heads)
     with torch.cuda.device(x.device):
         err = lib.wm_fused_qkv_attention_outproj(
             build.DTYPE_CODES[x.dtype], x.data_ptr(), w_qkv.data_ptr(),
             b_qkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), o.data_ptr(),
-            y.data_ptr(), bsz, t, h, num_heads, on, seed, threshold,
-            keep_prob, build.cuda_stream(x.device))
+            y.data_ptr(), build.data_ptr(ws), bsz, t, h, num_heads, on, seed,
+            threshold, keep_prob, build.cuda_stream(x.device))
     build.check(err)
     fused_qkv_attention_outproj.launches += 1
     return y
