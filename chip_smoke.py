@@ -54,11 +54,15 @@ Phases, each printing one line; any failure raises and exits non-zero:
                event times of the kernel, the plain version and the library
                call (F.linear + scaled_dot_product_attention, forward; forward
                and backward for B2), naming the SDPA backend; the body's
-               ptxas report for the training form; bf16 B1 train's time
-               beside the recorded one; B1 train (o and qkv) at the edge
-               shapes, and
-               B2 at the backward's edge shapes (T = 365, 600, 1024 at each
-               head dim, 1536), dropout 0.1 and 0
+               ptxas report for the training form and the backward body's
+               (attention_bwd_wgmma_kernel: bf16 B2 and B3b) with its shared
+               memory; bf16 B1 train's and B2's times beside the recorded
+               ones (B2's on the scalar passes); B1 train (o and qkv) at the
+               edge shapes, and B2 at the backward's edge shapes (the
+               backward body's tile edges T = 1, 64, 65, 383, 384 at the
+               four head dims, 365, its dispatch boundary 576/577 at hd 36
+               and 832/833 at hd 20 and 28, then 600, 1024 at each head dim
+               and 1536), dropout 0.1 and 0
   8. train   - a seeded synthetic chunk store written by the port's writer;
                `wm-pretrain-torch`'s run(args) trains WeatherBERT-large in
                bf16, --batch-size 576 --grad-accum 2, dropout 0.1, 2 epochs:
@@ -66,7 +70,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                form per validation batch, finite losses that fall; ms per
                step, samples/s, TFLOP/s and peak memory; a torch.profiler
                capture of one step, which fails unless B1 train launches the
-               attention body and no bf16 scalar fused_qkv_attention_kernel;
+               attention body and B2 the backward body, and no bf16 scalar
+               fused_qkv_attention_kernel, bwd_dq_kernel or bwd_dkdv_kernel
+               runs;
                one step of the kernel path against the plain attention path
                at 16 windows, dropout off, fp32 and bf16
   9. kernel_flash - the attention kernels on separate q, k, v, B3f and its
@@ -75,15 +81,18 @@ Phases, each printing one line; any failure raises and exits non-zero:
                a packed projection as the model passes them, fp32 and bf16,
                dropout 0.1 (the same seed on both sides) and 0; CUDA-event
                times of the kernel, the plain version and SDPA (forward;
-               forward and backward for B3b); both at the backward's edge
-               shapes, dropout 0.1 and 0
+               forward and backward for B3b); the backward body's ptxas
+               report as B3b's file compiles it, and bf16 B3b's time beside
+               the recorded one on the scalar passes; both at the backward's
+               edge shapes, dropout 0.1 and 0
   10. train_former - `wm-pretrain-torch`'s run(args) with the JAX CLI's
                defaults (WeatherFormer-small, ELBO, beta 0.5, 10 masked
                features, --attention-impl auto) in bf16 at --batch-size 256,
                2 epochs, on the same synthetic store: 4 launches of B3f per
                training step and per validation batch, 4 of B3b per step,
                none of B1/B2; finite losses, the train loss falls; the same
-               timings, profile and one-step comparison as phase 8
+               timings, profile (B3b's backward body required, its bf16
+               scalar passes forbidden) and one-step comparison as phase 8
   11. kernel_gmm - the grouped matmul B4 (forward, and with rhs^T as the
                backward's d_lhs) and its weight gradient B4t vs their plain
                versions at the MoE microbatch's shapes (S = 96 x 365 x 2 =
@@ -102,8 +111,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                of B4, 48 of B4t, 24 of B1 train and 24 of B2; per validation
                batch 16 of B4 and 8 of B1 eval; finite losses and moe_aux, the
                train loss falls; the same timings (TFLOP/s from the MoE
-               analytic count), profile (the attention body required, as in
-               phase 8) and one-step comparison with the plain
+               analytic count), profile (the attention and backward bodies
+               required, as in phase 8) and one-step comparison with the plain
                path (plain grouped matmuls, plain attention) as phase 8
   13. kernel_ffn - the bf16 wgmma bodies' (ffn_wgmma_kernel: B6f and B7;
                ffn_bwd_wgmma_kernel: B6b's row work) ptxas registers and
@@ -168,9 +177,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
                fails unless bf16 B6f, B7 with h (train) and B7 without
                (eval) launch the wgmma body (ffn_wgmma_kernel), B6b its
                backward body (ffn_bwd_wgmma_kernel), no bf16 row kernel
-               (ffn_rows_kernel) runs, and B1 (train and
+               (ffn_rows_kernel) runs, B1 (train and
                eval) launches the attention body (qkv_attention_wgmma_kernel)
-               and no bf16 scalar fused_qkv_attention_kernel; one step of each
+               and no bf16 scalar fused_qkv_attention_kernel, and B2 (train)
+               the backward body (attention_bwd_wgmma_kernel) and no bf16
+               scalar pass; one step of each
                fused path against the plain path (plain attention and FFN) at 16
                windows, dropout off, fp32 and bf16
 The seconds each phase took are printed after the phases; the card's name
@@ -253,6 +264,11 @@ OUTPROJ_DROPOUT_BATCH = 32
 # the scalar body's bf16 instantiation, which no bf16 profile may show
 ATTN_BODY = "qkv_attention_wgmma_kernel"
 ATTN_SCALAR_BF16 = "fused_qkv_attention_kernel<__nv_bfloat16"
+# the bf16 body of B2 and B3b (csrc/attention_bwd_hopper.cuh), and the scalar
+# passes' bf16 instantiations, which no bf16 profile at T = 365 may show
+ATTN_BWD_BODY = "attention_bwd_wgmma_kernel"
+ATTN_BWD_SCALAR_BF16 = ("bwd_dq_kernel<__nv_bfloat16",
+                        "bwd_dkdv_kernel<__nv_bfloat16")
 # (B, T, H, heads) at the bf16 body's 64-row tile edges (T = 1, 64, 65, 383,
 # 384), one at each head dim, then the longest T the fp32 body keeps in
 # shared memory at hd 36 (453) and the bf16 body's resident K^T and V^T
@@ -264,17 +280,30 @@ ATTN_EDGE_SHAPES = [(4, 1, 576, 16), (4, 64, 336, 12), (4, 65, 200, 10),
                     (1, 512, 576, 16), (1, 513, 576, 16), (2, 730, 576, 16),
                     (1, 1024, 576, 16), (1, 1024, 336, 12),
                     (1, 1024, 200, 10), (1, 1024, 48, 4), (1, 1536, 576, 16)]
-# the backward kernels' and B3f's edge shapes: past the rows B2's and B3b's
-# passes keep in shared memory (about 530 at hd 36), each head dim at 1024
-ATTN_BWD_EDGE_SHAPES = [(2, 365, 576, 16), (1, 600, 576, 16),
-                        (1, 1024, 576, 16), (1, 1024, 336, 12),
-                        (1, 1024, 200, 10), (1, 1024, 48, 4),
-                        (1, 1536, 576, 16)]
+# the backward kernels' and B3f's edge shapes: the bf16 backward body's 64-row
+# tile edges (T = 1, 64, 65, 383, 384), one at each head dim; T = 365; its
+# dispatch boundary, the largest T it keeps on chip and one more (576 and 577
+# at hd 36, 832 and 833 at hd 20 and 28), past which bf16 runs the scalar
+# passes; past the rows the scalar passes keep in shared memory (about 530 at
+# hd 36), each head dim at 1024; the limit at hd 36 and at hd 12 (the bf16
+# body's own there)
+ATTN_BWD_EDGE_SHAPES = [(2, 1, 576, 16), (2, 64, 336, 12), (2, 65, 200, 10),
+                        (2, 383, 48, 4), (2, 384, 576, 16), (2, 365, 576, 16),
+                        (1, 576, 576, 16), (1, 577, 576, 16),
+                        (1, 832, 200, 10), (1, 833, 336, 12),
+                        (1, 600, 576, 16), (1, 1024, 576, 16),
+                        (1, 1024, 336, 12), (1, 1024, 200, 10),
+                        (1, 1024, 48, 4), (1, 1536, 576, 16),
+                        (1, 1536, 48, 4)]
 # the bf16 times at T = 365 recorded for the attention body before its long-T
 # path (B1 eval and B5 at B = 256, B1 train at 288, dropout 0.1; PERF.md §6,
 # H100 80GB HBM3, 700 W), printed beside this run's: the short-T path must not
 # move
 SHORT_T_MS = {"B1 eval": 1.258, "B1 train": 2.073, "B5": 1.914}
+# the bf16 times of B2 (B = 288) and B3b (B = 256) at T = 365, dropout 0.1, on
+# the scalar passes before their wgmma body (PERF.md §6; H100 80GB
+# HBM3, 700 W), printed beside this run's
+SCALAR_BWD_MS = {"B2": 34.649, "B3b": 15.594}
 # WeatherBERT-large served on windows of two years (T = 730), the length
 # `wm-serve-torch` takes from its input file
 LONG_SEQ_LEN, LONG_WINDOWS = 730, 64
@@ -498,6 +527,44 @@ def _attention_body_report(forms):
     return (f"{ATTN_BODY}<hd, kTrain, kEmitQkv, kStream> ptxas: "
             f"{'; '.join(report)}; dynamic shared memory a block by hd at "
             f"T = ({SEQ_LEN}, 512, {MAX_CONTEXT}): {smem} B")
+
+
+def _bwd_body_report(source):
+    """The bf16 backward body's ptxas report as compiled in `source` (B2's
+    fused_qkv_attention_bwd or B3b's flash_attention_bwd), by head dim and
+    kBits (the dropout keep bits kept in shared memory), and its dynamic
+    shared memory a block without the bits at T = 365, at the largest T it
+    keeps on chip (0 past it: the scalar passes run) and at MAX_CONTEXT."""
+    import re
+
+    from weathermodel_tpu_torch.kernels import build
+    from weathermodel_tpu_torch.ops.attention import MAX_CONTEXT
+
+    built = build.load_library()
+    lines = built.ptxas_log.splitlines()
+    report = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '.*" + source + r"_cu.*" +
+                      ATTN_BWD_BODY + r"ILi(\d+)ELb(\d)E", line)
+        if m is None:
+            continue
+        block = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        report.append(f"<{m.group(1)}, {m.group(2)}>: "
+                      f"{regs.group(1) if regs else '?'} "
+                      f"registers, spill "
+                      f"{'/'.join(spill.groups()) if spill else '?'} B")
+    smem_at = built.lib.wm_attention_bwd_wgmma_smem
+    resident = {hd: max(t for t in range(1, MAX_CONTEXT + 1)
+                        if smem_at(hd, t) > 0) for hd in (12, 20, 28, 36)}
+    smem = {hd: (smem_at(hd, SEQ_LEN), (top, smem_at(hd, top)),
+                 smem_at(hd, MAX_CONTEXT)) for hd, top in resident.items()}
+    return (f"{ATTN_BWD_BODY}<hd, kBits> ({source}) ptxas: "
+            f"{'; '.join(report)}; "
+            f"dynamic shared memory a block by hd at T = {SEQ_LEN}, (its "
+            f"largest T, there) and {MAX_CONTEXT}: {smem} B")
 
 
 def _check_kernel_names(what, keys, require=(), forbid=()):
@@ -1046,6 +1113,8 @@ def phase_kernel_train():
                 f"{r['bwd_bound'][1]}; SDPA backend {r['sdpa_backend']}")
         lines.append(line)
     print("kernel_train: " + _attention_body_report({(1, 1)}), flush=True)
+    print("kernel_train: " + _bwd_body_report("fused_qkv_attention_bwd"),
+          flush=True)
     print(f"kernel_train: B={MICRO} T={SEQ_LEN} H={h} heads={nh} (tol "
           f"{KERNEL_TOL}, {SCALE_TOL} x max) | " + " | ".join(lines),
           flush=True)
@@ -1056,7 +1125,9 @@ def phase_kernel_train():
 
     print(f"kernel_train: bf16 B1 train at T={SEQ_LEN} "
           f"{results[torch.bfloat16, DROPOUT]['fwd_ms']:.3f} ms (recorded: "
-          f"{SHORT_T_MS['B1 train']} ms)", flush=True)
+          f"{SHORT_T_MS['B1 train']} ms); bf16 B2 on its wgmma body "
+          f"{results[torch.bfloat16, DROPOUT]['bwd_ms']:.3f} ms (recorded on "
+          f"the scalar passes: {SCALAR_BWD_MS['B2']} ms)", flush=True)
     for rate in (DROPOUT, 0.0):
         print(f"kernel_train: B1 train (o, qkv) dropout {rate} "
               + _attention_edges(
@@ -1419,8 +1490,10 @@ def phase_train(smi: str, data: Path):
           f"memory {peak_gb:.1f} GB; card {smi}", flush=True)
     print("train: " + _profile_step(
         "weatherbert", cfg, "fused_qkv", TRAIN_BATCH, GRAD_ACCUM,
-        named=(("B1 train (the bf16 body)", ATTN_BODY),),
-        require=(ATTN_BODY,), forbid=(ATTN_SCALAR_BF16,)), flush=True)
+        named=(("B1 train (the bf16 body)", ATTN_BODY),
+               ("B2 (the bf16 backward body)", ATTN_BWD_BODY)),
+        require=(ATTN_BODY, ATTN_BWD_BODY),
+        forbid=(ATTN_SCALAR_BF16, *ATTN_BWD_SCALAR_BF16)), flush=True)
     print("train: " + _check_step_parity("weatherbert", MODEL_SIZE,
                                          "fused_qkv"), flush=True)
     return launches
@@ -1517,9 +1590,14 @@ def phase_kernel_flash():
                 f"{r['bwd_bound'][0]:.3f} by {r['bwd_bound'][1]}; SDPA "
                 f"backend {r['sdpa_backend']}")
         lines.append(line)
+    print("kernel_flash: " + _bwd_body_report("flash_attention_bwd"),
+          flush=True)
     print(f"kernel_flash: B={FORMER_BATCH} T={SEQ_LEN} H={h} heads={nh} (tol "
           f"{KERNEL_TOL}, {SCALE_TOL} x max) | " + " | ".join(lines),
           flush=True)
+    print(f"kernel_flash: bf16 B3b on its wgmma body at T={SEQ_LEN} "
+          f"{results[torch.bfloat16, DROPOUT]['bwd_ms']:.3f} ms (recorded on "
+          f"the scalar passes: {SCALAR_BWD_MS['B3b']} ms)", flush=True)
     for rate in (DROPOUT, 0.0):
         print(f"kernel_flash: B3f and B3b (o, dq, dk, dv) dropout {rate} "
               + _attention_edges(
@@ -1580,8 +1658,10 @@ def phase_train_former(smi: str, data: Path):
           f"{tflops:.1f} TFLOP/s ({gflop:.2f} GFLOP/sample); epoch seconds "
           f"{record['metrics']['epoch_seconds']}; run {wall:.1f} s; peak "
           f"memory {peak_gb:.1f} GB; card {smi}", flush=True)
-    print("train_former: " + _profile_step("weatherformer", cfg, "flash",
-                                           FORMER_BATCH), flush=True)
+    print("train_former: " + _profile_step(
+        "weatherformer", cfg, "flash", FORMER_BATCH,
+        named=(("B3b (the bf16 backward body)", ATTN_BWD_BODY),),
+        require=(ATTN_BWD_BODY,), forbid=ATTN_BWD_SCALAR_BF16), flush=True)
     print("train_former: " + _check_step_parity("weatherformer", FORMER_SIZE,
                                                 "flash"), flush=True)
     return launches
@@ -1831,8 +1911,10 @@ def phase_train_moe(smi: str, data: Path):
           flush=True)
     print("train_moe: " + _profile_step(
         "weatherbert", cfg, "fused_qkv", MOE_BATCH, MOE_ACCUM,
-        named=(("B1 train (the bf16 body)", ATTN_BODY),),
-        require=(ATTN_BODY,), forbid=(ATTN_SCALAR_BF16,)), flush=True)
+        named=(("B1 train (the bf16 body)", ATTN_BODY),
+               ("B2 (the bf16 backward body)", ATTN_BWD_BODY)),
+        require=(ATTN_BODY, ATTN_BWD_BODY),
+        forbid=(ATTN_SCALAR_BF16, *ATTN_BWD_SCALAR_BF16)), flush=True)
     print("train_moe: " + _check_step_parity("weatherbert", MODEL_SIZE,
                                              "fused_qkv", MOE), flush=True)
     print("train_moe: " + _check_moe_no_host_sync(cfg), flush=True)
@@ -2485,6 +2567,8 @@ def phase_bench(smi: str):
         for mode, accum in (("train", GRAD_ACCUM), ("eval", 1)):
             need = (body, ATTN_BODY)
             named = ()
+            if mode == "train":
+                need += (ATTN_BWD_BODY,)
             if impl == "fused_ffn_ln" and mode == "train":
                 need += (FFN_BWD_BODY,)
                 named = (("B6b's tile passes", "wgrad"),)
@@ -2492,7 +2576,8 @@ def phase_bench(smi: str):
                 "weatherbert", cfg, "fused_qkv", TRAIN_BATCH, accum,
                 ffn_impl=impl, mode=mode,
                 named=tuple((n, n) for n in need) + named, require=need,
-                forbid=(rows_bf16, ATTN_SCALAR_BF16)), flush=True)
+                forbid=(rows_bf16, ATTN_SCALAR_BF16, *ATTN_BWD_SCALAR_BF16)),
+                flush=True)
         print(f"bench: {impl} " + _check_step_parity(
             "weatherbert", MODEL_SIZE, "fused_qkv", ffn_impl=impl), flush=True)
     return launches

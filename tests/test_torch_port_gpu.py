@@ -169,6 +169,105 @@ def test_flash_kernels_match_plain(cuda, dtype, rate, packed, b, t, h, nh):
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+# The bf16 backward body (csrc/attention_bwd_hopper.cuh, B2 and B3b) keeps a
+# head's operands in shared memory up to this T at each head dim; past it bf16
+# runs the scalar passes (at hd 12 it takes every T up to MAX_CONTEXT)
+BWD_RESIDENT_T = {12: 1536, 20: 832, 28: 832, 36: 576}
+BWD_HEADS = {12: (48, 4), 20: (200, 10), 28: (336, 12), 36: (576, 16)}
+
+
+def _bwd_body_cases():
+    """(t, h, heads): the body's 64-row tile edges, its largest resident T
+    and one past it (the scalar passes), at each head dim."""
+    cases = []
+    for hd, (h, nh) in BWD_HEADS.items():
+        top = BWD_RESIDENT_T[hd]
+        for t in (1, 64, 65, 383, 384, top, top + 1):
+            if t <= 1536:
+                cases.append((t, h, nh))
+    return cases
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t,h,nh", _bwd_body_cases())
+def test_bf16_bwd_body_matches_plain(cuda, t, h, nh, rate):
+    """bf16 B2 (packed qkv) and B3b (on the column slices of one projection
+    and on three tensors) against their plain versions at 2^-6 of max|plain|,
+    across the body's tile edges and its dispatch boundary; each call twice,
+    bitwise equal (no atomics, a fixed summation order); one launch each."""
+    from weathermodel_tpu_torch.kernels import build
+
+    hd = h // nh
+    smem = build.load_library().lib.wm_attention_bwd_wgmma_smem
+    assert (smem(hd, t) > 0) == (t <= BWD_RESIDENT_T[hd])
+    assert smem(hd, BWD_RESIDENT_T[hd]) > 0
+    rng = np.random.default_rng(t + h)
+    qkv = torch.tensor(rng.normal(size=(1, t, 3 * h)), dtype=torch.bfloat16,
+                       device=cuda)
+    do = torch.tensor(rng.normal(size=(1, t, h)), dtype=torch.bfloat16,
+                      device=cuda)
+    seed = 271828
+    slices = qkv.chunk(3, dim=-1)
+    separate = tuple(a.contiguous() for a in slices)
+    before = (fused_qkv_attention_bwd.launches, flash_attention_bwd.launches)
+    runs = [("B2", lambda: (fused_qkv_attention_bwd(qkv, do, nh, rate, seed),),
+             (fused_qkv_attention_bwd_reference(qkv, do, nh, rate, seed),))]
+    for name, (q, k, v) in (("B3b slices", slices), ("B3b tensors", separate)):
+        runs.append((name,
+                     lambda q=q, k=k, v=v: flash_attention_bwd(
+                         q, k, v, do, nh, rate, seed),
+                     flash_attention_bwd_reference(q, k, v, do, nh, rate,
+                                                   seed)))
+    for name, run, want in runs:
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        for i, (got, again, ref) in enumerate(zip(first, second, want)):
+            assert torch.equal(got, again), (name, i)
+            _assert_scaled_close(f"{name} {i} T={t} hd={hd} rate={rate}", got,
+                                 ref, torch.bfloat16)
+    assert (fused_qkv_attention_bwd.launches,
+            flash_attention_bwd.launches) == (before[0] + 2, before[1] + 4)
+
+
+def test_bf16_bwd_rejects_what_it_does_not_take(cuda):
+    """The bf16 backward's layout rule: H a multiple of 8 (3 heads of 12) and
+    every operand's rows 8-byte aligned raise a ValueError from B2 and B3b
+    before any launch; float32 takes both on the scalar passes."""
+    counts = (fused_qkv_attention_bwd.launches, flash_attention_bwd.launches)
+
+    def packed(t, h, dtype, shift=0):
+        buf = torch.randn(t * 3 * h + shift, device=cuda).to(dtype)
+        return buf[shift:].view(1, t, 3 * h)
+
+    qkv, do = packed(24, 36, torch.bfloat16), torch.randn(
+        1, 24, 36, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_qkv_attention_bwd(qkv, do, 3, 0.0, 0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_bwd(*qkv.chunk(3, dim=-1), do, 3, 0.0, 0)
+    qkv = packed(24, 48, torch.bfloat16, shift=1)
+    do = torch.randn(1, 24, 48, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        fused_qkv_attention_bwd(qkv, do, 4, 0.1, 3)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        flash_attention_bwd(*qkv.chunk(3, dim=-1), do, 4, 0.1, 3)
+    q, k, v = (a.contiguous() for a in packed(24, 48, torch.bfloat16)
+               .chunk(3, dim=-1))
+    shifted = torch.empty(q.numel() + 2, dtype=q.dtype,
+                          device=cuda)[2:].view_as(q)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        flash_attention_bwd(shifted, k, v, do, 4, 0.0, 0)
+    assert (fused_qkv_attention_bwd.launches,
+            flash_attention_bwd.launches) == counts
+    qkv = packed(24, 36, torch.float32, shift=1)
+    do = torch.randn(1, 24, 36, device=cuda)
+    _assert_scaled_close("fp32 B2 at H = 36",
+                         fused_qkv_attention_bwd(qkv, do, 3, 0.0, 0),
+                         fused_qkv_attention_bwd_reference(qkv, do, 3, 0.0, 0),
+                         torch.float32)
+
+
 def test_flash_kernels_draw_the_fused_kernels_mask(cuda):
     """One seed, one keep-mask: B3f on the packed projection equals B1's
     training form."""

@@ -19,9 +19,18 @@
 // regenerated from the forward's seed and the global (batch row, head) (attention_common.cuh),
 // not stored.
 //
-// Design: the flash-attention-2 split into two launches, because one head's q, k, v and
-// dO do not fit a block's shared memory next to the score rows (as fp32 with stride
-// hd + 1 at T = 365, hd = 36: 4 x 365 x 37 x 4 B = 216 KB of the 227 KB).
+// Two bodies, chosen by an explicit dispatch on the dtype and the shape in `launch_bwd`:
+//   * bfloat16 runs attention_bwd_hopper.cuh's (wgmma on operands resident in shared
+//     memory; its note has the design) wherever they fit: T up to 576 at hd 36, 832 at hd
+//     28 and 20, every T at hd 12 (`attn_bwd_hopper::takes`). T = 365 never reaches the
+//     scalar passes.
+//   * float32 (TF32 would change its numerics), and bfloat16 past that T, run the scalar
+//     passes below. Streaming the bf16 body's slabs through a ring past that T is ROADMAP
+//     R5's follow-up.
+//
+// The scalar passes: the flash-attention-2 split into two launches, because one head's
+// q, k, v and dO do not fit a block's shared memory next to the score rows (as fp32 with
+// stride hd + 1 at T = 365, hd = 36: 4 x 365 x 37 x 4 B = 216 KB of the 227 KB).
 //   pass A (`bwd_dq_kernel`), one block per (batch row, head), 512 threads: K and V in
 //     shared memory as fp32; each warp takes query rows, with that row's qs and dO in
 //     registers. Lanes over keys compute s and dwd into two per-warp rows, then the
@@ -43,16 +52,18 @@
 // same fmaf order, so both passes still regenerate the forward's scores and mask bit for
 // bit. T up to wm::kMaxContext (1536).
 //
-// What bounds it on the card: scalar fp32 FMA and shared-memory loads, as the forward
-// (no tensor cores yet): 5 products of B x nh x T^2 x hd MACs plus the wasted lanes of
-// the head-dim loops (hd = 36 over 2 x 32 lanes, hd = 20 over 32). The two passes each
-// recompute the scores. Later work: the four T x T x hd products on tensor cores, one
-// pass with dk/dv accumulated across query tiles.
+// What bounds the scalar passes on the card: scalar fp32 FMA and shared-memory loads (no
+// tensor cores): 5 products of B x nh x T^2 x hd MACs plus the wasted lanes of the
+// head-dim loops (hd = 36 over 2 x 32 lanes, hd = 20 over 32). The two passes each
+// recompute the scores.
 
 #pragma once
 
 #include <math.h>
 
+#include <type_traits>
+
+#include "attention_bwd_hopper.cuh"
 #include "attention_common.cuh"
 
 namespace {
@@ -304,10 +315,20 @@ cudaError_t launch_passes(BwdArgs<T> a, int batch, int t, int h, int num_heads,
   return cudaGetLastError();
 }
 
-// Each pass keeps its rows in shared memory where they fit, else in the workspace.
+// bfloat16 at a T whose operands stay resident runs the wgmma body; otherwise the scalar
+// passes, each keeping its rows in shared memory where they fit, else in the workspace.
 template <typename T, int HD>
 cudaError_t launch_bwd(BwdArgs<T> a, int batch, int t, int h, int num_heads,
                        wm::Dropout drop, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (attn_bwd_hopper::takes<HD>(t)) {
+      const float scale = (float)(1.0 / sqrt((double)HD));  // as the forward
+      const attn_bwd_hopper::Params p{a.q,  a.k,  a.v,          a.in_stride, a.dout, a.dq,
+                                      a.dk, a.dv, a.out_stride, t,           h,      num_heads,
+                                      0,    scale, drop};
+      return attn_bwd_hopper::launch<HD>(p, batch, stream);
+    }
+  }
   if (bwd_workspace_bytes<HD>(t) == 0)
     return launch_passes<T, HD, false, false>(a, batch, t, h, num_heads, drop, stream);
   if (a.ws == nullptr) return cudaErrorInvalidValue;
@@ -359,9 +380,10 @@ inline int attention_bwd_entry(int dtype, const void* q, const void* k, const vo
   return cudaErrorInvalidValue;
 }
 
-// The workspace the backward needs for each (batch row, head) block at (head_dim, t), in
-// bytes (the same in both dtypes); 0 where both passes' rows fit in shared memory, -1
-// where the kernels do not take (head_dim, t).
+// The workspace the scalar passes need for each (batch row, head) block at (head_dim, t),
+// in bytes (the same in both dtypes; the bf16 body, where it takes t, leaves it unused); 0
+// where both passes' rows fit in shared memory, -1 where the kernels do not take
+// (head_dim, t).
 inline long long attention_bwd_workspace(int head_dim, int t) {
   if (t <= 0 || t > wm::kMaxContext) return -1;
   switch (head_dim) {

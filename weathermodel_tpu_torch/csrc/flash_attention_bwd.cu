@@ -7,10 +7,12 @@
 // [B, T, H] outputs. The softmax and the dropout mask of the forward (B3f,
 // flash_attention.cu) are recomputed from q, k and the seed, not stored.
 //
-// The math, the two-pass design, its shared memory (107 and 113 KB at T = 365, hd = 20)
-// and what bounds it are those of the attention backward this kernel shares with B2
-// (attention_bwd.cuh): here q, k and v have one row stride (H for three tensors, 3H for
-// the column slices of a packed projection) and dq, dk, dv a row stride of H.
+// The math, the two bodies and what bounds them are those of the attention backward this
+// kernel shares with B2 (attention_bwd.cuh): bf16 runs the wgmma body of
+// attention_bwd_hopper.cuh (105,472 B of shared memory a block at T = 365, hd = 20), float32
+// and bf16 past the T that body keeps resident run the two scalar passes (107 and 113 KB at
+// T = 365, hd = 20). Here q, k and v have one row stride (H for three tensors, 3H for the
+// column slices of a packed projection) and dq, dk, dv a row stride of H.
 
 #include "attention_bwd.cuh"
 
@@ -36,6 +38,12 @@ int wm_flash_attention_bwd(int dtype, const void* q, const void* k, const void* 
 // in bytes: 0 where their rows fit in shared memory, -1 where they do not take it.
 long long wm_attention_bwd_workspace(int head_dim, int t) {
   return attention_bwd_workspace(head_dim, t);
+}
+
+// The dynamic shared memory a block of the bf16 wgmma body of B2 and B3b takes at
+// (head_dim, t), in bytes; 0 where bf16 runs the scalar passes instead.
+int wm_attention_bwd_wgmma_smem(int head_dim, int t) {
+  return attn_bwd_hopper::smem_bytes(head_dim, t);
 }
 
 }  // extern "C"

@@ -7,9 +7,11 @@
 // qkv [B, T, 3H] and dO [T, hd] the slice of do [B, T, H]; dq, dk and dv go to the same
 // slices of dqkv [B, T, 3H].
 //
-// The math, the two-pass design, its shared memory and what bounds it are those of the
-// attention backward this kernel shares with B3b (attention_bwd.cuh): here each operand
-// is the packed buffer at column offset 0, H or 2H with a row stride of 3H.
+// The math, the two bodies (bf16: the wgmma body of attention_bwd_hopper.cuh, 154,624 B of
+// shared memory a block at T = 365, hd = 36; float32, and bf16 past the T that body keeps
+// resident: the two scalar passes), their shared memory and what bounds them are those of
+// the attention backward this kernel shares with B3b (attention_bwd.cuh): here each
+// operand is the packed buffer at column offset 0, H or 2H with a row stride of 3H.
 
 #include "attention_bwd.cuh"
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma/TMA bodies: the bf16 FFN body
-// (ffn_hopper.cuh: kernels B7, B6f and B6b's row work) and the bf16 fused QKV attention body
-// (attention_hopper.cuh: kernels B1 and B5's first phase).
+// (ffn_hopper.cuh: kernels B7, B6f and B6b's row work), the bf16 fused QKV attention body
+// (attention_hopper.cuh: kernels B1 and B5's first phase) and the bf16 attention backward
+// (attention_bwd_hopper.cuh: kernels B2 and B3b).
 //   device: mbarriers, TMA loads (tensor and bulk) and stores, the async-proxy fences,
 //           named barriers, wgmma's fence / commit / wait, shared-memory matrix
 //           descriptors, wgmma at the widths the bodies use (both operands from shared
@@ -165,9 +166,10 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
 #define WM_ACC8(d, i) WM_ACC4(d, i), WM_ACC4(d, i + 4)
 
 // D[64 x N] (+)= A[64 x 16] . B[16 x N], bf16 in, fp32 accumulators, both operands from
-// shared memory: A K-major, B N-major with kTransB = 1 (the transpose bit) or K-major with
+// shared memory: A K-major with kTransA = 0 or M-major with kTransA = 1 (A's transpose bit,
+// taken at N = 64), B N-major with kTransB = 1 (the transpose bit) or K-major with
 // kTransB = 0; scale_d = 0 overwrites D.
-template <int N, int kTransB = 1>
+template <int N, int kTransB = 1, int kTransA = 0>
 struct Wgmma;
 
 // The same with A from registers: four .b32 of bf16 pairs per thread, in the layout of an
@@ -203,17 +205,17 @@ struct Wgmma<48, kTransB> {
   }
 };
 
-template <int kTransB>
-struct Wgmma<64, kTransB> {
+template <int kTransB, int kTransA>
+struct Wgmma<64, kTransB, kTransA> {
   static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : WM_ACC8(d, 0), WM_ACC8(d, 8), WM_ACC8(d, 16), WM_ACC8(d, 24)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB), "n"(kTransA));
   }
 };
 

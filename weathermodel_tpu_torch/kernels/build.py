@@ -136,6 +136,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     # block in bytes, 0 where it does not take t
     lib.wm_qkv_attention_wgmma_smem.argtypes = [i, i]
     lib.wm_qkv_attention_wgmma_smem.restype = i
+    # (head dim, t) -> the bf16 attention backward body's (B2, B3b) dynamic
+    # shared memory per block in bytes, 0 where bf16 runs the scalar passes
+    lib.wm_attention_bwd_wgmma_smem.argtypes = [i, i]
+    lib.wm_attention_bwd_wgmma_smem.restype = i
     # dtype, x, w1, b1, w2, b2, ln_scale, do, dx, dw1, db1, dw2, db2,
     # dln_scale, dln_bias, scratch hd, df, dy, dz, ln_part, w_part, m, h, f,
     # dropout_on, seed1, seed2, threshold, inv_keep, splits1, splits2, stream

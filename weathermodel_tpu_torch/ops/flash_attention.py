@@ -24,6 +24,13 @@ They take T up to `ops.attention.MAX_CONTEXT` (1536; a ValueError past it,
 before any launch), keeping a block's rows in a device workspace that the
 wrapper allocates where they do not fit in its shared memory.
 
+In bf16 the backward B3b (and B2, ops/fused_qkv_attention.py) runs a wgmma
+body (`csrc/attention_bwd_hopper.cuh`) wherever a head's operands stay in a
+block's shared memory (T up to 576 at hd 36, 832 at hd 20 and 28, every T
+at hd 12) and the scalar passes past that; it takes H a multiple of 8 and
+operand rows 8-byte aligned: `check_bwd_layout` raises a ValueError
+otherwise, before any launch. float32 runs the scalar passes.
+
 The plain versions below are shared with the fused QKV attention
 (ops/fused_qkv_attention.py), whose training form and backward run the same
 attention after and before their projection. The dropout keep bits are
@@ -90,6 +97,22 @@ def _row_stride(name, q, k, v) -> int:
     raise ValueError(f"{name} needs q, k, v with a unit column stride and one "
                      f"row stride, got strides "
                      f"{[a.stride() for a in (q, k, v)]}")
+
+
+def check_bwd_layout(name, h, stride, *tensors):
+    """The bf16 backward body's rule, on top of `build.on_cuda`'s: H a
+    multiple of 8 and every operand's rows 8-byte aligned (each base, and a
+    row stride of q, k and v a multiple of 4 elements), as its 8-byte loads
+    and 4-byte stores need. float32 runs the scalar passes, which take any
+    layout `build.on_cuda` takes."""
+    if tensors[0].dtype != torch.bfloat16:
+        return
+    if h % 8:
+        raise ValueError(f"{name}: bf16 needs H a multiple of 8, got H={h}")
+    if stride % 4 or any(a.data_ptr() % 8 for a in tensors):
+        raise ValueError(f"{name}: bf16 needs every operand's rows 8-byte "
+                         f"aligned (8-byte aligned bases and a row stride "
+                         f"a multiple of 4), got row stride {stride}")
 
 
 def flash_attention_fwd_reference(q, k, v, num_heads: int,
@@ -180,9 +203,9 @@ def flash_attention_bwd(q, k, v, do, num_heads: int, dropout_rate: float,
     """Kernel B3b: q, k, v, do [B, T, H] -> (dq, dk, dv) [B, T, H], with the
     forward's dropout rate and seed. do must be contiguous.
 
-    CUDA tensors launch the kernel (its two passes, counted once in
-    `flash_attention_bwd.launches`) or raise; CPU tensors take the plain
-    version."""
+    CUDA tensors launch the kernel (bf16's wgmma body, or the two scalar
+    passes, counted once in `flash_attention_bwd.launches`) or raise; CPU
+    tensors take the plain version."""
     _check_shapes(q, k, v, num_heads, do)
     if not build.on_cuda("flash_attention_bwd", q.shape[-1] // num_heads, q,
                          k, v, do):
@@ -192,6 +215,7 @@ def flash_attention_bwd(q, k, v, do, num_heads: int, dropout_rate: float,
     if not do.is_contiguous():
         raise ValueError("flash_attention_bwd needs a contiguous do")
     check_context("flash_attention_bwd", q.shape[1])
+    check_bwd_layout("flash_attention_bwd", q.shape[2], stride, q, k, v, do)
     on, threshold, _, inv_keep = dropout_params(dropout_rate)
     bsz, t, h = q.shape
     lib = build.load_library().lib

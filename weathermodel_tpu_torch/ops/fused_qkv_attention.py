@@ -35,7 +35,11 @@ what the kernel is checked against on the card.
 In bf16, B1 (both forms) and B5's first phase run a wgmma/TMA body
 (`csrc/attention_hopper.cuh`), which takes H a multiple of 8 and x and
 w_qkv 16-byte aligned: `check_wgmma_layout` raises a ValueError otherwise,
-before any launch. float32 runs the scalar body. Every kernel here takes T
+before any launch. B2 in bf16 runs the backward's wgmma body
+(`csrc/attention_bwd_hopper.cuh`, shared with B3b) up to the T it keeps on
+chip and the scalar passes past it, and takes H a multiple of 8 and qkv
+and do 8-byte aligned (`ops.flash_attention.check_bwd_layout`). float32
+runs the scalar bodies. Every kernel here takes T
 up to `ops.attention.MAX_CONTEXT` (1536) at every head dim; past the T whose
 per-head rows fit in a block's shared memory, it keeps them in a device
 workspace that the wrapper allocates (`_workspace`). A longer T raises a
@@ -53,6 +57,7 @@ import torch
 from weathermodel_tpu_torch.kernels import build
 from weathermodel_tpu_torch.ops.attention import check_context, dropout_params
 from weathermodel_tpu_torch.ops.flash_attention import (
+    check_bwd_layout,
     flash_attention_bwd_reference,
     flash_attention_fwd_reference,
 )
@@ -212,16 +217,17 @@ def fused_qkv_attention_bwd(qkv, do, num_heads: int, dropout_rate: float,
     """Kernel B2: qkv [B, T, 3H] (the training forward's residual), do
     [B, T, H] -> dqkv [B, T, 3H], with the forward's dropout rate and seed.
 
-    CUDA tensors launch the kernel (its two passes, counted once in
-    `fused_qkv_attention_bwd.launches`) or raise; CPU tensors take the
-    plain version."""
+    CUDA tensors launch the kernel (bf16's wgmma body, or the two scalar
+    passes, counted once in `fused_qkv_attention_bwd.launches`) or raise;
+    CPU tensors take the plain version."""
     _check_bwd_shapes(qkv, do, num_heads)
     if not _on_cuda("fused_qkv_attention_bwd", do.shape[-1] // num_heads,
                    qkv, do):
         return fused_qkv_attention_bwd_reference(qkv, do, num_heads,
                                                  dropout_rate, seed)
-    on, threshold, _, inv_keep = dropout_params(dropout_rate)
     bsz, t, h = do.shape
+    check_bwd_layout("fused_qkv_attention_bwd", h, 3 * h, qkv, do)
+    on, threshold, _, inv_keep = dropout_params(dropout_rate)
     lib = build.load_library().lib
     dqkv = torch.empty_like(qkv)
     stats = torch.empty(bsz, num_heads, 3, t, dtype=torch.float32,
