@@ -5,7 +5,10 @@
 Phases, each printing one line; any failure raises and exits non-zero:
   1. device  - requires CUDA; prints the card and its power limit
   2. build   - compiles csrc/*.cu with nvcc for sm_90a; build time and the
-               ptxas report (registers, spills)
+               ptxas report (registers, spills); then the bf16 grouped-matmul
+               body's (expert_gemm_wgmma_kernel: B4, expert_wgrad_wgmma_kernel:
+               B4t) registers, spills and shared memory, failing on a
+               serialized-wgmma warning (C7512) in either
   3. kernel  - the bf16 attention body's (qkv_attention_wgmma_kernel, B1 and
                B5's first phase) ptxas registers and spills of the eval form,
                short-T and streaming, and its shared memory; the fused QKV
@@ -103,7 +106,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                not a multiple of 128, tiny groups sharing a tile); CUDA-event
                times of the kernel, the plain version and the library
                yardstick (torch._grouped_mm where it takes the inputs, else
-               one cuBLAS matmul per group)
+               one cuBLAS matmul per group); bf16 B4's mean (its four calls
+               printed each) and B4t's beside their recorded times on the WMMA
+               tiles
   12. train_moe - `wm-pretrain-torch`'s run(args) for the flagship MoE
                configuration: WeatherBERT-large, --moe-experts 8 --moe-top-k 2
                (ragged dispatch), bf16, --batch-size 288 --grad-accum 3,
@@ -112,7 +117,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                batch 16 of B4 and 8 of B1 eval; finite losses and moe_aux, the
                train loss falls; the same timings (TFLOP/s from the MoE
                analytic count), profile (the attention and backward bodies
-               required, as in phase 8) and one-step comparison with the plain
+               required, as in phase 8, and the grouped-matmul body's two
+               kernels, with no bf16 gmm_kernel or tgmm_kernel of the WMMA
+               tiles) and one-step comparison with the plain
                path (plain grouped matmuls, plain attention) as phase 8
   13. kernel_ffn - the bf16 wgmma bodies' (ffn_wgmma_kernel: B6f and B7;
                ffn_bwd_wgmma_kernel: B6b's row work) ptxas registers and
@@ -269,6 +276,14 @@ ATTN_SCALAR_BF16 = "fused_qkv_attention_kernel<__nv_bfloat16"
 ATTN_BWD_BODY = "attention_bwd_wgmma_kernel"
 ATTN_BWD_SCALAR_BF16 = ("bwd_dq_kernel<__nv_bfloat16",
                         "bwd_dkdv_kernel<__nv_bfloat16")
+# the bf16 body of B4 and B4t (csrc/gmm_hopper.cuh), and the WMMA tiles' bf16
+# instantiations, which the MoE profile may not show
+GMM_BODY, TGMM_BODY = "expert_gemm_wgmma_kernel", "expert_wgrad_wgmma_kernel"
+GMM_TILES_BF16 = ("gmm_kernel<__nv_bfloat16", "tgmm_kernel<__nv_bfloat16")
+# bf16 B4 (mean of a MoE layer's four calls) and B4t (of two) on the WMMA
+# tiles before their wgmma body (PERF.md §6; H100 80GB HBM3, 700 W), printed
+# beside this run's
+WMMA_GMM_MS = {"B4": 1.891, "B4t": 2.194}
 # (B, T, H, heads) at the bf16 body's 64-row tile edges (T = 1, 64, 65, 383,
 # 384), one at each head dim, then the longest T the fp32 body keeps in
 # shared memory at hd 36 (453) and the bf16 body's resident K^T and V^T
@@ -446,6 +461,43 @@ def phase_build():
               if "Used" in ln or "spill" in ln]
     print(f"build: {built.seconds:.1f} s nvcc -> {built.path.name}; ptxas: "
           + " | ".join(report), flush=True)
+    print("build: " + _gmm_body_report(built), flush=True)
+
+
+def _gmm_body_report(built):
+    """The bf16 grouped-matmul body's ptxas report (registers and spills of
+    B4's two instantiations, kTransB 0 and 1, and of B4t) and its dynamic
+    shared memory a block; fails on a serialized-wgmma warning (C7512) in
+    either kernel."""
+    import re
+
+    lines = built.ptxas_log.splitlines()
+    serialized = [ln for ln in lines if "C7512" in ln and
+                  (GMM_BODY in ln or TGMM_BODY in ln)]
+    if serialized:
+        raise AssertionError(f"the grouped-matmul body's wgmmas are "
+                             f"serialized: {serialized}")
+    report = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\S*?(" + GMM_BODY + "|" +
+                      TGMM_BODY + r")(ILb(\d)E)?", line)
+        if m is None:
+            continue
+        block = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        name = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+        report[name] = (f"{regs.group(1) if regs else '?'} registers, spill "
+                        f"{'/'.join(spill.groups()) if spill else '?'} B")
+    want = {f"{GMM_BODY}<0>", f"{GMM_BODY}<1>", TGMM_BODY}
+    if set(report) != want:
+        raise AssertionError(f"ptxas reported {sorted(report)} for the "
+                             f"grouped-matmul body, not {sorted(want)}")
+    return ("grouped-matmul body ptxas: "
+            + "; ".join(f"{k}: {v}" for k, v in sorted(report.items()))
+            + f"; dynamic shared memory a block "
+              f"{built.lib.wm_gmm_wgmma_smem()} B")
 
 
 def _cuda_ms(fn, iters=5, warmup=2):
@@ -1842,7 +1894,11 @@ def phase_kernel_gmm():
                     bound_ms=sum(r["bound"][0] for r in rs) / len(rs),
                     bound_by=rs[0]["bound"][1], **mean)
 
-    return record(("gmm", "gmm_t")), record(("tgmm",))
+    b4, b4t = record(("gmm", "gmm_t")), record(("tgmm",))
+    print(f"kernel_gmm: bf16 on the wgmma body: B4 {b4['ms']:.3f} ms a call "
+          f"(mean of 4; {WMMA_GMM_MS['B4']} on the WMMA tiles), B4t "
+          f"{b4t['ms']:.3f} ({WMMA_GMM_MS['B4t']})", flush=True)
+    return b4, b4t
 
 
 def _check_moe_no_host_sync(cfg):
@@ -1912,9 +1968,12 @@ def phase_train_moe(smi: str, data: Path):
     print("train_moe: " + _profile_step(
         "weatherbert", cfg, "fused_qkv", MOE_BATCH, MOE_ACCUM,
         named=(("B1 train (the bf16 body)", ATTN_BODY),
-               ("B2 (the bf16 backward body)", ATTN_BWD_BODY)),
-        require=(ATTN_BODY, ATTN_BWD_BODY),
-        forbid=(ATTN_SCALAR_BF16, *ATTN_BWD_SCALAR_BF16)), flush=True)
+               ("B2 (the bf16 backward body)", ATTN_BWD_BODY),
+               ("B4 (the bf16 grouped-matmul body)", GMM_BODY),
+               ("B4t (the bf16 grouped-matmul body)", TGMM_BODY)),
+        require=(ATTN_BODY, ATTN_BWD_BODY, GMM_BODY, TGMM_BODY),
+        forbid=(ATTN_SCALAR_BF16, *ATTN_BWD_SCALAR_BF16, *GMM_TILES_BF16)),
+        flush=True)
     print("train_moe: " + _check_step_parity("weatherbert", MODEL_SIZE,
                                              "fused_qkv", MOE), flush=True)
     print("train_moe: " + _check_moe_no_host_sync(cfg), flush=True)

@@ -113,6 +113,43 @@ def test_bf16_rounds_once_after_fp32_sums():
     assert tgmm(lhs_b, dy_b, torch.from_numpy(g)).dtype == torch.bfloat16
 
 
+# XLA on the CPU may keep a bf16 value in fp32 where it fuses the rounding
+# into its consumer (`xla_allow_excess_precision`, on by default); the JAX
+# side here is compiled with it off, so that every bf16 operation rounds as
+# written, as tests/test_torch_port_attention_bwd.py does
+EXACT_BF16 = {"xla_allow_excess_precision": False}
+
+
+@pytest.mark.parametrize("s,gs", [GS_CASES[0], GS_CASES[2]])
+def test_bf16_gradients_round_as_the_pallas_kernels(s, gs):
+    """The bf16 plain versions of the backward's two kernels, d_lhs (B4
+    against rhs^T, `gmm(..., trans_rhs=True)`) and d_rhs (B4t, `tgmm`),
+    against jax.vjp through the JAX gmm's custom VJP (its Pallas kernels in
+    the interpreter), with group boundaries inside tiles and an empty middle
+    group: both sum in fp32 and round once to bf16, so they agree within one
+    bf16 ulp (2^-8 relative) where the two fp32 sums round apart."""
+    lhs, rhs, dy, g = _case(5, s, 16, 24, gs)
+    lhs_b, rhs_b, dy_b = (torch.from_numpy(a).bfloat16()
+                          for a in (lhs, rhs, dy))
+    primals = [jnp.asarray(a.float().numpy(), jnp.bfloat16)
+               for a in (lhs_b, rhs_b, dy_b)]
+
+    def vjp(a, b, cotangent):
+        _, pullback = jax.vjp(lambda a_, b_: jax_gmm(a_, b_, jnp.asarray(g)),
+                              a, b)
+        return pullback(cotangent)
+
+    wants = jax.jit(vjp).lower(*primals).compile(
+        compiler_options=EXACT_BF16)(*primals)
+    g_t = torch.from_numpy(g)
+    gots = (gmm(dy_b, rhs_b, g_t, trans_rhs=True), tgmm(lhs_b, dy_b, g_t))
+    for name, got, want in zip(("d_lhs", "d_rhs"), gots, wants):
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   rtol=2 ** -8, atol=1e-6, err_msg=name)
+
+
 def test_group_offsets_and_argument_checks():
     assert group_offsets(torch.tensor([3, 0, 5])).tolist() == [0, 3, 3, 8]
     assert group_offsets(torch.tensor([3, 0, 5])).dtype == torch.int32

@@ -539,9 +539,13 @@ def test_weatherformer_step_flash_path_matches_plain_path(cuda):
 # multiple of 128, one group over many tiles, tiny groups sharing one tile
 GMM_GROUPS = [[100, 60, 96], [0, 256, 0], [128, 0, 44, 128], [640],
               [1, 1, 1, 127], [0, 333, 0, 367, 0]]
-# (K, N): partial 32-deep slabs and 128-wide tiles with 16-byte loads, and a
-# K whose rows are not whole 16-byte chunks (element loads)
+# (K, N): in bf16 both sides of the dispatch in gmm.cu and tgmm.cu. (80, 200)
+# runs the wgmma/TMA body (gmm_hopper.cuh) in partial 64-deep slabs and
+# 192-wide tiles; (12, 40), a K whose rows are not whole 16-byte chunks, runs
+# gmm_common.cuh's tiles (element loads). fp32 runs the tiles at both.
 GMM_DIMS = [(80, 200), (12, 40)]
+GMM_TOL = {torch.float32: dict(atol=1e-3, rtol=1e-4),
+           torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
 
 
 def _gmm_inputs(groups, k, n, dtype, device, seed=0):
@@ -570,8 +574,7 @@ def test_gmm_kernels_match_plain(cuda, dtype, groups, k, n):
     assert (gmm.launches, tgmm.launches) == (before[0] + 2, before[1] + 1)
     assert out.shape == (sum(groups), n) and out.dtype == dtype
     assert d_rhs.shape == (len(groups), k, n) and d_rhs.dtype == dtype
-    tol = {torch.float32: dict(atol=1e-3, rtol=1e-4),
-           torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}[dtype]
+    tol = GMM_TOL[dtype]
     for got, want in ((out, gmm_reference(lhs, rhs, gs)),
                       (out_t, gmm_reference(dy, rhs, gs, trans_rhs=True)),
                       (d_rhs, tgmm_reference(lhs, dy, gs))):
@@ -581,6 +584,67 @@ def test_gmm_kernels_match_plain(cuda, dtype, groups, k, n):
     for g, size in enumerate(groups):
         if size == 0:
             assert torch.count_nonzero(d_rhs[g]) == 0
+
+
+# uneven groups of a few thousand rows: an empty one, one under a slab, group
+# boundaries inside 128-row tiles and 64-row slabs
+GMM_BODY_GROUPS = [700, 0, 1500, 333, 64, 1200, 5, 198]
+
+
+def _gmm_body_calls(lhs, rhs, dy, gs):
+    """B4 (rhs as stored, and its d_lhs form through rhs^T) and B4t."""
+    return (gmm(lhs, rhs, gs), gmm(dy, rhs, gs, trans_rhs=True),
+            tgmm(lhs, dy, gs))
+
+
+@pytest.mark.parametrize("k,n", [(576, 2304), (2304, 576)])
+def test_gmm_body_matches_plain_at_moe_widths(cuda, k, n):
+    """bf16 B4's four forms of a MoE layer (fwd1 and dlhs1 at 576 x 2304, fwd2
+    and dlhs2 at 2304 x 576) and B4t's two on the wgmma/TMA body, against
+    their plain versions at the bf16 bars; two calls give equal bits."""
+    lhs, rhs, dy, gs = _gmm_inputs(GMM_BODY_GROUPS, k, n, torch.bfloat16,
+                                   cuda, seed=5)
+    before = (gmm.launches, tgmm.launches)
+    got = _gmm_body_calls(lhs, rhs, dy, gs)
+    again = _gmm_body_calls(lhs, rhs, dy, gs)
+    torch.cuda.synchronize()
+    assert (gmm.launches, tgmm.launches) == (before[0] + 4, before[1] + 2)
+    wants = (gmm_reference(lhs, rhs, gs),
+             gmm_reference(dy, rhs, gs, trans_rhs=True),
+             tgmm_reference(lhs, dy, gs))
+    for name, g, a, w in zip(("B4", "B4 rhs^T", "B4t"), got, again, wants):
+        assert torch.equal(g, a), name
+        torch.testing.assert_close(g.float(), w.float(),
+                                   **GMM_TOL[torch.bfloat16])
+        _assert_scaled_close(name, g, w, torch.bfloat16)
+    assert torch.count_nonzero(got[2][1]) == 0  # the empty group
+
+
+@pytest.mark.parametrize("k,n", [(576, 2304), (80, 200)])
+def test_gmm_body_masks_other_groups_rows(cuda, k, n):
+    """NaN in the rows of one group (lhs and dy) leaves every other group's B4
+    rows and B4t blocks finite and equal to the plain versions: B4 zeroes the
+    rows of other groups in its A stage, B4t in both operands' stages (the
+    TPU's rule, 0 * NaN = NaN)."""
+    groups = [300, 77, 450, 0, 173]
+    lhs, rhs, dy, gs = _gmm_inputs(groups, k, n, torch.bfloat16, cuda,
+                                   seed=6)
+    lhs[300:377] = float("nan")
+    dy[300:377] = float("nan")
+    out, out_t, d_rhs = _gmm_body_calls(lhs, rhs, dy, gs)
+    torch.cuda.synchronize()
+    keep = torch.ones(sum(groups), dtype=torch.bool, device=cuda)
+    keep[300:377] = False
+    for got, want in ((out, gmm_reference(lhs, rhs, gs)),
+                      (out_t, gmm_reference(dy, rhs, gs, trans_rhs=True))):
+        assert torch.isfinite(got[keep]).all()
+        torch.testing.assert_close(got[keep].float(), want[keep].float(),
+                                   **GMM_TOL[torch.bfloat16])
+    want = tgmm_reference(lhs, dy, gs)
+    others = [0, 2, 3, 4]
+    assert torch.isfinite(d_rhs[others]).all()
+    torch.testing.assert_close(d_rhs[others].float(), want[others].float(),
+                               **GMM_TOL[torch.bfloat16])
 
 
 def test_grouped_matmul_gradients_match_plain(cuda):

@@ -9,26 +9,32 @@
 // [E, N, K] and out[s] = lhs[s] . rhs[g(s)]^T: the backward's d_lhs = gmm(dy, rhs^T)
 // reads the forward's weights in place, with no [E, N, K] copy.
 //
-// Design: one thread block per 128-row x 128-column tile of out (gmm_common.cuh). The TPU
-// kernel's virtual-tile table, scalar prefetch and flush-on-last-visit writes exist
-// because a Pallas grid runs in order; here blocks run in parallel and need none of it.
-// The grid is sized from S and N alone. A block reads the offsets, walks the groups that
-// intersect its rows (usually one; at a group boundary two or a few) and, for each,
-// runs the K loop against that group's weights with the rows of other groups staged as
-// zeros. A row thus takes products from its own group only, and all groups of the tile
-// sum into one set of fp32 accumulators that is written once. Rows past the last offset
-// come out as zeros. The extra work at group boundaries is at most E - 1 extra 128-row
-// passes over K, 1.3% at S = 70080, E = 8.
+// Two bodies, chosen by an explicit dispatch on the shape in `launch`:
+//   * bf16 with K and N multiples of 8, 16-byte aligned operands and at least one row (the
+//     MoE layer's every call): the wgmma/TMA body of gmm_hopper.cuh
+//     (expert_gemm_wgmma_kernel), 128 x 192 tiles fed by a 4-stage TMA ring, on a
+//     persistent grid of one block an SM.
+//   * every other call (fp32, and bf16 of other shapes or alignments): the tiles below
+//     (gmm_common.cuh), one thread block per 128-row x 128-column tile of out. The grid is
+//     sized from S and N alone. A block reads the offsets, walks the groups that intersect
+//     its rows (usually one; at a group boundary two or a few) and, for each, runs the K
+//     loop against that group's weights with the rows of other groups staged as zeros. A
+//     row thus takes products from its own group only, and all groups of the tile sum into
+//     one set of fp32 accumulators that is written once. Rows past the last offset come
+//     out as zeros. bf16 runs WMMA (mma.sync) from one shared-memory stage per 32-deep
+//     slab; fp32 runs on the FMA pipes.
+// The TPU kernel's virtual-tile table, scalar prefetch and flush-on-last-visit writes
+// exist because a Pallas grid runs in order; here blocks run in parallel and need none of
+// it.
 //
 // What bounds it on the card: at the MoE layer's shapes (S = 70080, K x N = 576 x 2304
 // or 2304 x 576) a call is 186 GFLOP against 425 MB of operands in bf16, so the tensor
-// cores' rate bounds it (0.19 ms at 989 TFLOP/s). This first version feeds the tensor
-// cores through WMMA (mma.sync) from one shared-memory stage per 32-deep slab, loaded
-// with 16-byte vector loads and no overlap of the next slab's loads with the current
-// slab's products, at two blocks per SM; fp32 runs on the FMA pipes. Later work: wgmma
-// fed by TMA through a ring of stages, and a persistent grid.
+// cores' rate bounds it (0.19 ms at 989 TFLOP/s; 2.8 ms at fp32's 67 TFLOP/s).
+
+#include <type_traits>
 
 #include "gmm_common.cuh"
+#include "gmm_hopper.cuh"
 
 namespace {
 
@@ -76,6 +82,10 @@ gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
 template <typename T>
 cudaError_t launch(const void* lhs, const void* rhs, const int* offsets, void* out, int s,
                    int k, int n, int e, bool trans, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (gmm_hopper::takes(s, k, n, lhs, rhs, out))
+      return gmm_hopper::launch_gmm(lhs, rhs, offsets, out, s, k, n, e, trans, stream);
+  }
   const dim3 grid((n + kTile - 1) / kTile, (s + kTile - 1) / kTile);
   if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
   const bool vec_lhs = vec_ok<T>(lhs, k);
@@ -111,5 +121,8 @@ int wm_gmm(int dtype, const void* lhs, const void* rhs, const void* offsets, voi
     return launch<__nv_bfloat16>(lhs, rhs, offs, out, s, k, n, e, trans_rhs != 0, st);
   return cudaErrorInvalidValue;
 }
+
+// The bf16 body's (B4 and B4t, gmm_hopper.cuh) dynamic shared memory per block, in bytes.
+int wm_gmm_wgmma_smem() { return gmm_hopper::kSmemBytes; }
 
 }  // extern "C"

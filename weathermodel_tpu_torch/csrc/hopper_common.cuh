@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma/TMA bodies: the bf16 FFN body
 // (ffn_hopper.cuh: kernels B7, B6f and B6b's row work), the bf16 fused QKV attention body
-// (attention_hopper.cuh: kernels B1 and B5's first phase) and the bf16 attention backward
-// (attention_bwd_hopper.cuh: kernels B2 and B3b).
+// (attention_hopper.cuh: kernels B1 and B5's first phase), the bf16 attention backward
+// (attention_bwd_hopper.cuh: kernels B2 and B3b) and the bf16 grouped matmul
+// (gmm_hopper.cuh: kernels B4 and B4t).
 //   device: mbarriers, TMA loads (tensor and bulk) and stores, the async-proxy fences,
-//           named barriers, wgmma's fence / commit / wait, shared-memory matrix
-//           descriptors, wgmma at the widths the bodies use (both operands from shared
-//           memory, or A from registers), the 128-byte swizzle's address function and bf16
-//           packing
+//           named barriers, setmaxnreg, wgmma's fence / commit / wait, shared-memory
+//           matrix descriptors, wgmma at the widths the bodies use (both operands from
+//           shared memory, or A from registers), the 128-byte swizzle's address function
+//           and bf16 packing
 //   host:   cuTensorMapEncodeTiled, found at run time, and the tensor maps built with it
 
 #pragma once
@@ -104,13 +105,20 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* tm, uint32_t src, i
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
 
-__device__ __forceinline__ void tma_store3(const CUtensorMap* tm, uint32_t src, int c1) {
+// the same into a 3-D map at (c0, c1, c2)
+__device__ __forceinline__ void tma_store3d(const CUtensorMap* tm, uint32_t src, int c0, int c1,
+                                           int c2) {
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
           reinterpret_cast<uint64_t>(tm)),
-      "r"(src), "r"(0), "r"(c1), "r"(0)
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// the box at (0, c1, 0) of a 3-D map
+__device__ __forceinline__ void tma_store3(const CUtensorMap* tm, uint32_t src, int c1) {
+  tma_store3d(tm, src, 0, c1, 0);
 }
 
 __device__ __forceinline__ void tma_store_wait_read() {
@@ -129,6 +137,18 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a warpgroup's register budget a thread, lowered for a producer and raised for consumers
+// (every warp of the warpgroup executes it)
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kRegs));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -299,6 +319,27 @@ struct Wgmma<160, kTransB> {
       : WM_ACC8(d, 0), WM_ACC8(d, 8), WM_ACC8(d, 16), WM_ACC8(d, 24), WM_ACC8(d, 32),
         WM_ACC8(d, 40), WM_ACC8(d, 48), WM_ACC8(d, 56), WM_ACC8(d, 64), WM_ACC8(d, 72)
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+};
+
+// A M-major (kTransA = 1) or K-major, at the grouped matmul's tile width
+template <int kTransB, int kTransA>
+struct Wgmma<192, kTransB, kTransA> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, %96, %97, p, 1, 1, %100, %99;\n}\n"
+      : WM_ACC8(d, 0), WM_ACC8(d, 8), WM_ACC8(d, 16), WM_ACC8(d, 24), WM_ACC8(d, 32),
+        WM_ACC8(d, 40), WM_ACC8(d, 48), WM_ACC8(d, 56), WM_ACC8(d, 64), WM_ACC8(d, 72),
+        WM_ACC8(d, 80), WM_ACC8(d, 88)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB), "n"(kTransA));
   }
 };
 

@@ -8,23 +8,30 @@
 // with fp32 accumulation and one rounding to the element type; a group with no rows
 // gets zeros, as the TPU path's final `where(group_sizes > 0, out, 0)` gives them.
 //
-// Design: one thread block per (group, 128-row tile of K, 128-column tile of N)
-// (gmm_common.cuh), so the grid is sized from E, K and N alone. A block walks its
-// group's rows in slabs of 32: lhs's slab is staged as [s][k] and read by the tensor
-// cores as the column-major lhs^T, dy's as [s][n]; rows of other groups are staged as
-// zeros (both operands, so that nothing of a neighbouring group reaches the sum). The
-// block owns its output tile alone, so there are no atomics and the result does not
-// depend on scheduling: the sum over a group's rows runs in one fixed order. The TPU
-// kernel's virtual-tile table and flush-on-last-visit writes, needed because its grid
+// Two bodies, chosen by an explicit dispatch on the shape in `launch`:
+//   * bf16 with K and N multiples of 8, 16-byte aligned operands and at least one row (the
+//     MoE layer's every call): the wgmma/TMA body of gmm_hopper.cuh
+//     (expert_wgrad_wgmma_kernel), a block per (192 columns of N, 128 rows of K, group).
+//   * every other call (fp32, and bf16 of other shapes or alignments): the tiles below
+//     (gmm_common.cuh), one thread block per (group, 128-row tile of K, 128-column tile of
+//     N), so the grid is sized from E, K and N alone. A block walks its group's rows in
+//     slabs of 32: lhs's slab is staged as [s][k] and read by the tensor cores as the
+//     column-major lhs^T, dy's as [s][n]; rows of other groups are staged as zeros (both
+//     operands, so that nothing of a neighbouring group reaches the sum).
+// In both the block owns its output tile alone, so there are no atomics and the result
+// does not depend on scheduling: the sum over a group's rows runs in one fixed order. The
+// TPU kernel's virtual-tile table and flush-on-last-visit writes, needed because its grid
 // runs in order over all rows, have no counterpart.
 //
 // What bounds it on the card: the same 186 GFLOP per call as B4 at the MoE layer's
 // shapes, tensor-core bound (0.19 ms in bf16). The block's work is its group's row
 // count, so blocks of large groups run longer than others: with uneven routing the last
-// wave is ragged. Later work, with B4's: wgmma fed by TMA, and splitting long groups'
-// row loops over more blocks with a second reduction pass.
+// wave is ragged.
+
+#include <type_traits>
 
 #include "gmm_common.cuh"
+#include "gmm_hopper.cuh"
 
 namespace {
 
@@ -60,8 +67,12 @@ tgmm_kernel(const T* __restrict__ lhs, const T* __restrict__ dy,
 }
 
 template <typename T>
-cudaError_t launch(const void* lhs, const void* dy, const int* offsets, void* out, int k,
-                   int n, int e, cudaStream_t stream) {
+cudaError_t launch(const void* lhs, const void* dy, const int* offsets, void* out, int s,
+                   int k, int n, int e, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (gmm_hopper::takes(s, k, n, lhs, dy, out))
+      return gmm_hopper::launch_tgmm(lhs, dy, offsets, out, s, k, n, e, stream);
+  }
   const dim3 grid((n + kTile - 1) / kTile, (k + kTile - 1) / kTile, e);
   if (grid.y > 65535u || grid.z > 65535u) return cudaErrorInvalidConfiguration;
   tgmm_kernel<T><<<grid, kThreads, 0, stream>>>(
@@ -83,8 +94,8 @@ int wm_tgmm(int dtype, const void* lhs, const void* dy, const void* offsets, voi
   if (s < 0 || k <= 0 || n <= 0 || e <= 0) return cudaErrorInvalidValue;
   auto* offs = static_cast<const int*>(offsets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(lhs, dy, offs, out, k, n, e, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(lhs, dy, offs, out, k, n, e, st);
+  if (dtype == 0) return launch<float>(lhs, dy, offs, out, s, k, n, e, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(lhs, dy, offs, out, s, k, n, e, st);
   return cudaErrorInvalidValue;
 }
 

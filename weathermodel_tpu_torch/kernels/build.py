@@ -119,6 +119,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     # dtype, lhs, dy, offsets, out, s, k, n, e, stream
     lib.wm_tgmm.argtypes = [i, p, p, p, p, i, i, i, i, p]
     lib.wm_tgmm.restype = i
+    # the bf16 grouped-matmul body's (B4, B4t) dynamic shared memory per
+    # block in bytes
+    lib.wm_gmm_wgmma_smem.argtypes = []
+    lib.wm_gmm_wgmma_smem.restype = i
     # dtype, x, w1, b1, w2, b2, f, h (or None), m, h, f, dropout_on, seed1,
     # seed2, threshold, inv_keep, stream
     lib.wm_fused_ffn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, u, u, u,
