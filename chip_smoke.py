@@ -82,20 +82,29 @@ Phases, each printing one line; any failure raises and exits non-zero:
                backward B3b, vs their plain versions at WeatherFormer-small's
                batch (B=256, T=365, H=200, 10 heads), on the column slices of
                a packed projection as the model passes them, fp32 and bf16,
-               dropout 0.1 (the same seed on both sides) and 0; CUDA-event
+               dropout 0.1 (the same seed on both sides) and 0, B3f also on
+               three separate tensors; CUDA-event
                times of the kernel, the plain version and SDPA (forward;
-               forward and backward for B3b); the backward body's ptxas
-               report as B3b's file compiles it, and bf16 B3b's time beside
-               the recorded one on the scalar passes; both at the backward's
-               edge shapes, dropout 0.1 and 0
+               forward and backward for B3b); bf16 B3f's wgmma body
+               (attention_fwd_wgmma_kernel) with two warpgroups a block and
+               with three, timed in turns and held bitwise to the wrapper's
+               output, and a profile of each bf16 call on slices and on
+               tensors, both rates, which fails unless the body runs and no
+               bf16 scalar flash_attention_kernel does; the forward and the
+               backward bodies' ptxas reports (B3b's as its file compiles
+               it) and shared memory, and bf16 B3f's and B3b's times beside
+               the recorded ones on the scalar bodies; both at the edge
+               shapes (the bodies' tile edges and dispatch boundaries),
+               dropout 0.1 and 0
   10. train_former - `wm-pretrain-torch`'s run(args) with the JAX CLI's
                defaults (WeatherFormer-small, ELBO, beta 0.5, 10 masked
                features, --attention-impl auto) in bf16 at --batch-size 256,
                2 epochs, on the same synthetic store: 4 launches of B3f per
                training step and per validation batch, 4 of B3b per step,
                none of B1/B2; finite losses, the train loss falls; the same
-               timings, profile (B3b's backward body required, its bf16
-               scalar passes forbidden) and one-step comparison as phase 8
+               timings, profile (B3f's forward body and B3b's backward body
+               required, their bf16 scalar kernels forbidden) and one-step
+               comparison as phase 8
   11. kernel_gmm - the grouped matmul B4 (forward, and with rhs^T as the
                backward's d_lhs) and its weight gradient B4t vs their plain
                versions at the MoE microbatch's shapes (S = 96 x 365 x 2 =
@@ -160,7 +169,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
                none of the other kernels; then each kernel held against its
                plain version on the region it computes (P2: heads 0-14; P3:
                each arm's covered region) at 2^-6 of the plain output's
-               largest magnitude, with at most 1% of the entries differing;
+               largest magnitude, with at most 1% of the entries differing,
+               and a profile of each bf16 P3 call, which fails unless it runs
+               the grouped matmul's wgmma body (expert_gemm_wgmma_kernel) and
+               no bf16 blocked_mm_kernel of the WMMA tiles; P3's time beside
+               the recorded one on the tiles;
                CUDA-event times of the kernel, the plain
                version and the library call (two batched torch.matmul over
                the head views with S in bf16 for P1 and P2, torch.matmul for
@@ -284,6 +297,18 @@ GMM_TILES_BF16 = ("gmm_kernel<__nv_bfloat16", "tgmm_kernel<__nv_bfloat16")
 # tiles before their wgmma body (PERF.md §6; H100 80GB HBM3, 700 W), printed
 # beside this run's
 WMMA_GMM_MS = {"B4": 1.891, "B4t": 2.194}
+# the bf16 body of B3f (csrc/flash_attention_hopper.cuh), and the scalar
+# body's bf16 instantiation, which no bf16 profile at T = 365 may show
+FLASH_BODY = "attention_fwd_wgmma_kernel"
+FLASH_SCALAR_BF16 = "flash_attention_kernel<__nv_bfloat16"
+# P3's bf16 instantiation of the WMMA tiles, which its profile may not show
+# (bf16 P3 runs GMM_BODY as one group)
+BLOCKED_MM_TILES_BF16 = "blocked_mm_kernel<__nv_bfloat16"
+# bf16 B3f (B = 256, T = 365, dropout 0.1) on the scalar body and bf16 P3 (its
+# (512, 1152) arm) on the WMMA tiles before their wgmma bodies (PERF.md §6;
+# H100 80GB HBM3, 700 W), printed beside this run's
+SCALAR_FWD_MS = {"B3f": 4.159}
+WMMA_P3_MS = 1.7006
 # (B, T, H, heads) at the bf16 body's 64-row tile edges (T = 1, 64, 65, 383,
 # 384), one at each head dim, then the longest T the fp32 body keeps in
 # shared memory at hd 36 (453) and the bf16 body's resident K^T and V^T
@@ -295,17 +320,20 @@ ATTN_EDGE_SHAPES = [(4, 1, 576, 16), (4, 64, 336, 12), (4, 65, 200, 10),
                     (1, 512, 576, 16), (1, 513, 576, 16), (2, 730, 576, 16),
                     (1, 1024, 576, 16), (1, 1024, 336, 12),
                     (1, 1024, 200, 10), (1, 1024, 48, 4), (1, 1536, 576, 16)]
-# the backward kernels' and B3f's edge shapes: the bf16 backward body's 64-row
-# tile edges (T = 1, 64, 65, 383, 384), one at each head dim; T = 365; its
-# dispatch boundary, the largest T it keeps on chip and one more (576 and 577
-# at hd 36, 832 and 833 at hd 20 and 28), past which bf16 runs the scalar
-# passes; past the rows the scalar passes keep in shared memory (about 530 at
-# hd 36), each head dim at 1024; the limit at hd 36 and at hd 12 (the bf16
-# body's own there)
+# the backward kernels' and B3f's edge shapes: the bf16 bodies' 64-row tile
+# edges (T = 1, 64, 65, 383, 384), one at each head dim; T = 365; the backward
+# body's dispatch boundary, the largest T it keeps on chip and one more (576
+# and 577 at hd 36, 832 and 833 at hd 20 and 28), past which bf16 runs the
+# scalar passes; the forward body's (768 and 769 at hd 36, 1152 and 1153 at
+# hd 20), past which bf16 B3f runs its scalar body; past the rows the scalar
+# passes keep in shared memory (about 530 at hd 36), each head dim at 1024;
+# the limit at hd 36 and at hd 12 (the bf16 bodies' own there)
 ATTN_BWD_EDGE_SHAPES = [(2, 1, 576, 16), (2, 64, 336, 12), (2, 65, 200, 10),
                         (2, 383, 48, 4), (2, 384, 576, 16), (2, 365, 576, 16),
                         (1, 576, 576, 16), (1, 577, 576, 16),
                         (1, 832, 200, 10), (1, 833, 336, 12),
+                        (1, 768, 576, 16), (1, 769, 576, 16),
+                        (1, 1152, 200, 10), (1, 1153, 200, 10),
                         (1, 600, 576, 16), (1, 1024, 576, 16),
                         (1, 1024, 336, 12), (1, 1024, 200, 10),
                         (1, 1024, 48, 4), (1, 1536, 576, 16),
@@ -615,6 +643,44 @@ def _bwd_body_report(source):
                  smem_at(hd, MAX_CONTEXT)) for hd, top in resident.items()}
     return (f"{ATTN_BWD_BODY}<hd, kBits> ({source}) ptxas: "
             f"{'; '.join(report)}; "
+            f"dynamic shared memory a block by hd at T = {SEQ_LEN}, (its "
+            f"largest T, there) and {MAX_CONTEXT}: {smem} B")
+
+
+def _fwd_body_report():
+    """bf16 B3f's body's ptxas report (registers and spills by head dim and
+    warpgroups a block) and its dynamic shared memory a block at T = 365, at
+    the largest T it keeps on chip (0 past it: the scalar body runs) and at
+    MAX_CONTEXT."""
+    import re
+
+    from weathermodel_tpu_torch.kernels import build
+    from weathermodel_tpu_torch.ops.attention import MAX_CONTEXT
+
+    built = build.load_library()
+    lines = built.ptxas_log.splitlines()
+    report = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '.*" + FLASH_BODY +
+                      r"ILi(\d+)ELi(\d)E", line)
+        if m is None:
+            continue
+        block = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        report.append(f"<{m.group(1)}, {m.group(2)}>: "
+                      f"{regs.group(1) if regs else '?'} registers, spill "
+                      f"{'/'.join(spill.groups()) if spill else '?'} B")
+    if len(report) != 8:
+        raise AssertionError(f"ptxas reported {report} for {FLASH_BODY}, not "
+                             f"its 4 head dims x 2 block shapes")
+    smem_at = built.lib.wm_flash_attention_wgmma_smem
+    resident = {hd: max(t for t in range(1, MAX_CONTEXT + 1)
+                        if smem_at(hd, t) > 0) for hd in (12, 20, 28, 36)}
+    smem = {hd: (smem_at(hd, SEQ_LEN), (top, smem_at(hd, top)),
+                 smem_at(hd, MAX_CONTEXT)) for hd, top in resident.items()}
+    return (f"{FLASH_BODY}<hd, warpgroups> ptxas: {'; '.join(report)}; "
             f"dynamic shared memory a block by hd at T = {SEQ_LEN}, (its "
             f"largest T, there) and {MAX_CONTEXT}: {smem} B")
 
@@ -1566,6 +1632,9 @@ def _flash_case(qkv, do, nh, dtype, rate, seed, timed: bool):
     args = (q, k, v, nh, rate, seed)
     bwd_args = (q, k, v, g, nh, rate, seed)
     o = flash_attention_fwd(*args)
+    # B3f on three separate tensors too (the same values)
+    o_tensors = flash_attention_fwd(*(a.contiguous() for a in (q, k, v)), nh,
+                                    rate, seed)
     o_ref = flash_attention_fwd_reference(*args)
     grads = flash_attention_bwd(*bwd_args)
     grads_ref = flash_attention_bwd_reference(*bwd_args)
@@ -1573,12 +1642,13 @@ def _flash_case(qkv, do, nh, dtype, rate, seed, timed: bool):
     errs = {name: _check_kernel(f"{name} {dtype} dropout {rate}", got, want,
                                 dtype)
             for name, got, want in (("o", o, o_ref),
+                                    ("o on tensors", o_tensors, o_ref),
                                     *zip(("dq", "dk", "dv"), grads,
                                          grads_ref))}
-    r = dict(fwd_err=errs["o"][0],
+    r = dict(fwd_err=max(errs[n][0] for n in ("o", "o on tensors")),
              bwd_err=max(errs[n][0] for n in ("dq", "dk", "dv")),
              errs=_errs_text(errs))
-    del o, o_ref, grads, grads_ref
+    del o, o_tensors, o_ref, grads, grads_ref
     if not timed:
         return r
     torch.cuda.empty_cache()
@@ -1607,7 +1677,72 @@ def _flash_case(qkv, do, nh, dtype, rate, seed, timed: bool):
     return r
 
 
+def _b3f_block_shapes(q, k, v, nh, rate, seed, want):
+    """bf16 B3f's wgmma body with two warpgroups a block (two blocks an SM)
+    and with three (one block an SM), timed in turns (2, 3, 3, 2, 20 calls
+    each), each output bitwise equal to the wrapper's `want` (the tiles'
+    work does not depend on which warpgroup takes them): {warpgroups: ms}."""
+    from weathermodel_tpu_torch.kernels import build
+    from weathermodel_tpu_torch.ops.attention import dropout_params
+
+    lib = build.load_library().lib
+    on, threshold, keep_prob, _ = dropout_params(rate)
+    b, t, h = q.shape
+    out = torch.empty_like(want)
+    stream = build.cuda_stream(q.device)
+
+    def run(wgs):
+        build.check(lib.wm_flash_attention_wgmma_wgs(
+            wgs, q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1),
+            out.data_ptr(), b, t, h, nh, on, seed, threshold, keep_prob,
+            stream))
+
+    times = {2: [], 3: []}
+    for wgs in (2, 3, 3, 2):
+        out.zero_()
+        times[wgs].append(_cuda_ms(lambda: run(wgs), iters=20))
+        if not torch.equal(out, want):
+            raise AssertionError(f"bf16 B3f's body with {wgs} warpgroups a "
+                                 f"block differs from the wrapper's output")
+    return times
+
+
+def _in_child(name):
+    """chip_smoke's function `name` in a child process, which fails the
+    phase if it raises. A profile taken in this process after the earlier
+    phases can come back with no kernel events at all (see
+    `_ffn_bwd_split_in_child`); a fresh process's holds them."""
+    subprocess.run([sys.executable, "-c",
+                    f"import chip_smoke as cs; cs.{name}()"], check=True,
+                   timeout=600, cwd=Path(__file__).resolve().parent)
+
+
+def _b3f_profiles():
+    """bf16 B3f at kernel_flash's shape on the column slices of a packed
+    projection and on three tensors, dropout 0.1 and 0, each call profiled:
+    fails unless it runs the wgmma body and no bf16 scalar body."""
+    from weathermodel_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(FORMER_SIZE)
+    h, nh = cfg.hidden_dim, cfg.num_heads
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    qkv = torch.randn(FORMER_BATCH, SEQ_LEN, 3 * h, device="cuda",
+                      generator=g).to(torch.bfloat16)
+    slices = qkv.chunk(3, dim=-1)
+    tensors = tuple(a.contiguous() for a in slices)
+    for rate in (DROPOUT, 0.0):
+        for layout, ops in (("slices", slices), ("tensors", tensors)):
+            flash_attention_fwd(*ops, nh, rate, 7)  # warm-up
+            _check_kernel_names(
+                f"bf16 B3f on {layout}, dropout {rate}",
+                [e.key for e in _profiled(
+                    lambda: flash_attention_fwd(*ops, nh, rate, 7))],
+                require=(FLASH_BODY,), forbid=(FLASH_SCALAR_BF16,))
+
+
 def phase_kernel_flash():
+    from weathermodel_tpu_torch.ops.flash_attention import flash_attention_fwd
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
     cfg = model_config_for_size(FORMER_SIZE)
@@ -1642,6 +1777,15 @@ def phase_kernel_flash():
                 f"{r['bwd_bound'][0]:.3f} by {r['bwd_bound'][1]}; SDPA "
                 f"backend {r['sdpa_backend']}")
         lines.append(line)
+    # bf16 B3f's body: its two block shapes timed against each other, both
+    # rates; then the profiles of its calls, in a child process
+    q, k, v = qkv.to(torch.bfloat16).chunk(3, dim=-1)
+    shapes = {rate: _b3f_block_shapes(
+        q, k, v, nh, rate, seed, flash_attention_fwd(q, k, v, nh, rate, seed))
+        for rate in (DROPOUT, 0.0)}
+    del q, k, v
+    _in_child("_b3f_profiles")
+    print("kernel_flash: " + _fwd_body_report(), flush=True)
     print("kernel_flash: " + _bwd_body_report("flash_attention_bwd"),
           flush=True)
     print(f"kernel_flash: B={FORMER_BATCH} T={SEQ_LEN} H={h} heads={nh} (tol "
@@ -1650,6 +1794,17 @@ def phase_kernel_flash():
     print(f"kernel_flash: bf16 B3b on its wgmma body at T={SEQ_LEN} "
           f"{results[torch.bfloat16, DROPOUT]['bwd_ms']:.3f} ms (recorded on "
           f"the scalar passes: {SCALAR_BWD_MS['B3b']} ms)", flush=True)
+    print(f"kernel_flash: bf16 B3f on its wgmma body at T={SEQ_LEN} "
+          f"{results[torch.bfloat16, DROPOUT]['fwd_ms']:.3f} ms (recorded on "
+          f"the scalar body: {SCALAR_FWD_MS['B3f']} ms); the body by "
+          f"warpgroups a block (2: two blocks an SM, 3: one), ms in turns "
+          f"2, 3, 3, 2: " + "; ".join(
+              f"dropout {rate}: " + ", ".join(
+                  f"{wgs}: {[round(ms, 4) for ms in t]}"
+                  for wgs, t in times.items())
+              for rate, times in shapes.items())
+          + "; on the slices and on three tensors the profile shows "
+          f"{FLASH_BODY} and no {FLASH_SCALAR_BF16}", flush=True)
     for rate in (DROPOUT, 0.0):
         print(f"kernel_flash: B3f and B3b (o, dq, dk, dv) dropout {rate} "
               + _attention_edges(
@@ -1712,8 +1867,10 @@ def phase_train_former(smi: str, data: Path):
           f"memory {peak_gb:.1f} GB; card {smi}", flush=True)
     print("train_former: " + _profile_step(
         "weatherformer", cfg, "flash", FORMER_BATCH,
-        named=(("B3b (the bf16 backward body)", ATTN_BWD_BODY),),
-        require=(ATTN_BWD_BODY,), forbid=ATTN_BWD_SCALAR_BF16), flush=True)
+        named=(("B3f (the bf16 forward body)", FLASH_BODY),
+               ("B3b (the bf16 backward body)", ATTN_BWD_BODY)),
+        require=(FLASH_BODY, ATTN_BWD_BODY),
+        forbid=(FLASH_SCALAR_BF16, *ATTN_BWD_SCALAR_BF16)), flush=True)
     print("train_former: " + _check_step_parity("weatherformer", FORMER_SIZE,
                                                 "flash"), flush=True)
     return launches
@@ -2434,6 +2591,21 @@ def _check_probe(what, got, want):
     return err, share, peak
 
 
+def _p3_profiles():
+    """bf16 P3 at each arm of the probe, profiled: fails unless it runs the
+    grouped matmul's wgmma body and no bf16 WMMA tile."""
+    from weathermodel_tpu_torch.ops import blocked_mm as bmm
+    from weathermodel_tpu_torch.scripts import abl_gemm_probe
+
+    x, w = abl_gemm_probe.inputs(abl_gemm_probe.M, "cuda")
+    for bm, bn in abl_gemm_probe.ARMS:
+        bmm.blocked_mm(x, w, bm, bn)  # warm-up
+        _check_kernel_names(
+            f"bf16 blocked_mm bm={bm} bn={bn}",
+            [e.key for e in _profiled(lambda: bmm.blocked_mm(x, w, bm, bn))],
+            require=(GMM_BODY,), forbid=(BLOCKED_MM_TILES_BF16,))
+
+
 def phase_probes(smi: str):
     """The port's two ablation scripts at the JAX scripts' full shapes with
     PROBE_STEPS timed steps, every count at 0 just before; then P1, P2 and
@@ -2506,6 +2678,7 @@ def phase_probes(smi: str):
                                    (rows * kk + kk * cols + rows * cols) * 2,
                                    torch.bfloat16)
     del x, w
+    _in_child("_p3_profiles")
     torch.cuda.empty_cache()
     print("probes: " + " | ".join(head["lines"][1:] + gemm["lines"][1:]),
           flush=True)
@@ -2520,7 +2693,10 @@ def phase_probes(smi: str):
                   ("P2", "p2", "torch.matmul x2"),
                   (f"P3 {abl_gemm_probe.ARMS[0]}", "p3", "torch.matmul")))
           + f"; P2's packed products alone {r['p2_packed_ms']:.4f} ms at "
-          f"the bf16 peak; card {smi}", flush=True)
+          f"the bf16 peak; P3 on the grouped matmul's wgmma body "
+          f"({GMM_BODY} in its profile, no {BLOCKED_MM_TILES_BF16}), "
+          f"recorded on the WMMA tiles {WMMA_P3_MS} ms; card {smi}",
+          flush=True)
     return r
 
 

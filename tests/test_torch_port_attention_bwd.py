@@ -1,9 +1,11 @@
-"""The attention backward's plain versions in bf16 against the JAX package's
-Pallas kernels in the interpreter: B3b (`flash_attention_bwd_reference`)
-against `jax.vjp` of `flash_attention`, and B2 (through `FusedQKVAttention`'s
-plain path) against `jax.vjp` of `flash_attention_fused`, dropout 0; and the
-layout rule of the bf16 backward body, which the wrappers apply to CUDA
-tensors before any launch.
+"""The attention's plain versions on separate operands in bf16 against the
+JAX package's Pallas kernels in the interpreter: B3b
+(`flash_attention_bwd_reference`) against `jax.vjp` of `flash_attention`, B2
+(through `FusedQKVAttention`'s plain path) against `jax.vjp` of
+`flash_attention_fused`, and B3f (`flash_attention_fwd_reference`) against
+`flash_attention`'s forward, dropout 0; and the layout rule of the bf16
+bodies (B3f's forward, B2's and B3b's backward), which the wrappers apply to
+CUDA tensors before any launch.
 
 XLA on the CPU keeps a bf16 product in fp32 where it can fuse it into its
 consumer (its `xla_allow_excess_precision`, on by default), so the
@@ -24,8 +26,9 @@ from weathermodel_tpu.ops.pallas_attention import (
 )
 from weathermodel_tpu_torch.ops import fused_qkv_attention as fqa
 from weathermodel_tpu_torch.ops.flash_attention import (
-    check_bwd_layout,
+    check_bf16_body_layout,
     flash_attention_bwd_reference,
+    flash_attention_fwd_reference,
 )
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 
@@ -111,6 +114,23 @@ def test_bf16_flash_bwd_plain_version_rounds_as_the_pallas_kernel(b, t, h,
 
 
 @pytest.mark.parametrize("b,t,h,nh", SHAPES)
+def test_bf16_flash_fwd_plain_version_rounds_as_the_pallas_kernel(b, t, h,
+                                                                   nh):
+    """B3f's plain version: o at `_fwd_body`'s rounding points (qs =
+    rnd(q rnd(scale)), p = rnd(e recip), the p . v sums in fp32, o rounded
+    once), against `_fwd_kernel` through `flash_attention`, at the bar
+    above."""
+    rng = np.random.default_rng(b * t + h + 1)
+    arrays = [rng.normal(size=(b, t, h)).astype(np.float32) for _ in range(3)]
+    (q, k, v), js = _bf16(*arrays)
+    want = jax.jit(lambda q, k, v: flash_attention(q, k, v, num_heads=nh)) \
+        .lower(*js).compile(compiler_options=EXACT_BF16)(*js)
+    got = flash_attention_fwd_reference(q, k, v, nh, 0.0, 0)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    _assert_within_ulp("o", _np(got), _np(want))
+
+
+@pytest.mark.parametrize("b,t,h,nh", SHAPES)
 def test_bf16_fused_bwd_plain_version_rounds_as_the_pallas_kernel(
         b, t, h, nh, monkeypatch):
     """B2's plain version through `FusedQKVAttention`'s plain path: the dqkv
@@ -156,15 +176,15 @@ def test_bf16_fused_bwd_plain_version_rounds_as_the_pallas_kernel(
     (48, 144, 1, torch.bfloat16, "8-byte aligned"),
     (36, 108, 1, torch.float32, None), (48, 150, 0, torch.float32, None)])
 def test_bwd_layout_rule(h, stride, shift, dtype, match):
-    """The bf16 backward body's rule (H a multiple of 8, every operand's rows
-    8-byte aligned: bases and a row stride a multiple of 4), which B2's and
+    """The bf16 bodies' rule (H a multiple of 8, every operand's rows 8-byte
+    aligned: bases and a row stride a multiple of 4), which B3f's, B2's and
     B3b's wrappers apply to CUDA tensors before any launch; float32 runs the
-    scalar passes and is not held to it."""
+    scalar kernels and is not held to it."""
     buf = torch.zeros(2 * stride + shift, dtype=dtype)
     q = buf[shift:shift + h]
     do = torch.zeros(h, dtype=dtype)
     if match is None:
-        check_bwd_layout("flash_attention_bwd", h, stride, q, do)
+        check_bf16_body_layout("flash_attention_bwd", h, stride, q, do)
     else:
         with pytest.raises(ValueError, match=match):
-            check_bwd_layout("flash_attention_bwd", h, stride, q, do)
+            check_bf16_body_layout("flash_attention_bwd", h, stride, q, do)

@@ -139,15 +139,42 @@ def test_train_kernels_match_plain(cuda, dtype, rate, b, t, h, nh):
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
-# B3f and B3b against their plain versions at WeatherFormer-small's width
-# (T=365, H=200, 10 heads of 20) and at mini's head dim, on the column slices
-# of a packed projection (the model's layout) and on three separate tensors;
-# the bars of the fused kernels, for the same reasons
+# The bf16 forward body of B3f (csrc/flash_attention_hopper.cuh) keeps a
+# head's q, k and v in shared memory up to this T at each head dim; past it
+# bf16 runs the scalar body (at hd 12 it takes every T up to MAX_CONTEXT)
+FWD_RESIDENT_T = {12: 1536, 20: 1152, 28: 1152, 36: 768}
+FLASH_HEADS = {12: (48, 4), 20: (200, 10), 28: (336, 12), 36: (576, 16)}
+
+
+def _flash_cases():
+    """(b, t, h, heads): WeatherFormer-small's width (T=365, H=200, 10 heads
+    of 20) and mini's head dim at T=37; the forward body's 64-row tile edges
+    (T = 1, 64, 65, 383) at each head dim; its largest resident T and one
+    more (the scalar body) at hd 36 and 20."""
+    cases = [(2, 365, 200, 10), (2, 37, 48, 4)]
+    for hd, (h, nh) in FLASH_HEADS.items():
+        cases += [(2, t, h, nh) for t in (1, 64, 65, 383)]
+    for hd in (36, 20):
+        h, nh = FLASH_HEADS[hd]
+        cases += [(1, t, h, nh) for t in (FWD_RESIDENT_T[hd],
+                                          FWD_RESIDENT_T[hd] + 1)]
+    return cases
+
+
+# B3f and B3b against their plain versions, on the column slices of a packed
+# projection (the model's layout) and on three separate tensors; the bars of
+# the fused kernels, for the same reasons. In bf16 B3f twice, bitwise equal
+# (a fixed summation order), and its body's shared memory query at T
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,h,nh", [(2, 365, 200, 10), (2, 37, 48, 4)])
+@pytest.mark.parametrize("b,t,h,nh", _flash_cases())
 def test_flash_kernels_match_plain(cuda, dtype, rate, packed, b, t, h, nh):
+    from weathermodel_tpu_torch.kernels import build
+
+    hd = h // nh
+    smem = build.load_library().lib.wm_flash_attention_wgmma_smem
+    assert (smem(hd, t) > 0) == (t <= FWD_RESIDENT_T[hd])
     rng = np.random.default_rng(2)
     qkv = torch.tensor(rng.normal(size=(b, t, 3 * h)), dtype=dtype,
                        device=cuda)
@@ -167,6 +194,9 @@ def test_flash_kernels_match_plain(cuda, dtype, rate, packed, b, t, h, nh):
     assert o.dtype == dtype and o.shape == (b, t, h) and o.is_contiguous()
     for got, want in ((o, o_ref), *zip(grads, grads_ref)):
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    _assert_scaled_close(f"B3f o T={t} hd={hd} rate={rate}", o, o_ref, dtype)
+    if dtype == torch.bfloat16:
+        assert torch.equal(o, flash_attention_fwd(q, k, v, nh, rate, seed))
 
 
 # The bf16 backward body (csrc/attention_bwd_hopper.cuh, B2 and B3b) keeps a
@@ -268,6 +298,38 @@ def test_bf16_bwd_rejects_what_it_does_not_take(cuda):
                          torch.float32)
 
 
+def test_bf16_fwd_rejects_what_it_does_not_take(cuda):
+    """bf16 B3f takes its body's layout rule at every T (H a multiple of 8,
+    every operand's rows 8-byte aligned): a ValueError before any launch;
+    float32 takes both on the scalar body."""
+    before = flash_attention_fwd.launches
+    qkv = torch.randn(1, 24, 3 * 36, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_fwd(*qkv.chunk(3, dim=-1), 3, 0.0, 0)
+    buf = torch.randn(24 * 3 * 48 + 1, device=cuda).to(torch.bfloat16)
+    qkv = buf[1:].view(1, 24, 3 * 48)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        flash_attention_fwd(*qkv.chunk(3, dim=-1), 4, 0.1, 3)
+    q, k, v = (a.contiguous() for a in torch.randn(
+        1, 24, 3 * 48, device=cuda).to(torch.bfloat16).chunk(3, dim=-1))
+    shifted = torch.empty(q.numel() + 2, dtype=q.dtype,
+                          device=cuda)[2:].view_as(q)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        flash_attention_fwd(shifted, k, v, 4, 0.0, 0)
+    # past the body's T (800 > 768 at hd 36) too, where the scalar body runs
+    qkv = torch.randn(1, 800, 3 * 576 + 1, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        flash_attention_fwd(*qkv[..., 1:].chunk(3, dim=-1), 16, 0.0, 0)
+    assert flash_attention_fwd.launches == before
+    buf = torch.randn(24 * 3 * 36 + 1, device=cuda)
+    q, k, v = buf[1:].view(1, 24, 3 * 36).chunk(3, dim=-1)
+    _assert_scaled_close("fp32 B3f at H = 36, odd offsets",
+                         flash_attention_fwd(q, k, v, 3, 0.1, 5),
+                         flash_attention_fwd_reference(q, k, v, 3, 0.1, 5),
+                         torch.float32)
+
+
 def test_flash_kernels_draw_the_fused_kernels_mask(cuda):
     """One seed, one keep-mask: B3f on the packed projection equals B1's
     training form."""
@@ -293,11 +355,11 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("b,t,h,nh", [(2, 365, 576, 16), (3, 65, 200, 10)])
 def test_bf16_train_kernel_draws_the_scalar_bodys_mask(cuda, b, t, h, nh):
-    """One seed, one keep-mask across the two bodies: in bf16 B1's training
-    form (the wgmma body) against B3f (the scalar body, attention_fwd.cuh)
-    on the same qkv, with dropout 0.1; a mask that differed in one bit would
-    move o far past the bars. Then B2 on the wgmma body's qkv residual
-    against its plain version."""
+    """One seed, one keep-mask across the bodies: in bf16 B1's training form
+    (attention_hopper.cuh) against B3f (its own wgmma body,
+    flash_attention_hopper.cuh, at these T) on the same qkv, with dropout
+    0.1; a mask that differed in one bit would move o far past the bars.
+    Then B2 on the B1 body's qkv residual against its plain version."""
     x, w, bias = _inputs(b, t, h, torch.bfloat16, cuda)
     o, qkv = fused_qkv_attention_train(x, w, bias, nh, 0.1, 77)
     o_flash = flash_attention_fwd(*qkv.chunk(3, dim=-1), nh, 0.1, 77)
@@ -1239,11 +1301,15 @@ def test_headpack_kernels_reject_what_they_do_not_take(cuda):
         assert fn.launches == before
 
 
-# (m, k, n, bm, bn, dtype): the script's first and last arms; covered
-# regions that end inside a 128-tile, k not a multiple of the 32-deep slab,
-# and k, n whose rows are not whole 16-byte chunks (the scalar staging path)
+# (m, k, n, bm, bn, dtype): the script's first and last arms (bf16: the
+# grouped matmul's wgmma body as one group); a covered region that ends
+# inside the body's 128 x 192 tile, short of m and n (mc = 900 < 1000, nc =
+# 384 < 504); covered regions that end inside a 128-tile, k not a multiple of
+# the 32-deep slab, and k, n whose rows are not whole 16-byte chunks (bf16
+# off the body's rule: the WMMA tiles, and their scalar staging path)
 BLOCKED_MM_CASES = [(70144, 576, 2304, 512, 1152, torch.bfloat16),
                     (70144, 576, 2304, 1024, 2304, torch.bfloat16),
+                    (1000, 200, 504, 300, 128, torch.bfloat16),
                     (1000, 200, 500, 300, 128, torch.bfloat16),
                     (1000, 200, 500, 300, 128, torch.float32),
                     (130, 37, 70, 65, 35, torch.bfloat16),

@@ -20,9 +20,11 @@
 // an SM issues a clock.
 //
 // Design: one block per (batch row, head), three warpgroups (384 threads), no producer.
-//   * Operands resident in shared memory. The block reads its head's q, k, v and dO once
-//     with 8-byte loads (a head's columns start 8-byte aligned at every head dim: 72, 56,
-//     40 or 24 bytes a head, so no TMA box fits them), scales and rounds q on the way in,
+//   * Operands resident in shared memory (`load_operands`, which B3f's forward body,
+//     flash_attention_hopper.cuh, shares for q, k and v). The block reads its head's q, k,
+//     v and dO once with 8-byte loads (a head's columns start 8-byte aligned at every head
+//     dim: 72, 56, 40 or 24 bytes a head, so no TMA box fits them), scales and rounds q on
+//     the way in,
 //     and stores each as [kd rows x 64 positions] slabs with the 128-byte swizzle (kd = hd
 //     rounded up to 16), depth past hd and rows past T zero, except the last depth column
 //     (kd - hd >= 4 at every head dim): 1 in qs and -inf in k at the keys past T, so that
@@ -137,22 +139,25 @@ __device__ __forceinline__ float ex2(float v) {
   return r;
 }
 
-// s (+)= A1 . B1 and dp = A2 . B2 on m64n64k16, both A M-major and both B N-major from
-// shared memory slabs (A's and B's transpose bits), over the depth kd; waits for them.
+// s = A . B on m64n64k16 over the depth kd, A M-major and B N-major from shared memory
+// slabs (A's and B's transpose bits). Issued, not committed.
+template <int HD>
+__device__ __forceinline__ void issue_product(float* s, uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < Dims<HD>::kKsteps; ++kk)
+    Wgmma<64, 1, 1>::mma(s, make_desc(a + kk * 2048, 1024, 1024, 1),
+                         make_desc(b + kk * 2048, 1024, 1024, 1), kk != 0);
+}
+
+// s = A1 . B1 and dp = A2 . B2 as issue_product; waits for them.
 template <int HD>
 __device__ __forceinline__ void two_products(float* s, float* dp, uint32_t a1, uint32_t b1,
                                              uint32_t a2, uint32_t b2) {
   fence_regs<32>(s);
   fence_regs<32>(dp);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < Dims<HD>::kKsteps; ++kk)
-    Wgmma<64, 1, 1>::mma(s, make_desc(a1 + kk * 2048, 1024, 1024, 1),
-                         make_desc(b1 + kk * 2048, 1024, 1024, 1), kk != 0);
-#pragma unroll
-  for (int kk = 0; kk < Dims<HD>::kKsteps; ++kk)
-    Wgmma<64, 1, 1>::mma(dp, make_desc(a2 + kk * 2048, 1024, 1024, 1),
-                         make_desc(b2 + kk * 2048, 1024, 1024, 1), kk != 0);
+  issue_product<HD>(s, a1, b1);
+  issue_product<HD>(dp, a2, b2);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs<32>(s);
@@ -196,6 +201,54 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* out, const float* acc,
   }
 }
 
+// A block's operands into shared memory as [kd x 64-position] slabs, 128-byte swizzled,
+// `ops` bytes an operand from `base`: q (scaled by rnd(scale) and rounded), k, v and, with
+// kOps = 4, dO, each the head's columns of rows `in_row0` on (q, k, v `stride` elements
+// apart, dO `dstride`). Per pair of positions and quad of depth, two 8-byte loads and four
+// 4-byte stores (the pair is adjacent in a swizzled row), by the block's kBlock threads.
+// Depth past hd and rows past T are zero, except the last depth column (kd - hd >= 4 at
+// every head dim): 1 in qs and -inf in k at the keys past T, so that s = -inf exactly there.
+template <int HD, int kOps, int kBlock>
+__device__ __forceinline__ void load_operands(uint32_t base, uint32_t ops,
+                                              const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                              const __nv_bfloat16* v, int stride,
+                                              const __nv_bfloat16* dout, int dstride,
+                                              size_t in_row0, int head, int tiles, int T,
+                                              float scale) {
+  using D = Dims<HD>;
+  const float scale_t = wm::round_to<__nv_bfloat16>(scale);
+  constexpr int kQuads = D::kKd / 4;
+  const int per_op = tiles * (kTile / 2) * kQuads;
+  for (int idx = threadIdx.x; idx < kOps * per_op; idx += kBlock) {
+    const int op = idx / per_op, rem = idx - op * per_op;
+    const int pos = 2 * (rem / kQuads), d = 4 * (rem % kQuads);
+    const __nv_bfloat16* src = op == 0 ? q : op == 1 ? k : op == 2 ? v : dout;
+    const int row_stride = op == 3 ? dstride : stride;
+    uint2 r[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (d < HD && pos + e < T)
+        r[e] = *reinterpret_cast<const uint2*>(src + (in_row0 + pos + e) * row_stride +
+                                               head * HD + d);
+    uint32_t w[4] = {__byte_perm(r[0].x, r[1].x, 0x5410), __byte_perm(r[0].x, r[1].x, 0x7632),
+                     __byte_perm(r[0].y, r[1].y, 0x5410), __byte_perm(r[0].y, r[1].y, 0x7632)};
+    if (op == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = unpack_bf16(w[i]);
+        w[i] = pack_bf16(f.x * scale_t, f.y * scale_t);
+      }
+    }
+    // the last depth column (always padding): qs 1 at every row, k 0 at a key below T
+    // and -inf past it
+    if (d == D::kKd - 4 && op < 2)
+      w[3] = op == 0 ? 0x3F803F80u : (pos < T ? 0u : 0xFF80u) | (pos + 1 < T ? 0u : 0xFF800000u);
+    const uint32_t slab = base + op * ops + (pos / kTile) * D::kSlab;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st_shared(slab + sw128(d + i, pos % kTile), w[i]);
+  }
+}
+
 template <int HD, bool kBits>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_bwd_wgmma_kernel(const __grid_constant__ Params p) {
@@ -213,42 +266,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint2* const bits = reinterpret_cast<uint2*>(stats + tiles * kTile);
   const int head = blockIdx.x % p.heads, row_b = blockIdx.x / p.heads;
 
-  // ---- the operands into shared memory: per pair of positions and quad of depth, two
-  // 8-byte loads and four 4-byte stores (the pair is adjacent in a swizzled row)
-  {
-    const float scale_t = wm::round_to<__nv_bfloat16>(p.scale);
-    const size_t in_row0 = (size_t)row_b * T;
-    constexpr int kQuads = D::kKd / 4;
-    const int per_op = tiles * (kTile / 2) * kQuads;
-    for (int idx = threadIdx.x; idx < 4 * per_op; idx += kThreads) {
-      const int op = idx / per_op, rem = idx - op * per_op;
-      const int pos = 2 * (rem / kQuads), d = 4 * (rem % kQuads);
-      const __nv_bfloat16* src = op == 0 ? p.q : op == 1 ? p.k : op == 2 ? p.v : p.dout;
-      const int stride = op == 3 ? p.h : p.in_stride;
-      uint2 r[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (d < HD && pos + e < T)
-          r[e] = *reinterpret_cast<const uint2*>(src + (in_row0 + pos + e) * stride +
-                                                 head * HD + d);
-      uint32_t w[4] = {__byte_perm(r[0].x, r[1].x, 0x5410), __byte_perm(r[0].x, r[1].x, 0x7632),
-                       __byte_perm(r[0].y, r[1].y, 0x5410), __byte_perm(r[0].y, r[1].y, 0x7632)};
-      if (op == 0) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = unpack_bf16(w[i]);
-          w[i] = pack_bf16(f.x * scale_t, f.y * scale_t);
-        }
-      }
-      // the last depth column (always padding): qs 1 at every row, k 0 at a key below T
-      // and -inf past it, so s = -inf exactly at the keys past T
-      if (d == D::kKd - 4 && op < 2)
-        w[3] = op == 0 ? 0x3F803F80u : (pos < T ? 0u : 0xFF80u) | (pos + 1 < T ? 0u : 0xFF800000u);
-      const uint32_t slab = base + op * ops + (pos / kTile) * D::kSlab;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) st_shared(slab + sw128(d + i, pos % kTile), w[i]);
-    }
-  }
+  load_operands<HD, 4, kThreads>(base, ops, p.q, p.k, p.v, p.in_stride, p.dout, p.h,
+                                 (size_t)row_b * T, head, tiles, T, p.scale);
   fence_async_smem();
   __syncthreads();
 

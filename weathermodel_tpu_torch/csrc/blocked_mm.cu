@@ -8,22 +8,31 @@
 // the TPU's grid (m / bm, n / bn) reaches; the rest of y is never written. (bm, bn) decide
 // only mc and nc: this kernel has its own tile.
 //
-// Design: gmm_common.cuh's tiles for a single group, the design B4 (gmm.cu) runs: one
-// thread block per 128 x 128 tile of the covered region, the reduction in slabs of 32
-// staged into shared memory (rows at or past mc and columns at or past nc read as zeros,
-// and the tile's stores stop at mc and nc), bf16 products on the tensor cores through WMMA
-// (mma.sync 16 x 16 x 16, fp32 accumulators), fp32 on the FMA pipes. Measuring it alone at
-// the dense FFN shape is the probe's point: it is the yardstick of the hand-written GEMMs
-// in B4, B4t, B5, B6b and B7.
+// Two bodies, chosen by an explicit dispatch on the shape in `launch`, as gmm.cu's:
+//   * bf16 with k and n multiples of 8 and 16-byte aligned operands (the probe's every
+//     arm): B4's wgmma/TMA body (gmm_hopper.cuh, expert_gemm_wgmma_kernel) with one group,
+//     offsets [0, mc] on the device (allocated by ops/blocked_mm.py): x's first mc rows, w as
+//     the one expert's [1, k, n] weights, y as an [mc, nc] map whose rows stay n elements
+//     apart, so the tiles stop at the covered region and nothing else of y is written. 128 x
+//     192 tiles through a 4-stage TMA ring on a persistent grid, m64n192k16.
+//   * every other call (fp32, and bf16 of other shapes or alignments): gmm_common.cuh's tiles
+//     for a single group: one thread block per 128 x 128 tile of the covered region, the
+//     reduction in slabs of 32 staged into shared memory (rows at or past mc and columns at
+//     or past nc read as zeros, and the tile's stores stop at mc and nc), bf16 products
+//     through WMMA (mma.sync 16 x 16 x 16, fp32 accumulators), fp32 on the FMA pipes, at two
+//     blocks per SM, with no overlap of the next slab's loads with the current slab's
+//     products.
+// Measuring the bf16 body alone at the dense FFN shape is the probe's point: it is the
+// yardstick of the hand-written GEMMs in B4, B4t, B5, B6b and B7.
 //
 // What bounds it on the card: at m = 70144, k = 576, n = 2304 in bf16 a call is 186.2 GFLOP
 // against 406.7 MB (x and w read once, y written once), so the tensor cores' rate bounds
-// it: 0.188 ms at 989 TFLOP/s (a bm = 1024 arm covers 69632 rows: 0.187 ms). This version
-// stages each slab once, with no overlap of the next slab's loads with the current slab's
-// products, at two blocks per SM, as B4 does. Later work: wgmma fed by TMA through a ring
-// of stages, and a persistent grid.
+// it: 0.188 ms at 989 TFLOP/s (a bm = 1024 arm covers 69632 rows: 0.187 ms).
+
+#include <type_traits>
 
 #include "gmm_common.cuh"
+#include "gmm_hopper.cuh"
 
 namespace {
 
@@ -54,8 +63,14 @@ blocked_mm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restric
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* w, void* y, int mc, int k, int n, int nc,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, const int* offsets, void* y, int mc, int k,
+                   int n, int nc, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (gmm_hopper::takes(mc, k, n, x, w, y)) {
+      if (offsets == nullptr) return cudaErrorInvalidValue;
+      return gmm_hopper::launch_gmm(x, w, offsets, y, mc, k, nc, 1, false, stream, n);
+    }
+  }
   const dim3 grid((nc + kTile - 1) / kTile, (mc + kTile - 1) / kTile);
   if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
   blocked_mm_kernel<T><<<grid, kThreads, 0, stream>>>(
@@ -69,14 +84,16 @@ cudaError_t launch(const void* x, const void* w, void* y, int mc, int k, int n, 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. x [m, k], w [k, n], y [m, n], contiguous on the current
-// device; writes y's rows < mc and columns < nc (0 < mc <= m, 0 < nc <= n) and nothing else.
-// Returns a cudaError_t (0 on success).
-int wm_blocked_mm(int dtype, const void* x, const void* w, void* y, int mc, int k, int n,
-                  int nc, void* stream) {
+// device; offsets: int32 {0, mc} on the device, which bf16 calls on the wgmma body read
+// (null for fp32); writes y's rows < mc and columns < nc (0 < mc <= m, 0 < nc <= n) and
+// nothing else. Returns a cudaError_t (0 on success).
+int wm_blocked_mm(int dtype, const void* x, const void* w, const void* offsets, void* y,
+                  int mc, int k, int n, int nc, void* stream) {
   if (mc <= 0 || k <= 0 || nc <= 0 || nc > n) return cudaErrorInvalidValue;
+  auto* offs = static_cast<const int*>(offsets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, y, mc, k, n, nc, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, y, mc, k, n, nc, st);
+  if (dtype == 0) return launch<float>(x, w, offs, y, mc, k, n, nc, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, w, offs, y, mc, k, n, nc, st);
   return cudaErrorInvalidValue;
 }
 

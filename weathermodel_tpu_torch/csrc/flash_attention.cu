@@ -13,28 +13,33 @@
 // The dropout keep bits are those of B1's training form for the same seed and global
 // (batch row, head) (attention_common.cuh); B3b regenerates them.
 //
-// Design: B1's attention phase (`wm::attend_rows`, attention_fwd.cuh) without the
-// projection. One block per (batch row, head), 512 threads, loads that head's q (scaled
-// and rounded), k and v into shared memory as fp32 [T][hd + 1], then each warp takes
-// query rows. q, k and v are a base pointer each with one row stride, so the wrapper
-// passes either three [B, T, H] tensors (stride H) or the column slices of a packed
-// [B, T, 3H] projection (stride 3H) without copying them. Shared memory at T = 365:
-// 3 x 365 x 21 + 16 x 365 floats = 115 KB at hd = 20, 185 KB at hd = 36. Past the T whose
-// rows fit (457 at hd 36, 735 at hd 20), the block's q, k and v rows go to a device
-// workspace of the same layout (`kGlobal`, 3 t (hd + 1) floats a block) and only the score
-// rows stay in shared memory: the same code reads them through the caches, in the same
-// fmaf order. T up to wm::kMaxContext (1536).
-//
-// What bounds it on the card: scalar fp32 FMA and shared-memory loads (no tensor cores
-// yet), one 512-thread block per SM. Per weight: hd FMAs for the score, an exp, a hash
-// when dropout is on, and in p . V one FMA per head-dim lane with 32 - hd lanes idle at
-// hd = 20. Its bound by bytes is far below that (q, k, v read once, o written once).
-// Later work: both products on tensor cores, several heads per block.
+// Two bodies, chosen by an explicit dispatch on dtype and shape in `launch`:
+//   * bf16 at a T whose q, k and v stay in a block's shared memory (up to 768 at hd 36, 1152
+//     at hd 28 and 20, every T at hd 12): the wgmma body of flash_attention_hopper.cuh, the
+//     backward body's query sweep on its operand layout (its note has the design).
+//   * fp32, and bf16 past that T: the scalar body below, B1's attention phase
+//     (`wm::attend_rows`, attention_fwd.cuh) without the projection. One block per (batch
+//     row, head), 512 threads, loads that head's q (scaled and rounded), k and v into shared
+//     memory as fp32 [T][hd + 1], then each warp takes query rows. Shared memory at T = 365:
+//     3 x 365 x 21 + 16 x 365 floats = 115 KB at hd = 20, 185 KB at hd = 36. Past the T
+//     whose rows fit (457 at hd 36, 735 at hd 20), the block's q, k and v rows go to a device
+//     workspace of the same layout (`kGlobal`, 3 t (hd + 1) floats a block) and only the
+//     score rows stay in shared memory: the same code reads them through the caches, in the
+//     same fmaf order. What bounds it: scalar fp32 FMA and shared-memory loads, one
+//     512-thread block per SM; per weight hd FMAs for the score, an exp, a hash when dropout
+//     is on, and in p . V one FMA per head-dim lane with 32 - hd lanes idle at hd = 20
+//     (ROADMAP R7 for fp32).
+// Both take q, k and v as a base pointer each with one row stride, so the wrapper passes
+// either three [B, T, H] tensors (stride H) or the column slices of a packed [B, T, 3H]
+// projection (stride 3H) without copying them. T up to wm::kMaxContext (1536).
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "attention_common.cuh"
 #include "attention_fwd.cuh"
+#include "flash_attention_hopper.cuh"
 
 namespace {
 
@@ -45,9 +50,11 @@ size_t smem_bytes(int t, bool global) {
   return ((global ? 0ull : 3ull * t * (HD + 1)) + (size_t)wm::kWarps * t) * sizeof(float);
 }
 
-// A block's device workspace in bytes: 0 where its rows fit in shared memory.
-template <int HD>
+// A scalar block's device workspace in bytes: 0 where its rows fit in shared memory, and
+// where bf16 runs the wgmma body.
+template <typename T, int HD>
 size_t workspace_bytes(int t) {
+  if (std::is_same<T, __nv_bfloat16>::value && flash_fwd_hopper::takes<HD>(t)) return 0;
   return smem_bytes<HD>(t, false) <= wm::kSmemMax ? 0 : 3ull * t * (HD + 1) * sizeof(float);
 }
 
@@ -92,11 +99,38 @@ cudaError_t launch_body(const void* q, const void* k, const void* v, int stride,
   return cudaGetLastError();
 }
 
+// bf16 B3f on the wgmma body with kWgs warpgroups a block.
+template <int HD, int kWgs>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, int stride, void* o,
+                         int batch, int t, int h, int num_heads, wm::Dropout drop,
+                         cudaStream_t stream) {
+  using B = __nv_bfloat16;
+  const flash_fwd_hopper::Params p{static_cast<const B*>(q),
+                                   static_cast<const B*>(k),
+                                   static_cast<const B*>(v),
+                                   stride,
+                                   static_cast<B*>(o),
+                                   t,
+                                   h,
+                                   num_heads,
+                                   0,
+                                   (float)(1.0 / sqrt((double)HD)),  // as the scalar body's
+                                   drop};
+  return flash_fwd_hopper::launch<HD, kWgs>(p, batch, stream);
+}
+
+// bfloat16 at a T whose operands stay in shared memory runs the wgmma body; otherwise the
+// scalar body, its rows in shared memory where they fit, else in the workspace.
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, int stride, void* o,
                    int batch, int t, int h, int num_heads, wm::Dropout drop, void* ws,
                    cudaStream_t stream) {
-  if (workspace_bytes<HD>(t) == 0)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (flash_fwd_hopper::takes<HD>(t))
+      return launch_wgmma<HD, flash_fwd_hopper::kFwdWgs>(q, k, v, stride, o, batch, t, h,
+                                                         num_heads, drop, stream);
+  }
+  if (workspace_bytes<T, HD>(t) == 0)
     return launch_body<T, HD, false>(q, k, v, stride, o, batch, t, h, num_heads, drop, ws,
                                      stream);
   if (ws == nullptr) return cudaErrorInvalidValue;
@@ -123,10 +157,12 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v: [batch, t, h] each with rows `stride`
 // elements apart (stride >= h, unit column stride), o [batch, t, h] contiguous, all on the
-// current device; ws: wm_flash_attention_workspace(head_dim, t) bytes for each of the
-// batch x num_heads blocks (null where that is 0). Dropout on the attention weights when
-// dropout_on != 0 (threshold, keep_prob and seed as in attention_common.cuh). T up to
-// wm::kMaxContext. Returns a cudaError_t (0 on success).
+// current device; ws: wm_flash_attention_workspace(dtype, head_dim, t) bytes for each of
+// the batch x num_heads blocks (null where that is 0). Where bf16 runs the wgmma body it
+// needs h a multiple of 8, stride a multiple of 4 and 8-byte aligned bases (an error
+// otherwise). Dropout on the attention weights when dropout_on != 0 (threshold, keep_prob
+// and seed as in attention_common.cuh). T up to wm::kMaxContext. Returns a cudaError_t (0
+// on success).
 int wm_flash_attention(int dtype, const void* q, const void* k, const void* v, int stride,
                        void* o, void* ws, int batch, int t, int h, int num_heads,
                        int dropout_on, unsigned int seed, unsigned int threshold,
@@ -144,18 +180,54 @@ int wm_flash_attention(int dtype, const void* q, const void* k, const void* v, i
   return cudaErrorInvalidValue;
 }
 
-// The device workspace kernel B3f needs for each (batch row, head) block at (head_dim, t),
-// in bytes (the same in both dtypes: its rows are fp32); 0 where the rows fit in shared
-// memory, -1 where the kernel does not take (head_dim, t).
-long long wm_flash_attention_workspace(int head_dim, int t) {
-  if (t <= 0 || t > wm::kMaxContext) return -1;
-  switch (head_dim) {
-    case 12: return (long long)workspace_bytes<12>(t);
-    case 20: return (long long)workspace_bytes<20>(t);
-    case 28: return (long long)workspace_bytes<28>(t);
-    case 36: return (long long)workspace_bytes<36>(t);
+// The device workspace kernel B3f needs for each (batch row, head) block at (dtype,
+// head_dim, t), in bytes (its rows are fp32 in both dtypes); 0 where the rows fit in shared
+// memory or bf16 runs the wgmma body, -1 where the kernel does not take (head_dim, t).
+long long wm_flash_attention_workspace(int dtype, int head_dim, int t) {
+  if (t <= 0 || t > wm::kMaxContext || (dtype != 0 && dtype != 1)) return -1;
+  switch (head_dim * 2 + dtype) {
+    case 24: return (long long)workspace_bytes<float, 12>(t);
+    case 25: return (long long)workspace_bytes<__nv_bfloat16, 12>(t);
+    case 40: return (long long)workspace_bytes<float, 20>(t);
+    case 41: return (long long)workspace_bytes<__nv_bfloat16, 20>(t);
+    case 56: return (long long)workspace_bytes<float, 28>(t);
+    case 57: return (long long)workspace_bytes<__nv_bfloat16, 28>(t);
+    case 72: return (long long)workspace_bytes<float, 36>(t);
+    case 73: return (long long)workspace_bytes<__nv_bfloat16, 36>(t);
     default: return -1;
   }
+}
+
+// The dynamic shared memory a block of bf16 B3f's wgmma body takes at (head_dim, t), in
+// bytes; 0 where bf16 runs the scalar body instead.
+int wm_flash_attention_wgmma_smem(int head_dim, int t) {
+  return flash_fwd_hopper::smem_bytes(head_dim, t);
+}
+
+// bf16 B3f on its wgmma body with `wgs` warpgroups a block (2: two blocks an SM; 3: one),
+// arguments as wm_flash_attention's: chip_smoke.py times the two block shapes against each
+// other. wm_flash_attention runs flash_fwd_hopper::kFwdWgs. An error where the body does
+// not take (head_dim, t).
+int wm_flash_attention_wgmma_wgs(int wgs, const void* q, const void* k, const void* v,
+                                 int stride, void* o, int batch, int t, int h, int num_heads,
+                                 int dropout_on, unsigned int seed, unsigned int threshold,
+                                 float keep_prob, void* stream) {
+  if (batch <= 0 || t <= 0 || t > wm::kMaxContext || num_heads <= 0 || h % num_heads != 0 ||
+      stride < h || (wgs != 2 && wgs != 3))
+    return cudaErrorInvalidValue;
+  wm::Dropout drop{dropout_on, seed, threshold, keep_prob, 0.f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WM_WGS(HD)                                                                         \
+  return wgs == 2 ? launch_wgmma<HD, 2>(q, k, v, stride, o, batch, t, h, num_heads, drop, s) \
+                  : launch_wgmma<HD, 3>(q, k, v, stride, o, batch, t, h, num_heads, drop, s)
+  switch (h / num_heads) {
+    case 12: WM_WGS(12);
+    case 20: WM_WGS(20);
+    case 28: WM_WGS(28);
+    case 36: WM_WGS(36);
+    default: return cudaErrorInvalidValue;
+  }
+#undef WM_WGS
 }
 
 }  // extern "C"

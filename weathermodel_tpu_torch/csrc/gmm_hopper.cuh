@@ -1,5 +1,6 @@
 // The bfloat16 body of the grouped matmul for Hopper (sm_90a): kernels B4 (gmm.cu, the
-// MoE expert GEMM and its d_lhs) and B4t (tgmm.cu, its weight gradient).
+// MoE expert GEMM and its d_lhs), B4t (tgmm.cu, its weight gradient) and the dense probe P3
+// (blocked_mm.cu, as one group).
 //
 // Replaces, in bf16, the TPU kernels `_gmm_kernel` and `_tgmm_kernel` of
 // weathermodel_tpu/ops/pallas_gmm.py. For lhs [S, K] with rows sorted by group and the E+1
@@ -64,11 +65,14 @@
 //   * Both operand layouts of B4 run the same tile, slab order and instruction shape,
 //     differing only in B's transpose bit, so gmm(dy, rhs, trans_rhs) equals gmm on a
 //     transposed copy of rhs bit for bit.
+//   * P3 (blocked_mm.cu, the dense probe) is B4 with one group, offsets [0, mc]: its covered
+//     region's mc rows of x, and w and y as [1, k, n] and [mc, n] maps that stop at the
+//     region's nc columns but keep their rows n elements apart (`ld`).
 // Shared memory: 4 x 40 KB + 48 KB + barriers + 1 KB of alignment slack = 214,080 B, one
 // block an SM. Registers and spills: ptxas -v, printed by chip_smoke.py's build phase.
 // Takes K and N multiples of 8 (TMA's 16-byte strides), 16-byte aligned operands and at
-// least one row; gmm.cu and tgmm.cu dispatch on exactly that (`takes`) and send any other
-// bf16 call, and every fp32 call, to gmm_common.cuh's tiles.
+// least one row; gmm.cu, tgmm.cu and blocked_mm.cu dispatch on exactly that (`takes`) and
+// send any other bf16 call, and every fp32 call, to gmm_common.cuh's tiles.
 
 #pragma once
 
@@ -79,7 +83,8 @@
 
 #include "hopper_common.cuh"
 
-// Everything here has internal linkage: gmm.cu and tgmm.cu each compile their own copy.
+// Everything here has internal linkage: gmm.cu, tgmm.cu and blocked_mm.cu each compile their
+// own copy.
 namespace gmm_hopper {
 namespace {
 
@@ -349,12 +354,13 @@ inline bool takes(int s, int k, int n, const void* a, const void* b, const void*
   return s > 0 && k % 8 == 0 && n % 8 == 0 && aligned(a) && aligned(b) && aligned(out);
 }
 
-// A bf16 [outer, rows, cols] tensor as a 3-D map in boxes [box_rows x 64] of one outer
-// index, 128-byte swizzled.
+// A bf16 [outer, rows, cols] tensor, its rows `ld` elements apart (cols where ld is 0), as a
+// 3-D map in boxes [box_rows x 64] of one outer index, 128-byte swizzled.
 inline bool make_map_3d(CUtensorMap* tm, const void* ptr, int outer, int rows, int cols,
-                        int box_rows) {
+                        int box_rows, int ld = 0) {
+  const cuuint64_t row = (cuuint64_t)(ld ? ld : cols) * 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)outer};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint64_t strides[2] = {row, rows * row};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   return make_map_nd(tm, ptr, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
@@ -368,9 +374,12 @@ cudaError_t run(Kernel kernel, const Params& p, dim3 grid, cudaStream_t stream) 
   return cudaGetLastError();
 }
 
-// B4 on this body: lhs [s, k], rhs [e, k, n] (or [e, n, k] with trans), out [s, n].
+// B4 on this body: lhs [s, k], rhs [e, k, n] (or [e, n, k] with trans), out [s, n]. With
+// ld > n (P3, blocked_mm.cu: one group, no trans) the rows of rhs and out are ld elements
+// apart, and the body computes and writes their first n columns only.
 inline cudaError_t launch_gmm(const void* lhs, const void* rhs, const int* offsets, void* out,
-                              int s, int k, int n, int e, bool trans, cudaStream_t stream) {
+                              int s, int k, int n, int e, bool trans, cudaStream_t stream,
+                              int ld = 0) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -383,8 +392,8 @@ inline cudaError_t launch_gmm(const void* lhs, const void* rhs, const int* offse
   const bool ok =
       make_map(&p.tm_a, lhs, s, k, kM, 64, CU_TENSOR_MAP_SWIZZLE_128B) &&
       (trans ? make_map_3d(&p.tm_b, rhs, e, n, k, kN)
-             : make_map_3d(&p.tm_b, rhs, e, k, n, 64)) &&
-      make_map(&p.tm_out, out, s, n, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+             : make_map_3d(&p.tm_b, rhs, e, k, n, 64, ld)) &&
+      make_map(&p.tm_out, out, s, n, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B, ld);
   if (!ok) return cudaErrorInvalidValue;
   p.offsets = offsets;
   p.s = s;

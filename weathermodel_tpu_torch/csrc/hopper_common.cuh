@@ -489,11 +489,12 @@ inline bool make_map_nd(CUtensorMap* tm, const void* ptr, int rank, const cuuint
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A row-major bf16 matrix [rows, cols] read or written in boxes [box_rows, box_cols].
+// A row-major bf16 matrix [rows, cols] read or written in boxes [box_rows, box_cols], its
+// rows `ld` elements apart (cols where ld is 0).
 inline bool make_map(CUtensorMap* tm, const void* ptr, int rows, int cols, int box_rows,
-                     int box_cols, CUtensorMapSwizzle swizzle) {
+                     int box_cols, CUtensorMapSwizzle swizzle, int ld = 0) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld ? ld : cols) * 2};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   return make_map_nd(tm, ptr, 2, dims, strides, box, swizzle);
 }

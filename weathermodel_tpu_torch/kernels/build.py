@@ -99,6 +99,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wm_flash_attention.argtypes = [i, p, p, p, i, p, p, i, i, i, i, i, u,
                                        u, f, p]
     lib.wm_flash_attention.restype = i
+    # warpgroups a block (2 or 3), q, k, v, row stride, o, batch, t, h, heads,
+    # dropout_on, seed, threshold, keep_prob, stream: bf16 B3f on its wgmma
+    # body at either block shape (chip_smoke.py times the two)
+    lib.wm_flash_attention_wgmma_wgs.argtypes = [i, p, p, p, i, p, i, i, i, i,
+                                                 i, u, u, f, p]
+    lib.wm_flash_attention_wgmma_wgs.restype = i
+    # (head dim, t) -> bf16 B3f's wgmma body's dynamic shared memory per block
+    # in bytes, 0 where bf16 runs the scalar body
+    lib.wm_flash_attention_wgmma_smem.argtypes = [i, i]
+    lib.wm_flash_attention_wgmma_smem.restype = i
     # dtype, q, k, v, row stride, do, dq, dk, dv, stats, workspace, batch, t,
     # h, heads, dropout_on, seed, threshold, inv_keep, stream
     lib.wm_flash_attention_bwd.argtypes = [i, p, p, p, i, p, p, p, p, p, p, i,
@@ -109,7 +119,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     # chip, -1 where the kernels do not take t
     lib.wm_fused_qkv_attention_workspace.argtypes = [i, i, i]
     lib.wm_fused_qkv_attention_workspace.restype = ll
-    lib.wm_flash_attention_workspace.argtypes = [i, i]
+    lib.wm_flash_attention_workspace.argtypes = [i, i, i]
     lib.wm_flash_attention_workspace.restype = ll
     lib.wm_attention_bwd_workspace.argtypes = [i, i]
     lib.wm_attention_bwd_workspace.restype = ll
@@ -170,8 +180,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.wm_headpack_v0, lib.wm_headpack_v1):
         fn.argtypes = [p, p, p, p, i, i, i, p]
         fn.restype = i
-    # dtype, x, w, y, covered rows, k, n, covered columns, stream (P3)
-    lib.wm_blocked_mm.argtypes = [i, p, p, p, i, i, i, i, p]
+    # dtype, x, w, offsets {0, covered rows} (bf16; None for fp32), y,
+    # covered rows, k, n, covered columns, stream (P3)
+    lib.wm_blocked_mm.argtypes = [i, p, p, p, p, i, i, i, i, p]
     lib.wm_blocked_mm.restype = i
     lib.wm_cuda_error_string.argtypes = [i]
     lib.wm_cuda_error_string.restype = ctypes.c_char_p

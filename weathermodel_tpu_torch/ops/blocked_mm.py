@@ -8,8 +8,11 @@ columns, the part of y that the TPU kernel's grid (m // bm, n // bn) of
 allocates y with `torch.empty` and leaves it, as the TPU kernel does, and the
 plain version fills it with NaN, as JAX's Pallas interpreter leaves it.
 (bm, bn) are the TPU's VMEM block and decide only the covered region; the
-kernel (`csrc/blocked_mm.cu`) has its own 128 x 128 tile and stops at the
-region's edge itself.
+kernel (`csrc/blocked_mm.cu`) has its own tiles and stops at the region's
+edge itself. In bf16 with k and n multiples of 8 and 16-byte aligned
+operands it runs the grouped matmul's wgmma body (`csrc/gmm_hopper.cuh`,
+kernel B4's) as one group, whose offsets {0, covered rows} the wrapper
+puts on the device; fp32 and other bf16 calls run WMMA or FMA tiles.
 
 The wrapper launches the hand-written Hopper kernel on CUDA tensors
 (counting the launch in `blocked_mm.launches`) or raises, and runs the plain
@@ -64,8 +67,13 @@ def blocked_mm(x, w, bm: int, bn: int):
         return y  # the TPU grid is empty: nothing to launch
     lib = build.load_library().lib
     with torch.cuda.device(x.device):
+        # the one group's offsets, made on the device (no host copy)
+        offsets = (torch.arange(0, 2 * mc, mc, dtype=torch.int32,
+                                device=x.device)
+                   if x.dtype == torch.bfloat16 else None)
         err = lib.wm_blocked_mm(build.DTYPE_CODES[x.dtype], x.data_ptr(),
-                                w.data_ptr(), y.data_ptr(), mc, k, n, nc,
+                                w.data_ptr(), build.data_ptr(offsets),
+                                y.data_ptr(), mc, k, n, nc,
                                 build.cuda_stream(x.device))
     build.check(err)
     blocked_mm.launches += 1

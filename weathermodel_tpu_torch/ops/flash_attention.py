@@ -21,15 +21,19 @@ also what the kernel is checked against on the card. The kernels take q, k
 and v as three pointers with one row stride, so the column slices of a
 packed [B, T, 3H] projection (`chunk(3, dim=-1)`) go in without a copy.
 They take T up to `ops.attention.MAX_CONTEXT` (1536; a ValueError past it,
-before any launch), keeping a block's rows in a device workspace that the
-wrapper allocates where they do not fit in its shared memory.
+before any launch), keeping a scalar block's rows in a device workspace that
+the wrapper allocates where they do not fit in its shared memory.
 
-In bf16 the backward B3b (and B2, ops/fused_qkv_attention.py) runs a wgmma
-body (`csrc/attention_bwd_hopper.cuh`) wherever a head's operands stay in a
-block's shared memory (T up to 576 at hd 36, 832 at hd 20 and 28, every T
-at hd 12) and the scalar passes past that; it takes H a multiple of 8 and
-operand rows 8-byte aligned: `check_bwd_layout` raises a ValueError
-otherwise, before any launch. float32 runs the scalar passes.
+In bf16 both run wgmma bodies wherever a head's operands stay in a block's
+shared memory, and scalar kernels past that, by an explicit dispatch on the
+shape: the forward B3f (`csrc/flash_attention_hopper.cuh`, q, k and v
+resident) at T up to 768 at hd 36, 1152 at hd 20 and 28, every T at hd 12;
+the backward B3b (and B2, ops/fused_qkv_attention.py;
+`csrc/attention_bwd_hopper.cuh`, dO resident too) up to 576 at hd 36, 832
+at hd 20 and 28, every T at hd 12. Both bodies take H a multiple of 8 and
+operand rows 8-byte aligned: `check_bf16_body_layout` raises a ValueError
+otherwise for every bf16 call, before any launch. float32 runs the scalar
+kernels.
 
 The plain versions below are shared with the fused QKV attention
 (ops/fused_qkv_attention.py), whose training form and backward run the same
@@ -99,12 +103,13 @@ def _row_stride(name, q, k, v) -> int:
                      f"{[a.stride() for a in (q, k, v)]}")
 
 
-def check_bwd_layout(name, h, stride, *tensors):
-    """The bf16 backward body's rule, on top of `build.on_cuda`'s: H a
+def check_bf16_body_layout(name, h, stride, *tensors):
+    """The rule of the bf16 attention bodies on separate operands (B3f's
+    forward, B2's and B3b's backward), on top of `build.on_cuda`'s: H a
     multiple of 8 and every operand's rows 8-byte aligned (each base, and a
-    row stride of q, k and v a multiple of 4 elements), as its 8-byte loads
-    and 4-byte stores need. float32 runs the scalar passes, which take any
-    layout `build.on_cuda` takes."""
+    row stride of q, k and v a multiple of 4 elements), as their 8-byte
+    loads and 4-byte stores need. float32 runs the scalar kernels, which
+    take any layout `build.on_cuda` takes."""
     if tensors[0].dtype != torch.bfloat16:
         return
     if h % 8:
@@ -142,7 +147,11 @@ def flash_attention_fwd(q, k, v, num_heads: int, dropout_rate: float,
     [0, 2^32)).
 
     CUDA tensors launch the kernel (counted in `flash_attention_fwd.launches`)
-    or raise; CPU tensors take the plain version."""
+    or raise; CPU tensors take the plain version. In bf16 the kernel runs
+    its wgmma body up to the T where q, k and v fill a block's shared memory
+    (768 at hd 36, 1152 at hd 20 and 28, every T at hd 12) and its scalar
+    body past that (ROADMAP R5), and takes `check_bf16_body_layout`'s
+    layout."""
     _check_shapes(q, k, v, num_heads)
     if not build.on_cuda("flash_attention_fwd", q.shape[-1] // num_heads, q,
                          k, v):
@@ -150,15 +159,18 @@ def flash_attention_fwd(q, k, v, num_heads: int, dropout_rate: float,
                                              seed)
     stride = _row_stride("flash_attention_fwd", q, k, v)
     check_context("flash_attention_fwd", q.shape[1])
+    check_bf16_body_layout("flash_attention_fwd", q.shape[2], stride, q, k, v)
     on, threshold, keep_prob, _ = dropout_params(dropout_rate)
     bsz, t, h = q.shape
     lib = build.load_library().lib
+    dtype = build.DTYPE_CODES[q.dtype]
     out = q.new_empty(bsz, t, h)
-    ws = build.workspace(lib.wm_flash_attention_workspace(h // num_heads, t),
-                         bsz * num_heads, q.device)
+    ws = build.workspace(
+        lib.wm_flash_attention_workspace(dtype, h // num_heads, t),
+        bsz * num_heads, q.device)
     with torch.cuda.device(q.device):
         err = lib.wm_flash_attention(
-            build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            dtype, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), stride, out.data_ptr(), build.data_ptr(ws), bsz, t,
             h, num_heads, on, seed, threshold, keep_prob,
             build.cuda_stream(q.device))
@@ -215,7 +227,8 @@ def flash_attention_bwd(q, k, v, do, num_heads: int, dropout_rate: float,
     if not do.is_contiguous():
         raise ValueError("flash_attention_bwd needs a contiguous do")
     check_context("flash_attention_bwd", q.shape[1])
-    check_bwd_layout("flash_attention_bwd", q.shape[2], stride, q, k, v, do)
+    check_bf16_body_layout("flash_attention_bwd", q.shape[2], stride, q, k, v,
+                           do)
     on, threshold, _, inv_keep = dropout_params(dropout_rate)
     bsz, t, h = q.shape
     lib = build.load_library().lib

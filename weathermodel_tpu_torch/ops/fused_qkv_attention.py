@@ -38,7 +38,7 @@ w_qkv 16-byte aligned: `check_wgmma_layout` raises a ValueError otherwise,
 before any launch. B2 in bf16 runs the backward's wgmma body
 (`csrc/attention_bwd_hopper.cuh`, shared with B3b) up to the T it keeps on
 chip and the scalar passes past it, and takes H a multiple of 8 and qkv
-and do 8-byte aligned (`ops.flash_attention.check_bwd_layout`). float32
+and do 8-byte aligned (`ops.flash_attention.check_bf16_body_layout`). float32
 runs the scalar bodies. Every kernel here takes T
 up to `ops.attention.MAX_CONTEXT` (1536) at every head dim; past the T whose
 per-head rows fit in a block's shared memory, it keeps them in a device
@@ -57,7 +57,7 @@ import torch
 from weathermodel_tpu_torch.kernels import build
 from weathermodel_tpu_torch.ops.attention import check_context, dropout_params
 from weathermodel_tpu_torch.ops.flash_attention import (
-    check_bwd_layout,
+    check_bf16_body_layout,
     flash_attention_bwd_reference,
     flash_attention_fwd_reference,
 )
@@ -226,7 +226,7 @@ def fused_qkv_attention_bwd(qkv, do, num_heads: int, dropout_rate: float,
         return fused_qkv_attention_bwd_reference(qkv, do, num_heads,
                                                  dropout_rate, seed)
     bsz, t, h = do.shape
-    check_bwd_layout("fused_qkv_attention_bwd", h, 3 * h, qkv, do)
+    check_bf16_body_layout("fused_qkv_attention_bwd", h, 3 * h, qkv, do)
     on, threshold, _, inv_keep = dropout_params(dropout_rate)
     lib = build.load_library().lib
     dqkv = torch.empty_like(qkv)
