@@ -85,12 +85,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
                dropout 0.1 (the same seed on both sides) and 0, B3f also on
                three separate tensors; CUDA-event
                times of the kernel, the plain version and SDPA (forward;
-               forward and backward for B3b); bf16 B3f's wgmma body
-               (attention_fwd_wgmma_kernel) with two warpgroups a block and
-               with three, timed in turns and held bitwise to the wrapper's
-               output, and a profile of each bf16 call on slices and on
-               tensors, both rates, which fails unless the body runs and no
-               bf16 scalar flash_attention_kernel does; the forward and the
+               forward and backward for B3b); a profile of each bf16 B3f
+               call on slices and on tensors, both rates, which fails unless
+               its wgmma body (attention_fwd_wgmma_kernel) runs and no bf16
+               scalar flash_attention_kernel does; the forward and the
                backward bodies' ptxas reports (B3b's as its file compiles
                it) and shared memory, and bf16 B3f's and B3b's times beside
                the recorded ones on the scalar bodies; both at the edge
@@ -648,8 +646,8 @@ def _bwd_body_report(source):
 
 
 def _fwd_body_report():
-    """bf16 B3f's body's ptxas report (registers and spills by head dim and
-    warpgroups a block) and its dynamic shared memory a block at T = 365, at
+    """bf16 B3f's body's ptxas report (registers and spills by head dim) and
+    its dynamic shared memory a block at T = 365, at
     the largest T it keeps on chip (0 past it: the scalar body runs) and at
     MAX_CONTEXT."""
     import re
@@ -662,25 +660,25 @@ def _fwd_body_report():
     report = []
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '.*" + FLASH_BODY +
-                      r"ILi(\d+)ELi(\d)E", line)
+                      r"ILi(\d+)EE", line)
         if m is None:
             continue
         block = " ".join(lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
-        report.append(f"<{m.group(1)}, {m.group(2)}>: "
+        report.append(f"<{m.group(1)}>: "
                       f"{regs.group(1) if regs else '?'} registers, spill "
                       f"{'/'.join(spill.groups()) if spill else '?'} B")
-    if len(report) != 8:
+    if len(report) != 4:
         raise AssertionError(f"ptxas reported {report} for {FLASH_BODY}, not "
-                             f"its 4 head dims x 2 block shapes")
+                             f"its 4 head dims")
     smem_at = built.lib.wm_flash_attention_wgmma_smem
     resident = {hd: max(t for t in range(1, MAX_CONTEXT + 1)
                         if smem_at(hd, t) > 0) for hd in (12, 20, 28, 36)}
     smem = {hd: (smem_at(hd, SEQ_LEN), (top, smem_at(hd, top)),
                  smem_at(hd, MAX_CONTEXT)) for hd, top in resident.items()}
-    return (f"{FLASH_BODY}<hd, warpgroups> ptxas: {'; '.join(report)}; "
+    return (f"{FLASH_BODY}<hd> ptxas: {'; '.join(report)}; "
             f"dynamic shared memory a block by hd at T = {SEQ_LEN}, (its "
             f"largest T, there) and {MAX_CONTEXT}: {smem} B")
 
@@ -1677,44 +1675,16 @@ def _flash_case(qkv, do, nh, dtype, rate, seed, timed: bool):
     return r
 
 
-def _b3f_block_shapes(q, k, v, nh, rate, seed, want):
-    """bf16 B3f's wgmma body with two warpgroups a block (two blocks an SM)
-    and with three (one block an SM), timed in turns (2, 3, 3, 2, 20 calls
-    each), each output bitwise equal to the wrapper's `want` (the tiles'
-    work does not depend on which warpgroup takes them): {warpgroups: ms}."""
-    from weathermodel_tpu_torch.kernels import build
-    from weathermodel_tpu_torch.ops.attention import dropout_params
-
-    lib = build.load_library().lib
-    on, threshold, keep_prob, _ = dropout_params(rate)
-    b, t, h = q.shape
-    out = torch.empty_like(want)
-    stream = build.cuda_stream(q.device)
-
-    def run(wgs):
-        build.check(lib.wm_flash_attention_wgmma_wgs(
-            wgs, q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1),
-            out.data_ptr(), b, t, h, nh, on, seed, threshold, keep_prob,
-            stream))
-
-    times = {2: [], 3: []}
-    for wgs in (2, 3, 3, 2):
-        out.zero_()
-        times[wgs].append(_cuda_ms(lambda: run(wgs), iters=20))
-        if not torch.equal(out, want):
-            raise AssertionError(f"bf16 B3f's body with {wgs} warpgroups a "
-                                 f"block differs from the wrapper's output")
-    return times
-
-
-def _in_child(name):
-    """chip_smoke's function `name` in a child process, which fails the
-    phase if it raises. A profile taken in this process after the earlier
-    phases can come back with no kernel events at all (see
-    `_ffn_bwd_split_in_child`); a fresh process's holds them."""
-    subprocess.run([sys.executable, "-c",
-                    f"import chip_smoke as cs; cs.{name}()"], check=True,
-                   timeout=600, cwd=Path(__file__).resolve().parent)
+def _in_child(code):
+    """Runs `code` (Python, with chip_smoke imported as `cs`) in a child
+    process and returns its standard output; fails the phase if it raises.
+    In this process, after the earlier phases, a profile can come back with
+    no kernel events at all (B6b's did, twice, and B3f's first), while a
+    fresh process's profile of the same call holds them."""
+    return subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as cs; " + code],
+        check=True, stdout=subprocess.PIPE, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent).stdout
 
 
 def _b3f_profiles():
@@ -1742,7 +1712,6 @@ def _b3f_profiles():
 
 
 def phase_kernel_flash():
-    from weathermodel_tpu_torch.ops.flash_attention import flash_attention_fwd
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
     cfg = model_config_for_size(FORMER_SIZE)
@@ -1777,14 +1746,7 @@ def phase_kernel_flash():
                 f"{r['bwd_bound'][0]:.3f} by {r['bwd_bound'][1]}; SDPA "
                 f"backend {r['sdpa_backend']}")
         lines.append(line)
-    # bf16 B3f's body: its two block shapes timed against each other, both
-    # rates; then the profiles of its calls, in a child process
-    q, k, v = qkv.to(torch.bfloat16).chunk(3, dim=-1)
-    shapes = {rate: _b3f_block_shapes(
-        q, k, v, nh, rate, seed, flash_attention_fwd(q, k, v, nh, rate, seed))
-        for rate in (DROPOUT, 0.0)}
-    del q, k, v
-    _in_child("_b3f_profiles")
+    _in_child("cs._b3f_profiles()")  # bf16 B3f's calls, profiled
     print("kernel_flash: " + _fwd_body_report(), flush=True)
     print("kernel_flash: " + _bwd_body_report("flash_attention_bwd"),
           flush=True)
@@ -1796,15 +1758,9 @@ def phase_kernel_flash():
           f"the scalar passes: {SCALAR_BWD_MS['B3b']} ms)", flush=True)
     print(f"kernel_flash: bf16 B3f on its wgmma body at T={SEQ_LEN} "
           f"{results[torch.bfloat16, DROPOUT]['fwd_ms']:.3f} ms (recorded on "
-          f"the scalar body: {SCALAR_FWD_MS['B3f']} ms); the body by "
-          f"warpgroups a block (2: two blocks an SM, 3: one), ms in turns "
-          f"2, 3, 3, 2: " + "; ".join(
-              f"dropout {rate}: " + ", ".join(
-                  f"{wgs}: {[round(ms, 4) for ms in t]}"
-                  for wgs, t in times.items())
-              for rate, times in shapes.items())
-          + "; on the slices and on three tensors the profile shows "
-          f"{FLASH_BODY} and no {FLASH_SCALAR_BF16}", flush=True)
+          f"the scalar body: {SCALAR_FWD_MS['B3f']} ms); on the slices and "
+          f"on three tensors the profile shows {FLASH_BODY} and no "
+          f"{FLASH_SCALAR_BF16}", flush=True)
     for rate in (DROPOUT, 0.0):
         print(f"kernel_flash: B3f and B3b (o, dq, dk, dv) dropout {rate} "
               + _attention_edges(
@@ -2329,17 +2285,13 @@ def _ffn_bwd_split(t, rate):
 
 
 def _ffn_bwd_split_in_child(h, f):
-    """`_ffn_bwd_split` on this phase's bf16 inputs in a child process. In
-    this process, after the earlier phases, the profile of a B6b call came
-    back with no kernel events at all, twice, while a fresh process's profile
-    of the same call (and of it after this phase's own work) holds them."""
-    code = ("import sys, torch; import chip_smoke as cs; "
-            f"t = cs._ffn_inputs(cs.FFN_ROWS, {h}, {f}, torch.bfloat16, "
-            "cs.SEED + 7); print(*cs._ffn_bwd_split(t, cs.DROPOUT))")
-    out = subprocess.run([sys.executable, "-c", code], check=True, text=True,
-                         capture_output=True, timeout=600,
-                         cwd=Path(__file__).resolve().parent)
-    row, rest = (float(v) for v in out.stdout.split()[-2:])
+    """`_ffn_bwd_split` on this phase's bf16 inputs, in a child process
+    (`_in_child`: in this one its profile came back empty)."""
+    out = _in_child(
+        "import torch; t = cs._ffn_inputs(cs.FFN_ROWS, "
+        f"{h}, {f}, torch.bfloat16, cs.SEED + 7); "
+        "print(*cs._ffn_bwd_split(t, cs.DROPOUT))")
+    row, rest = (float(v) for v in out.split()[-2:])
     return row, rest
 
 
@@ -2678,7 +2630,7 @@ def phase_probes(smi: str):
                                    (rows * kk + kk * cols + rows * cols) * 2,
                                    torch.bfloat16)
     del x, w
-    _in_child("_p3_profiles")
+    _in_child("cs._p3_profiles()")
     torch.cuda.empty_cache()
     print("probes: " + " | ".join(head["lines"][1:] + gemm["lines"][1:]),
           flush=True)

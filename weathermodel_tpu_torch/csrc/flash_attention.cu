@@ -99,8 +99,8 @@ cudaError_t launch_body(const void* q, const void* k, const void* v, int stride,
   return cudaGetLastError();
 }
 
-// bf16 B3f on the wgmma body with kWgs warpgroups a block.
-template <int HD, int kWgs>
+// bf16 B3f on the wgmma body.
+template <int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, int stride, void* o,
                          int batch, int t, int h, int num_heads, wm::Dropout drop,
                          cudaStream_t stream) {
@@ -116,7 +116,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, int stride
                                    0,
                                    (float)(1.0 / sqrt((double)HD)),  // as the scalar body's
                                    drop};
-  return flash_fwd_hopper::launch<HD, kWgs>(p, batch, stream);
+  return flash_fwd_hopper::launch<HD>(p, batch, stream);
 }
 
 // bfloat16 at a T whose operands stay in shared memory runs the wgmma body; otherwise the
@@ -127,8 +127,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, int stride, void
                    cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (flash_fwd_hopper::takes<HD>(t))
-      return launch_wgmma<HD, flash_fwd_hopper::kFwdWgs>(q, k, v, stride, o, batch, t, h,
-                                                         num_heads, drop, stream);
+      return launch_wgmma<HD>(q, k, v, stride, o, batch, t, h, num_heads, drop, stream);
   }
   if (workspace_bytes<T, HD>(t) == 0)
     return launch_body<T, HD, false>(q, k, v, stride, o, batch, t, h, num_heads, drop, ws,
@@ -202,32 +201,6 @@ long long wm_flash_attention_workspace(int dtype, int head_dim, int t) {
 // bytes; 0 where bf16 runs the scalar body instead.
 int wm_flash_attention_wgmma_smem(int head_dim, int t) {
   return flash_fwd_hopper::smem_bytes(head_dim, t);
-}
-
-// bf16 B3f on its wgmma body with `wgs` warpgroups a block (2: two blocks an SM; 3: one),
-// arguments as wm_flash_attention's: chip_smoke.py times the two block shapes against each
-// other. wm_flash_attention runs flash_fwd_hopper::kFwdWgs. An error where the body does
-// not take (head_dim, t).
-int wm_flash_attention_wgmma_wgs(int wgs, const void* q, const void* k, const void* v,
-                                 int stride, void* o, int batch, int t, int h, int num_heads,
-                                 int dropout_on, unsigned int seed, unsigned int threshold,
-                                 float keep_prob, void* stream) {
-  if (batch <= 0 || t <= 0 || t > wm::kMaxContext || num_heads <= 0 || h % num_heads != 0 ||
-      stride < h || (wgs != 2 && wgs != 3))
-    return cudaErrorInvalidValue;
-  wm::Dropout drop{dropout_on, seed, threshold, keep_prob, 0.f};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define WM_WGS(HD)                                                                         \
-  return wgs == 2 ? launch_wgmma<HD, 2>(q, k, v, stride, o, batch, t, h, num_heads, drop, s) \
-                  : launch_wgmma<HD, 3>(q, k, v, stride, o, batch, t, h, num_heads, drop, s)
-  switch (h / num_heads) {
-    case 12: WM_WGS(12);
-    case 20: WM_WGS(20);
-    case 28: WM_WGS(28);
-    case 36: WM_WGS(36);
-    default: return cudaErrorInvalidValue;
-  }
-#undef WM_WGS
 }
 
 }  // extern "C"

@@ -37,12 +37,11 @@
 // packed [B, T, 3H] projection (3H), which is how the model calls it.
 // Shared memory: 3 kd T_pad x 2 B + 1 KB of alignment slack (T_pad = T rounded up to 64):
 // 74,752 B at T = 365, hd 20 and 111,616 B at hd 36, so two blocks share an SM. Occupancy:
-// kWgs = 2 (256 threads, at most 128 registers, two blocks an SM, so that one block's
-// operand loads overlap another's products) or 3 (384 threads and one block an SM, as the
-// backward); `wm_flash_attention` runs kFwdWgs = 2, which on an H100 took 0.674 ms against
-// 0.812 at the cell's shape with dropout 0.1 (chip_smoke.py's kernel_flash times both
-// through `wm_flash_attention_wgmma_wgs`). Registers and spills: ptxas -v, printed there
-// too (90-96 registers, no spills, at either shape).
+// kWgs = 2 warpgroups a block (256 threads, at most 128 registers, two blocks an SM, so that
+// one block's operand loads overlap another's products). On an H100 80GB HBM3 at 700 W this
+// took 0.674 ms against 0.812 for three warpgroups and one block an SM, as the backward
+// runs, at the cell's shape with dropout 0.1 (PERF.md §6). Registers and spills: ptxas
+// -v, printed by chip_smoke.py's kernel_flash (90-96 registers, no spills).
 // Takes T up to 768 at hd 36, 1152 at hd 28 and 20, every T up to wm::kMaxContext at hd 12
 // (`takes`, where the three slabs fit); past that flash_attention.cu's `launch` runs the
 // scalar kernel, an explicit dispatch on the shape (ROADMAP R5). Needs H a multiple of 8 and
@@ -75,8 +74,9 @@ using attn_bwd_hopper::pack_fragments;
 using attn_bwd_hopper::product_rs;
 using attn_bwd_hopper::store_tile;
 
-// the warpgroups a block of wm_flash_attention's body: two blocks an SM (see the note)
-constexpr int kFwdWgs = 2;
+// warpgroups a block: two blocks an SM (see the note)
+constexpr int kWgs = 2;
+constexpr int kThreads = 128 * kWgs;
 
 struct Params {
   const __nv_bfloat16* q;
@@ -107,8 +107,8 @@ __device__ __forceinline__ void scores(float* s, uint32_t qslab, uint32_t kslab)
   fence_regs<32>(s);
 }
 
-template <int HD, int kWgs>
-__global__ void __launch_bounds__(128 * kWgs, kWgs == 2 ? 2 : 1)
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
     attention_fwd_wgmma_kernel(const __grid_constant__ Params p) {
   using D = Dims<HD>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -117,8 +117,8 @@ __global__ void __launch_bounds__(128 * kWgs, kWgs == 2 ? 2 : 1)
   const uint32_t ops = tiles * D::kSlab;  // one operand's bytes
   const uint32_t qs_s = base, k_s = base + ops, v_s = base + 2 * ops;
   const int head = blockIdx.x % p.heads, row_b = blockIdx.x / p.heads;
-  load_operands<HD, 3, 128 * kWgs>(base, ops, p.q, p.k, p.v, p.stride, nullptr, 0,
-                                   (size_t)row_b * T, head, tiles, T, p.scale);
+  load_operands<HD, 3, kThreads>(base, ops, p.q, p.k, p.v, p.stride, nullptr, 0,
+                                (size_t)row_b * T, head, tiles, T, p.scale);
   fence_async_smem();
   __syncthreads();
 
@@ -222,23 +222,23 @@ constexpr int smem_bytes_at(int t) {
   return takes<HD>(t) ? smem_bytes_for<HD>((t + kTile - 1) / kTile) : 0;
 }
 
-// Launch the body with kWgs warpgroups a block: q, k, v rows `stride` elements apart, out
-// [batch, t, h]; h a multiple of 8, the stride a multiple of 4 and every base 8-byte aligned.
-template <int HD, int kWgs>
+// Launch the body: q, k, v rows `stride` elements apart, out [batch, t, h]; h a multiple of
+// 8, the stride a multiple of 4 and every base 8-byte aligned.
+template <int HD>
 cudaError_t launch(Params p, int batch, cudaStream_t stream) {
   const uintptr_t bases = reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
                           reinterpret_cast<uintptr_t>(p.v) | reinterpret_cast<uintptr_t>(p.out);
   if (!takes<HD>(p.t) || p.h % 8 || p.stride % 4 || bases % 8) return cudaErrorInvalidValue;
   p.tiles = (p.t + kTile - 1) / kTile;
   const int smem = smem_bytes_for<HD>(p.tiles);
-  auto kernel = attention_fwd_wgmma_kernel<HD, kWgs>;
+  auto kernel = attention_fwd_wgmma_kernel<HD>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)  // as much shared memory as the SM has, so that blocks share it
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)batch * p.heads, 128 * kWgs, smem, stream>>>(p);
+  kernel<<<(unsigned)batch * p.heads, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -99,12 +99,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wm_flash_attention.argtypes = [i, p, p, p, i, p, p, i, i, i, i, i, u,
                                        u, f, p]
     lib.wm_flash_attention.restype = i
-    # warpgroups a block (2 or 3), q, k, v, row stride, o, batch, t, h, heads,
-    # dropout_on, seed, threshold, keep_prob, stream: bf16 B3f on its wgmma
-    # body at either block shape (chip_smoke.py times the two)
-    lib.wm_flash_attention_wgmma_wgs.argtypes = [i, p, p, p, i, p, i, i, i, i,
-                                                 i, u, u, f, p]
-    lib.wm_flash_attention_wgmma_wgs.restype = i
     # (head dim, t) -> bf16 B3f's wgmma body's dynamic shared memory per block
     # in bytes, 0 where bf16 runs the scalar body
     lib.wm_flash_attention_wgmma_smem.argtypes = [i, i]
