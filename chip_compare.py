@@ -1,0 +1,191 @@
+"""Numbers for comparing two trees of the port on one GPU.
+
+    python3 chip_compare.py TAG            # from a tree's root
+    python3 chip_compare.py TAG --splits   # and bf16 B6b's row slices
+
+Run from the root of a checkout; it imports that checkout's `chip_smoke`
+and `weathermodel_tpu_torch`, so the same file compares an older tree too
+(`python3 /path/to/chip_compare.py parent` from the older tree's root). To
+compare a parent with a change, run it from both roots in turns on one card,
+in one machine session: parent, change, change, parent.
+
+It prints progress lines and last one line `RESULT {json}` holding TAG and:
+  - the bf16 grouped matmul body's outputs and CUDA-event ms (20 calls after
+    3 warm-up): B4 (forward and d_lhs) and B4t at the MoE microbatch's
+    shapes (S = 70080 rows in 8 groups, 576 x 2304 and back), P3 at each arm
+    of the probe, each output as the first 16 hex digits of its bytes'
+    SHA-256 (equal digits: equal bits);
+  - bf16 B6b at the bench microbatch (M = 105120, H = 576, F = 2304, dropout
+    0.1) and bf16 B5 at B = 256, T = 365, H = 576: CUDA-event ms;
+  - the port's bench (WeatherBERT-large, 2 x 288, bf16, dropout 0.1, 3
+    warm-up + 3 timed steps) with BENCH_FFN_IMPL torch, fused_ffn_ln and
+    fused_ffn, and BENCH_ATTENTION=fused_qkv_op in eval: samples/s;
+  - `wm-pretrain-torch`'s run for chip_smoke's `train`, `train_moe` and
+    `train_former` configurations, 2 epochs on its synthetic store: epoch
+    2's median samples/s.
+With --splits, also bf16 B6b's time and its passes' device ms (one profile
+of 3 calls) at the row slices `ops.fused_ffn_ln._wgrad_splits` picks and at
+other counts (dW1's, dW2's).
+"""
+
+import hashlib
+import json
+import os
+import sys
+import tempfile
+from pathlib import Path
+
+sys.path.insert(0, os.getcwd())
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+# S = 70080 routed rows of a top-2 routing at the MoE microbatch
+# (chip_smoke.py's kernel_gmm), by expert
+GROUPS = [9450, 9262, 8806, 8900, 8668, 8043, 8333, 8618]
+# B6b's row slices (dW1's, dW2's) timed beside the wrapper's own
+SPLITS = [(5, 4), (11, 22), (22, 22), (22, 44), (6, 7), (2, 2), (33, 27)]
+
+
+def digest(t):
+    """The first 16 hex digits of the SHA-256 of t's bytes."""
+    data = t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+def grouped_matmul(out):
+    from weathermodel_tpu_torch.ops import blocked_mm as bmm
+    from weathermodel_tpu_torch.ops.gmm import gmm, tgmm
+    from weathermodel_tpu_torch.scripts import abl_gemm_probe
+
+    g = torch.Generator(device="cuda").manual_seed(123)
+    gs = torch.tensor(GROUPS, device="cuda")
+    s = sum(GROUPS)
+    for k, n in ((576, 2304), (2304, 576)):
+        lhs = torch.randn(s, k, device="cuda", generator=g).to(torch.bfloat16)
+        rhs = (torch.randn(8, k, n, device="cuda", generator=g)
+               / k ** 0.5).to(torch.bfloat16)
+        dy = torch.randn(s, n, device="cuda", generator=g).to(torch.bfloat16)
+        for name, fn in (("B4", lambda: gmm(lhs, rhs, gs)),
+                         ("B4 dlhs", lambda: gmm(dy, rhs, gs, trans_rhs=True)),
+                         ("B4t", lambda: tgmm(lhs, dy, gs))):
+            out[f"{name} {k}x{n} hash"] = digest(fn())
+            out[f"{name} {k}x{n} ms"] = cs._cuda_ms(fn, iters=20, warmup=3)
+    x, w = abl_gemm_probe.inputs(abl_gemm_probe.M, "cuda")
+    for bm, bn in abl_gemm_probe.ARMS:
+        rows, cols = bmm.covered(x.shape[0], w.shape[1], bm, bn)
+        out[f"P3 {bm},{bn} hash"] = digest(
+            bmm.blocked_mm(x, w, bm, bn)[:rows, :cols])
+        out[f"P3 {bm},{bn} ms"] = cs._cuda_ms(
+            lambda: bmm.blocked_mm(x, w, bm, bn), iters=20, warmup=3)
+
+
+def ffn_bwd_args():
+    t = cs._ffn_inputs(cs.FFN_ROWS, 576, 2304, torch.bfloat16, cs.SEED + 7)
+    return t, (t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["ls"], t["lb"],
+               t["do"], cs.DROPOUT, cs.FFN_SEEDS)
+
+
+def kernels(out):
+    from weathermodel_tpu_torch.ops.fused_ffn_ln import fused_ffn_ln_bwd
+    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+        fused_qkv_attention_outproj,
+    )
+
+    _, args = ffn_bwd_args()
+    out["B6b ms"] = cs._cuda_ms(lambda: fused_ffn_ln_bwd(*args), iters=10)
+    del args
+    x, w, b = cs._attention_inputs(cs.BATCH, cs.SEQ_LEN, 576, cs.SEED)
+    wo, bo = cs._outproj_weights(x)
+    b5 = tuple(a.to(torch.bfloat16) for a in (x, w, b, wo, bo))
+    out["B5 ms"] = cs._cuda_ms(lambda: fused_qkv_attention_outproj(*b5, 16),
+                               iters=10)
+
+
+def splits(out):
+    from weathermodel_tpu_torch.ops import fused_ffn_ln as b6
+
+    t, args = ffn_bwd_args()
+    picked = b6._wgrad_splits
+    h, f, sms = 576, 2304, torch.cuda.get_device_properties(
+        0).multi_processor_count
+    own = (picked(cs.FFN_ROWS, h, f, sms, True),
+           picked(cs.FFN_ROWS, f, h, sms, True))
+    try:
+        for pair in [own, *SPLITS]:
+            b6._wgrad_splits = (lambda m, k, n, sms, bf16, pair=pair:
+                                pair[0] if k == h else pair[1])
+            key = f"B6b splits {pair[0]},{pair[1]}"
+            out[key + " ms"] = cs._cuda_ms(lambda: b6.fused_ffn_ln_bwd(*args),
+                                           iters=10)
+            out[key + " passes"] = cs._ffn_bwd_split(t, cs.DROPOUT)
+            print(key, out[key + " ms"], out[key + " passes"], flush=True)
+    finally:
+        b6._wgrad_splits = picked
+    out["B6b splits picked"] = list(own)
+
+
+def bench(out):
+    counted = cs._all_kernels()
+    for name, env in (
+            ("bench torch", {"BENCH_FFN_IMPL": "torch"}),
+            ("bench fused_ffn_ln", {"BENCH_FFN_IMPL": "fused_ffn_ln"}),
+            ("bench fused_ffn", {"BENCH_FFN_IMPL": "fused_ffn"}),
+            ("bench fused_qkv_op eval", {"BENCH_ATTENTION": "fused_qkv_op",
+                                         "BENCH_MODE": "eval"})):
+        out[name] = cs._bench(env, counted)[0]["value"]
+        print(out["tree"], name, out[name], flush=True)
+
+
+def training(out):
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    large = dict(compute_dtype="bfloat16")
+    runs = (
+        ("train", model_config_for_size("large", **large), cs.TRAIN_BATCH,
+         1, ["--model", "weatherbert", "--model-size", "large",
+             "--grad-accum", str(cs.GRAD_ACCUM), "--masking-prob", "0.15"]),
+        ("train_moe", model_config_for_size("large", **large, **cs.MOE),
+         cs.MOE_BATCH, 1, ["--model", "weatherbert", "--model-size", "large",
+                           "--moe-experts", "8", "--moe-top-k", "2",
+                           "--grad-accum", str(cs.MOE_ACCUM),
+                           "--masking-prob", "0.15"]),
+        ("train_former", model_config_for_size("small", **large),
+         cs.FORMER_BATCH, 2, ["--model", "weatherformer", "--model-size",
+                              "small", "--n-masked-features", "10",
+                              "--beta", "0.5"]))
+    counted = cs._all_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = cs._write_store(Path(tmp))
+        for name, cfg, batch, heads, argv in runs:
+            with tempfile.TemporaryDirectory() as workdir:
+                result = cs._run_pretrain(argv + [
+                    "--batch-size", str(batch), "--n-epochs", "2",
+                    "--n-warmup-epochs", "0", "--data-dir", str(data),
+                    "--workdir", workdir, "--compute-dtype", "bfloat16",
+                    "--device", "cuda"], counted)[0]
+            out[name] = cs._throughput(result, cfg, batch,
+                                       heads * cfg.output_dim)[1]
+            print(out["tree"], name, out[name], flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_compare: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"tree": sys.argv[1]}
+    grouped_matmul(out)
+    torch.cuda.empty_cache()
+    kernels(out)
+    torch.cuda.empty_cache()
+    if "--splits" in sys.argv[2:]:
+        splits(out)
+        torch.cuda.empty_cache()
+    bench(out)
+    training(out)
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

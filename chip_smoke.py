@@ -6,9 +6,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
   1. device  - requires CUDA; prints the card and its power limit
   2. build   - compiles csrc/*.cu with nvcc for sm_90a; build time and the
                ptxas report (registers, spills); then the bf16 grouped-matmul
-               body's (expert_gemm_wgmma_kernel: B4, expert_wgrad_wgmma_kernel:
-               B4t) registers, spills and shared memory, failing on a
-               serialized-wgmma warning (C7512) in either
+               body's registers, spills and shared memory for each of its
+               instantiations (expert_gemm_wgmma_kernel<kTransB, kBias>: B4
+               and P3 <false|true, false>, B5's phase 2 <true, true>;
+               expert_wgrad_wgmma_kernel<kPartials>: B4t <false>, B6b's
+               weight gradients <true>), failing on a serialized-wgmma warning
+               (C7512) in any
   3. kernel  - the bf16 attention body's (qkv_attention_wgmma_kernel, B1 and
                B5's first phase) ptxas registers and spills of the eval form,
                short-T and streaming, and its shared memory; the fused QKV
@@ -25,9 +28,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
                times of the kernel, the plain version, the library call
                (F.linear + scaled_dot_product_attention + F.linear) and B1's
                eval form + F.linear; the body's ptxas report for B5's two
-               forms; one profiled bf16 call split into phase 1 (the body)
-               and phase 2 (outproj_kernel); bf16 B5's time beside the recorded
-               one;
+               forms; profiled bf16 calls split into phase 1 (the attention
+               body) and phase 2 (the grouped matmul's body with its bias,
+               expert_gemm_wgmma_kernel<true, true>; no bf16 outproj_kernel of
+               the WMMA tiles may run), phase 2 beside its library call
+               F.linear(o, wo, bo) and its bound; bf16 B5's time beside the
+               recorded ones;
                the edge shapes, dropout 0 and 0.1
   5. serve   - a seeded WeatherBERT-large saved as a reference .pth and 300
                seeded windows served through the `wm-serve-torch` entry point
@@ -37,7 +43,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                with the plain attention path, in bf16 and in fp32; a
                profiled bf16 call of each must launch the attention body
                and no bf16 instantiation of the scalar
-               fused_qkv_attention_kernel; then 64 windows of T = 730 (two
+               fused_qkv_attention_kernel, and fused_qkv_op's must run B5's
+               phase 2 on the grouped matmul's body and no bf16 outproj_kernel;
+               then 64 windows of T = 730 (two
                years) through the same entry point in bf16, auto (8 B1
                eval) and fused_qkv_op (8 B5), each within the serving bound
                of the plain path
@@ -142,7 +150,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
                version and the yardstick (the port's "torch" FFN: F.linear,
                ReLU, F.linear, and for B6 the residual and F.layer_norm; its
                autograd backward for B6b); one profiled bf16 B6b call split
-               into its row body and its tile passes
+               into its row body, its weight-gradient products (the grouped
+               matmul's body, expert_wgrad_wgmma_kernel<true>; no bf16
+               wgrad_kernel of the WMMA tiles may run) and its ordered sums,
+               the products beside their library pair (two torch.matmul and
+               two column sums) and their bound, and B6b beside its recorded
+               times
   14. kernel_maskgen - the keep-mask family at the FFN hidden site of the
                bench microbatch (M = 105120 rows, C = 2304, rate 0.1): B8
                (forward and backward) and B8m launched through their public
@@ -194,8 +207,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                torch.profiler train and eval step of each fused impl, which
                fails unless bf16 B6f, B7 with h (train) and B7 without
                (eval) launch the wgmma body (ffn_wgmma_kernel), B6b its
-               backward body (ffn_bwd_wgmma_kernel), no bf16 row kernel
-               (ffn_rows_kernel) runs, B1 (train and
+               backward body (ffn_bwd_wgmma_kernel) and its weight gradients
+               the grouped matmul's body (no bf16 wgrad_kernel), no bf16 row
+               kernel (ffn_rows_kernel) runs, B1 (train and
                eval) launches the attention body (qkv_attention_wgmma_kernel)
                and no bf16 scalar fused_qkv_attention_kernel, and B2 (train)
                the backward body (attention_bwd_wgmma_kernel) and no bf16
@@ -291,6 +305,20 @@ ATTN_BWD_SCALAR_BF16 = ("bwd_dq_kernel<__nv_bfloat16",
 # instantiations, which the MoE profile may not show
 GMM_BODY, TGMM_BODY = "expert_gemm_wgmma_kernel", "expert_wgrad_wgmma_kernel"
 GMM_TILES_BF16 = ("gmm_kernel<__nv_bfloat16", "tgmm_kernel<__nv_bfloat16")
+# the grouped matmul body's instantiations for bf16 B5's phase 2 (B4's
+# transposed-weight form with a bias) and B6b's weight-gradient products (B4t's
+# with fp32 partial sums), and the WMMA tiles' bf16 kernels they replaced,
+# which no profile may show
+OUTPROJ_BODY = f"{GMM_BODY}<true, true>"
+WGRAD_BODY = f"{TGMM_BODY}<true>"
+OUTPROJ_TILES_BF16 = "outproj_kernel<__nv_bfloat16"
+WGRAD_TILES_BF16 = "wgrad_kernel<__nv_bfloat16"
+# bf16 B6b at the bench microbatch and all of it but its row body (the WMMA
+# tiles' weight-gradient passes and the ordered sums, profiled), and bf16 B5
+# at B = 256, before both moved onto that body (PERF.md §6; H100 80GB
+# HBM3, 700 W), printed beside this run's
+WMMA_B6B_MS = {"B6b": 15.231, "passes": 8.714}
+WMMA_B5_MS = 1.877
 # bf16 B4 (mean of a MoE layer's four calls) and B4t (of two) on the WMMA
 # tiles before their wgmma body (PERF.md §6; H100 80GB HBM3, 700 W), printed
 # beside this run's
@@ -492,9 +520,11 @@ def phase_build():
 
 def _gmm_body_report(built):
     """The bf16 grouped-matmul body's ptxas report (registers and spills of
-    B4's two instantiations, kTransB 0 and 1, and of B4t) and its dynamic
-    shared memory a block; fails on a serialized-wgmma warning (C7512) in
-    either kernel."""
+    each instantiation: B4's expert_gemm_wgmma_kernel<kTransB, kBias> at
+    <0, 0> and <1, 0> (P3's too), B5's phase 2 at <1, 1>; B4t's
+    expert_wgrad_wgmma_kernel<kPartials> at <0>, B6b's weight gradients at
+    <1>) and its dynamic shared memory a block; fails on a serialized-wgmma
+    warning (C7512) in any of them."""
     import re
 
     lines = built.ptxas_log.splitlines()
@@ -506,17 +536,19 @@ def _gmm_body_report(built):
     report = {}
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '\S*?(" + GMM_BODY + "|" +
-                      TGMM_BODY + r")(ILb(\d)E)?", line)
+                      TGMM_BODY + r")I((?:Lb\d+E)+)E", line)
         if m is None:
             continue
         block = " ".join(lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
-        name = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
-        report[name] = (f"{regs.group(1) if regs else '?'} registers, spill "
-                        f"{'/'.join(spill.groups()) if spill else '?'} B")
-    want = {f"{GMM_BODY}<0>", f"{GMM_BODY}<1>", TGMM_BODY}
+        args = ", ".join(re.findall(r"Lb(\d+)E", m.group(2)))
+        report[f"{m.group(1)}<{args}>"] = (
+            f"{regs.group(1) if regs else '?'} registers, spill "
+            f"{'/'.join(spill.groups()) if spill else '?'} B")
+    want = {f"{GMM_BODY}<0, 0>", f"{GMM_BODY}<1, 0>", f"{GMM_BODY}<1, 1>",
+            f"{TGMM_BODY}<0>", f"{TGMM_BODY}<1>"}
     if set(report) != want:
         raise AssertionError(f"ptxas reported {sorted(report)} for the "
                              f"grouped-matmul body, not {sorted(want)}")
@@ -791,17 +823,27 @@ def phase_kernel_outproj():
             b1_ms=_cuda_ms(lambda: F.linear(
                 fused_qkv_attention(*args[:3], nh), args[3], args[4])),
             bound_ms=bound_ms, bound_by=bound_by)
-    # phase 1 (the attention body) and phase 2 (the out-projection tiles)
-    # of one bf16 call, by the profiler's device time
+    # phase 1 (the attention body) and phase 2 (the grouped matmul's body
+    # with its bias) of bf16 calls, by the profiler's device time a call;
+    # phase 2 beside its library call on an o of the same shape and its bound
     args = (x.to(torch.bfloat16), *(a.to(torch.bfloat16) for a in params))
-    events = _profiled(lambda: fused_qkv_attention_outproj(*args, nh))
+    reps = 5
+    events = _profiled(lambda: [fused_qkv_attention_outproj(*args, nh)
+                                for _ in range(reps)])
     _check_kernel_names("B5 bf16", [e.key for e in events],
-                        (ATTN_BODY, "outproj_kernel"), (ATTN_SCALAR_BF16,))
-    split = {name: sum(_device_ms(e) for e in events if sub in e.key)
+                        (ATTN_BODY, OUTPROJ_BODY),
+                        (ATTN_SCALAR_BF16, OUTPROJ_TILES_BF16))
+    split = {name: sum(_device_ms(e) for e in events if sub in e.key) / reps
              for name, sub in (("phase 1", ATTN_BODY),
-                               ("phase 2", "outproj_kernel"))}
+                               ("phase 2", OUTPROJ_BODY))}
     results[torch.bfloat16]["phase2_share"] = split["phase 2"] / sum(
         split.values())
+    o = fused_qkv_attention(*args[:3], nh)
+    linear_ms = _cuda_ms(lambda: F.linear(o, args[3], args[4]))
+    m = BATCH * SEQ_LEN
+    phase2_bound = _bound(2.0 * m * h * h, (2 * m * h + h * h + h) * 2,
+                          torch.bfloat16)
+    del o
     print("kernel_outproj: " + _attention_body_report({(0, 0), (1, 0)}),
           flush=True)
     print("kernel_outproj: fused_qkv_attention_outproj B=%d T=%d H=%d "
@@ -813,10 +855,14 @@ def phase_kernel_outproj():
               f"F.linear {r['b1_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
               f"{r['bound_by']}" for d, r in results.items()), flush=True)
     share = results[torch.bfloat16]["phase2_share"]
-    print(f"kernel_outproj: bf16 B5 by phase (profiled device ms of one "
-          f"call): {split}, phase 2 {share:.3f} of the call; B5 at T="
+    print(f"kernel_outproj: bf16 B5 by phase (profiled device ms a call, "
+          f"{reps} calls): {split}, phase 2 {share:.3f} of the call, on "
+          f"{OUTPROJ_BODY} (no {OUTPROJ_TILES_BF16}); phase 2's library call "
+          f"F.linear(o, wo, bo) {linear_ms:.4f} ms, bound "
+          f"{phase2_bound[0]:.4f} ms by {phase2_bound[1]}; B5 at T="
           f"{SEQ_LEN} {results[torch.bfloat16]['ms']:.3f} ms (recorded: "
-          f"{SHORT_T_MS['B5']} ms)", flush=True)
+          f"{SHORT_T_MS['B5']} ms with phase 1 on the wgmma body, "
+          f"{WMMA_B5_MS} ms with phase 2 on the WMMA tiles)", flush=True)
     for rate in (0.0, DROPOUT):
         print(f"kernel_outproj: B5 dropout {rate} " + _attention_edges(
             "B5 y", lambda *a: (fused_qkv_attention_outproj(
@@ -922,12 +968,16 @@ def phase_serve(smi: str, tmp: Path):
             raise AssertionError(f"{impl}: non-finite served output")
         outs[impl, "bfloat16"] = out
         rates[impl] = (N_WINDOWS / predict_s, predict_s, wall)
-    # B1 eval (auto) and B5's first phase (fused_qkv_op) run the bf16 body
+    # B1 eval (auto) and B5's first phase (fused_qkv_op) run the bf16 body,
+    # B5's second phase the grouped matmul's
     served = {}
-    for impl in ("auto", "fused_qkv_op"):
+    for impl, need, banned in (
+            ("auto", (ATTN_BODY,), (ATTN_SCALAR_BF16,)),
+            ("fused_qkv_op", (ATTN_BODY, OUTPROJ_BODY),
+             (ATTN_SCALAR_BF16, OUTPROJ_TILES_BF16))):
         events = _profiled(lambda: _serve(tmp, impl, "bfloat16"))
         _check_kernel_names(f"serve {impl} bf16", [e.key for e in events],
-                            (ATTN_BODY,), (ATTN_SCALAR_BF16,))
+                            need, banned)
         body = [e for e in events if ATTN_BODY in e.key]
         served[impl] = (f"{sum(_device_ms(e) for e in body):.1f} ms x"
                         f"{sum(e.count for e in body)}")
@@ -2266,33 +2316,64 @@ def _ffn_body_ptxas(h):
     return report, smem
 
 
-def _ffn_bwd_split(t, rate):
-    """bf16 B6b's device ms by pass in one profiled call: its row body
-    (ffn_bwd_wgmma_kernel) and the tile passes (the weight gradients and the
-    ordered sums)."""
+def _ffn_bwd_split(t, rate, reps=3):
+    """bf16 B6b's device ms a call by pass over `reps` profiled calls: its
+    row body (ffn_bwd_wgmma_kernel), its weight-gradient products (the
+    grouped matmul's body, WGRAD_BODY), the ordered sums of their slices'
+    partials (wgrad_reduce_kernel) and of the row blocks' LN column sums
+    (ln_reduce_kernel), and anything else."""
     from weathermodel_tpu_torch.ops.fused_ffn_ln import fused_ffn_ln_bwd
 
     args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["ls"], t["lb"],
             t["do"], rate, FFN_SEEDS)
     fused_ffn_ln_bwd(*args)
-    events = _profiled(lambda: fused_ffn_ln_bwd(*args))
+    events = _profiled(lambda: [fused_ffn_ln_bwd(*args) for _ in range(reps)])
     keys = [e.key for e in events]
-    _check_kernel_names("B6b bf16", keys, (FFN_BWD_BODY, "wgrad_kernel"),
-                        (FFN_ROWS_KERNEL, "gemm_nt_kernel"))
-    row = sum(_device_ms(e) for e in events if FFN_BWD_BODY in e.key)
-    rest = sum(_device_ms(e) for e in events if FFN_BWD_BODY not in e.key)
-    return row, rest
+    _check_kernel_names("B6b bf16", keys, (FFN_BWD_BODY, WGRAD_BODY),
+                        (FFN_ROWS_KERNEL, "gemm_nt_kernel", WGRAD_TILES_BF16))
+    parts = {"row": FFN_BWD_BODY, "products": WGRAD_BODY,
+             "sums": "wgrad_reduce_kernel", "ln sums": "ln_reduce_kernel"}
+    split = {name: sum(_device_ms(e) for e in events if sub in e.key) / reps
+             for name, sub in parts.items()}
+    split["other"] = sum(_device_ms(e) for e in events if not any(
+        sub in e.key for sub in parts.values())) / reps
+    return split
 
 
 def _ffn_bwd_split_in_child(h, f):
     """`_ffn_bwd_split` on this phase's bf16 inputs, in a child process
     (`_in_child`: in this one its profile came back empty)."""
     out = _in_child(
-        "import torch; t = cs._ffn_inputs(cs.FFN_ROWS, "
+        "import json, torch; t = cs._ffn_inputs(cs.FFN_ROWS, "
         f"{h}, {f}, torch.bfloat16, cs.SEED + 7); "
-        "print(*cs._ffn_bwd_split(t, cs.DROPOUT))")
-    row, rest = (float(v) for v in out.split()[-2:])
-    return row, rest
+        "print(json.dumps(cs._ffn_bwd_split(t, cs.DROPOUT)))")
+    return json.loads(out.splitlines()[-1])
+
+
+def _wgrad_yardstick(m, h, f):
+    """B6b's weight-gradient passes' library pair in bf16 on operands of
+    their shapes: torch.matmul for hd^T . df and x^T . dz, and the fp32
+    column sums of df and dz (timed beside the kernel, never the port's
+    path); ms a call, and the passes' bound (each input read once, each
+    output written once)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def normal(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(
+            torch.bfloat16)
+
+    hd, dz, df, x = normal(m, f), normal(m, f), normal(m, h), normal(m, h)
+
+    def run():
+        return (torch.matmul(hd.T, df), df.sum(0, dtype=torch.float32),
+                torch.matmul(x.T, dz), dz.sum(0, dtype=torch.float32))
+
+    ms = _cuda_ms(run)
+    bound = _bound(4.0 * m * h * f, (2 * m * f + 2 * m * h) * 2
+                   + 2 * h * f * 2 + (h + f) * 4, torch.bfloat16)
+    del hd, dz, df, x
+    torch.cuda.empty_cache()
+    return ms, bound
 
 
 def phase_kernel_ffn():
@@ -2314,6 +2395,7 @@ def phase_kernel_ffn():
             if dtype == torch.bfloat16 and rate == DROPOUT:
                 torch.cuda.empty_cache()  # room for the child's tensors
                 r["bwd_split"] = _ffn_bwd_split_in_child(h, f)
+                r["wgrad_yardstick"] = _wgrad_yardstick(FFN_ROWS, h, f)
             results[dtype, rate] = r
             line = (f"kernel_ffn: M={FFN_ROWS} H={h} F={f} "
                     f"{str(dtype).split('.')[1]} dropout {rate}: max|err| "
@@ -2348,11 +2430,21 @@ def phase_kernel_ffn():
           f" without h {bf16['b7_eval_ms']:.3f} ms (the h write "
           f"{bf16['b7_ms'] - bf16['b7_eval_ms']:.3f} ms); B6f "
           f"{bf16['fwd_ms']:.3f} ms", flush=True)
-    row, rest = bf16["bwd_split"]
-    print(f"kernel_ffn: bf16 B6b at M={FFN_ROWS} {bf16['bwd_ms']:.3f} ms; "
-          f"profiled device ms of one call: row body ({FFN_BWD_BODY}) "
-          f"{row:.3f}, tile passes (weight gradients, ordered sums) "
-          f"{rest:.3f}, row body {row / (row + rest):.3f} of the call",
+    split = bf16["bwd_split"]
+    passes = split["products"] + split["sums"]
+    rest = passes + split["ln sums"] + split["other"]
+    lib_ms, (bound_ms, bound_by) = bf16["wgrad_yardstick"]
+    print(f"kernel_ffn: bf16 B6b at M={FFN_ROWS} {bf16['bwd_ms']:.3f} ms "
+          f"(recorded on the WMMA tiles {WMMA_B6B_MS['B6b']} ms); profiled "
+          f"device ms a call: row body ({FFN_BWD_BODY}) {split['row']:.3f}, "
+          f"weight-gradient products ({WGRAD_BODY}, no {WGRAD_TILES_BF16}) "
+          f"{split['products']:.3f}, their partials' ordered sums "
+          f"{split['sums']:.3f}, the LN column sums {split['ln sums']:.3f}, "
+          f"other {split['other']:.3f}; all but the row body "
+          f"{rest:.3f} (recorded on the WMMA tiles {WMMA_B6B_MS['passes']} "
+          f"ms); the weight-gradient passes (products and their sums) "
+          f"{passes:.3f}, their library pair (torch.matmul x2 + two column "
+          f"sums) {lib_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}",
           flush=True)
     return bf16
 
@@ -2757,13 +2849,15 @@ def phase_bench(smi: str):
             if mode == "train":
                 need += (ATTN_BWD_BODY,)
             if impl == "fused_ffn_ln" and mode == "train":
-                need += (FFN_BWD_BODY,)
-                named = (("B6b's tile passes", "wgrad"),)
+                need += (FFN_BWD_BODY, WGRAD_BODY)
+                named = (("B6b's partial sums", "wgrad_reduce_kernel"),
+                         ("B6b's LN column sums", "ln_reduce_kernel"))
             print(f"bench: {impl} {mode} " + _profile_step(
                 "weatherbert", cfg, "fused_qkv", TRAIN_BATCH, accum,
                 ffn_impl=impl, mode=mode,
                 named=tuple((n, n) for n in need) + named, require=need,
-                forbid=(rows_bf16, ATTN_SCALAR_BF16, *ATTN_BWD_SCALAR_BF16)),
+                forbid=(rows_bf16, ATTN_SCALAR_BF16, *ATTN_BWD_SCALAR_BF16,
+                        WGRAD_TILES_BF16)),
                 flush=True)
         print(f"bench: {impl} " + _check_step_parity(
             "weatherbert", MODEL_SIZE, "fused_qkv", ffn_impl=impl), flush=True)

@@ -986,6 +986,100 @@ def test_ffn_kernels_take_vectors_at_odd_offsets(cuda, dtype):
         _assert_scaled_close("B7", got, want, dtype)
 
 
+def _ffn_grid_inputs(m, h, f, device, seed=0):
+    """`_ffn_inputs` in bf16 with x (multiples of 1/4 up to 1) and W1 and b1
+    (multiples of 1/256 up to 1/32) on a grid where every partial sum of
+    x W1 + b1 is exact in fp32: the kernel and the plain version then take
+    the same ReLU side in every entry, whatever their summation orders. On
+    normal inputs an entry of x W1 + b1 within fp32 rounding of 0 can fall on
+    either side in the two orders (it did at M = 4097): that row's x dz then
+    moves a whole column of dW1 and its db1 entry past the bars."""
+    rng = np.random.default_rng(seed)
+    x, w1, b1, w2, b2, ls, lb, do = _ffn_inputs(m, h, f, torch.bfloat16,
+                                                 device, seed)
+
+    def grid(top, step, dtype, *shape):  # multiples of 1/step up to top/step
+        return torch.tensor(rng.integers(-top, top + 1, shape) / step,
+                            dtype=dtype, device=device)
+
+    return (grid(4, 4, torch.bfloat16, m, h),
+            grid(8, 256, torch.bfloat16, h, f), grid(8, 256, torch.float32, f),
+            w2, b2, ls, lb, do)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m", [1001, 4097])
+def test_bf16_ffn_bwd_weight_gradients_on_the_gmm_body(cuda, m, rate):
+    """bf16 B6b at WeatherBERT-large's widths (H = 576, F = 2304), M not a
+    multiple of 64 nor of the weight gradients' row slices (the grouped
+    matmul's body over slices of 64-row multiples, the bias row from a
+    column of ones), on `_ffn_grid_inputs`: all seven outputs at the bf16
+    bars and 2^-6 of max|plain|, and a second call gives equal bits (fixed
+    slices, an ordered sum, no atomics)."""
+    args = _ffn_grid_inputs(m, 576, 2304, cuda, seed=m)
+    seeds = (5, 6)
+    got = fused_ffn_ln_bwd(*args, rate, seeds)
+    again = fused_ffn_ln_bwd(*args, rate, seeds)
+    want = fused_ffn_ln_bwd_reference(*args, rate, seeds)
+    for name, a, b, w in zip(("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb"),
+                             got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, b), name
+        _assert_scaled_close("B6b " + name, a, w, torch.bfloat16)
+
+
+_TILES_PROFILE = """
+import json, torch
+from weathermodel_tpu_torch.ops.fused_ffn_ln import fused_ffn_ln_bwd
+from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+    fused_qkv_attention_outproj)
+g = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape, dtype=torch.bfloat16):
+    return (torch.randn(*shape, device="cuda", generator=g) * 0.05).to(dtype)
+ffn = (rnd(1001, 576), rnd(576, 2304), rnd(2304, dtype=torch.float32),
+       rnd(2304, 576), rnd(576, dtype=torch.float32),
+       1 + rnd(576, dtype=torch.float32), rnd(576, dtype=torch.float32),
+       rnd(1001, 576))
+attn = (rnd(3, 37, 576), rnd(1728, 576), rnd(1728), rnd(576, 576), rnd(576))
+for call in (lambda: fused_ffn_ln_bwd(*ffn, 0.1, (1, 2)),
+             lambda: fused_qkv_attention_outproj(*attn, 16)):
+    call()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    print(json.dumps(sorted({e.key for e in prof.key_averages()
+                             if e.device_type == cuda})))
+"""
+
+
+def test_bf16_ffn_bwd_and_outproj_never_launch_the_wmma_tiles(cuda):
+    """bf16 B6b's weight gradients and B5's out-projection run the grouped
+    matmul's body (expert_wgrad_wgmma_kernel<true>,
+    expert_gemm_wgmma_kernel<true, true>), never the WMMA tiles' bf16
+    wgrad_kernel or outproj_kernel: the kernels of a profiled call of each,
+    in a fresh process (a profile taken after many others in one process
+    can come back empty)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = subprocess.run([sys.executable, "-c", _TILES_PROFILE], check=True,
+                         stdout=subprocess.PIPE, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parents[1]).stdout
+    b6b, b5 = (json.loads(line) for line in out.splitlines()[-2:])
+    for name, keys, body, tiles in (
+            ("B6b", b6b, "expert_wgrad_wgmma_kernel<true>",
+             "wgrad_kernel<__nv_bfloat16"),
+            ("B5", b5, "expert_gemm_wgmma_kernel<true, true>",
+             "outproj_kernel<__nv_bfloat16")):
+        assert any(body in k for k in keys), (name, keys)
+        assert not any(tiles in k for k in keys), (name, keys)
+
+
 @pytest.mark.parametrize("ffn_impl", ["fused_ffn_ln", "fused_ffn"])
 def test_model_ffn_kernel_paths_match_plain_path(cuda, ffn_impl):
     """WeatherBERT-small, fp32: the eval forward of each fused FFN impl
@@ -1044,6 +1138,49 @@ def test_outproj_kernel_matches_plain(cuda, dtype, rate, b, t, h, nh):
     assert fused_qkv_attention_outproj.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     _assert_scaled_close("B5 y", got, want, dtype)
+
+
+def _outproj_weights(h, dtype, device):
+    rng = np.random.default_rng(1)
+    return tuple(torch.tensor(a, dtype=dtype, device=device) for a in (
+        rng.uniform(-1, 1, (h, h)) / h ** 0.5,
+        rng.uniform(-1, 1, h) / h ** 0.5))
+
+
+@pytest.mark.parametrize("b,t,rate", [(3, 37, 0.0), (3, 37, 0.1),
+                                      (256, 365, 0.0)])
+def test_bf16_outproj_on_the_gmm_body(cuda, b, t, rate):
+    """bf16 B5 at WeatherBERT-large's width: its out-projection on the
+    grouped matmul's body (B4's transposed-weight form as one group, bo
+    added in fp32 before the rounding), at a ragged M = 111 and at the
+    serving batch (M = 93440 = 730 x 128): y at 2^-6 of max|plain|, and a
+    second call gives equal bits."""
+    x, w, bias = _inputs(b, t, 576, torch.bfloat16, cuda)
+    wo, bo = _outproj_weights(576, torch.bfloat16, cuda)
+    got = fused_qkv_attention_outproj(x, w, bias, wo, bo, 16, rate, 99)
+    again = fused_qkv_attention_outproj(x, w, bias, wo, bo, 16, rate, 99)
+    want = fused_qkv_attention_outproj_reference(x, w, bias, wo, bo, 16, rate,
+                                                 99)
+    assert torch.equal(got, again)
+    _assert_scaled_close("B5 y", got, want, torch.bfloat16)
+
+
+def test_bf16_outproj_off_the_body_rule_keeps_the_tiles(cuda):
+    """A bf16 wo or bo 2 bytes off a 16-byte boundary is off the grouped
+    matmul body's layout rule: phase 2 takes the WMMA tiles by the explicit
+    dispatch, and y still matches the plain version."""
+    x, w, bias = _inputs(2, 37, 200, torch.bfloat16, cuda)
+    wo, bo = _outproj_weights(200, torch.bfloat16, cuda)
+
+    def shifted(a):
+        out = torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda)[1:]
+        return out.view_as(a).copy_(a)
+
+    want = fused_qkv_attention_outproj_reference(x, w, bias, wo, bo, 10)
+    for args in ((shifted(wo), bo), (wo, shifted(bo))):
+        assert any(a.data_ptr() % 16 for a in args)
+        _assert_scaled_close("B5 y", fused_qkv_attention_outproj(
+            x, w, bias, *args, 10), want, torch.bfloat16)
 
 
 def test_outproj_kernel_rejects_what_it_does_not_take(cuda, monkeypatch):

@@ -22,23 +22,30 @@
 //      read W1 and W2 in place, transposed by the staging; dz's mask is hd != 0;
 //   2. sum the per-block column sums in order: dln_scale, dln_bias;
 //   5. dW2 = hd^T . df and db2 = sum over rows of df, 6. dW1 = x^T . dz and db1 = sum of dz:
-//      one block per (128 x 128 output tile, slice of the rows), fp32 partials, then a pass
-//      that sums the slices in order and rounds. The bias gradient is the product's extra
-//      row against a row of ones staged beside the activations, so it comes out of the same
-//      tensor-core sums.
+//      one block per (output tile, slice of the rows), fp32 partials, then a pass that sums
+//      the slices in order and rounds. The bias gradient is the product's extra row against
+//      a column of ones beside the activations, so it comes out of the same tensor-core
+//      sums.
+//      bfloat16: the grouped matmul's wgmma/TMA body (gmm_hopper.cuh, B4t's product with
+//      kPartials: 128 x 192 tiles fed by a 4-stage TMA ring, the slices as its groups, the
+//      ones written into the landed stage); every bf16 call meets its layout rule (the
+//      wrapper's check_wgmma_layout, and hd, df, dz fresh allocations).
+//      float32: gmm_common.cuh's 128 x 128 FMA tiles, the ones staged beside the slab.
 // Nothing uses atomics: every sum runs in a fixed order, so the result does not depend on
-// scheduling. Products 5 and 6 use gmm_common.cuh's 128 x 128 tiles (WMMA in bf16, FMA in
-// fp32). db1 and db2 sum dz and df after their rounding to x's dtype (the TPU sums them
-// before it); in fp32 the two are the same.
+// scheduling. db1 and db2 sum dz and df after their rounding to x's dtype (the TPU sums
+// them before it); in fp32 the two are the same.
 //
 // What bounds it on the card: 12 M H F operations (1674 GFLOP at the bench microbatch,
 // M = 105,120, H = 576, F = 2304: 1.69 ms at the bf16 peak) against 485 MB of x, do and dx
 // in bf16: operations. The passes also move hd, dz (484 MB each in bf16) and df through
-// device memory (and in fp32 dy), about 0.6 ms at the memory rate at those shapes. Later
-// work: the weight-gradient tiles on wgmma/TMA (they now take most of the time).
+// device memory (and in fp32 dy), about 0.6 ms at the memory rate at those shapes. Passes 5
+// and 6 are a third of the operations (558 GFLOP, 0.564 ms at the peak); their partial sums
+// add splits x (K + 1) x N x 4 bytes each way (the wrapper's _wgrad_splits weighs them
+// against the waves of blocks).
 
 #include "ffn_common.cuh"
 #include "ffn_hopper_bwd.cuh"
+#include "gmm_hopper.cuh"
 
 namespace {
 
@@ -145,7 +152,8 @@ wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restrict
                    [&](int i, int j, float v) { out[(long long)i * n + j] = v; });
 }
 
-// Sum the splits' partials in order: rows < k round into dw [k, n], row k is db [n] (fp32).
+// Sum the splits' partials [splits, k + 1, n] in order: rows < k round into dw [k, n], row k
+// is db [n] (fp32).
 template <typename T>
 __global__ void wgrad_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
                                     float* __restrict__ db, int k, int n, int splits) {
@@ -173,19 +181,38 @@ __global__ void ln_reduce_kernel(const float* __restrict__ part, float* __restri
 }
 
 template <typename T>
-cudaError_t wgrad(const T* a, const T* b, float* part, T* dw, float* db, int m, int k, int n,
-                  int splits, cudaStream_t st) {
-  const int rows_per_split = ((m + splits - 1) / splits + kDepth - 1) / kDepth * kDepth;
-  const dim3 grid((n + kTile - 1) / kTile, (k + 1 + kTile - 1) / kTile, splits);
-  if (grid.y > 65535u || grid.z > 65535u) return cudaErrorInvalidConfiguration;
-  wgrad_kernel<T><<<grid, kThreads, 0, st>>>(a, b, part, m, k, n, rows_per_split,
-                                             vec_ok<T>(a, k), vec_ok<T>(b, n));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+cudaError_t wgrad_reduce(const float* part, T* dw, float* db, int k, int n, int splits,
+                         cudaStream_t st) {
   const long long total = (long long)(k + 1) * n;
   wgrad_reduce_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, dw, db, k, n,
                                                                           splits);
   return cudaGetLastError();
+}
+
+// the fp32 partials on gmm_common.cuh's tiles, then the ordered sum
+cudaError_t wgrad(const float* a, const float* b, float* part, float* dw, float* db, int m,
+                  int k, int n, int splits, cudaStream_t st) {
+  const int rows_per_split = ((m + splits - 1) / splits + kDepth - 1) / kDepth * kDepth;
+  const dim3 grid((n + kTile - 1) / kTile, (k + 1 + kTile - 1) / kTile, splits);
+  if (grid.y > 65535u || grid.z > 65535u) return cudaErrorInvalidConfiguration;
+  wgrad_kernel<float><<<grid, kThreads, 0, st>>>(a, b, part, m, k, n, rows_per_split,
+                                                 vec_ok<float>(a, k), vec_ok<float>(b, n));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return wgrad_reduce<float>(part, dw, db, k, n, splits, st);
+}
+
+// the bf16 partials on gmm_hopper.cuh's body (slices of 64-row multiples), then the ordered
+// sum, rounded once
+cudaError_t wgrad(const __nv_bfloat16* a, const __nv_bfloat16* b, float* part,
+                  __nv_bfloat16* dw, float* db, int m, int k, int n, int splits,
+                  cudaStream_t st) {
+  if (!gmm_hopper::takes(m, k, n, a, b, part)) return cudaErrorInvalidValue;
+  const int slice = ((m + splits - 1) / splits + 63) / 64 * 64;
+  const cudaError_t err =
+      gmm_hopper::launch_wgrad_partials(a, b, part, m, k, n, splits, slice, st);
+  if (err != cudaSuccess) return err;
+  return wgrad_reduce<__nv_bfloat16>(part, dw, db, k, n, splits, st);
 }
 
 struct BwdArgs {
@@ -202,13 +229,13 @@ struct BwdArgs {
 template <typename T>
 cudaError_t weight_grads(const BwdArgs& p, cudaStream_t st) {
   float* part = static_cast<float*>(p.w_part);
-  cudaError_t err = wgrad<T>(static_cast<const T*>(p.hd), static_cast<const T*>(p.df), part,
-                             static_cast<T*>(p.dw2), static_cast<float*>(p.db2), p.m, p.f, p.h,
-                             p.splits2, st);
+  cudaError_t err = wgrad(static_cast<const T*>(p.hd), static_cast<const T*>(p.df), part,
+                          static_cast<T*>(p.dw2), static_cast<float*>(p.db2), p.m, p.f, p.h,
+                          p.splits2, st);
   if (err != cudaSuccess) return err;
-  return wgrad<T>(static_cast<const T*>(p.x), static_cast<const T*>(p.dz), part,
-                  static_cast<T*>(p.dw1), static_cast<float*>(p.db1), p.m, p.h, p.f, p.splits1,
-                  st);
+  return wgrad(static_cast<const T*>(p.x), static_cast<const T*>(p.dz), part,
+               static_cast<T*>(p.dw1), static_cast<float*>(p.db1), p.m, p.h, p.f, p.splits1,
+               st);
 }
 
 cudaError_t ln_reduce(const BwdArgs& p, int blocks, cudaStream_t st) {
@@ -218,7 +245,8 @@ cudaError_t ln_reduce(const BwdArgs& p, int blocks, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// bfloat16: the row work on ffn_hopper_bwd.cuh's body, then passes 2, 5 and 6
+// bfloat16: the row work on ffn_hopper_bwd.cuh's body, then pass 2, and passes 5 and 6 on
+// gmm_hopper.cuh's body
 cudaError_t backward_bf16(const BwdArgs& p, cudaStream_t st) {
   cudaError_t err = ffn_hopper::launch_bwd(
       p.x, p.w1, static_cast<const float*>(p.b1), p.w2, static_cast<const float*>(p.b2),
@@ -285,7 +313,8 @@ extern "C" {
 // [m, h]; w1, dw1 [h, f]; w2, dw2 [f, h]. Scratch: hd, dz [m, f]; df [m, h]; dy [m, h]
 // fp32 (float32 only: bfloat16 keeps dy on chip, and takes null); ln_part [ceil(m / 32), 2,
 // h] fp32; w_part [max(splits1 (h + 1) f, splits2 (f + 1) h)] fp32, splits1/splits2 the row
-// slices of the dW1/dW2 products. Contiguous, on the current device; in bfloat16 16-byte
+// slices of the dW1/dW2 products (in bfloat16 each slice a multiple of 64 rows: splits
+// beyond ceil(m / 64) add empty slices). Contiguous, on the current device; in bfloat16 16-byte
 // aligned with h and f multiples of 8 and wm_ffn_bwd_wgmma_smem(h, f) > 0. Dropout as
 // wm_fused_ffn_ln's, kept values times inv_keep. Returns a cudaError_t (0 on success).
 int wm_fused_ffn_ln_bwd(int dtype, const void* x, const void* w1, const void* b1,

@@ -20,15 +20,23 @@
 //   runs the attention, in bf16 on attention_hopper.cuh's wgmma/TMA body, in fp32 on the
 //   scalar body shared with B3f (`wm::attend_rows`, attention_fwd.cuh). It writes o in
 //   the element type into a workspace [B, T, H] that the wrapper allocates.
-//   Phase 2 is the out-projection, one 128 x 128 tile of y per block of 256 threads on the
-//   tile code of the grouped matmul (gmm_common.cuh, one group): o's rows and wo's rows
-//   (y's columns) are staged in 32-deep slabs, multiplied on the tensor cores through
-//   WMMA in bf16 and on the FMA pipes in fp32, and the epilogue adds bo and rounds once.
+//   Phase 2 is the out-projection, chosen by an explicit dispatch on the layout:
+//   * bf16 with H a multiple of 8 and o, wo, y and bo 16-byte aligned (the main path's
+//     every call: o and y are the wrapper's, wo and bo the model's parameters): the
+//     grouped matmul's wgmma/TMA body (gmm_hopper.cuh, `launch_linear`): B4's
+//     transposed-weight form (wo [H, H] read K-major in place, one [192 x 64] box a slab)
+//     as one group whose offsets {0, B T} the wrapper puts on the device, 128 x 192 tiles
+//     through a 4-stage TMA ring on a persistent grid, bo added to the fp32 sums in the
+//     epilogue before the one rounding;
+//   * every other call (fp32, and bf16 off that rule): one 128 x 128 tile of y per block of
+//     256 threads on the tile code of the grouped matmul (gmm_common.cuh): o's rows and
+//     wo's rows (y's columns) staged in 32-deep slabs, multiplied through WMMA in bf16 and
+//     on the FMA pipes in fp32, the epilogue adding bo and rounding once.
 // Every element of y needs o from all heads of its row, and phase 1's grid gives each
 // block one head, so the out-projection cannot be an epilogue of phase 1's blocks. The
 // round trip of o through device memory (2 x 108 MB in bf16 at B = 256, T = 365,
-// H = 576) costs about 0.06 ms at the memory rate. Phase 2 stays on the WMMA tiles, whose
-// redesign ROADMAP queues with B4, B4t and P3; PERF.md records its share of B5 (a third).
+// H = 576) costs about 0.06 ms at the memory rate. Phase 2's own bound at those shapes:
+// 62.0 GFLOP, 0.063 ms at the bf16 peak, against 216 MB (o read, y written), 0.064 ms.
 //
 // Later work: keep o on chip. One way is a thread-block cluster of num_heads blocks per
 // batch row: each block keeps its head's o_j in shared memory and computes its column
@@ -40,6 +48,7 @@
 
 #include "attention_common.cuh"
 #include "gmm_common.cuh"
+#include "gmm_hopper.cuh"
 
 namespace wm {
 // fused_qkv_attention.cu
@@ -96,6 +105,16 @@ cudaError_t launch_outproj(const void* o, const void* wo, const void* bo, void* 
   return cudaGetLastError();
 }
 
+// bf16 phase 2: the grouped matmul's body where the layout meets its rule (and the wrapper
+// gave the one group's offsets), else the tiles
+cudaError_t outproj_bf16(const void* o, const void* wo, const void* bo, const int* offsets,
+                         void* y, long long m, int h, cudaStream_t stream) {
+  if (offsets != nullptr && m <= 0x7fffffffLL &&
+      gmm_hopper::takes((int)m, h, h, o, wo, y) && reinterpret_cast<uintptr_t>(bo) % 16 == 0)
+    return gmm_hopper::launch_linear(o, wo, bo, offsets, y, (int)m, h, h, stream);
+  return launch_outproj<__nv_bfloat16>(o, wo, bo, y, m, h, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -103,13 +122,15 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. x [batch, t, h], w [3h, h], b [3h], wo [h, h], bo [h],
 // the workspace o [batch, t, h] and y [batch, t, h], all contiguous on the current device;
 // ws phase 1's workspace (wm_fused_qkv_attention_workspace bytes a (batch row, head) block,
-// null where that is 0). Dropout on the attention weights when dropout_on != 0 (threshold,
-// keep_prob and seed as in attention_common.cuh). Returns a cudaError_t (0 on success).
+// null where that is 0); offsets int32 {0, batch t} on the device, which bf16 phase 2 on
+// the grouped matmul's body reads (null for fp32). Dropout on the attention weights when
+// dropout_on != 0 (threshold, keep_prob and seed as in attention_common.cuh). Returns a
+// cudaError_t (0 on success).
 int wm_fused_qkv_attention_outproj(int dtype, const void* x, const void* w, const void* b,
                                    const void* wo, const void* bo, void* o, void* y, void* ws,
-                                   int batch, int t, int h, int num_heads, int dropout_on,
-                                   unsigned int seed, unsigned int threshold,
-                                   float keep_prob, void* stream) {
+                                   const void* offsets, int batch, int t, int h,
+                                   int num_heads, int dropout_on, unsigned int seed,
+                                   unsigned int threshold, float keep_prob, void* stream) {
   if (batch <= 0 || t <= 0 || h <= 0) return cudaErrorInvalidValue;
   wm::Dropout drop{dropout_on, seed, threshold, keep_prob, 0.f};
   int err = wm::fused_qkv_attention_o(dtype, x, w, b, o, ws, batch, t, h, num_heads, drop,
@@ -118,7 +139,8 @@ int wm_fused_qkv_attention_outproj(int dtype, const void* x, const void* w, cons
   const long long m = (long long)batch * t;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_outproj<float>(o, wo, bo, y, m, h, s);
-  if (dtype == 1) return launch_outproj<__nv_bfloat16>(o, wo, bo, y, m, h, s);
+  if (dtype == 1)
+    return outproj_bf16(o, wo, bo, static_cast<const int*>(offsets), y, m, h, s);
   return cudaErrorInvalidValue;
 }
 

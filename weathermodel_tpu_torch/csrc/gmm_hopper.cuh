@@ -1,6 +1,8 @@
 // The bfloat16 body of the grouped matmul for Hopper (sm_90a): kernels B4 (gmm.cu, the
-// MoE expert GEMM and its d_lhs), B4t (tgmm.cu, its weight gradient) and the dense probe P3
-// (blocked_mm.cu, as one group).
+// MoE expert GEMM and its d_lhs), B4t (tgmm.cu, its weight gradient), the dense probe P3
+// (blocked_mm.cu, as one group), B5's out-projection (fused_qkv_attention_outproj.cu: B4's
+// transposed-weight form as one group, with a bias) and B6b's weight and bias gradients
+// (fused_ffn_ln_bwd.cu: B4t's product over slices of the rows, fp32 partial sums).
 //
 // Replaces, in bf16, the TPU kernels `_gmm_kernel` and `_tgmm_kernel` of
 // weathermodel_tpu/ops/pallas_gmm.py. For lhs [S, K] with rows sorted by group and the E+1
@@ -68,11 +70,26 @@
 //   * P3 (blocked_mm.cu, the dense probe) is B4 with one group, offsets [0, mc]: its covered
 //     region's mc rows of x, and w and y as [1, k, n] and [mc, n] maps that stop at the
 //     region's nc columns but keep their rows n elements apart (`ld`).
+//   * B5's out-projection y = o . wo^T + bo (launch_linear) is B4's kTransB form with one
+//     group, offsets [0, m], and kBias: the epilogue adds bo[col] to the fp32 sums before
+//     the one rounding (the TPU kernel's order, pallas_attention.py:273-278).
+//   * B6b's weight gradients (launch_wgrad_partials) are B4t's product with kPartials:
+//     the "groups" are slices of `slice` rows (a multiple of 64) over all M rows, so that
+//     the grid fills the card (one group of all rows gives 54-60 blocks at the bench's
+//     shapes); each block writes its fp32 sums straight from its accumulators into
+//     part [slices, K + 1, N] (96 KB a tile: no staging tile, no rounding), and
+//     fused_ffn_ln_bwd.cu's reduce sums the slices in order and rounds once. Row K is the
+//     bias gradient: the consumer whose A box holds lhs column K (TMA's zeros there, since
+//     the grid covers K + 1 rows) writes 1.0 into it for every row of each landed slab,
+//     behind fence.proxy.async and its warpgroup's barrier, so that the column sums of dy
+//     come out of the same tensor-core sums. No atomics: every sum runs in a fixed order.
 // Shared memory: 4 x 40 KB + 48 KB + barriers + 1 KB of alignment slack = 214,080 B, one
 // block an SM. Registers and spills: ptxas -v, printed by chip_smoke.py's build phase.
 // Takes K and N multiples of 8 (TMA's 16-byte strides), 16-byte aligned operands and at
-// least one row; gmm.cu, tgmm.cu and blocked_mm.cu dispatch on exactly that (`takes`) and
-// send any other bf16 call, and every fp32 call, to gmm_common.cuh's tiles.
+// least one row; gmm.cu, tgmm.cu, blocked_mm.cu and fused_qkv_attention_outproj.cu dispatch
+// on exactly that (`takes`) and send any other bf16 call, and every fp32 call, to
+// gmm_common.cuh's tiles. fused_ffn_ln_bwd.cu's bf16 calls always meet it (its wrapper's
+// layout rule) and it refuses any that does not.
 
 #pragma once
 
@@ -111,6 +128,9 @@ struct Params {
   CUtensorMap tm_out;  // B4: out [S, N] in [64 x 64] boxes; B4t: out [E, K, N], 3-D
   const int* offsets;  // [E + 1]
   int s, k, n, e;
+  const __nv_bfloat16* bias;  // B4 with kBias: [N]
+  float* part;                // B4t with kPartials: [E, K + 1, N] fp32
+  int slice;                  // B4t with kPartials: rows a group (a multiple of 64)
 };
 
 struct Roles {
@@ -190,6 +210,26 @@ __device__ __forceinline__ void epilogue(float* acc, uint32_t out, int wg, int t
     for (int a = 0; a < 3; ++a) store(mine + a * kBox, a);
 }
 
+// B4 with kBias: bias[col] (bf16) added to this consumer's fp32 sums, before the epilogue's
+// one rounding, for the columns inside the output.
+__device__ __forceinline__ void add_bias(float* acc, const __nv_bfloat16* bias, int n0, int n,
+                                         int t) {
+  fence_regs<96>(acc);
+  const int q = t & 3;
+#pragma unroll
+  for (int j = 0; j < 24; ++j) {
+    const int col = n0 + 8 * j + 2 * q;  // n is a multiple of 8: col + 1 < n too
+    if (col < n) {
+      const float2 b = unpack_bf16(__ldg(reinterpret_cast<const unsigned*>(bias + col)));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        acc[4 * j + 2 * i] += b.x;
+        acc[4 * j + 2 * i + 1] += b.y;
+      }
+    }
+  }
+}
+
 // ---- B4
 
 // Output tile `tile` of B4's persistent grid: 192-column tiles of N fastest, then 128-row
@@ -203,7 +243,7 @@ __device__ __forceinline__ Tile gemm_tile(const Params& p, int tiles_n, int tile
   return {(tile % tiles_n) * kN, r0, min(r0 + kM, p.s)};
 }
 
-template <bool kTransB>
+template <bool kTransB, bool kBias>
 __global__ void __launch_bounds__(kThreads, 1)
     expert_gemm_wgmma_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -278,6 +318,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_wait<0>();
     release(r, held);
     held = -1;
+    if constexpr (kBias) add_bias(acc, p.bias, c.n0, p.n, t);
     const int row = c.r0 + 64 * wg;
     epilogue(acc, r.out, wg, t, [&](uint32_t box, int a) {
       if (row < p.s && c.n0 + 64 * a < p.n) tma_store(&p.tm_out, box, c.n0 + 64 * a, row);
@@ -288,13 +329,21 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- B4t
 
+template <bool kPartials>
 __global__ void __launch_bounds__(kThreads, 1)
     expert_wgrad_wgmma_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const Roles r = setup(smem_raw);
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   const int n0 = blockIdx.x * kN, k0 = blockIdx.y * kM, g = blockIdx.z;
-  const int lo = __ldg(p.offsets + g), hi = __ldg(p.offsets + g + 1);
+  int lo, hi;
+  if constexpr (kPartials) {  // slice g of the rows
+    lo = min(g * p.slice, p.s);
+    hi = min(lo + p.slice, p.s);
+  } else {
+    lo = __ldg(p.offsets + g);
+    hi = __ldg(p.offsets + g + 1);
+  }
   const int slabs = hi > lo ? (hi - lo + kDepth - 1) / kDepth : 0;
 
   if (wg == 2) {  // the producer
@@ -313,6 +362,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   setmaxnreg_inc<232>();
+  // kPartials: lhs column K's place in this consumer's A box, or -1 where the box does not
+  // hold it
+  int ones = -1;
+  if constexpr (kPartials) {
+    const int c = p.k - (k0 + 64 * wg);
+    if (c >= 0 && c < 64) ones = c;
+  }
   float acc[96];
 #pragma unroll
   for (int v = 0; v < 96; ++v) acc[v] = 0.f;
@@ -328,6 +384,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       named_sync(3, 256);
     }
     const uint32_t a_s = stage + wg * kBox, b_s = stage + kABytes;
+    if constexpr (kPartials) {
+      if (ones >= 0) {  // A's row K, lhs column K in this consumer's box: ones
+        if (t < kDepth) st_shared_u16(a_s + sw128(t, ones), 0x3F80);  // bf16 1.0
+        fence_async_smem();
+        named_sync(1 + wg, 128);
+      }
+    }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -339,10 +402,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   wgmma_wait<0>();
   const int krow = k0 + 64 * wg;
-  epilogue(acc, r.out, wg, t, [&](uint32_t box, int a) {
-    if (krow < p.k && n0 + 64 * a < p.n) tma_store3d(&p.tm_out, box, n0 + 64 * a, krow, g);
-  });
-  if (t == 0) tma_store_wait_read();  // the block ends once its stores have read its tile
+  if constexpr (kPartials) {  // the fp32 sums, rows up to K (the bias row), as they are
+    fence_regs<96>(acc);
+    const int rl = 16 * (t / 32) + ((t % 32) >> 2), q = t & 3;
+    float* out = p.part + (long long)g * (p.k + 1) * p.n;
+#pragma unroll
+    for (int j = 0; j < 24; ++j) {
+      const int col = n0 + 8 * j + 2 * q;  // n is a multiple of 8: col + 1 < n too
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = krow + rl + 8 * i;
+        if (col < p.n && row <= p.k)
+          *reinterpret_cast<float2*>(out + (long long)row * p.n + col) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
+    }
+  } else {
+    epilogue(acc, r.out, wg, t, [&](uint32_t box, int a) {
+      if (krow < p.k && n0 + 64 * a < p.n) tma_store3d(&p.tm_out, box, n0 + 64 * a, krow, g);
+    });
+    if (t == 0) tma_store_wait_read();  // the block ends once its stores have read its tile
+  }
 }
 
 // ---- host side
@@ -374,12 +454,11 @@ cudaError_t run(Kernel kernel, const Params& p, dim3 grid, cudaStream_t stream) 
   return cudaGetLastError();
 }
 
-// B4 on this body: lhs [s, k], rhs [e, k, n] (or [e, n, k] with trans), out [s, n]. With
-// ld > n (P3, blocked_mm.cu: one group, no trans) the rows of rhs and out are ld elements
-// apart, and the body computes and writes their first n columns only.
-inline cudaError_t launch_gmm(const void* lhs, const void* rhs, const int* offsets, void* out,
-                              int s, int k, int n, int e, bool trans, cudaStream_t stream,
-                              int ld = 0) {
+// B4's parameters and persistent grid: lhs [s, k], rhs [e, k, n] (or [e, n, k] with trans),
+// out [s, n], rows of rhs and out ld elements apart where ld > 0.
+inline cudaError_t gemm_setup(Params* p, dim3* grid, const void* lhs, const void* rhs,
+                              const int* offsets, void* out, int s, int k, int n, int e,
+                              bool trans, int ld) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -387,21 +466,47 @@ inline cudaError_t launch_gmm(const void* lhs, const void* rhs, const int* offse
   if (err != cudaSuccess) return err;
   const long long tiles = (long long)((n + kN - 1) / kN) * ((s + kM - 1) / kM);
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)(tiles < sms ? tiles : sms));  // one block an SM, persistent
-  Params p = {};
+  *grid = dim3((unsigned)(tiles < sms ? tiles : sms));  // one block an SM, persistent
+  *p = Params{};
   const bool ok =
-      make_map(&p.tm_a, lhs, s, k, kM, 64, CU_TENSOR_MAP_SWIZZLE_128B) &&
-      (trans ? make_map_3d(&p.tm_b, rhs, e, n, k, kN)
-             : make_map_3d(&p.tm_b, rhs, e, k, n, 64, ld)) &&
-      make_map(&p.tm_out, out, s, n, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B, ld);
+      make_map(&p->tm_a, lhs, s, k, kM, 64, CU_TENSOR_MAP_SWIZZLE_128B) &&
+      (trans ? make_map_3d(&p->tm_b, rhs, e, n, k, kN)
+             : make_map_3d(&p->tm_b, rhs, e, k, n, 64, ld)) &&
+      make_map(&p->tm_out, out, s, n, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B, ld);
   if (!ok) return cudaErrorInvalidValue;
-  p.offsets = offsets;
-  p.s = s;
-  p.k = k;
-  p.n = n;
-  p.e = e;
-  return trans ? run(expert_gemm_wgmma_kernel<true>, p, grid, stream)
-               : run(expert_gemm_wgmma_kernel<false>, p, grid, stream);
+  p->offsets = offsets;
+  p->s = s;
+  p->k = k;
+  p->n = n;
+  p->e = e;
+  return cudaSuccess;
+}
+
+// B4 on this body: lhs [s, k], rhs [e, k, n] (or [e, n, k] with trans), out [s, n]. With
+// ld > n (P3, blocked_mm.cu: one group, no trans) the rows of rhs and out are ld elements
+// apart, and the body computes and writes their first n columns only.
+inline cudaError_t launch_gmm(const void* lhs, const void* rhs, const int* offsets, void* out,
+                              int s, int k, int n, int e, bool trans, cudaStream_t stream,
+                              int ld = 0) {
+  Params p;
+  dim3 grid;
+  const cudaError_t err = gemm_setup(&p, &grid, lhs, rhs, offsets, out, s, k, n, e, trans, ld);
+  if (err != cudaSuccess) return err;
+  return trans ? run(expert_gemm_wgmma_kernel<true, false>, p, grid, stream)
+               : run(expert_gemm_wgmma_kernel<false, false>, p, grid, stream);
+}
+
+// B5's out-projection on this body: y [s, n] = x [s, k] . w^T + bias, w [n, k] (torch's
+// [out, in]), bias [n] 4-byte aligned; offsets the one group's {0, s} on the device.
+inline cudaError_t launch_linear(const void* x, const void* w, const void* bias,
+                                 const int* offsets, void* y, int s, int k, int n,
+                                 cudaStream_t stream) {
+  Params p;
+  dim3 grid;
+  const cudaError_t err = gemm_setup(&p, &grid, x, w, offsets, y, s, k, n, 1, true, 0);
+  if (err != cudaSuccess) return err;
+  p.bias = static_cast<const __nv_bfloat16*>(bias);
+  return run(expert_gemm_wgmma_kernel<true, true>, p, grid, stream);
 }
 
 // B4t on this body: lhs [s, k], dy [s, n], out [e, k, n].
@@ -419,7 +524,30 @@ inline cudaError_t launch_tgmm(const void* lhs, const void* dy, const int* offse
   p.k = k;
   p.n = n;
   p.e = e;
-  return run(expert_wgrad_wgmma_kernel, p, grid, stream);
+  return run(expert_wgrad_wgmma_kernel<false>, p, grid, stream);
+}
+
+// B6b's weight and bias gradients on this body: for lhs [s, k] and dy [s, n], part[g] =
+// [lhs | 1]^T . dy over rows [g slice, (g + 1) slice) of s, fp32, [splits, k + 1, n]; row k
+// is the column sums of dy. slice a multiple of 64 with splits x slice >= s.
+inline cudaError_t launch_wgrad_partials(const void* lhs, const void* dy, float* part, int s,
+                                         int k, int n, int splits, int slice,
+                                         cudaStream_t stream) {
+  if (slice <= 0 || slice % kDepth || (long long)splits * slice < s)
+    return cudaErrorInvalidValue;
+  const dim3 grid((n + kN - 1) / kN, (k + 1 + kM - 1) / kM, splits);
+  if (grid.y > 65535u || grid.z > 65535u) return cudaErrorInvalidConfiguration;
+  Params p = {};
+  const bool ok = make_map(&p.tm_a, lhs, s, k, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B) &&
+                  make_map(&p.tm_b, dy, s, n, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!ok) return cudaErrorInvalidValue;
+  p.s = s;
+  p.k = k;
+  p.n = n;
+  p.e = splits;
+  p.part = part;
+  p.slice = slice;
+  return run(expert_wgrad_wgmma_kernel<true>, p, grid, stream);
 }
 
 }  // namespace

@@ -89,10 +89,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.wm_fused_qkv_attention_bwd.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
                                                u, u, f, p]
     lib.wm_fused_qkv_attention_bwd.restype = i
-    # dtype, x, w, b, wo, bo, o (phase 1's output), y, workspace, batch, t, h,
-    # heads, dropout_on, seed, threshold, keep_prob, stream
+    # dtype, x, w, b, wo, bo, o (phase 1's output), y, workspace, offsets
+    # {0, batch t} (bf16; None for fp32), batch, t, h, heads, dropout_on, seed,
+    # threshold, keep_prob, stream
     lib.wm_fused_qkv_attention_outproj.argtypes = [i, p, p, p, p, p, p, p, p,
-                                                   i, i, i, i, i, u, u, f, p]
+                                                   p, i, i, i, i, i, u, u, f,
+                                                   p]
     lib.wm_fused_qkv_attention_outproj.restype = i
     # dtype, q, k, v, row stride, o, workspace, batch, t, h, heads, dropout_on,
     # seed, threshold, keep_prob, stream
@@ -123,8 +125,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # dtype, lhs, dy, offsets, out, s, k, n, e, stream
     lib.wm_tgmm.argtypes = [i, p, p, p, p, i, i, i, i, p]
     lib.wm_tgmm.restype = i
-    # the bf16 grouped-matmul body's (B4, B4t) dynamic shared memory per
-    # block in bytes
+    # the bf16 grouped-matmul body's (B4, B4t, P3, B5's phase 2, B6b's weight
+    # gradients) dynamic shared memory per block in bytes
     lib.wm_gmm_wgmma_smem.argtypes = []
     lib.wm_gmm_wgmma_smem.restype = i
     # dtype, x, w1, b1, w2, b2, f, h (or None), m, h, f, dropout_on, seed1,

@@ -31,12 +31,14 @@ hand-written Hopper kernel on CUDA tensors (counting the launch in its
 checked against on the card. Nothing is padded: the kernels bound-check the
 rows and both widths (H at most 640). In bf16 both kernels run wgmma/TMA
 bodies (the forward `csrc/ffn_hopper.cuh`, B6b's row work
-`csrc/ffn_hopper_bwd.cuh`, B6b's weight gradients `csrc/gmm_common.cuh`'s
-tiles), which need H and F multiples of 8 and 16-byte aligned x, weights (and
-do) (`check_wgmma_layout` raises otherwise; B6b's body also F up to 2560,
-its mask bits' shared memory) and read the fp32 vectors in pairs
+`csrc/ffn_hopper_bwd.cuh`, B6b's weight gradients the grouped matmul's body
+`csrc/gmm_hopper.cuh` over slices of the rows, `_wgrad_splits`), which need
+H and F multiples of 8 and 16-byte aligned x, weights (and do)
+(`check_wgmma_layout` raises otherwise; B6b's body also F up to 2560, its
+mask bits' shared memory) and read the fp32 vectors in pairs
 (`fp32_vectors` copies one at an odd offset); float32 runs the row kernel
-of `csrc/ffn_common.cuh`.
+of `csrc/ffn_common.cuh` and B6b's weight gradients on the FMA tiles of
+`csrc/gmm_common.cuh`.
 """
 
 import math
@@ -51,9 +53,16 @@ LN_EPS = 1e-5
 # the widest H the kernels' row blocks hold (kMaxH of csrc/ffn_common.cuh
 # and csrc/ffn_hopper.cuh)
 MAX_HIDDEN = 640
-# target blocks per SM of the weight-gradient products, and the fewest rows
-# a slice of their rows gets
+# fp32 weight-gradient products (128 x 128 FMA tiles): target blocks per SM,
+# and the fewest rows a slice of their rows gets
 _WGRAD_BLOCKS_PER_SM, _WGRAD_MIN_ROWS = 4, 1024
+# bf16 weight-gradient products (csrc/gmm_hopper.cuh: 128 x 192 output
+# tiles, slices of 64-row slabs): the most slices tried, and the bytes of
+# partial sums the card moves (at ~3.3 TB/s) in the time one wave of blocks
+# takes for one slab (a 128 x 192 x 64 product on each of 132 SMs at the
+# body's ~570 TFLOP/s: 0.73 us), the rate at which _wgrad_splits weighs the
+# partials' traffic against the waves
+_WGRAD_MAX_SPLITS, _WGRAD_SLAB_BYTES = 64, 2.4e6
 
 
 def check_ffn_shapes(x, w1, b1, w2, b2):
@@ -224,15 +233,28 @@ def fused_ffn_ln_bwd_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
             (hd.T @ df).to(dtype), df.sum(dim=0), dls, dlb)
 
 
-def _wgrad_splits(m, k, n, device):
-    """Row slices of a weight-gradient product [k + 1, n] over m rows: enough
-    blocks to fill the card on `device`, at least _WGRAD_MIN_ROWS rows
-    each."""
-    blocks = (torch.cuda.get_device_properties(device).multi_processor_count
-              * _WGRAD_BLOCKS_PER_SM)
-    tiles = math.ceil(n / 128) * math.ceil((k + 1) / 128)
-    return max(1, min(math.ceil(blocks / tiles),
-                      math.ceil(m / _WGRAD_MIN_ROWS)))
+def _wgrad_splits(m, k, n, sms, bf16):
+    """Row slices of a weight-gradient product [k + 1, n] over m rows on a
+    card of `sms` SMs.
+
+    fp32: enough blocks to fill the card, at least _WGRAD_MIN_ROWS rows
+    each. bf16 (one block per 128 x 192 tile and slice, one block an SM):
+    the count that minimizes the waves of blocks times the slabs of a slice,
+    plus the partial sums' traffic (splits x (k + 1) x n fp32 written and
+    read back) in the same unit; the fewest on a tie."""
+    if not bf16:
+        tiles = math.ceil(n / 128) * math.ceil((k + 1) / 128)
+        return max(1, min(math.ceil(sms * _WGRAD_BLOCKS_PER_SM / tiles),
+                          math.ceil(m / _WGRAD_MIN_ROWS)))
+    tiles = math.ceil(n / 192) * math.ceil((k + 1) / 128)
+
+    def cost(splits):
+        slabs = math.ceil(math.ceil(m / splits) / 64)
+        waves = math.ceil(tiles * splits / sms)
+        return waves * slabs + splits * (k + 1) * n * 8 / _WGRAD_SLAB_BYTES
+
+    return min(range(1, min(_WGRAD_MAX_SPLITS, math.ceil(m / 64)) + 1),
+               key=cost)
 
 
 def fused_ffn_ln_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
@@ -273,8 +295,9 @@ def fused_ffn_ln_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
     # dy goes through device memory in fp32 only (bf16 keeps it on chip)
     df, dy = x.new_empty(m, h), None if bf16 else torch.empty(m, h, **fp32)
     ln_part = torch.empty(math.ceil(m / 32), 2, h, **fp32)
-    splits1 = _wgrad_splits(m, h, f, x.device)
-    splits2 = _wgrad_splits(m, f, h, x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits1 = _wgrad_splits(m, h, f, sms, bf16)
+    splits2 = _wgrad_splits(m, f, h, sms, bf16)
     w_part = torch.empty(max(splits1 * (h + 1) * f, splits2 * (f + 1) * h),
                          **fp32)
     with torch.cuda.device(x.device):

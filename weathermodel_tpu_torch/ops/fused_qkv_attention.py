@@ -38,7 +38,11 @@ w_qkv 16-byte aligned: `check_wgmma_layout` raises a ValueError otherwise,
 before any launch. B2 in bf16 runs the backward's wgmma body
 (`csrc/attention_bwd_hopper.cuh`, shared with B3b) up to the T it keeps on
 chip and the scalar passes past it, and takes H a multiple of 8 and qkv
-and do 8-byte aligned (`ops.flash_attention.check_bf16_body_layout`). float32
+and do 8-byte aligned (`ops.flash_attention.check_bf16_body_layout`). B5's
+second phase, the out-projection, runs in bf16 on the grouped matmul's
+wgmma/TMA body (`csrc/gmm_hopper.cuh`) as one group, whose offsets {0, B T}
+the wrapper puts on the device, where wo and bo are 16-byte aligned (the
+WMMA tiles of `csrc/gmm_common.cuh` otherwise, and in fp32). float32
 runs the scalar bodies. Every kernel here takes T
 up to `ops.attention.MAX_CONTEXT` (1536) at every head dim; past the T whose
 per-head rows fit in a block's shared memory, it keeps them in a device
@@ -325,11 +329,18 @@ def fused_qkv_attention_outproj(x, w_qkv, b_qkv, wo, bo, num_heads: int,
     y = torch.empty_like(x)
     ws = _workspace(x, num_heads)
     with torch.cuda.device(x.device):
+        # bf16 phase 2's one group on the grouped matmul's body: its offsets
+        # {0, B T}, made on the device (no host copy)
+        m = bsz * t
+        offsets = (torch.arange(0, 2 * m, m, dtype=torch.int32,
+                                device=x.device)
+                   if x.dtype == torch.bfloat16 else None)
         err = lib.wm_fused_qkv_attention_outproj(
             build.DTYPE_CODES[x.dtype], x.data_ptr(), w_qkv.data_ptr(),
             b_qkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), o.data_ptr(),
-            y.data_ptr(), build.data_ptr(ws), bsz, t, h, num_heads, on, seed,
-            threshold, keep_prob, build.cuda_stream(x.device))
+            y.data_ptr(), build.data_ptr(ws), build.data_ptr(offsets), bsz, t,
+            h, num_heads, on, seed, threshold, keep_prob,
+            build.cuda_stream(x.device))
     build.check(err)
     fused_qkv_attention_outproj.launches += 1
     return y
