@@ -17,6 +17,10 @@ It prints progress lines and last one line `RESULT {json}` holding TAG and:
     SHA-256 (equal digits: equal bits);
   - bf16 B6b at the bench microbatch (M = 105120, H = 576, F = 2304, dropout
     0.1) and bf16 B5 at B = 256, T = 365, H = 576: CUDA-event ms;
+  - the probes P1 and P2 at the ablation script's shape (B = 224, T = 384,
+    16 heads of 36), on the columns they write, and the bf16 attention bodies
+    B3f and B3b (B = 256, T = 365, H = 200, 10 heads) and B2 (B = 288,
+    H = 576, 16 heads), dropout 0.1: output hashes and CUDA-event ms;
   - the port's bench (WeatherBERT-large, 2 x 288, bf16, dropout 0.1, 3
     warm-up + 3 timed steps) with BENCH_FFN_IMPL torch, fused_ffn_ln and
     fused_ffn, and BENCH_ATTENTION=fused_qkv_op in eval: samples/s;
@@ -103,6 +107,42 @@ def kernels(out):
                                iters=10)
 
 
+def probes_and_attention(out):
+    from weathermodel_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+        fused_qkv_attention_bwd,
+    )
+    from weathermodel_tpu_torch.ops.headpack import headpack_v0, headpack_v1
+    from weathermodel_tpu_torch.scripts import abl_headpack
+
+    def reading(name, fn):
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        out[f"{name} hash"] = ",".join(digest(a) for a in got)
+        out[f"{name} ms"] = cs._cuda_ms(fn, iters=20, warmup=3)
+
+    q, k, v = abl_headpack.inputs(abl_headpack.B, "cuda")
+    live = abl_headpack.LIVE  # the columns P2 writes: heads 0-14
+    reading("P1", lambda: headpack_v0(q, k, v))
+    reading("P2", lambda: headpack_v1(q, k, v)[..., :live])
+    del q, k, v
+    g = torch.Generator(device="cuda").manual_seed(77)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
+
+    qkv, do = rand(256, 365, 600), rand(256, 365, 200)
+    q, k, v = qkv.chunk(3, dim=-1)
+    reading("B3f", lambda: flash_attention_fwd(q, k, v, 10, cs.DROPOUT, 7))
+    reading("B3b", lambda: flash_attention_bwd(q, k, v, do, 10, cs.DROPOUT, 7))
+    del qkv, do, q, k, v
+    qkv, do = rand(288, 365, 1728), rand(288, 365, 576)
+    reading("B2", lambda: fused_qkv_attention_bwd(qkv, do, 16, cs.DROPOUT, 7))
+
+
 def splits(out):
     from weathermodel_tpu_torch.ops import fused_ffn_ln as b6
 
@@ -178,6 +218,8 @@ def main():
     grouped_matmul(out)
     torch.cuda.empty_cache()
     kernels(out)
+    torch.cuda.empty_cache()
+    probes_and_attention(out)
     torch.cuda.empty_cache()
     if "--splits" in sys.argv[2:]:
         splits(out)

@@ -184,7 +184,14 @@ Phases, each printing one line; any failure raises and exits non-zero:
                and a profile of each bf16 P3 call, which fails unless it runs
                the grouped matmul's wgmma body (expert_gemm_wgmma_kernel) and
                no bf16 blocked_mm_kernel of the WMMA tiles; P3's time beside
-               the recorded one on the tiles;
+               the recorded one on the tiles; a profile of each P1 and P2
+               call, which fails unless it runs their wgmma body
+               (headpack_wgmma_kernel) and no WMMA headpack_kernel; their
+               times beside the ones recorded on that kernel, P1's share of
+               its bound, P2's of its bound and of its literal products'
+               time at the peak; the body's ptxas registers and spills (its
+               four instantiations; it fails on spills or serialized
+               wgmmas);
                CUDA-event times of the kernel, the plain
                version and the library call (two batched torch.matmul over
                the head views with S in bf16 for P1 and P2, torch.matmul for
@@ -335,6 +342,13 @@ BLOCKED_MM_TILES_BF16 = "blocked_mm_kernel<__nv_bfloat16"
 # H100 80GB HBM3, 700 W), printed beside this run's
 SCALAR_FWD_MS = {"B3f": 4.159}
 WMMA_P3_MS = 1.7006
+# P1 and P2's wgmma body (csrc/headpack_hopper.cuh), which their profiles
+# must show, and the WMMA kernel it replaced, which they may not; that
+# kernel's times at the probe's shape (PERF.md §6; H100 80GB HBM3, 700 W),
+# printed beside this run's
+HEADPACK_BODY = "headpack_wgmma_kernel"
+HEADPACK_WMMA = "headpack_kernel"
+WMMA_HEADPACK_MS = {"P1": 1.0661, "P2": 2.0242}
 # (B, T, H, heads) at the bf16 body's 64-row tile edges (T = 1, 64, 65, 383,
 # 384), one at each head dim, then the longest T the fp32 body keeps in
 # shared memory at hd 36 (453) and the bf16 body's resident K^T and V^T
@@ -2650,6 +2664,56 @@ def _p3_profiles():
             require=(GMM_BODY,), forbid=(BLOCKED_MM_TILES_BF16,))
 
 
+def _headpack_profiles():
+    """bf16 P1 and P2 at the probe's shape, each call profiled: fails unless it
+    runs the wgmma body and no WMMA headpack_kernel."""
+    from weathermodel_tpu_torch.ops import headpack as hp
+    from weathermodel_tpu_torch.scripts import abl_headpack
+
+    q, k, v = abl_headpack.inputs(abl_headpack.B, "cuda")
+    for fn in (hp.headpack_v0, hp.headpack_v1):
+        fn(q, k, v)  # warm-up
+        _check_kernel_names(
+            fn.__name__, [e.key for e in _profiled(lambda: fn(q, k, v))],
+            require=(HEADPACK_BODY,), forbid=(HEADPACK_WMMA,))
+
+
+def _headpack_body_report():
+    """The probes' wgmma body's ptxas report: registers and spills of
+    headpack_wgmma_kernel<G, kTma> (G = 1 for P1, 3 for P2; TMA loads or
+    cp.async); fails on spills or serialized wgmmas (C7511, C7512)."""
+    import re
+
+    from weathermodel_tpu_torch.kernels import build
+
+    lines = build.load_library().ptxas_log.splitlines()
+    serialized = [ln for ln in lines if HEADPACK_BODY in ln and
+                  ("C7511" in ln or "C7512" in ln)]
+    if serialized:
+        raise AssertionError(f"{HEADPACK_BODY}'s wgmmas are serialized: "
+                             f"{serialized}")
+    report = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\S*" + HEADPACK_BODY +
+                      r"ILi(\d)ELb(\d)E", line)
+        if m is None:
+            continue
+        block = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        if spill is None or spill.groups() != ("0", "0"):
+            raise AssertionError(f"{HEADPACK_BODY}<{m.group(1)}, "
+                                 f"{m.group(2)}> spills: {block}")
+        report[f"<{m.group(1)}, {m.group(2)}>"] = (
+            f"{regs.group(1) if regs else '?'} registers at entry, spill 0/0 B")
+    if len(report) != 4:
+        raise AssertionError(f"ptxas reported {sorted(report)} for "
+                             f"{HEADPACK_BODY}, not its 4 instantiations")
+    return (f"{HEADPACK_BODY}<G, kTma> ptxas: "
+            + "; ".join(f"{k}: {v}" for k, v in sorted(report.items())))
+
+
 def phase_probes(smi: str):
     """The port's two ablation scripts at the JAX scripts' full shapes with
     PROBE_STEPS timed steps, every count at 0 just before; then P1, P2 and
@@ -2723,6 +2787,7 @@ def phase_probes(smi: str):
                                    torch.bfloat16)
     del x, w
     _in_child("cs._p3_profiles()")
+    _in_child("cs._headpack_profiles()")
     torch.cuda.empty_cache()
     print("probes: " + " | ".join(head["lines"][1:] + gemm["lines"][1:]),
           flush=True)
@@ -2737,7 +2802,16 @@ def phase_probes(smi: str):
                   ("P2", "p2", "torch.matmul x2"),
                   (f"P3 {abl_gemm_probe.ARMS[0]}", "p3", "torch.matmul")))
           + f"; P2's packed products alone {r['p2_packed_ms']:.4f} ms at "
-          f"the bf16 peak; P3 on the grouped matmul's wgmma body "
+          f"the bf16 peak; P1 and P2 on {HEADPACK_BODY} (in their profiles, "
+          f"no {HEADPACK_WMMA}), recorded on the WMMA kernel "
+          f"{WMMA_HEADPACK_MS['P1']} and {WMMA_HEADPACK_MS['P2']} ms; shares "
+          f"of the bound: P1 {r['p1_bound'][0] / r['p1_ms']:.1%} of "
+          f"{r['p1_bound'][0]:.4f} ms, P2 {r['p2_bound'][0] / r['p2_ms']:.1%} "
+          f"of {r['p2_bound'][0]:.4f} ms and "
+          f"{r['p2_packed_ms'] / r['p2_ms']:.1%} of its literal products' "
+          f"{r['p2_packed_ms']:.4f} ms; P2/P1 "
+          f"{r['p2_ms'] / r['p1_ms']:.2f}; {_headpack_body_report()}; "
+          f"P3 on the grouped matmul's wgmma body "
           f"({GMM_BODY} in its profile, no {BLOCKED_MM_TILES_BF16}), "
           f"recorded on the WMMA tiles {WMMA_P3_MS} ms; card {smi}",
           flush=True)

@@ -1379,8 +1379,8 @@ def test_train_step_maskgen_launches_the_mask_kernel(cuda, impl, kernel):
 # the entries differing at all (a missing rounding of S changes ~40%)
 PROBE_SCALE_TOL = 2.0 ** -6
 PROBE_DIFFER_SHARE = 1e-2
-# (B, T, NH): the script's shape; T not a multiple of the 128-row tile or the
-# 64-row chunk; 7 heads, one whole group of 3 and a head left over in P2
+# (B, T, NH): the script's shape; T not a multiple of the 64-row tile nor of
+# the 384-row work item; 7 heads, one whole group of 3 and a head left over in P2
 HEADPACK_SHAPES = [(224, 384, 16), (3, 100, 16), (2, 37, 7)]
 
 
@@ -1399,19 +1399,30 @@ def _refill_freed(shape, dtype, device):
     torch.full(shape, float("nan"), dtype=dtype, device=device)
 
 
-@pytest.mark.parametrize("b,t,nh", HEADPACK_SHAPES)
-@pytest.mark.parametrize("name", ["headpack_v0", "headpack_v1"])
-def test_headpack_kernels_match_plain(cuda, name, b, t, nh):
+def _headpack_inputs(b, t, nh, device, offset=0):
+    """q, k, v bf16 [b, t, nh * 36] from numpy normals, each `offset`
+    elements into its own buffer."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(3):
+        a = torch.tensor(rng.normal(size=(b, t, nh * 36)),
+                         dtype=torch.bfloat16, device=device)
+        buf = torch.empty(a.numel() + offset, dtype=a.dtype, device=device)
+        out.append(buf[offset:].view(a.shape))
+        out[-1].copy_(a)
+    return out
+
+
+def _check_headpack(name, b, t, nh, device, offset=0):
+    """One launch of the probe against its plain version on the columns it
+    computes; the others (P2's last heads) never written."""
     from weathermodel_tpu_torch.ops import headpack
 
     fn = getattr(headpack, name)
     ref = getattr(headpack, name + "_reference")
-    rng = np.random.default_rng(0)
-    q, k, v = (torch.tensor(rng.normal(size=(b, t, nh * 36)),
-                            dtype=torch.bfloat16, device=cuda)
-               for _ in range(3))
+    q, k, v = _headpack_inputs(b, t, nh, device, offset)
     before = fn.launches
-    _refill_freed(q.shape, q.dtype, cuda)
+    _refill_freed(q.shape, q.dtype, device)
     got = fn(q, k, v, num_heads=nh)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
@@ -1419,6 +1430,86 @@ def test_headpack_kernels_match_plain(cuda, name, b, t, nh):
     _assert_probe_close(name, got[..., :live],
                         ref(q, k, v, num_heads=nh)[..., :live])
     assert got[..., live:].isnan().all()  # P2's last head: never written
+
+
+@pytest.mark.parametrize("b,t,nh", HEADPACK_SHAPES)
+@pytest.mark.parametrize("name", ["headpack_v0", "headpack_v1"])
+def test_headpack_kernels_match_plain(cuda, name, b, t, nh):
+    _check_headpack(name, b, t, nh, cuda)
+
+
+# the wgmma body's edges (csrc/headpack_hopper.cuh): T = 1 (63 rows of the
+# tile past T), 64 (one whole key slab), 65 (a slab and one row), 1024 (16
+# slabs a head); 16 heads (P2: 5 groups, head 15 unwritten) and 7 (P2: 2
+# groups and a head left over; H = 252 is not a multiple of 8, so no TMA map
+# fits the rows and the body loads by cp.async)
+HEADPACK_EDGE_SHAPES = [(2, t, nh) for t in (1, 64, 65, 1024) for nh in (16, 7)]
+
+
+@pytest.mark.parametrize("b,t,nh", HEADPACK_EDGE_SHAPES)
+@pytest.mark.parametrize("name", ["headpack_v0", "headpack_v1"])
+def test_headpack_kernels_at_the_body_edges(cuda, name, b, t, nh):
+    _check_headpack(name, b, t, nh, cuda)
+
+
+@pytest.mark.parametrize("name", ["headpack_v0", "headpack_v1"])
+def test_headpack_kernels_take_8_byte_aligned_operands(cuda, name):
+    """q, k, v 4 elements into their buffers: 8-byte aligned, not 16, so the
+    body loads them by cp.async at the probe's width."""
+    _check_headpack(name, 3, 100, 16, cuda, offset=4)
+
+
+@pytest.mark.parametrize("name", ["headpack_v0", "headpack_v1"])
+def test_headpack_kernels_give_equal_bits(cuda, name):
+    """Two calls at the probe's shape give equal bits on the columns they
+    write: a fixed summation order, no atomics."""
+    from weathermodel_tpu_torch.ops import headpack
+
+    fn = getattr(headpack, name)
+    q, k, v = _headpack_inputs(224, 384, 16, cuda)
+    live = 576 if name == "headpack_v0" else 540
+    first = fn(q, k, v)[..., :live].clone()
+    again = fn(q, k, v)[..., :live]
+    assert torch.equal(first, again)
+
+
+_HEADPACK_PROFILE = """
+import json, torch
+from weathermodel_tpu_torch.ops.headpack import headpack_v0, headpack_v1
+from weathermodel_tpu_torch.scripts import abl_headpack
+q, k, v = abl_headpack.inputs(abl_headpack.B, "cuda")
+for fn in (headpack_v0, headpack_v1):
+    fn(q, k, v)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn(q, k, v)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    print(json.dumps(sorted({e.key for e in prof.key_averages()
+                             if e.device_type == cuda})))
+"""
+
+
+def test_headpack_kernels_launch_the_wgmma_body(cuda):
+    """P1 and P2 at the probe's shape run headpack_wgmma_kernel and no WMMA
+    headpack_kernel: the kernels of a profiled call of each, in a fresh
+    process (a profile taken after many others in one process can come back
+    empty)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = subprocess.run([sys.executable, "-c", _HEADPACK_PROFILE],
+                         check=True, stdout=subprocess.PIPE, text=True,
+                         timeout=600,
+                         cwd=Path(__file__).resolve().parents[1]).stdout
+    for name, keys in zip(("P1", "P2"),
+                          (json.loads(line)
+                           for line in out.splitlines()[-2:])):
+        assert any("headpack_wgmma_kernel" in k for k in keys), (name, keys)
+        assert not any("headpack_kernel" in k for k in keys), (name, keys)
 
 
 def test_headpack_kernels_reject_what_they_do_not_take(cuda):

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma/TMA bodies: the bf16 FFN body
 // (ffn_hopper.cuh: kernels B7, B6f and B6b's row work), the bf16 fused QKV attention body
 // (attention_hopper.cuh: kernels B1 and B5's first phase), the bf16 attention backward
-// (attention_bwd_hopper.cuh: kernels B2 and B3b) and the bf16 grouped matmul
-// (gmm_hopper.cuh: kernels B4 and B4t).
-//   device: mbarriers, TMA loads (tensor and bulk) and stores, the async-proxy fences,
-//           named barriers, setmaxnreg, wgmma's fence / commit / wait, shared-memory
-//           matrix descriptors, wgmma at the widths the bodies use (both operands from
-//           shared memory, or A from registers), the 128-byte swizzle's address function
-//           and bf16 packing
+// (attention_bwd_hopper.cuh: kernels B2 and B3b), the bf16 grouped matmul
+// (gmm_hopper.cuh: kernels B4 and B4t) and the head-layout probes (headpack_hopper.cuh:
+// P1 and P2).
+//   device: mbarriers, TMA loads (tensor and bulk) and stores, cp.async, the async-proxy
+//           fences, named barriers, setmaxnreg, wgmma's fence / commit / wait,
+//           shared-memory matrix descriptors, wgmma at the widths the bodies use (both
+//           operands from shared memory, or A from registers), the 128- and 32-byte
+//           swizzles' address functions and bf16 packing
 //   host:   cuTensorMapEncodeTiled, found at run time, and the tensor maps built with it
 
 #pragma once
@@ -123,6 +124,24 @@ __device__ __forceinline__ void tma_store3(const CUtensorMap* tm, uint32_t src, 
 
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// cp.async (the generic proxy's asynchronous copy): 8 bytes from 8-byte aligned device
+// memory into shared memory, or 8 zero bytes where `live` is false (src is not read then)
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(dst), "l"(src),
+               "r"(live ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's committed cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // make this thread's generic-proxy shared-memory writes visible to wgmma and TMA
@@ -415,6 +434,24 @@ struct WgmmaRs<64, kTransB> {
   }
 };
 
+template <int kTransB>
+struct WgmmaRs<112, kTransB> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55 "
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, %62;\n}\n"
+      : WM_ACC8(d, 0), WM_ACC8(d, 8), WM_ACC8(d, 16), WM_ACC8(d, 24), WM_ACC8(d, 32),
+        WM_ACC8(d, 40), WM_ACC8(d, 48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+};
+
 #undef WM_ACC8
 #undef WM_ACC4
 
@@ -422,6 +459,11 @@ struct WgmmaRs<64, kTransB> {
 // byte offset of bf16 element (r, c) in a [64 x 64] box with the 128-byte swizzle
 __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// byte offset of bf16 element (r, c) in a [rows x 16] box with the 32-byte swizzle
+__device__ __forceinline__ uint32_t sw32(int r, int c) {
+  return r * 32 + ((((c >> 3) ^ (r >> 2)) & 1) << 4) + (c & 7) * 2;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -22,8 +22,10 @@ with NaN, as JAX's Pallas interpreter leaves it. Each wrapper launches its
 hand-written Hopper kernel on CUDA tensors (counting the launch in its
 `launches` attribute) or raises, and runs its plain PyTorch version
 (`*_reference`) on CPU tensors; the plain version is also what the kernel is
-checked against on the card. The kernels take bfloat16, contiguous
-[B, T, H] with HD = 36, the probes' widths.
+checked against on the card. Both kernels run one wgmma body for Hopper,
+`csrc/headpack_hopper.cuh`'s `headpack_wgmma_kernel<G>` (G = 1 for P1, 3 for
+P2), on every shape they take: bfloat16, contiguous, 8-byte aligned [B, T, H]
+with HD = 36, the probes' widths.
 """
 
 import torch
@@ -32,7 +34,7 @@ from weathermodel_tpu_torch.kernels import build
 
 NUM_HEADS = 16
 GROUP = 3
-KERNEL_HEAD_DIM = 36  # the head dim csrc/headpack.cu is built for
+KERNEL_HEAD_DIM = 36  # the head dim csrc/headpack_hopper.cuh is built for
 
 
 def _check(q, k, v, num_heads):
@@ -93,7 +95,7 @@ def headpack_v1_reference(q, k, v, num_heads: int = NUM_HEADS):
 
 
 def _on_cuda(name, q, k, v, hd) -> bool:
-    """`build.on_cuda`, and what csrc/headpack.cu takes: bfloat16,
+    """`build.on_cuda`, and what csrc/headpack_hopper.cuh takes: bfloat16,
     contiguous, 8-byte aligned, head dim 36."""
     if not build.on_cuda(name, None, q, k, v):
         return False

@@ -10,10 +10,11 @@ ceil(K / tile) per matmul; block-diagonal packing trades K-padding for
 extra N tiles (scores) or N-padding for extra K tiles (AV) exactly 1:1, so
 the pass count is conserved and packing should be neutral at best (the
 block-diagonal construction itself costs passes and memory). On Hopper the
-tile is mma.sync's 16 x 16 x 16 bf16 fragment: a head of 36 pads to 48 (a
-quarter of P1's products are padding) and a group of 108 to 112, but the
-group multiplies three times the rows, so the packed form does 2.2x P1's
-tensor-core work for 15 of its 16 heads.
+products run on wgmma (csrc/headpack_hopper.cuh): its depth is a multiple of
+16 and its width N a multiple of 8, so a head of 36 pads to 48 deep and 40
+wide (P1 multiplies a fifth more than its useful products), a group of 108
+to 112 both ways; but the group multiplies three times the rows, so the
+packed form does 2.4x P1's tensor-core work for 15 of its 16 heads.
 
 This script settles it with the matmul patterns in isolation (no softmax,
 identical IO, no dropout):
