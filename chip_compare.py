@@ -2,6 +2,7 @@
 
     python3 chip_compare.py TAG            # from a tree's root
     python3 chip_compare.py TAG --splits   # and bf16 B6b's row slices
+    python3 chip_compare.py TAG --masks    # the keep-mask readings alone
 
 Run from the root of a checkout; it imports that checkout's `chip_smoke`
 and `weathermodel_tpu_torch`, so the same file compares an older tree too
@@ -26,16 +27,27 @@ It prints progress lines and last one line `RESULT {json}` holding TAG and:
     fused_ffn, and BENCH_ATTENTION=fused_qkv_op in eval: samples/s;
   - `wm-pretrain-torch`'s run for chip_smoke's `train`, `train_moe` and
     `train_former` configurations, 2 epochs on its synthetic store: epoch
-    2's median samples/s.
+    2's median samples/s;
+  - the keep-mask family at the bench microbatch's FFN hidden site, rate
+    0.1: B9b and B9p at [105120, 2304], B8m and B8 (bf16, fp32) at the lane
+    view of [288, 365, 2304]: output hashes and CUDA-event ms; the bench's
+    `torch` FFN under `set_impl("maskgen_bool")` (samples/s, and one
+    profiled step's B9b device time); and the SASS of the tree's
+    `csrc/keep_mask.cu` (built alone into a cubin, read with cuobjdump):
+    the instructions a kernel runs on its hot path, per element, by pipe.
 With --splits, also bf16 B6b's time and its passes' device ms (one profile
 of 3 calls) at the row slices `ops.fused_ffn_ln._wgrad_splits` picks and at
-other counts (dW1's, dW2's).
+other counts (dW1's, dW2's). With --masks, only the keep-mask family's
+hashes, times and SASS.
 """
 
 import hashlib
 import json
 import os
+import re
+import subprocess
 import sys
+from collections import Counter
 import tempfile
 from pathlib import Path
 
@@ -166,6 +178,182 @@ def splits(out):
     out["B6b splits picked"] = list(own)
 
 
+def masks(out):
+    from weathermodel_tpu_torch.ops import kernel_dropout as kd
+    from weathermodel_tpu_torch.ops import maskgen as mg
+
+    m, c, rate = cs.FFN_ROWS, 2304, cs.DROPOUT
+    shape = (cs.MICRO, cs.SEQ_LEN, c)
+    s1, s2 = cs.MASK_SEEDS
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 9)
+    x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+    xf = x.float()
+    for name, fn in (
+            ("B9b", lambda: mg.bool_keep_mask(m, c, rate, s2, "cuda")),
+            ("B9p", lambda: mg.packed_keep_mask(m, c, rate, s2, "cuda")),
+            ("B8m", lambda: kd.random_keep_mask(shape, rate, s1, "cuda")),
+            ("B8 bf16", lambda: kd.lane_dropout(x, rate, s1)),
+            ("B8 fp32", lambda: kd.lane_dropout(xf, rate, s1))):
+        out[f"{name} hash"] = digest(fn())
+        out[f"{name} ms"] = cs._cuda_ms(fn, iters=20, warmup=3)
+        print(out["tree"], name, out[f"{name} hash"], out[f"{name} ms"],
+              flush=True)
+    out["keep_mask SASS"] = keep_mask_sass()
+
+
+# SASS opcodes by the pipe that runs them on Hopper: the FMA pipe (64 lanes
+# an SM a clock for IMAD) and the ALU pipe (64 lanes); the rest are memory,
+# control, uniform-datapath and other instructions
+FMA_OPS = {"IMAD", "FFMA", "FMUL", "FADD", "HFMA2", "HMUL2", "HADD2"}
+ALU_OPS = {"LOP3", "SHF", "ISETP", "SEL", "PRMT", "IADD3", "LEA", "P2R",
+           "R2P", "MOV", "IABS", "IMNMX", "VIMNMX", "FSEL", "FSETP", "PLOP3",
+           "BMSK", "SGXT"}
+MEM_OPS = {"LDS", "STS", "LDG", "STG", "LDC", "LDL", "STL", "ATOM", "RED"}
+CONTROL_OPS = {"BRA", "EXIT", "BAR", "BSSY", "BSYNC", "NOP", "WARPSYNC",
+               "CALL", "RET"}
+# the kernels counted: (part of the mangled name, the store that ends an
+# element run, elements it stores)
+SASS_KERNELS = (("bool_mask_kernelILb1E", "B9b", "STG.E.128", 16),
+                ("bool_mask_kernelILb0E", "B8m", "STG.E.128", 16),
+                ("packed_mask_kernel", "B9p", "STG.E", 32))
+
+
+def _pipe(op):
+    base = op.split(".")[0]
+    for name, ops in (("FMA", FMA_OPS), ("ALU", ALU_OPS), ("memory", MEM_OPS),
+                      ("control", CONTROL_OPS)):
+        if base in ops:
+            return name
+    return "uniform" if base.startswith("U") else "other"
+
+
+def _sass_functions(text):
+    """{mangled name: [(address, predicate, opcode, branch target)]}."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function\s*:\s*(\S+)", line)
+        if head:
+            cur = funcs.setdefault(head.group(1), [])
+            continue
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if ins and cur is not None:
+            body, pred = ins.group(2).strip(), ""
+            if body.startswith("@"):
+                pred, body = body.split(None, 1)
+            op = body.split()[0]
+            tgt = (re.search(r"0x([0-9a-f]+)", body)
+                   if op.startswith("BRA") else None)
+            cur.append((int(ins.group(1), 16), pred, op,
+                        int(tgt.group(1), 16) if tgt else None))
+    return funcs
+
+
+def _hot_path(ins, store):
+    """The instructions of the shortest path through the first `store`: in
+    the innermost loop that holds it, from the loop's head to its back
+    branch, else from the entry to an exit. Blocks off that path (the ragged
+    edge's byte stores, the early exits) are not counted."""
+    at = {a: i for i, (a, _, _, _) in enumerate(ins)}
+    lead = {0}
+    for i, (_, _, op, tgt) in enumerate(ins):
+        if op.startswith("BRA") or op in ("EXIT", "RET"):
+            lead.add(i + 1)
+            if tgt in at:
+                lead.add(at[tgt])
+    starts = sorted(x for x in lead if x < len(ins))
+    ends = starts[1:] + [len(ins)]
+    block = {i: b for b, (s0, e0) in enumerate(zip(starts, ends))
+             for i in range(s0, e0)}
+    succ = []
+    for b, e0 in enumerate(ends):
+        _, pred, op, tgt = ins[e0 - 1]
+        nxt = [block[e0]] if e0 < len(ins) else []
+        if op.startswith("BRA") and tgt in at:
+            succ.append([block[at[tgt]]] + (nxt if pred not in ("", "@PT")
+                                             else []))
+        elif op in ("EXIT", "RET"):
+            succ.append(nxt if pred not in ("", "@PT") else [])
+        else:
+            succ.append(nxt)
+    sb = block[next(i for i, x in enumerate(ins) if x[2] == store)]
+    size = [e0 - s0 for s0, e0 in zip(starts, ends)]
+
+    def shortest(src, dst, hi):
+        dist, prev = {src: size[src]}, {}
+        for b in range(src, hi + 1):
+            for c in succ[b] if b in dist else ():
+                if b < c <= hi and dist[b] + size[c] < dist.get(c, 1 << 30):
+                    dist[c], prev[c] = dist[b] + size[c], b
+        end = min((b for b in dist if dst(b)), key=dist.get)
+        path = [end]
+        while path[-1] != src:
+            path.append(prev[path[-1]])
+        return path[::-1]
+
+    loops = [(h, b) for b in range(len(succ)) for h in succ[b]
+             if h <= sb <= b]
+    if loops:
+        head, back = min(loops, key=lambda hb: hb[1] - hb[0])
+        path = (shortest(head, lambda b: b == sb, back)
+                + shortest(sb, lambda b: b == back, back)[1:])
+    else:
+        last = len(succ) - 1
+        path = (shortest(0, lambda b: b == sb, last)
+                + shortest(sb, lambda b: not succ[b], last)[1:])
+    return [x for b in path for x in ins[starts[b]:ends[b]]], bool(loops)
+
+
+def keep_mask_sass():
+    """The cwd tree's csrc/keep_mask.cu built alone for sm_90a, dumped with
+    cuobjdump: for B9b, B8m and B9p, the instructions on the hot path per
+    element, by pipe, and by opcode."""
+    from weathermodel_tpu_torch.kernels import build
+
+    nvcc = build._nvcc()
+    cubin = Path("build/sass/keep_mask.cubin")
+    cubin.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([nvcc, "-cubin", *build.NVCC_FLAGS[:4], "-o", str(cubin),
+                    "weathermodel_tpu_torch/csrc/keep_mask.cu"], check=True,
+                   capture_output=True)
+    dump = subprocess.run(
+        [str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+        check=True, capture_output=True, text=True).stdout
+    funcs = _sass_functions(dump)
+    got = {}
+    for kernel, label, store, per_store in SASS_KERNELS:
+        path, looped = _hot_path(
+            next(ins for f, ins in funcs.items() if kernel in f), store)
+        elems = per_store * sum(op == store for _, _, op, _ in path)
+        pipes = Counter(_pipe(op) for _, _, op, _ in path)
+        got[label] = {
+            "elements": elems, "loop": looped,
+            "per element": round(len(path) / elems, 4),
+            "by pipe": {k: round(v / elems, 4) for k, v in sorted(
+                pipes.items())},
+            "by opcode": dict(Counter(op for _, _, op, _ in path)
+                              .most_common())}
+        print(sys.argv[1], "SASS", label, json.dumps(got[label]), flush=True)
+    return got
+
+
+def maskgen_bench(out):
+    from weathermodel_tpu_torch.ops import dropout
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(cs.MODEL_SIZE, compute_dtype="bfloat16")
+    dropout.set_impl("maskgen_bool")
+    try:
+        out["bench torch maskgen_bool"] = cs._bench(
+            {"BENCH_FFN_IMPL": "torch"}, cs._all_kernels())[0]["value"]
+        out["bench torch maskgen_bool profile"] = cs._profile_step(
+            "weatherbert", cfg, "fused_qkv", cs.TRAIN_BATCH, cs.GRAD_ACCUM,
+            named=(("B9b", "bool_mask_kernel"),))
+    finally:
+        dropout.set_impl("auto")
+    print(out["tree"], out["bench torch maskgen_bool"],
+          out["bench torch maskgen_bool profile"], flush=True)
+
+
 def bench(out):
     counted = cs._all_kernels()
     for name, env in (
@@ -215,16 +403,23 @@ def main():
         raise SystemExit("chip_compare: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"tree": sys.argv[1]}
+    if "--masks" in sys.argv[2:]:
+        masks(out)
+        print("RESULT " + json.dumps(out), flush=True)
+        return
     grouped_matmul(out)
     torch.cuda.empty_cache()
     kernels(out)
     torch.cuda.empty_cache()
     probes_and_attention(out)
     torch.cuda.empty_cache()
+    masks(out)
+    torch.cuda.empty_cache()
     if "--splits" in sys.argv[2:]:
         splits(out)
         torch.cuda.empty_cache()
     bench(out)
+    maskgen_bench(out)
     training(out)
     print("RESULT " + json.dumps(out), flush=True)
 

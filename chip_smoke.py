@@ -2466,25 +2466,51 @@ def phase_kernel_ffn():
 # the keep-mask family at the bench microbatch's FFN hidden site (288 x 365
 # rows of 2304): seeds of the masks and of B8's input
 MASK_SEEDS = (20260201, 20260202)
-# 32-bit integer instructions per second: one per lane and clock on each of
-# the 128 lanes of the 132 SMs, the data sheet's fp32 rate off the tensor
-# cores (67 TFLOP/s, which counts an FMA as two operations) counted in
-# instructions
-INT_OPS_PER_S = PEAK_FLOPS[torch.float32] / 2
-# integer operations per element (mix32 is 8: three shift-xors and two
-# multiplies; one xor with the column key; the compare), plus B9p's shift
-# and or, B8's multiply and select; a row's key costs 18 more per row
-MASK_OPS, PACK_OPS, APPLY_OPS, KEY_OPS = 10, 2, 2, 18
+# The keep masks' bound on Hopper's issue slots and integer pipes (H100 SXM:
+# 132 SMs at the 1.98 GHz boost clock, the clock of the data sheet's peaks).
+# Each SM issues four warp instructions a clock (128 lanes); the ALU pipe
+# (LOP3, SHF, ISETP, SEL, PRMT, IADD3) and the FMA pipe (IMAD in all its
+# forms) take 64 lanes a clock each
+SM_COUNT, SM_CLOCK_HZ, ISSUE_LANES, PIPE_LANES = 132, 1.98e9, 128, 64
+# The least integer instructions an element the hash needs, with mix32's
+# first shift-xor hoisted out of the element loop (K1 = key ^ (key >> 16) per
+# row, c0 ^ (c0 >> 16) per run of columns c0 .. c0 + w - 1, c0 a multiple of
+# w): (ALU only, FMA only, either pipe).
+#   ALU only: the xor with the element's offset in its run (none for the
+#     run's first element: (w - 1) / w) and the two xors of the shift-xors
+#     left (LOP3);
+#   FMA only: the two multiplies (IMAD);
+#   either: the two right shifts (SHF, or the high word of an IMAD by 2^17
+#     or 2^16) and the compare (ISETP, or the carry of an add), plus
+#     B9b's and B8m's byte packing, 3 for 4 elements (PRMT or IMAD); B9p's
+#     shift-or of its bit into the word, 1 (LEA or IMAD); B8's multiply by
+#     the scale and its select, 2.
+# Split between the pipes as evenly as those allow: B9b and B8m 8.6875 (runs
+# of 16: 4.34375 a pipe), B9p 9 (no runs: each element its own row's key),
+# B8 9.875 in bf16 (runs of 8) and 9.75 in fp32 (runs of 4). A row's key
+# costs KEY_OPS more: two mix32, the row's add, the seed's xor and the hoist
+MASK_OPS = {"bool": (2 + 15 / 16, 2, 3 + 3 / 4), "packed": (3, 2, 3 + 1),
+            "lane bf16": (2 + 7 / 8, 2, 3 + 2),
+            "lane fp32": (2 + 3 / 4, 2, 3 + 2)}
+KEY_OPS = 20
 
 
-def _mask_bound(elements, rows, ops_per_element, nbytes):
-    """(ms, "operations" or "bytes"), and both times: the hash's integer
-    operations at INT_OPS_PER_S against the bytes at the memory rate."""
-    ops_ms = (elements * ops_per_element + rows * KEY_OPS) / INT_OPS_PER_S * 1e3
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
-                                                                "bytes")
-    return bound, ops_ms, bytes_ms
+def _mask_bound(elements, rows, ops, nbytes):
+    """(ms, "operations" or "bytes") and the four times it is the greatest
+    of: issue (every instruction at ISSUE_LANES an SM a clock), the ALU and
+    the FMA pipe (PIPE_LANES each, the instructions either can take split to
+    balance them), and the bytes at the memory rate."""
+    alu_only, fma_only, either = ops
+    total = elements * (alu_only + fma_only + either) + rows * KEY_OPS
+    alu = min(max(total / 2, elements * alu_only), total - elements * fma_only)
+    fma = total - alu
+    lanes_per_s = SM_COUNT * SM_CLOCK_HZ
+    times = {"issue": total / (ISSUE_LANES * lanes_per_s) * 1e3,
+             "ALU": alu / (PIPE_LANES * lanes_per_s) * 1e3,
+             "FMA": fma / (PIPE_LANES * lanes_per_s) * 1e3,
+             "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    top = max(times, key=times.get)
+    return (times[top], "bytes" if top == "bytes" else "operations"), times
 
 
 def _check_equal(what, got, want):
@@ -2549,8 +2575,8 @@ def phase_kernel_maskgen():
         shape, rate, s1, "cuda"), iters=3, warmup=1)
     r["b8m_library_ms"] = _cuda_ms(lambda: torch.empty(
         shape, dtype=torch.bool, device="cuda").bernoulli_(1 - rate))
-    r["b8m_bound"], r["b8m_ops_ms"], r["b8m_bytes_ms"] = _mask_bound(
-        n, -(-n // kd.LANES), MASK_OPS, n)
+    r["b8m_bound"], r["b8m_times"] = _mask_bound(n, -(-n // kd.LANES),
+                                                 MASK_OPS["bool"], n)
     del keep8
 
     keep = mg.bool_keep_mask(m, c, rate, s2, "cuda")
@@ -2565,32 +2591,32 @@ def phase_kernel_maskgen():
     for key, fn, lib, nbytes, ops in (
             ("b9b", mg.bool_keep_mask, lambda: torch.empty(
                 m, c, dtype=torch.bool, device="cuda").bernoulli_(1 - rate),
-             m * c, MASK_OPS),
+             m * c, MASK_OPS["bool"]),
             ("b9p", mg.packed_keep_mask, None, m * c // 8,
-             MASK_OPS + PACK_OPS)):
+             MASK_OPS["packed"])):
         ref = getattr(mg, fn.__name__ + "_reference")
         r[key + "_ms"] = _cuda_ms(lambda: fn(m, c, rate, s2, "cuda"))
         r[key + "_plain_ms"] = _cuda_ms(lambda: ref(m, c, rate, s2, "cuda"),
                                         iters=3, warmup=1)
         r[key + "_library_ms"] = _cuda_ms(lib) if lib else None
-        r[key + "_bound"], r[key + "_ops_ms"], r[key + "_bytes_ms"] = \
-            _mask_bound(m * c, m, ops, nbytes)
+        r[key + "_bound"], r[key + "_times"] = _mask_bound(m * c, m, ops,
+                                                           nbytes)
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, k, ops in ((torch.bfloat16, "b8", MASK_OPS["lane bf16"]),
+                          (torch.float32, "b8_fp32", MASK_OPS["lane fp32"])):
         xd = x.to(dtype)
         got = kd.lane_dropout(xd, rate, s1)
         _check_equal(f"B8 {dtype}", got, kd.lane_dropout_reference(xd, rate,
                                                                    s1))
         rates[f"B8 {dtype}"] = _keep_rate(f"B8 {dtype}", got != 0)
         del got
-        k = "b8" if dtype == torch.bfloat16 else "b8_fp32"
         r[k + "_ms"] = _cuda_ms(lambda: kd.lane_dropout(xd, rate, s1))
         r[k + "_plain_ms"] = _cuda_ms(lambda: kd.lane_dropout_reference(
             xd, rate, s1), iters=3, warmup=1)
         r[k + "_library_ms"] = _cuda_ms(lambda: F.dropout(xd, rate,
                                                           training=True))
-        r[k + "_bound"], r[k + "_ops_ms"], r[k + "_bytes_ms"] = _mask_bound(
-            n, -(-n // kd.LANES), MASK_OPS + APPLY_OPS, 2 * n * dtype.itemsize)
+        r[k + "_bound"], r[k + "_times"] = _mask_bound(
+            n, -(-n // kd.LANES), ops, 2 * n * dtype.itemsize)
         del xd
     for key in ("b9b", "b9p", "b8m", "b8", "b8_fp32"):
         r[key + "_err"] = 0.0  # held bitwise above
@@ -2604,8 +2630,8 @@ def phase_kernel_maskgen():
               + ("none" if r[k + "_library_ms"] is None
                  else f"{r[k + '_library_ms']:.4f}")
               + f", bound {r[k + '_bound'][0]:.4f} by {r[k + '_bound'][1]} "
-              f"(operations {r[k + '_ops_ms']:.4f}, bytes "
-              f"{r[k + '_bytes_ms']:.4f})"
+              "(" + ", ".join(f"{what} {ms:.4f}" for what, ms in
+                              r[k + "_times"].items()) + ")"
               for name, k, lib in (
                   ("B9b", "b9b", "bernoulli_"), ("B9p", "b9p", "library"),
                   ("B8m", "b8m", "bernoulli_"), ("B8 bf16", "b8", "F.dropout"),

@@ -1028,6 +1028,36 @@ def test_bf16_ffn_bwd_weight_gradients_on_the_gmm_body(cuda, m, rate):
         _assert_scaled_close("B6b " + name, a, w, torch.bfloat16)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_ffn_bwd_on_normal_inputs_with_the_kernels_relu_side(cuda, rate):
+    """bf16 B6b at WeatherBERT-large's widths (H = 576, F = 2304) and M = 4097
+    on normal inputs (`_ffn_inputs`), the plain version fed the kernel's own
+    ReLU side (its hidden hd's nonzeros), so a pre-activation within fp32
+    rounding of 0 cannot move the comparison: all seven outputs at the bf16
+    bars and 2^-6 of max|plain|. The kernel's side must be the plain
+    pre-activation's wherever the dropout keeps, but for ties: at most 1e-4
+    of the entries, each within 2^-10 of max|x W1 + b1| of 0."""
+    from weathermodel_tpu_torch.ops.dropout import ffn_keep_mask
+
+    m, h, f = 4097, 576, 2304
+    args = _ffn_inputs(m, h, f, torch.bfloat16, cuda, seed=m)
+    seeds = (5, 6)
+    hidden = torch.empty(m, f, dtype=torch.bfloat16, device=cuda)
+    got = fused_ffn_ln_bwd(*args, rate, seeds, hidden=hidden)
+    side = hidden != 0
+    x, w1, b1 = args[:3]
+    pre = x.float() @ w1.float() + b1
+    differ = side != ((pre > 0) & ffn_keep_mask(seeds[0], m, f, rate, cuda))
+    assert differ.float().mean().item() <= 1e-4
+    if differ.any():
+        assert pre[differ].abs().max() <= 2 ** -10 * pre.abs().max()
+    want = fused_ffn_ln_bwd_reference(*args, rate, seeds, relu_keep=side)
+    for name, a, w in zip(("dx", "dw1", "db1", "dw2", "db2", "dls", "dlb"),
+                          got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        _assert_scaled_close("B6b " + name, a, w, torch.bfloat16)
+
+
 _TILES_PROFILE = """
 import json, torch
 from weathermodel_tpu_torch.ops.fused_ffn_ln import fused_ffn_ln_bwd
@@ -1244,8 +1274,13 @@ def test_serve_entry_point_launches_outproj_kernel(cuda, tmp_path):
 
 
 # the keep-mask family (B9b, B9p, B8m, B8): integer hashes and one rounding,
-# so kernel and plain version agree bitwise
-MASK_SHAPES = [(2048, 2304), (96, 128), (33, 384), (0, 256)]
+# so kernel and plain version agree bitwise. The bool body's edges: m off its
+# 64-row tiles (1001, 65), c >= 2^16 (columns whose hoisted term has high
+# bits), the bench microbatch's FFN hidden site
+MASK_SHAPES = [(2048, 2304), (96, 128), (33, 384), (0, 256), (1001, 2304),
+               (65, 128), (3, 65664), (105120, 2304)]
+# rates and seeds at their ends: rate 0 keeps all, 0.999 nearly none
+MASK_EDGE_RATES, MASK_EDGE_SEEDS = (0.0, 0.999), (0, 2 ** 32 - 1)
 
 
 @pytest.mark.parametrize("m,c", MASK_SHAPES)
@@ -1264,7 +1299,8 @@ def test_maskgen_kernels_match_plain(cuda, m, c):
 
 
 @pytest.mark.parametrize("shape", [(2, 365, 2304), (3, 5, 37), (1,), (512,),
-                                   (1000, 513), (0, 4)])
+                                   (1000, 513), (0, 4), (65, 512), (3, 65664),
+                                   (288, 365, 2304)])
 def test_random_keep_mask_matches_plain(cuda, shape):
     from weathermodel_tpu_torch.ops.kernel_dropout import (
         random_keep_mask,
@@ -1274,6 +1310,36 @@ def test_random_keep_mask_matches_plain(cuda, shape):
     got = random_keep_mask(shape, 0.25, 5, cuda)
     assert got.shape == shape
     assert torch.equal(got, random_keep_mask_reference(shape, 0.25, 5, cuda))
+
+
+@pytest.mark.parametrize("seed", MASK_EDGE_SEEDS)
+@pytest.mark.parametrize("rate", MASK_EDGE_RATES)
+def test_keep_mask_kernels_at_rate_and_seed_edges(cuda, rate, seed):
+    """B9b, B9p and B8m at the rates' and seeds' ends, on shapes off the bool
+    body's tiles and past 2^16 columns: bitwise equal to their plain
+    versions, and two calls give equal bits."""
+    from weathermodel_tpu_torch.ops import maskgen
+    from weathermodel_tpu_torch.ops.kernel_dropout import (
+        random_keep_mask,
+        random_keep_mask_reference,
+    )
+
+    for m, c in ((1001, 2304), (3, 65664), (96, 384)):
+        keep = maskgen.bool_keep_mask(m, c, rate, seed, cuda)
+        assert torch.equal(keep, maskgen.bool_keep_mask(m, c, rate, seed,
+                                                        cuda))
+        assert torch.equal(keep, maskgen.bool_keep_mask_reference(
+            m, c, rate, seed, cuda))
+        if m % maskgen.GROUP == 0:
+            packed = maskgen.packed_keep_mask(m, c, rate, seed, cuda)
+            assert torch.equal(packed, maskgen.packed_keep_mask_reference(
+                m, c, rate, seed, cuda))
+            assert torch.equal(maskgen.unpack_keep(packed, m), keep)
+    for shape in ((1000, 513), (3, 65664), (65, 512)):
+        keep = random_keep_mask(shape, rate, seed, cuda)
+        assert torch.equal(keep, random_keep_mask(shape, rate, seed, cuda))
+        assert torch.equal(keep, random_keep_mask_reference(shape, rate, seed,
+                                                            cuda))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

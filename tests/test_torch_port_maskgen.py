@@ -234,3 +234,93 @@ def test_set_impl_arms(impl):
     for name in dropout.DROPOUT_IMPLS:
         impl(name)
         assert dropout.get_impl() == name
+
+
+# csrc/keep_mask.cu's bool body (B9b, B8m): mix32's multipliers
+M32 = 2 ** 32 - 1
+HASH_MULS = (0x7FEB352D, 0x846CA68B)
+
+
+def _np_mix32(x):
+    """mix32 on numpy uint64 holding uint32 values."""
+    x = x ^ (x >> np.uint64(16))
+    x = (x * np.uint64(HASH_MULS[0])) & np.uint64(M32)
+    x = x ^ (x >> np.uint64(15))
+    x = (x * np.uint64(HASH_MULS[1])) & np.uint64(M32)
+    return x ^ (x >> np.uint64(16))
+
+
+def _bool_body_keep(keys, cols, threshold, at_least):
+    """The bool body's arithmetic, step by step, in uint64, for row keys [r]
+    and columns [c] (whole 16-column runs starting at multiples of 16): the
+    hoisted shift-xor, the rest of mix32, the carries of bits + (2^32 -
+    threshold) packed four to a word by Horner steps that take the carry in,
+    and B8m's complement; asserts each identity it relies on and returns the
+    mask the words' bytes hold."""
+    u64 = np.uint64
+    keys, cols = keys[:, None], cols[None, :]
+    k1 = keys ^ (keys >> u64(16))                  # per row, in shared memory
+    c0 = cols & ~u64(15)                           # the thread's 16-column run
+    cterm = c0 ^ (c0 >> u64(16))                   # per thread, once
+    y = (k1 ^ cterm) ^ (cols & u64(15))            # per row, then an immediate
+    x = keys ^ cols
+    np.testing.assert_array_equal(y, x ^ (x >> u64(16)))  # the hoist
+    u = (y * u64(HASH_MULS[0])) & u64(M32)
+    u = u ^ (u >> u64(15))
+    u = (u * u64(HASH_MULS[1])) & u64(M32)
+    bits = u ^ (u >> u64(16))
+    np.testing.assert_array_equal(bits, _np_mix32(x))
+    addend = 2 ** 32 - threshold                   # (hi, lo): hi is 1 only at 0
+    lo, hi = u64(addend & M32), u64(addend >> 32)
+    step = hi + ((bits + lo) >> u64(32))           # the IADD3's carry, plus hi
+    assert step.max() <= 1
+    np.testing.assert_array_equal(step == 1, bits >= threshold)
+    quads = step.reshape(step.shape[0], -1, 4)     # bytes 0-3 of each word
+    word = np.zeros(quads.shape[:2], np.uint64)
+    for i in (3, 2, 1, 0):                         # IMAD.X: acc * 256 + carry
+        word = ((word * u64(256)) & u64(M32)) + quads[..., i]
+    if not at_least:                               # bits < threshold
+        word = word ^ u64(0x01010101)
+    got = (word[..., None] >> (u64(8) * np.arange(4, dtype=np.uint64))) & u64(255)
+    assert got.max() <= 1
+    return got.reshape(step.shape) == 1
+
+
+def _np_row_keys(seed, rows):
+    """dropout_head_key(seed, row) for rows 0 .. rows - 1."""
+    row = (np.arange(rows, dtype=np.uint64) + np.uint64(0x9E3779B9)) \
+        & np.uint64(M32)
+    return _np_mix32(np.uint64(seed) ^ _np_mix32(row))
+
+
+@pytest.mark.parametrize("at_least", [True, False])
+def test_bool_body_identities_match_hash_keep_mask(at_least):
+    """The bool body's hoisted shift-xor, its compares as carries and their
+    packing give `hash_keep_mask`'s mask exactly: at seeds 0, 2^32 - 1 and one
+    between, columns past 2^16 and thresholds at and near both ends; and on
+    random keys across the uint32 range with runs of columns up to 2^20
+    against bits >= threshold (or <) of mix32(key ^ col)."""
+    thresholds = [1, 2 ** 31, 2 ** 32 - 1, maskgen.maskgen_threshold(0.1),
+                  maskgen.maskgen_threshold(0.999),
+                  dropout.dropout_params(0.1)[1]]
+    if at_least:
+        thresholds.append(maskgen.maskgen_threshold(0.0))
+    rows, cols = 5, 65664 + 256
+    col = np.arange(cols, dtype=np.uint64)
+    for seed in (0, 2 ** 32 - 1, 20260202):
+        keys = _np_row_keys(seed, rows)
+        for thr in thresholds:
+            want = dropout.hash_keep_mask(seed, rows, cols, thr, at_least,
+                                          "cpu").numpy()
+            np.testing.assert_array_equal(
+                _bool_body_keep(keys, col, thr, at_least), want)
+    rng = np.random.default_rng(17)
+    keys = rng.integers(0, 2 ** 32, 2048, dtype=np.uint64)
+    keys[:2] = (0, M32)
+    runs = rng.integers(0, 2 ** 16, 32, dtype=np.uint64) * np.uint64(16)
+    cols = (runs[:, None] + np.arange(16, dtype=np.uint64)).reshape(-1)
+    bits = _np_mix32(keys[:, None] ^ cols[None, :])
+    for thr in thresholds:
+        keep = bits >= thr if at_least else bits < thr
+        np.testing.assert_array_equal(
+            _bool_body_keep(keys, cols, thr, at_least), keep)

@@ -21,14 +21,31 @@
 // scalar does.
 //
 // What bounds them on the card: the bytes written (B9b and B8m 1 byte an element, B9p 1/8,
-// B8 x in and y out) against ~10 integer operations an element for the hash and the
-// compare (12 with B9p's packing or B8's multiply and select); at the bench microbatch's
-// FFN hidden, 105,120 x 2304 elements, the two are about equal for the bool masks (0.072 ms
-// at 3.35 TB/s; 2.4 G operations at one 32-bit instruction per lane and clock), and B9p is
-// bound by its operations. Design: each block computes its rows' keys once into shared
-// memory; a thread then hashes 16 bytes' worth of consecutive elements of one row and
-// writes them with one 16-byte store (B9b, B8m, B8), or 32 rows of one column into one
-// int32 word (B9p, stores coalesced along the columns). No shared state between blocks.
+// B8 x in and y out) against the hash's integer instructions, which Hopper issues at one
+// warp instruction a clock per scheduler onto two pipes of 64 lanes an SM each: the ALU
+// pipe (LOP3, SHF, ISETP, SEL, PRMT, IADD3) and the FMA pipe (IMAD in all its forms). At
+// the bench microbatch's FFN hidden, 105,120 x 2304 elements, the bool masks' 242 MB of
+// stores take 0.072 ms at 3.35 TB/s.
+//
+// B9p and B8: each block computes its rows' keys once into shared memory; a thread then
+// hashes 16 bytes' worth of consecutive elements of one row with one 16-byte store (B8), or
+// 32 rows of one column into one int32 word (B9p, stores coalesced along the columns).
+//
+// B9b and B8m (`bool_mask_kernel`) are built for the two pipes. Per element, mix32 costs
+// three shift-xors and two multiplies; the body takes the first shift-xor out of the
+// element loop, since (key ^ col) ^ ((key ^ col) >> 16) = K1 ^ col ^ (col >> 16) with
+// K1 = key ^ (key >> 16) per row, and for the columns c0 + e of a 16-column run starting at
+// a multiple of 16 that is (K1 ^ c0 ^ (c0 >> 16)) ^ e, one LOP3 with an immediate. A thread
+// owns one 16-column run, walks rows and reads each row's K1 from shared memory; no
+// division anywhere on the device. The compare is the carry of bits + (2^32 - threshold),
+// and the carries are packed into bytes by Horner steps that take the carry in (IADD3 on
+// the ALU pipe, IMAD.X on the FMA pipe: one each an element, where a compare and a select
+// were two on the ALU pipe); B8m's rule, bits < threshold, is the complement, one xor a
+// word. What is left on the ALU pipe is ~6 instructions an element: the xor with e, the
+// two shifts and their xors, the carry (on the FMA pipe, the two multiplies and the
+// Horner step). Right shifts as the high word of a multiply by 2^17 or 2^16 (IMAD.HI)
+// measured slower on the card than SHF, so the shifts stay on the ALU pipe.
+// No shared state between blocks.
 
 #include "attention_common.cuh"
 
@@ -38,7 +55,9 @@ using wm::from_float;
 using wm::to_float;
 
 constexpr int kThreads = 256;
-constexpr int kRows = 16;        // rows of the [rows, cols] view per block (bool masks, B8)
+constexpr int kRows = 16;        // rows of the lane view per block (B8)
+constexpr int kTileRows = 128;   // rows of a bool-mask chunk (B9b, B8m)
+constexpr int kBlocksPerSm = 16; // the bool masks' grid, over all its waves
 constexpr int kVecBytes = 16;    // bytes a thread writes with one store
 constexpr int kLanes = 512;      // the lane view's row width (B8, B8m)
 constexpr int kPackThreads = 128;
@@ -57,35 +76,95 @@ __device__ __forceinline__ void row_keys(uint32_t* keys, long long row0, uint32_
   __syncthreads();
 }
 
-// Bool mask of the [rows, cols] view (cols % 16 == 0); flat elements >= n are not written.
+// The bool body's compare: keep iff bits + addend carries out of 32 bits, addend = (hi,
+// lo) = 2^32 - threshold; k256 = 256 comes in as an argument so that ptxas keeps the
+// packing's Horner step an IMAD.X rather than a shift on the ALU pipe.
+struct Carry {
+  uint32_t lo, hi, k256;
+};
+
+// mix32 after its first shift-xor: y = x ^ (x >> 16).
+__device__ __forceinline__ uint32_t mix32_rest(uint32_t y) {
+  uint32_t u = y * 0x7feb352du;
+  u ^= u >> 15;
+  u *= 0x846ca68bu;
+  return u ^ (u >> 16);
+}
+
+// Byte i of the word is the carry of b[i] + addend (1 iff b[i] >= threshold), by Horner
+// from the top byte: acc = acc * 256 + carry, one IADD3 (the carry, ALU pipe) and one
+// IMAD.X (FMA pipe) a byte. hi + carry <= 1: hi is 1 only at threshold 0, where the low
+// word adds 0 and never carries.
+__device__ __forceinline__ uint32_t carry_bytes(const uint32_t b[4], const Carry& c) {
+  uint32_t acc;
+  asm("{\n\t.reg .u32 t;\n\t"
+      "add.cc.u32 t, %1, %5;\n\t"
+      "addc.u32 %0, %6, 0;\n\t"
+      "add.cc.u32 t, %2, %5;\n\t"
+      "madc.lo.u32 %0, %0, %7, %6;\n\t"
+      "add.cc.u32 t, %3, %5;\n\t"
+      "madc.lo.u32 %0, %0, %7, %6;\n\t"
+      "add.cc.u32 t, %4, %5;\n\t"
+      "madc.lo.u32 %0, %0, %7, %6;\n\t}"
+      : "=r"(acc)
+      : "r"(b[3]), "r"(b[2]), "r"(b[1]), "r"(b[0]), "r"(c.lo), "r"(c.hi), "r"(c.k256));
+  return acc;
+}
+
+// The 16 mask bytes of a run whose hash input after the hoisted shift-xor is y at the run's
+// first column: keep iff bits >= threshold, or (kAtLeast false) its complement, bits <
+// threshold, by one xor a word.
+template <bool kAtLeast>
+__device__ __forceinline__ uint4 run_bytes(uint32_t y, const Carry& c) {
+  uint32_t w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) b[i] = mix32_rest(y ^ (4 * q + i));
+    w[q] = carry_bytes(b, c) ^ (kAtLeast ? 0u : 0x01010101u);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// B9b and B8m: the bool mask of the [rows, cols] view (cols % 128 == 0, or the lane view's
+// 512), rows [0, full) whole and row full cut at n (flat elements >= n are not written). The
+// block is (tw, kThreads / tw) threads: tw runs of 16 columns across, rows down. The grid
+// walks chunks of kTileRows rows along x and column tiles of tw runs along y; a block
+// computes its chunk's K1 once for all its column tiles.
 template <bool kAtLeast>
 __global__ void __launch_bounds__(kThreads)
-    bool_mask_kernel(uint8_t* __restrict__ out, long long rows, int cols, long long n,
-                     uint32_t seed, uint32_t threshold) {
-  __shared__ uint32_t keys[kRows];
-  const long long row0 = (long long)blockIdx.x * kRows;
-  row_keys(keys, row0, seed);
-  const int groups = cols / kVecBytes;
-  const int items = (int)min((long long)kRows, rows - row0) * groups;
-  for (int it = threadIdx.x; it < items; it += kThreads) {
-    const int r = it / groups;
-    const int col0 = (it - r * groups) * kVecBytes;
-    const long long base = (row0 + r) * cols + col0;
-    if (base >= n) continue;
-    uint32_t w[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        word |= (uint32_t)keep(keys[r], (uint32_t)(col0 + 4 * q + b), threshold, kAtLeast)
-                << (8 * b);
-      w[q] = word;
+    bool_mask_kernel(uint8_t* __restrict__ out, long long rows, long long full, int cols,
+                     long long n, uint32_t seed, Carry carry) {
+  __shared__ uint32_t k1[kTileRows];
+  const int tw = blockDim.x, ry = blockDim.y;
+  const int ctiles = cols / (kVecBytes * tw);
+  const long long chunks = (rows + kTileRows - 1) / kTileRows;
+  const int t = threadIdx.y * tw + threadIdx.x;
+  for (long long chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
+    const long long row0 = chunk * kTileRows;
+    __syncthreads();  // the previous chunk's keys are read
+    for (int i = t; i < kTileRows; i += kThreads) {
+      const uint32_t key = wm::dropout_head_key(seed, (uint32_t)(row0 + i));
+      k1[i] = key ^ (key >> 16);
     }
-    if (base + kVecBytes <= n) {
-      *reinterpret_cast<uint4*>(out + base) = make_uint4(w[0], w[1], w[2], w[3]);
-    } else {
-      for (int e = 0; base + e < n; ++e) out[base + e] = (w[e / 4] >> (8 * (e % 4))) & 1u;
+    __syncthreads();
+    const int whole = (int)max(0LL, min((long long)kTileRows, full - row0));
+    const int nrows = (int)min((long long)kTileRows, rows - row0);
+    for (int ct = blockIdx.y; ct < ctiles; ct += gridDim.y) {
+      const uint32_t col0 = (uint32_t)(ct * tw + threadIdx.x) * kVecBytes;
+      const uint32_t cterm = col0 ^ (col0 >> 16);
+      uint8_t* p = out + (row0 + threadIdx.y) * cols + col0;
+      int r = threadIdx.y;
+      for (; r < whole; r += ry, p += (long long)ry * cols)
+        *reinterpret_cast<uint4*>(p) = run_bytes<kAtLeast>(k1[r] ^ cterm, carry);
+      if (r < nrows) {  // row `full`, which n cuts
+        const uint4 v = run_bytes<kAtLeast>(k1[r] ^ cterm, carry);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+        const long long base = (row0 + r) * cols + col0;
+        for (int e = 0; e < kVecBytes && base + e < n; ++e)
+          p[e] = (uint8_t)(w[e / 4] >> (8 * (e % 4)));
+      }
     }
   }
 }
@@ -151,6 +230,31 @@ inline unsigned blocks_for(long long rows, int per_block) {
   return (unsigned)((rows + per_block - 1) / per_block);
 }
 
+// B9b and B8m on the [rows, cols] view (cols a multiple of 128), n elements: a block's runs
+// across are the most of 32, 16 and 8 that divide a row's 16-column runs; the grid holds
+// the column tiles along y and kBlocksPerSm blocks an SM in all, each walking its chunks.
+template <bool kAtLeast>
+int launch_bool_mask(void* out, long long rows, int cols, long long n, uint32_t seed,
+                     uint32_t threshold, void* stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int runs = cols / kVecBytes;
+  const int tw = runs % 32 == 0 ? 32 : runs % 16 == 0 ? 16 : 8;
+  const long long ctiles = runs / tw, chunks = (rows + kTileRows - 1) / kTileRows;
+  const long long gy = ctiles < 65535 ? ctiles : 65535;
+  const long long per_y = (long long)sms * kBlocksPerSm / gy;
+  const long long gx = chunks < per_y ? chunks : per_y > 0 ? per_y : 1;
+  const uint64_t addend = (1ull << 32) - threshold;
+  const Carry carry = {(uint32_t)addend, (uint32_t)(addend >> 32), 256u};
+  bool_mask_kernel<kAtLeast><<<dim3((unsigned)gx, (unsigned)gy), dim3(tw, kThreads / tw), 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(out), rows, n / cols, cols, n, seed, carry);
+  return cudaGetLastError();
+}
+
 }  // namespace keep_mask
 
 extern "C" {
@@ -162,10 +266,7 @@ int wm_bool_keep_mask(void* out, int m, int c, unsigned seed, unsigned threshold
   using namespace keep_mask;
   if (m < 0 || c <= 0 || c % 128) return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  bool_mask_kernel<true><<<blocks_for(m, kRows), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(out), m, c, (long long)m * c, seed, threshold);
-  return cudaGetLastError();
+  return launch_bool_mask<true>(out, m, c, (long long)m * c, seed, threshold, stream);
 }
 
 // B9p: out int32 [m / 32, c], contiguous, m a multiple of 32, c of 128. keep iff
@@ -190,11 +291,8 @@ int wm_random_keep_mask(void* out, long long n, unsigned seed, unsigned threshol
   using namespace keep_mask;
   if (n < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const long long rows = (n + kLanes - 1) / kLanes;
-  bool_mask_kernel<false><<<blocks_for(rows, kRows), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(out), rows, kLanes, n, seed, threshold);
-  return cudaGetLastError();
+  return launch_bool_mask<false>(out, (n + kLanes - 1) / kLanes, kLanes, n, seed, threshold,
+                                 stream);
 }
 
 // B8: dtype 0 = float32, 1 = bfloat16; x and y [n] contiguous. y = keep ? x * scale : 0 on

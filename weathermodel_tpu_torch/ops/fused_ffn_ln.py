@@ -191,10 +191,16 @@ fused_ffn_ln.launches = 0
 
 
 def fused_ffn_ln_bwd_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
-                               dropout_rate: float = 0.0, seeds=(0, 0)):
+                               dropout_rate: float = 0.0, seeds=(0, 0),
+                               relu_keep=None):
     """Plain PyTorch version of kernel B6b: (dx, dW1, db1, dW2, db2,
     dln_scale, dln_bias), dx and the weight gradients in x.dtype, the rest
-    fp32, in the order of the TPU kernel (pallas_ffn.py:114-175)."""
+    fp32, in the order of the TPU kernel (pallas_ffn.py:114-175).
+
+    `relu_keep` (bool [M, F]), where given, is the ReLU's side in place of
+    x W1 + b1 > 0: an entry within fp32 rounding of 0 can fall on either
+    side in two summation orders, so the card tests pass the kernel's own
+    (its hidden's nonzeros) to compare everything downstream of it."""
     h, f = check_ffn_shapes(x, w1, b1, w2, b2)
     _check_ln(h, ln_scale, ln_bias)
     on, _, _, inv = dropout_params(dropout_rate)
@@ -205,7 +211,11 @@ def fused_ffn_ln_bwd_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
     zero = torch.zeros((), device=x.device)
     w1f, w2f = w1.float(), w2.float()
     h_pre = x2.float() @ w1f + b1.float()
-    hid = h_pre.clamp_min(0.0)
+    if relu_keep is None:
+        relu, hid = h_pre > 0, h_pre.clamp_min(0.0)
+    else:
+        relu = relu_keep.reshape(m, f)
+        hid = torch.where(relu, h_pre, zero)
     if on:
         keep1 = ffn_keep_mask(seeds[0], m, f, dropout_rate, x.device)
         keep2 = ffn_keep_mask(seeds[1], m, h, dropout_rate, x.device)
@@ -227,7 +237,7 @@ def fused_ffn_ln_bwd_reference(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
     dh = df @ w2f.T
     if on:
         dh = torch.where(keep1, dh * inv, zero)
-    dz = torch.where(h_pre > 0, dh, zero).to(dtype).float()
+    dz = torch.where(relu, dh, zero).to(dtype).float()
     dx = (dz @ w1f.T + dy).to(dtype).reshape(x.shape)
     return (dx, (x2.float().T @ dz).to(dtype), dz.sum(dim=0),
             (hd.T @ df).to(dtype), df.sum(dim=0), dls, dlb)
@@ -258,7 +268,7 @@ def _wgrad_splits(m, k, n, sms, bf16):
 
 
 def fused_ffn_ln_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
-                     dropout_rate: float = 0.0, seeds=(0, 0)):
+                     dropout_rate: float = 0.0, seeds=(0, 0), hidden=None):
     """Kernel B6b: the gradients of `fused_ffn_ln` for the cotangent do
     [..., H], with the forward's dropout rate and seeds: (dx, dW1, db1, dW2,
     db2, dln_scale, dln_bias), dx and the weight gradients in x.dtype, the
@@ -266,13 +276,17 @@ def fused_ffn_ln_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
 
     CUDA tensors launch the kernel (its passes, counted once in
     `fused_ffn_ln_bwd.launches`) or raise; CPU tensors take the plain
-    version."""
+    version. `hidden`, a contiguous CUDA tensor [M, F] of x's dtype, receives
+    the kernel's hidden dropout1(relu(x W1 + b1)) (else a workspace)."""
     h, f = check_ffn_shapes(x, w1, b1, w2, b2)
     _check_ln(h, ln_scale, ln_bias)
     if tuple(do.shape) != tuple(x.shape):
         raise ValueError(f"do must be {tuple(x.shape)}, got {tuple(do.shape)}")
     if not ffn_on_cuda("fused_ffn_ln_bwd", x, w1, w2, b1, b2, ln_scale,
                        ln_bias, do):
+        if hidden is not None:
+            raise ValueError("fused_ffn_ln_bwd: hidden is the kernel's "
+                             "workspace, on CUDA tensors only")
         return fused_ffn_ln_bwd_reference(x, w1, b1, w2, b2, ln_scale,
                                           ln_bias, do, dropout_rate, seeds)
     if do.dtype != x.dtype or not do.is_contiguous():
@@ -291,7 +305,13 @@ def fused_ffn_ln_bwd(x, w1, b1, w2, b2, ln_scale, ln_bias, do,
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
     db1, db2 = torch.empty(f, **fp32), torch.empty(h, **fp32)
     dls, dlb = torch.empty(h, **fp32), torch.empty(h, **fp32)
-    hd, dz = x.new_empty(m, f), x.new_empty(m, f)
+    if hidden is not None and (hidden.shape != (m, f) or hidden.dtype != x.dtype
+                               or hidden.device != x.device
+                               or not hidden.is_contiguous()):
+        raise ValueError(f"fused_ffn_ln_bwd: hidden must be a contiguous "
+                         f"[{m}, {f}] {x.dtype} on {x.device}")
+    hd = x.new_empty(m, f) if hidden is None else hidden
+    dz = x.new_empty(m, f)
     # dy goes through device memory in fp32 only (bf16 keeps it on chip)
     df, dy = x.new_empty(m, h), None if bf16 else torch.empty(m, h, **fp32)
     ln_part = torch.empty(math.ceil(m / 32), 2, h, **fp32)
