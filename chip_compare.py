@@ -31,8 +31,10 @@ It prints progress lines and last one line `RESULT {json}` holding TAG and:
   - the keep-mask family at the bench microbatch's FFN hidden site, rate
     0.1: B9b and B9p at [105120, 2304], B8m and B8 (bf16, fp32) at the lane
     view of [288, 365, 2304]: output hashes and CUDA-event ms; the bench's
-    `torch` FFN under `set_impl("maskgen_bool")` (samples/s, and one
-    profiled step's B9b device time); and the SASS of the tree's
+    `torch` FFN under `set_impl("maskgen")` (samples/s, and one profiled
+    step's device time of B9p and of the unpack and apply kernels around it)
+    and `set_impl("maskgen_bool")` (samples/s, and one profiled step's B9b
+    device time); and the SASS of the tree's
     `csrc/keep_mask.cu` (built alone into a cubin, read with cuobjdump):
     the instructions a kernel runs on its hot path, per element, by pipe.
 With --splits, also bf16 B6b's time and its passes' device ms (one profile
@@ -47,6 +49,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 from collections import Counter
 import tempfile
 from pathlib import Path
@@ -211,11 +214,13 @@ ALU_OPS = {"LOP3", "SHF", "ISETP", "SEL", "PRMT", "IADD3", "LEA", "P2R",
 MEM_OPS = {"LDS", "STS", "LDG", "STG", "LDC", "LDL", "STL", "ATOM", "RED"}
 CONTROL_OPS = {"BRA", "EXIT", "BAR", "BSSY", "BSYNC", "NOP", "WARPSYNC",
                "CALL", "RET"}
-# the kernels counted: (part of the mangled name, the store that ends an
-# element run, elements it stores)
-SASS_KERNELS = (("bool_mask_kernelILb1E", "B9b", "STG.E.128", 16),
-                ("bool_mask_kernelILb0E", "B8m", "STG.E.128", 16),
-                ("packed_mask_kernel", "B9p", "STG.E", 32))
+# the kernels counted: (part of the mangled name, label, [(the store that
+# ends an element run, elements it stores)]), the first store the kernel has
+# taken; B9p stored one word before its 16-byte store of four (older trees)
+SASS_KERNELS = (("bool_mask_kernelILb1E", "B9b", [("STG.E.128", 16)]),
+                ("bool_mask_kernelILb0E", "B8m", [("STG.E.128", 16)]),
+                ("packed_mask_kernel", "B9p", [("STG.E.128", 128),
+                                               ("STG.E", 32)]))
 
 
 def _pipe(op):
@@ -320,9 +325,11 @@ def keep_mask_sass():
         check=True, capture_output=True, text=True).stdout
     funcs = _sass_functions(dump)
     got = {}
-    for kernel, label, store, per_store in SASS_KERNELS:
-        path, looped = _hot_path(
-            next(ins for f, ins in funcs.items() if kernel in f), store)
+    for kernel, label, stores in SASS_KERNELS:
+        ins = next(ins for f, ins in funcs.items() if kernel in f)
+        store, per_store = next((op, n) for op, n in stores
+                                if any(x[2] == op for x in ins))
+        path, looped = _hot_path(ins, store)
         elems = per_store * sum(op == store for _, _, op, _ in path)
         pipes = Counter(_pipe(op) for _, _, op, _ in path)
         got[label] = {
@@ -336,13 +343,81 @@ def keep_mask_sass():
     return got
 
 
+def _maskgen_split(cfg):
+    """One profiled step (after a warm-up step) of the bench's `torch` FFN
+    under set_impl("maskgen"): device ms and kernels of the whole step, of
+    B9p, and of the elementwise kernels that unpack its words (`unpack_keep`)
+    and apply them (`apply_keep`), forward and backward, each read from the
+    kernels launched inside a `record_function` range put around the call
+    for this step only."""
+    from torch.autograd import DeviceType
+
+    from weathermodel_tpu_torch.ops import maskgen as mg
+    from weathermodel_tpu_torch.train.steps import batch_to_device
+
+    def ranged(label, fn):
+        def call(*args):
+            with torch.profiler.record_function(label):
+                return fn(*args)
+        return call
+
+    _, step = cs._train_step_fn("weatherbert", cfg, "fused_qkv", "cuda",
+                                cs.GRAD_ACCUM)
+    batch = batch_to_device(cs._windows_batch(cs.TRAIN_BATCH, cs.SEED)[0],
+                            "cuda")
+    gen = torch.Generator().manual_seed(cs.SEED)
+    float(step(batch, gen, 1e-4, 10)["total_loss"])  # warm-up
+    torch.cuda.synchronize()
+    labels = ("maskgen unpack", "maskgen apply")
+    saved = mg.unpack_keep, mg.apply_keep
+    mg.unpack_keep, mg.apply_keep = (ranged(*a) for a in zip(labels, saved))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            float(step(batch, gen, 1e-4, 10)["total_loss"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        mg.unpack_keep, mg.apply_keep = saved
+
+    def launched(e):
+        return len(e.kernels) + sum(launched(c) for c in e.cpu_children)
+
+    # the ranges' device-side spans are no kernels
+    kernels = [e for e in cs._kernel_events(prof) if e.key not in labels]
+    got = {"wall ms": wall_ms,
+           "device ms": sum(cs._device_ms(e) for e in kernels),
+           "kernels": sum(e.count for e in kernels)}
+    b9p = [e for e in kernels if "packed_mask_kernel" in e.key]
+    got["B9p ms"] = sum(cs._device_ms(e) for e in b9p)
+    got["B9p kernels"] = sum(e.count for e in b9p)
+    for label in labels:
+        ranges = [e for e in prof.events() if e.name == label
+                  and e.device_type == DeviceType.CPU]
+        got[label + " calls"] = len(ranges)
+        got[label + " ms"] = sum(e.device_time_total for e in ranges) / 1e3
+        got[label + " kernels"] = sum(launched(e) for e in ranges)
+    return got
+
+
 def maskgen_bench(out):
+    """The bench's `torch` FFN under set_impl("maskgen") (B9p) and
+    ("maskgen_bool") (B9b): samples/s, and for each one profiled step (B9p's
+    split by `_maskgen_split`, B9b's device time by kernel name)."""
     from weathermodel_tpu_torch.ops import dropout
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
     cfg = model_config_for_size(cs.MODEL_SIZE, compute_dtype="bfloat16")
-    dropout.set_impl("maskgen_bool")
     try:
+        dropout.set_impl("maskgen")
+        out["bench torch maskgen"] = cs._bench(
+            {"BENCH_FFN_IMPL": "torch"}, cs._all_kernels())[0]["value"]
+        out["bench torch maskgen split"] = _maskgen_split(cfg)
+        print(out["tree"], out["bench torch maskgen"],
+              out["bench torch maskgen split"], flush=True)
+        dropout.set_impl("maskgen_bool")
         out["bench torch maskgen_bool"] = cs._bench(
             {"BENCH_FFN_IMPL": "torch"}, cs._all_kernels())[0]["value"]
         out["bench torch maskgen_bool profile"] = cs._profile_step(

@@ -2475,23 +2475,29 @@ SM_COUNT, SM_CLOCK_HZ, ISSUE_LANES, PIPE_LANES = 132, 1.98e9, 128, 64
 # The least integer instructions an element the hash needs, with mix32's
 # first shift-xor hoisted out of the element loop (K1 = key ^ (key >> 16) per
 # row, c0 ^ (c0 >> 16) per run of columns c0 .. c0 + w - 1, c0 a multiple of
-# w): (ALU only, FMA only, either pipe).
+# w) and its last shift-xor folded into the compare (bits >= threshold iff
+# u ^ (threshold >> 16) >= threshold, u mix32's state before it, and bits <
+# threshold likewise): (ALU only, FMA only, either pipe).
 #   ALU only: the xor with the element's offset in its run (none for the
-#     run's first element: (w - 1) / w) and the two xors of the shift-xors
-#     left (LOP3);
+#     run's first element: (w - 1) / w), the middle shift-xor's xor and the
+#     xor with threshold >> 16 (LOP3); B9p's runs of 4 columns need no xor
+#     with the offset but one LOP3 a run, (K1 ^ c0 ^ (c0 >> 16)) & ~3, since
+#     an offset's hash input is that plus a permutation of 0 .. 3 and enters
+#     the first multiply as its addend (the permutation, undone by masked
+#     swaps a word, is not counted): 1 / 4;
 #   FMA only: the two multiplies (IMAD);
-#   either: the two right shifts (SHF, or the high word of an IMAD by 2^17
-#     or 2^16) and the compare (ISETP, or the carry of an add), plus
-#     B9b's and B8m's byte packing, 3 for 4 elements (PRMT or IMAD); B9p's
-#     shift-or of its bit into the word, 1 (LEA or IMAD); B8's multiply by
-#     the scale and its select, 2.
-# Split between the pipes as evenly as those allow: B9b and B8m 8.6875 (runs
-# of 16: 4.34375 a pipe), B9p 9 (no runs: each element its own row's key),
-# B8 9.875 in bf16 (runs of 8) and 9.75 in fp32 (runs of 4). A row's key
-# costs KEY_OPS more: two mix32, the row's add, the seed's xor and the hoist
-MASK_OPS = {"bool": (2 + 15 / 16, 2, 3 + 3 / 4), "packed": (3, 2, 3 + 1),
-            "lane bf16": (2 + 7 / 8, 2, 3 + 2),
-            "lane fp32": (2 + 3 / 4, 2, 3 + 2)}
+#   either: the middle right shift (SHF, or the high word of an IMAD by
+#     2^17) and the compare (ISETP, or the carry of an add), plus B9b's and
+#     B8m's byte packing, 3 for 4 elements (PRMT or IMAD); B9p's shift-or of
+#     its bit into the word, 1 (LEA or IMAD); B8's multiply by the scale and
+#     its select, 2.
+# Split between the pipes as evenly as those allow: B9b and B8m 7.6875 (runs
+# of 16: 3.84375 a pipe), B9p 7.25, B8 8.875 in bf16 (runs of 8) and 8.75 in
+# fp32 (runs of 4). A row's key costs KEY_OPS more: two mix32, the row's add,
+# the seed's xor and the hoist
+MASK_OPS = {"bool": (2 + 15 / 16, 2, 2 + 3 / 4), "packed": (2 + 1 / 4, 2, 3),
+            "lane bf16": (2 + 7 / 8, 2, 2 + 2),
+            "lane fp32": (2 + 3 / 4, 2, 2 + 2)}
 KEY_OPS = 20
 
 

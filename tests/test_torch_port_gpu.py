@@ -1276,9 +1276,12 @@ def test_serve_entry_point_launches_outproj_kernel(cuda, tmp_path):
 # the keep-mask family (B9b, B9p, B8m, B8): integer hashes and one rounding,
 # so kernel and plain version agree bitwise. The bool body's edges: m off its
 # 64-row tiles (1001, 65), c >= 2^16 (columns whose hoisted term has high
-# bits), the bench microbatch's FFN hidden site
+# bits), the bench microbatch's FFN hidden site; the packed body's: c >= 2^16,
+# and 129 word rows, off its chunks of 4 (c = 384: 32 runs of 4 columns
+# across) and of 2 (c = 2304: 64 across)
 MASK_SHAPES = [(2048, 2304), (96, 128), (33, 384), (0, 256), (1001, 2304),
-               (65, 128), (3, 65664), (105120, 2304)]
+               (65, 128), (3, 65664), (105120, 2304), (32, 65664),
+               (4128, 384), (4128, 2304)]
 # rates and seeds at their ends: rate 0 keeps all, 0.999 nearly none
 MASK_EDGE_RATES, MASK_EDGE_SEEDS = (0.0, 0.999), (0, 2 ** 32 - 1)
 
@@ -1316,15 +1319,16 @@ def test_random_keep_mask_matches_plain(cuda, shape):
 @pytest.mark.parametrize("rate", MASK_EDGE_RATES)
 def test_keep_mask_kernels_at_rate_and_seed_edges(cuda, rate, seed):
     """B9b, B9p and B8m at the rates' and seeds' ends, on shapes off the bool
-    body's tiles and past 2^16 columns: bitwise equal to their plain
-    versions, and two calls give equal bits."""
+    and packed bodies' tiles and past 2^16 columns: bitwise equal to their
+    plain versions, and two calls give equal bits."""
     from weathermodel_tpu_torch.ops import maskgen
     from weathermodel_tpu_torch.ops.kernel_dropout import (
         random_keep_mask,
         random_keep_mask_reference,
     )
 
-    for m, c in ((1001, 2304), (3, 65664), (96, 384)):
+    for m, c in ((1001, 2304), (3, 65664), (96, 384), (32, 65664),
+                 (4128, 384)):
         keep = maskgen.bool_keep_mask(m, c, rate, seed, cuda)
         assert torch.equal(keep, maskgen.bool_keep_mask(m, c, rate, seed,
                                                         cuda))
@@ -1332,6 +1336,8 @@ def test_keep_mask_kernels_at_rate_and_seed_edges(cuda, rate, seed):
             m, c, rate, seed, cuda))
         if m % maskgen.GROUP == 0:
             packed = maskgen.packed_keep_mask(m, c, rate, seed, cuda)
+            assert torch.equal(packed, maskgen.packed_keep_mask(
+                m, c, rate, seed, cuda))
             assert torch.equal(packed, maskgen.packed_keep_mask_reference(
                 m, c, rate, seed, cuda))
             assert torch.equal(maskgen.unpack_keep(packed, m), keep)

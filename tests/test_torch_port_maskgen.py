@@ -324,3 +324,86 @@ def test_bool_body_identities_match_hash_keep_mask(at_least):
         keep = bits >= thr if at_least else bits < thr
         np.testing.assert_array_equal(
             _bool_body_keep(keys, cols, thr, at_least), keep)
+
+
+def _packed_body_state(keys, cols):
+    """The packed body's hash (B9p), step by step, in uint64, for the row
+    keys of whole words [32 w] and `cols` columns (a multiple of 4): per row
+    K1 and per thread (four columns c0 .. c0 + 3) the column term, the four
+    hash inputs h + j after the hoist (word j's carries are column
+    c0 + (j ^ b)'s), and the rest of mix32 to its state u before the last
+    shift-xor; asserts the hoist and returns (K1, the column terms, u)."""
+    u64 = np.uint64
+    k1 = keys ^ (keys >> u64(16))                  # per row, in shared memory
+    c0 = np.arange(0, cols, 4, dtype=np.uint64)    # a thread's first column
+    cterm = c0 ^ (c0 >> u64(16))                   # per thread, once
+    base = k1[:, None] ^ cterm[None, :]            # [rows, threads]
+    h, b = base & u64(M32 - 3), base & u64(3)      # one LOP3 a row; the swap
+    j = np.arange(4, dtype=np.uint64)
+    y = h[..., None] + j                           # word j's hash input
+    x = keys[:, None, None] ^ (c0[None, :, None] + (j ^ b[..., None]))
+    np.testing.assert_array_equal(y, x ^ (x >> u64(16)))  # the hoist
+    u = (h[..., None] * u64(HASH_MULS[0]) + j * u64(HASH_MULS[0])) & u64(M32)
+    np.testing.assert_array_equal(u, (y * u64(HASH_MULS[0])) & u64(M32))
+    u = u ^ (u >> u64(15))
+    u = (u * u64(HASH_MULS[1])) & u64(M32)
+    np.testing.assert_array_equal(u ^ (u >> u64(16)), _np_mix32(x))
+    return k1, cterm, u
+
+
+def _packed_body_words(state, threshold):
+    """The packed body's compare and packing on `_packed_body_state`'s
+    (K1, column terms, u): the compare on u ^ (threshold >> 16) as the carry
+    of an add, the carries packed by Horner steps x 2 from row 31 down into
+    word j, and the masked swaps that move column c0 + e's bits from word
+    e ^ b to word e; asserts each identity it relies on and returns the
+    words [w, cols] wrapped to int32."""
+    u64 = np.uint64
+    k1, cterm, u = state
+    bits = u ^ (u >> u64(16))
+    kx = u64(threshold >> 16)
+    v = u ^ kx
+    np.testing.assert_array_equal(v >= threshold, bits >= threshold)
+    tie = (kx << u64(16)) + np.arange(2 ** 16, dtype=np.uint64)
+    np.testing.assert_array_equal((tie ^ kx) >= threshold,   # its tie window
+                                  (tie ^ (tie >> u64(16))) >= threshold)
+    addend = 2 ** 32 - threshold                   # (hi, lo): hi is 1 only at 0
+    lo, hi = u64(addend & M32), u64(addend >> 32)
+    step = hi + ((v + lo) >> u64(32))              # the IADD3's carry, plus hi
+    assert step.max() <= 1
+    np.testing.assert_array_equal(step == 1, bits >= threshold)
+    step = step.reshape(-1, 32, *step.shape[1:])   # [words, row i, threads, j]
+    acc = step[:, 31]                              # row 31: hi + carry
+    for i in range(30, -1, -1):                    # IMAD.X: acc * 2 + carry
+        acc = ((acc * u64(2)) & u64(M32)) + step[:, i]
+    shifts = np.arange(32, dtype=np.uint64)[None, :]
+    m0, m1 = ((((k1.reshape(-1, 32) >> u64(s)) & u64(1)) << shifts).sum(
+        axis=1)[:, None]                           # a warp's ballot of K1
+        ^ ((u64(0) - ((cterm >> u64(s)) & u64(1))) & u64(M32))[None, :]
+        for s in (0, 1))
+    for (a, c), mask in (((0, 1), m0), ((2, 3), m0), ((0, 2), m1),
+                         ((1, 3), m1)):
+        t = (acc[..., a] ^ acc[..., c]) & mask
+        acc[..., a] ^= t
+        acc[..., c] ^= t
+    assert acc.max() <= M32
+    return acc.reshape(acc.shape[0], -1).astype(np.uint32).view(np.int32)
+
+
+def test_packed_body_matches_packed_keep_mask_reference():
+    """The packed body's arithmetic (the hoist, the compare on u ^ (threshold
+    >> 16), the carries, the Horner x 2 packing and the swaps that undo the
+    columns' order) gives `packed_keep_mask_reference`'s words exactly: at
+    seeds 0, 2^32 - 1 and one between, thresholds 0, 1, 2^31 and 2^32 - 1
+    and the rates 0.1 and 0.999, on a word row of columns past 2^16."""
+    rates = (0.0, 2.0 ** -32, 0.5, 1 - 2.0 ** -32, 0.1, 0.999)
+    assert [maskgen.maskgen_threshold(r) for r in rates[:4]] == [
+        0, 1, 2 ** 31, 2 ** 32 - 1]
+    m, c = 32, 65664
+    for seed in (0, 2 ** 32 - 1, 20260202):
+        state = _packed_body_state(_np_row_keys(seed, m), c)
+        for rate in rates:
+            want = maskgen.packed_keep_mask_reference(m, c, rate, seed, "cpu")
+            np.testing.assert_array_equal(
+                _packed_body_words(state, maskgen.maskgen_threshold(rate)),
+                want.numpy())

@@ -27,9 +27,8 @@
 // the bench microbatch's FFN hidden, 105,120 x 2304 elements, the bool masks' 242 MB of
 // stores take 0.072 ms at 3.35 TB/s.
 //
-// B9p and B8: each block computes its rows' keys once into shared memory; a thread then
-// hashes 16 bytes' worth of consecutive elements of one row with one 16-byte store (B8), or
-// 32 rows of one column into one int32 word (B9p, stores coalesced along the columns).
+// B8: each block computes its rows' keys once into shared memory; a thread then hashes 16
+// bytes' worth of consecutive elements of one row with one 16-byte store.
 //
 // B9b and B8m (`bool_mask_kernel`) are built for the two pipes. Per element, mix32 costs
 // three shift-xors and two multiplies; the body takes the first shift-xor out of the
@@ -45,6 +44,32 @@
 // two shifts and their xors, the carry (on the FMA pipe, the two multiplies and the
 // Horner step). Right shifts as the high word of a multiply by 2^17 or 2^16 (IMAD.HI)
 // measured slower on the card than SHF, so the shifts stay on the ALU pipe.
+//
+// B9p (`packed_mask_kernel`) is built the same way, with the compare cut by one shift: write
+// mix32's state before its last shift-xor as u, so bits = u ^ (u >> 16); then
+//   bits >= threshold  <=>  u ^ (threshold >> 16) >= threshold,
+// since both sides' top 16 bits are u's: where they differ from threshold's, they decide
+// both compares alike, and where they equal threshold's top half, the low halves are both
+// lo(u) ^ (threshold >> 16). A thread owns four consecutive columns c0 .. c0 + 3 (c0 a
+// multiple of 4, one 16-byte store of four words) of one word row and walks its 32 rows from
+// 31 down, reading four rows' K1 with one broadcast 16-byte shared load. The four columns'
+// hash inputs after the hoist are h + j, j = 0 .. 3, with h = (K1 ^ c0 ^ (c0 >> 16)) & ~3
+// (one LOP3 a row), so mix32's first multiply is h * M1 (one IMAD a row) plus j * M1 (one
+// IMAD each, the factor 1 an argument): column c0 + e gets j = e ^ b, b = (K1 ^ cterm) & 3.
+// Its carry (v + 2^32 - threshold, v = u ^ (threshold >> 16)) goes by Horner steps
+// acc = acc * 2 + carry (an `add.cc` and a `madc.lo`: IADD3 and IMAD.X, the factor 2 an
+// argument) into word j, so word j holds row i's bit for column c0 + (j ^ b_i). Two
+// rounds of masked swaps per word row undo that: where bit 0 of b_i is set, words 0/1 and
+// 2/3 swap bit i, then where bit 1 is set, 0/2 and 1/3; the masks are ballots of the rows'
+// K1 bits, xored with the column term's. Per element that leaves ~4.4 instructions on the
+// ALU pipe (the row's LOP3 over four, the shift and its xor, the xor with the threshold's
+// top half, the carry) and 3 on the FMA pipe (the two multiplies, the Horner step). The
+// grid is the bool body's: chunks of word rows along x, column tiles along y, a block
+// computing its chunk's K1 once.
+// A warp's lanes as the word's 32 rows (a ballot of the compares gives the word) measured
+// slower: the compare is an ISETP on the ALU pipe and a lane keeps its column's word with
+// a select. Right shifts as IMAD.HI measured slower here too, for one column of four or
+// for all.
 // No shared state between blocks.
 
 #include "attention_common.cuh"
@@ -60,13 +85,13 @@ constexpr int kTileRows = 128;   // rows of a bool-mask chunk (B9b, B8m)
 constexpr int kBlocksPerSm = 16; // the bool masks' grid, over all its waves
 constexpr int kVecBytes = 16;    // bytes a thread writes with one store
 constexpr int kLanes = 512;      // the lane view's row width (B8, B8m)
-constexpr int kPackThreads = 128;
+constexpr int kPackThreads = 128; // B9p's block: (64, 2) or (32, 4) threads
+constexpr int kPackCols = 4;     // columns a B9p thread owns: one 16-byte store of 4 words
 constexpr int kGroup = 32;       // rows packed per int32 word (B9p)
 
-__device__ __forceinline__ bool keep(uint32_t key, uint32_t col, uint32_t threshold,
-                                     bool at_least) {
-  uint32_t bits = wm::mix32(key ^ col);
-  return at_least ? bits >= threshold : bits < threshold;
+// B8's rule: keep iff bits < threshold.
+__device__ __forceinline__ bool keep(uint32_t key, uint32_t col, uint32_t threshold) {
+  return wm::mix32(key ^ col) < threshold;
 }
 
 // Keys of the block's rows row0 .. row0 + kRows - 1.
@@ -169,23 +194,117 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// B9p: one thread per (word row g, column); the 32 row keys of g in shared memory.
-__global__ void __launch_bounds__(kPackThreads)
-    packed_mask_kernel(int32_t* __restrict__ out, int m, int c, uint32_t seed,
-                       uint32_t threshold) {
-  __shared__ uint32_t keys[kGroup];
-  const int tiles = (c + kPackThreads - 1) / kPackThreads;
-  const int g = blockIdx.x / tiles;
-  const int col = (blockIdx.x - g * tiles) * kPackThreads + threadIdx.x;
-  if (threadIdx.x < kGroup)
-    keys[threadIdx.x] = wm::dropout_head_key(seed, (uint32_t)(g * kGroup + threadIdx.x));
-  __syncthreads();
-  if (g * kGroup >= m || col >= c) return;
-  uint32_t word = 0;
+// B9p's compare and packing: keep iff v + (hi, lo) carries out of 32 bits, (hi, lo) =
+// 2^32 - threshold, v = u ^ kx, kx = threshold >> 16; two = 2 and one = 1 come in as
+// arguments so that ptxas keeps the Horner step and the columns' adds IMADs on the FMA pipe.
+struct PackCarry {
+  uint32_t lo, hi, kx, two, one;
+};
+
+// Row 31's carry starts the word: acc = hi + carry (hi + carry <= 1, as in carry_bytes).
+__device__ __forceinline__ uint32_t carry_first(uint32_t v, const PackCarry& p) {
+  uint32_t acc;
+  asm("{\n\t.reg .u32 t;\n\t"
+      "add.cc.u32 t, %1, %2;\n\t"
+      "addc.u32 %0, %3, 0;\n\t}"
+      : "=r"(acc)
+      : "r"(v), "r"(p.lo), "r"(p.hi));
+  return acc;
+}
+
+// The next row's: acc * 2 + hi + carry.
+__device__ __forceinline__ uint32_t carry_next(uint32_t acc, uint32_t v, const PackCarry& p) {
+  uint32_t out;
+  asm("{\n\t.reg .u32 t;\n\t"
+      "add.cc.u32 t, %1, %2;\n\t"
+      "madc.lo.u32 %0, %3, %4, %5;\n\t}"
+      : "=r"(out)
+      : "r"(v), "r"(p.lo), "r"(acc), "r"(p.two), "r"(p.hi));
+  return out;
+}
+
+// Swap the bits of a and b where mask is set.
+__device__ __forceinline__ void swap_bits(uint32_t& a, uint32_t& b, uint32_t mask) {
+  const uint32_t t = (a ^ b) & mask;
+  a ^= t;
+  b ^= t;
+}
+
+// The four words of one word row for columns c0 .. c0 + 3: k1 holds its 32 rows' K1,
+// cterm = c0 ^ (c0 >> 16), m0 and m1 set bit i where bit 0 (1) of row i's K1 ^ cterm is.
+__device__ __forceinline__ uint4 packed_words(const uint32_t* k1, uint32_t cterm, uint32_t m0,
+                                              uint32_t m1, const PackCarry& p) {
+  uint32_t acc[kPackCols];
 #pragma unroll
-  for (int i = 0; i < kGroup; ++i)
-    word |= (uint32_t)keep(keys[i], (uint32_t)col, threshold, true) << i;
-  out[(size_t)g * c + col] = (int32_t)word;
+  for (int q = kGroup / 4 - 1; q >= 0; --q) {
+    const uint4 k4 = reinterpret_cast<const uint4*>(k1)[q];  // rows 4q .. 4q + 3
+    const uint32_t k[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+    for (int i = 3; i >= 0; --i) {
+      const uint32_t h = ((k[i] ^ cterm) & ~3u) * 0x7feb352du;
+#pragma unroll
+      for (int j = 0; j < kPackCols; ++j) {
+        uint32_t u = h;
+        if (j)
+          asm("mad.lo.u32 %0, %1, %2, %3;"
+              : "=r"(u)
+              : "r"(h), "r"(p.one), "r"((uint32_t)j * 0x7feb352du));
+        u ^= u >> 15;
+        u *= 0x846ca68bu;
+        acc[j] = q == kGroup / 4 - 1 && i == 3 ? carry_first(u ^ p.kx, p)
+                                               : carry_next(acc[j], u ^ p.kx, p);
+      }
+    }
+  }
+  swap_bits(acc[0], acc[1], m0);
+  swap_bits(acc[2], acc[3], m0);
+  swap_bits(acc[0], acc[2], m1);
+  swap_bits(acc[1], acc[3], m1);
+  return make_uint4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+// B9p: int32 [words, cols], cols % 128 == 0. The block is (tw, kPackThreads / tw) threads: tw
+// runs of 4 columns across, one word row each down. The grid walks chunks of word rows (one
+// a thread row) along x and column tiles of tw runs along y; a block computes its chunk's K1
+// and their low bits' ballots once for all its column tiles.
+__global__ void __launch_bounds__(kPackThreads)
+    packed_mask_kernel(int32_t* __restrict__ out, long long words, int cols, uint32_t seed,
+                       PackCarry carry) {
+  __shared__ __align__(16) uint32_t k1[kPackThreads];
+  __shared__ uint32_t low[2][kPackThreads / kGroup];
+  const int tw = blockDim.x, ry = blockDim.y;
+  const int ctiles = cols / (kPackCols * tw);
+  const long long chunks = (words + ry - 1) / ry;
+  const int t = threadIdx.y * tw + threadIdx.x;
+  for (long long chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
+    const long long g0 = chunk * ry;
+    __syncthreads();  // the previous chunk's keys are read
+    if (t < kGroup * ry) {  // whole warps, one a word row
+      const uint32_t key = wm::dropout_head_key(seed, (uint32_t)(g0 * kGroup + t));
+      const uint32_t k = key ^ (key >> 16);
+      k1[t] = k;
+      const uint32_t b0 = __ballot_sync(~0u, k & 1u), b1 = __ballot_sync(~0u, k & 2u);
+      if (t % kGroup == 0) {
+        low[0][t / kGroup] = b0;
+        low[1][t / kGroup] = b1;
+      }
+    }
+    __syncthreads();
+    const long long g = g0 + threadIdx.y;
+    if (g >= words) continue;
+    const uint32_t* rows = k1 + kGroup * threadIdx.y;
+    const uint32_t b0 = low[0][threadIdx.y], b1 = low[1][threadIdx.y];
+    for (int ct = blockIdx.y; ct < ctiles; ct += gridDim.y) {
+      const uint32_t col0 = (uint32_t)(ct * tw + threadIdx.x) * kPackCols;
+      const uint32_t cterm = col0 ^ (col0 >> 16);
+      const uint4 w = packed_words(rows, cterm, b0 ^ (0u - (cterm & 1u)),
+                                   b1 ^ (0u - ((cterm >> 1) & 1u)), carry);
+      // inline PTX keeps the store one 16-byte STG (nvcc split a uint4 store here)
+      asm volatile("st.global.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(out + g * cols + col0),
+                   "r"(w.x), "r"(w.y), "r"(w.z), "r"(w.w)
+                   : "memory");
+    }
+  }
 }
 
 // B8 on the lane view: a thread loads 16 bytes of x (4 fp32 or 8 bf16 elements of one row).
@@ -215,7 +334,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int e = 0; e < kElems; ++e)
-      v[e] = keep(keys[r], (uint32_t)(col0 + e), threshold, false)
+      v[e] = keep(keys[r], (uint32_t)(col0 + e), threshold)
                  ? from_float<T>(to_float(v[e]) * scale)
                  : zero;
     if (whole) {
@@ -230,28 +349,54 @@ inline unsigned blocks_for(long long rows, int per_block) {
   return (unsigned)((rows + per_block - 1) / per_block);
 }
 
-// B9b and B8m on the [rows, cols] view (cols a multiple of 128), n elements: a block's runs
-// across are the most of 32, 16 and 8 that divide a row's 16-column runs; the grid holds
-// the column tiles along y and kBlocksPerSm blocks an SM in all, each walking its chunks.
-template <bool kAtLeast>
-int launch_bool_mask(void* out, long long rows, int cols, long long n, uint32_t seed,
-                     uint32_t threshold, void* stream) {
+// The bool masks' and B9p's grid: the column tiles along y, kBlocksPerSm blocks an SM in all
+// along x, each walking its chunks.
+inline cudaError_t mask_grid(long long chunks, long long ctiles, dim3* grid) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const int runs = cols / kVecBytes;
-  const int tw = runs % 32 == 0 ? 32 : runs % 16 == 0 ? 16 : 8;
-  const long long ctiles = runs / tw, chunks = (rows + kTileRows - 1) / kTileRows;
   const long long gy = ctiles < 65535 ? ctiles : 65535;
   const long long per_y = (long long)sms * kBlocksPerSm / gy;
   const long long gx = chunks < per_y ? chunks : per_y > 0 ? per_y : 1;
+  *grid = dim3((unsigned)gx, (unsigned)gy);
+  return cudaSuccess;
+}
+
+// B9b and B8m on the [rows, cols] view (cols a multiple of 128), n elements: a block's runs
+// across are the most of 32, 16 and 8 that divide a row's 16-column runs.
+template <bool kAtLeast>
+int launch_bool_mask(void* out, long long rows, int cols, long long n, uint32_t seed,
+                     uint32_t threshold, void* stream) {
+  const int runs = cols / kVecBytes;
+  const int tw = runs % 32 == 0 ? 32 : runs % 16 == 0 ? 16 : 8;
+  dim3 grid;
+  const cudaError_t err = mask_grid((rows + kTileRows - 1) / kTileRows, runs / tw, &grid);
+  if (err != cudaSuccess) return err;
   const uint64_t addend = (1ull << 32) - threshold;
   const Carry carry = {(uint32_t)addend, (uint32_t)(addend >> 32), 256u};
-  bool_mask_kernel<kAtLeast><<<dim3((unsigned)gx, (unsigned)gy), dim3(tw, kThreads / tw), 0,
+  bool_mask_kernel<kAtLeast><<<grid, dim3(tw, kThreads / tw), 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint8_t*>(out), rows, n / cols, cols, n, seed, carry);
+  return cudaGetLastError();
+}
+
+// B9p on int32 [words, cols] (cols a multiple of 128): a block's runs of 4 columns across are
+// 64 where they divide a row's runs, else 32 (which always do); the rest of its 128 threads
+// go down, one word row each.
+int launch_packed_mask(void* out, long long words, int cols, uint32_t seed,
+                       uint32_t threshold, void* stream) {
+  const int runs = cols / kPackCols;
+  const int tw = runs % 64 == 0 ? 64 : 32, ry = kPackThreads / tw;
+  dim3 grid;
+  const cudaError_t err = mask_grid((words + ry - 1) / ry, runs / tw, &grid);
+  if (err != cudaSuccess) return err;
+  const uint64_t addend = (1ull << 32) - threshold;
+  const PackCarry carry = {(uint32_t)addend, (uint32_t)(addend >> 32), threshold >> 16, 2u,
+                           1u};
+  packed_mask_kernel<<<grid, dim3(tw, ry), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(out), words, cols, seed, carry);
   return cudaGetLastError();
 }
 
@@ -276,12 +421,7 @@ int wm_packed_keep_mask(void* out, int m, int c, unsigned seed, unsigned thresho
   using namespace keep_mask;
   if (m < 0 || c <= 0 || m % kGroup || c % 128) return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  const long long blocks = (long long)(m / kGroup) * blocks_for(c, kPackThreads);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  packed_mask_kernel<<<(unsigned)blocks, kPackThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(static_cast<int32_t*>(out), m, c,
-                                                            seed, threshold);
-  return cudaGetLastError();
+  return launch_packed_mask(out, m / kGroup, c, seed, threshold, stream);
 }
 
 // B8m: out bool [n] (any shape, contiguous), the lane view [ceil(n / 512), 512]. keep iff
