@@ -111,7 +111,26 @@ Phases, each printing one line; any failure raises and exits non-zero:
                timings, profile (B3f's forward body and B3b's backward body
                required, their bf16 scalar kernels forbidden) and one-step
                comparison as phase 8
-  11. kernel_gmm - the grouped matmul B4 (forward, and with rhs^T as the
+  11. yield  - `wm-yield-torch`'s run(args) with the JAX CLI's defaults
+               (WeatherFormer-small, ELBO, beta 1e-4, batch 64, fp32,
+               --attention-impl auto) and --country synthetic
+               --n-train-years 15 --test-year 2016 --n-epochs 2
+               --use-optimal-lr, from a seeded WeatherFormer-small .pth, on
+               the synthetic Khaki frame of 1024 counties (T = 364, 10240
+               training and 1024 test windows): 4 launches of B3f and B3b
+               per training step (the LR range test's steps included) and 4
+               of B3f per validation batch, none of B1/B2; finite losses,
+               the train loss falls, a finite RMSE and R^2; ms per step,
+               windows/s, the fold's seconds and peak memory; then the same
+               run in bf16; a profiled fp32 step naming B3f's and B3b's
+               scalar bodies and their share of device time, and a bf16 one
+               requiring their wgmma bodies and forbidding their bf16 scalar
+               kernels; one yield step of the kernel path against the plain
+               path at 16 windows, dropout off, eps injected, fp32 and bf16
+               (the bars of phase 8); `wm-cropnet-torch --crop-type Corn`
+               with the CropNet defaults on the synthetic CropNet frame,
+               which fails if the crop's result is None
+  12. kernel_gmm - the grouped matmul B4 (forward, and with rhs^T as the
                backward's d_lhs) and its weight gradient B4t vs their plain
                versions at the MoE microbatch's shapes (S = 96 x 365 x 2 =
                70080 routed rows, E=8, K x N = 576 x 2304 and 2304 x 576),
@@ -124,7 +143,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                one cuBLAS matmul per group); bf16 B4's mean (its four calls
                printed each) and B4t's beside their recorded times on the WMMA
                tiles
-  12. train_moe - `wm-pretrain-torch`'s run(args) for the flagship MoE
+  13. train_moe - `wm-pretrain-torch`'s run(args) for the flagship MoE
                configuration: WeatherBERT-large, --moe-experts 8 --moe-top-k 2
                (ragged dispatch), bf16, --batch-size 288 --grad-accum 3,
                dropout 0.1, 2 epochs, on the same store: per step 96 launches
@@ -136,7 +155,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                kernels, with no bf16 gmm_kernel or tgmm_kernel of the WMMA
                tiles) and one-step comparison with the plain
                path (plain grouped matmuls, plain attention) as phase 8
-  13. kernel_ffn - the bf16 wgmma bodies' (ffn_wgmma_kernel: B6f and B7;
+  14. kernel_ffn - the bf16 wgmma bodies' (ffn_wgmma_kernel: B6f and B7;
                ffn_bwd_wgmma_kernel: B6b's row work) ptxas registers and
                spills and their shared memory; then the fused FFN +
                residual + LayerNorm B6f, its backward B6b and the fused FFN
@@ -156,7 +175,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                the products beside their library pair (two torch.matmul and
                two column sums) and their bound, and B6b beside its recorded
                times
-  14. kernel_maskgen - the keep-mask family at the FFN hidden site of the
+  15. kernel_maskgen - the keep-mask family at the FFN hidden site of the
                bench microbatch (M = 105120 rows, C = 2304, rate 0.1): B8
                (forward and backward) and B8m launched through their public
                functions `kernel_dropout` and `random_keep_mask` with the
@@ -168,7 +187,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                and the library call (bernoulli_ for the bool masks,
                F.dropout for B8, none for B9p) and both bounds (bytes, the
                hash's integer operations)
-  15. probes - the ablation probes through the port's ablation scripts,
+  16. probes - the ablation probes through the port's ablation scripts,
                `python -m weathermodel_tpu_torch.scripts.abl_headpack`'s and
                `.abl_gemm_probe`'s main() at the JAX scripts' full shapes
                with 5 timed steps: P1 and P2 (per-head and head-packed
@@ -196,7 +215,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                version and the library call (two batched torch.matmul over
                the head views with S in bf16 for P1 and P2, torch.matmul for
                P3) and the bounds
-  16. bench - `python -m weathermodel_tpu_torch.bench`'s run(env) at
+  17. bench - `python -m weathermodel_tpu_torch.bench`'s run(env) at
                WeatherBERT-large, 2 x 288, bf16, dropout 0.1, for
                BENCH_FFN_IMPL torch, fused_ffn_ln and fused_ffn (each JSON
                line printed): per step 16 launches of B1 train and B2 in all
@@ -1445,12 +1464,14 @@ def _profile_step(name, cfg, impl, batch_size, grad_accum=1,
             f"top: {top or 'none'}")
 
 
-def _grad_rel(a, b):
-    """The worst parameter's ||grad_a - grad_b|| / ||grad_b|| and its name."""
+def _grad_rel(a, b, skip=()):
+    """The worst parameter's ||grad_a - grad_b|| / ||grad_b|| and its name,
+    over the parameters not named in `skip`."""
     return max((((pa.grad.cpu() - pb.grad.cpu()).norm()
                  / pb.grad.cpu().norm()).item(), name)
                for (name, pa), pb in zip(a.named_parameters(),
-                                         b.parameters()))
+                                         b.parameters())
+               if name not in skip)
 
 
 def _step_parity(name, size, impl, dtype: str, moe=None, ffn_impl="torch"):
@@ -1894,6 +1915,295 @@ def phase_train_former(smi: str, data: Path):
     print("train_former: " + _check_step_parity("weatherformer", FORMER_SIZE,
                                                 "flash"), flush=True)
     return launches
+
+
+# the yield path: `wm-yield-torch` with the JAX CLI's defaults
+# (weathermodel_tpu/cli/yield_main.py:91-122: WeatherFormer-small, ELBO, beta
+# 1e-4, batch 64, fp32, --attention-impl auto) on the JAX package's synthetic
+# Khaki frame at 1024 counties; 15 train years (the grid search's USA value)
+# keep n_past_years 6, so T = 364, and test year 2016 gives 10240 training and
+# 1024 test windows, 160 steps an epoch
+YIELD_LOCS, YIELD_BATCH = 1024, 64
+YIELD_ARGS = ["--country", "synthetic", "--n-train-years", "15",
+              "--test-year", "2016", "--n-epochs", "2", "--use-optimal-lr"]
+YIELD_T = 7 * 52
+# the yield head's pooling-logit bias: the softmax over T is invariant to it,
+# so its gradient is zero in exact arithmetic and rounding noise on both
+# paths; the one-step comparison leaves it out
+YIELD_SHIFT_INVARIANT = ("weather_attention.2.bias",)
+# the fp32 scalar bodies of B3f and B3b, which the fp32 yield profile names
+FLASH_SCALAR_FP32 = "flash_attention_kernel<float"
+ATTN_BWD_SCALAR_FP32 = ("bwd_dq_kernel<float", "bwd_dkdv_kernel<float")
+
+
+def _yield_encoder(root: Path) -> Path:
+    """A seeded WeatherFormer-small saved by the port's trainer as a
+    reference-format .pth."""
+    from weathermodel_tpu_torch.cli.pretrain import make_model
+    from weathermodel_tpu_torch.train.checkpoint import save_best_params
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    model = make_model("weatherformer", model_config_for_size(FORMER_SIZE),
+                       "torch")
+    model.reset_parameters(torch.Generator().manual_seed(SEED + 5))
+    return Path(save_best_params(str(root), model))
+
+
+def _yield_batch(n, device, seed):
+    """n seeded windows of the yield layout (T = 364, the Khaki static
+    mask, 7 past years) as a YieldBatch on `device`."""
+    from weathermodel_tpu_torch.train.yield_trainer import YieldBatch
+
+    rng = np.random.default_rng(seed)
+    years = 7
+    mask = np.ones((n, YIELD_T, N_FEATURES), dtype=bool)
+    mask[:, :, [7, 8, 11, 1, 2, 29]] = False
+    arrays = (rng.normal(size=(n, YIELD_T, N_FEATURES)),
+              rng.uniform(30, 48, (n, 2)),
+              2009.0 + np.arange(YIELD_T)[None] / 52 + np.zeros((n, 1)),
+              np.full((n, 1), 7.0), mask, rng.normal(size=(n, years)),
+              rng.normal(size=(n, 1)), np.ones(n),
+              np.zeros((n, years, 11, 6)), np.zeros((n, years, 14)))
+    return YieldBatch(*(torch.tensor(a, device=device, dtype=torch.bool
+                                     if a.dtype == bool else torch.float32)
+                        for a in arrays))
+
+
+def _yield_model(impl, dtype: str, device):
+    from weathermodel_tpu_torch.models.yield_models import (
+        WeatherFormerYieldModel,
+    )
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(FORMER_SIZE, max_len=YIELD_T,
+                                compute_dtype=dtype)
+    model = WeatherFormerYieldModel(cfg, 6, impl)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    return model.to(device)
+
+
+def _kernel_name(key: str) -> str:
+    """A profiled kernel's name without its return type, anonymous
+    namespace and arguments."""
+    key = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return key.split("(")[0][:70]
+
+
+def _yield_profile(dtype: str, require=(), forbid=()):
+    """torch.profiler over one yield train step (WeatherFormer-small, ELBO,
+    batch 64, T = 364, dropout 0.1) after a warm-up step: prints device
+    time by kernel, the device's busy share, and B3f's and B3b's device
+    time (every kernel of their wrappers) with their share of the step's."""
+    from weathermodel_tpu_torch.train.state import make_optimizer
+    from weathermodel_tpu_torch.train.yield_trainer import (
+        make_yield_train_step,
+    )
+
+    model = _yield_model("flash", dtype, "cuda")
+    step = make_yield_train_step(model, make_optimizer(model), "elbo", 1e-4)
+    batch = _yield_batch(YIELD_BATCH, "cuda", SEED + 6)
+    gen = torch.Generator().manual_seed(SEED)
+    float(step(batch, gen, 1e-4)["total_loss"])  # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        float(step(batch, gen, 1e-4)["total_loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _kernel_events(prof)
+    _check_kernel_names(f"{dtype} yield step", [e.key for e in events],
+                        require, forbid)
+    total = sum(_device_ms(e) for e in events)
+    fwd_keys = (FLASH_BODY, FLASH_SCALAR_FP32, FLASH_SCALAR_BF16)
+    bwd_keys = (ATTN_BWD_BODY, *ATTN_BWD_SCALAR_FP32, *ATTN_BWD_SCALAR_BF16)
+    parts = {}
+    for label, keys in (("B3f", fwd_keys), ("B3b", bwd_keys)):
+        hit = [e for e in events if any(k in e.key for k in keys)]
+        parts[label] = (sum(_device_ms(e) for e in hit),
+                        sum(e.count for e in hit),
+                        sorted({_kernel_name(e.key) for e in hit}))
+    top = ", ".join(f"{e.key[:60]} {_device_ms(e):.2f} ms x{e.count}"
+                    for e in events[:10])
+    share = "; ".join(f"{label} {ms:.3f} ms x{n} ({ms / total:.3f} of the "
+                      f"step's device time; kernels {names})"
+                      for label, (ms, n, names) in parts.items())
+    print(f"yield: profile of one {dtype} step at batch {YIELD_BATCH}, "
+          f"T={YIELD_T}: kernels {total:.2f} ms of device time in "
+          f"{wall_ms:.2f} ms profiled (busy {total / wall_ms:.2f}); {share}; "
+          f"B3f + B3b {(parts['B3f'][0] + parts['B3b'][0]) / total:.3f} of "
+          f"it; top: {top}", flush=True)
+
+
+def _yield_step_parity(dtype: str):
+    """One yield train step of the flash kernel path against the plain
+    attention path at STEP_WINDOWS windows, the same weights, batch and eps,
+    dropout off (as _step_parity): (loss rel diff, worst gradient rel diff
+    outside YIELD_SHIFT_INVARIANT, its parameter, fp32's plain card-vs-CPU
+    floor)."""
+    from weathermodel_tpu_torch.train.state import make_optimizer
+    from weathermodel_tpu_torch.train.yield_trainer import (
+        make_yield_train_step,
+    )
+
+    cpu_batch = _yield_batch(STEP_WINDOWS, "cpu", SEED + 7)
+    eps = torch.randn(cpu_batch.weather.shape,
+                      generator=torch.Generator().manual_seed(SEED + 8))
+    runs = [("flash", "cuda"), ("torch", "cuda")]
+    if dtype == "float32":
+        runs.append(("torch", "cpu"))
+    models, losses = [], []
+    for impl, device in runs:
+        model = _yield_model(impl, dtype, device)
+        step = make_yield_train_step(model, make_optimizer(model), "elbo",
+                                     1e-4)
+        batch = type(cpu_batch)(*(a.to(device) for a in cpu_batch))
+        out = step(batch, torch.Generator().manual_seed(SEED), 0.0,
+                   eps=eps.to(device), dropout_rate=0.0)
+        models.append(model)
+        losses.append(float(out["total_loss"]))
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    floor = (_grad_rel(models[1], models[2], YIELD_SHIFT_INVARIANT)[0]
+             if len(models) > 2 else None)
+    return (loss_rel, *_grad_rel(models[0], models[1], YIELD_SHIFT_INVARIANT),
+            floor)
+
+
+def _run_yield(argv, crop_df, counted):
+    """`wm-yield-torch`'s run(args) on argv and the frame `crop_df`, with
+    every wrapper in `counted` set to 0 just before: (result, launches by
+    wrapper name, wall seconds, peak GB)."""
+    from weathermodel_tpu_torch.cli import yield_main
+
+    args = yield_main.build_parser().parse_args(argv)
+    args.crop_df = crop_df
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = yield_main.run(args)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    return result, launches, wall, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _check_yield_run(dtype, result, launches):
+    """The run's launch counts (4 B3f and 4 B3b a training step, the LR
+    range test's included; 4 B3f a validation batch; nothing else), finite
+    losses, a falling train loss and a finite RMSE and R^2: (trainer,
+    training steps, range-test steps, validation batches)."""
+    (trainer,) = result["trainers"]
+    steps = sum(len(s) for s in trainer.train_step_seconds)
+    finder = len(trainer.lr_range[0])
+    val_batches = len(trainer.train_step_seconds) * -(
+        -trainer.test_arrays.weather.shape[0] // YIELD_BATCH)
+    n = trainer.model.cfg.num_layers
+    _check_launches(launches, {
+        "fused_qkv_attention": 0, "fused_qkv_attention_train": 0,
+        "fused_qkv_attention_bwd": 0,
+        "flash_attention_fwd": n * (steps + finder + val_batches),
+        "flash_attention_bwd": n * (steps + finder), "gmm": 0, "tgmm": 0,
+        **NOT_IN_TRAINING}, steps + finder, val_batches)
+    history = trainer.loss_history
+    for scope, keys in (("train", ("total_loss", "yield", "kl_term")),
+                        ("val", ("total_loss",))):
+        for k in keys:
+            if not np.all(np.isfinite(history[scope][k])):
+                raise AssertionError(f"{dtype} yield: non-finite {scope} "
+                                     f"{k}: {history[scope][k]}")
+    train_loss = history["train"]["total_loss"]
+    if not train_loss[1] < train_loss[0]:
+        raise AssertionError(f"{dtype} yield: train loss did not fall: "
+                             f"{train_loss}")
+    if not (np.isfinite(result["avg_rmse_bu_acre"])
+            and np.isfinite(result["avg_r_squared"])):
+        raise AssertionError(f"{dtype} yield: RMSE "
+                             f"{result['avg_rmse_bu_acre']}, R^2 "
+                             f"{result['avg_r_squared']}")
+    return trainer, steps, finder, val_batches
+
+
+def phase_yield(smi: str, tmp: Path):
+    from weathermodel_tpu_torch.cli import cropnet_main
+    from weathermodel_tpu_torch.data.cropnet_data import synthetic_cropnet_df
+    from weathermodel_tpu_torch.data.yield_data import synthetic_yield_df
+
+    t0 = time.perf_counter()
+    crop_df = synthetic_yield_df(seed=SEED, n_locs=YIELD_LOCS)
+    frame_s = time.perf_counter() - t0
+    encoder = _yield_encoder(tmp / "yield_encoder")
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        argv = YIELD_ARGS + ["--pretrained-model-path", str(encoder),
+                             "--compute-dtype", dtype, "--device", "cuda"]
+        result, launches, wall, peak_gb = _run_yield(argv, crop_df,
+                                                     _all_kernels())
+        trainer, steps, finder, val_batches = _check_yield_run(
+            dtype, result, launches)
+        n_train = trainer.train_arrays.weather.shape[0]
+        n_test = trainer.test_arrays.weather.shape[0]
+        ms = float(np.median(trainer.train_step_seconds[-1])) * 1e3
+        rate = n_train / trainer.train_pass_seconds[-1]
+        runs[dtype] = launches
+        print(f"yield: wm-yield-torch WeatherFormer-{FORMER_SIZE} {dtype} "
+              f"ELBO beta 1e-4, batch {YIELD_BATCH}, T={YIELD_T}, attention "
+              f"auto, {' '.join(YIELD_ARGS)}, from a seeded .pth, on the "
+              f"synthetic frame of {YIELD_LOCS} counties (built in "
+              f"{frame_s:.1f} s): {n_train} training and {n_test} test "
+              f"windows, {steps} steps + {finder} of the LR range test "
+              f"(optimal lr {trainer.optimal_lr:.3e}), {val_batches} "
+              f"validation batches; train loss "
+              f"{trainer.loss_history['train']['total_loss']}, val RMSE "
+              f"{trainer.loss_history['val']['total_loss']}; RMSE "
+              f"{result['avg_rmse_bu_acre']:.4f} bu/acre, R^2 "
+              f"{result['avg_r_squared']:.4f}; {launches}; epoch 2 median "
+              f"{ms:.2f} ms/step, {rate:.1f} windows/s over epoch 2's "
+              f"training pass ({trainer.train_pass_seconds[-1]:.2f} s); the "
+              f"fold {wall:.1f} s; peak memory {peak_gb:.2f} GB; card {smi}",
+              flush=True)
+    # profiled in child processes, as _in_child says why
+    print(_in_child(
+        f"cs._yield_profile('float32', require=({FLASH_SCALAR_FP32!r}, "
+        f"*{ATTN_BWD_SCALAR_FP32!r}))"), end="", flush=True)
+    print(_in_child(
+        f"cs._yield_profile('bfloat16', require=({FLASH_BODY!r}, "
+        f"{ATTN_BWD_BODY!r}), forbid=({FLASH_SCALAR_BF16!r}, "
+        f"*{ATTN_BWD_SCALAR_BF16!r}))"), end="", flush=True)
+    parity = {}
+    for dtype in ("float32", "bfloat16"):
+        parity[dtype] = _yield_step_parity(dtype)
+        loss_rel, grad_rel, _, _ = parity[dtype]
+        tol = STEP_TOL[dtype]
+        if loss_rel > tol["loss"] or grad_rel > tol.get("grad", np.inf):
+            raise AssertionError(
+                f"yield {dtype}: one step, kernel path vs plain path (loss "
+                f"rel, worst gradient, its parameter) {parity[dtype]}, bars "
+                f"{tol}")
+    print(f"yield: one step at {STEP_WINDOWS} windows, flash kernel path vs "
+          "plain path, dropout off, eps injected, (loss rel, worst gradient "
+          "||diff||/||grad||, its parameter, the plain path's card-vs-CPU "
+          f"worst gradient diff): {parity}; bars {STEP_TOL}", flush=True)
+
+    counted = _all_kernels()
+    for fn in counted:
+        fn.launches = 0
+    args = cropnet_main.build_parser().parse_args(
+        ["--country", "synthetic", "--crop-type", "Corn", "--device",
+         "cuda"])
+    args.cropnet_df = synthetic_cropnet_df(seed=SEED)
+    t0 = time.perf_counter()
+    crops = cropnet_main.run(args)
+    crop_s = time.perf_counter() - t0
+    if crops.get("Corn") is None:
+        raise AssertionError(f"wm-cropnet-torch Corn failed: {crops}")
+    print(f"yield: wm-cropnet-torch --crop-type Corn with the CropNet "
+          f"defaults (mini, 4 train years, 3 past years, attention auto) on "
+          f"the synthetic CropNet frame: RMSE {crops['Corn'][0]:.4f} in "
+          f"{crop_s:.1f} s; "
+          f"{ {fn.__name__: fn.launches for fn in counted if fn.launches} }",
+          flush=True)
+    return runs
 
 
 # grouped-matmul edge cases (rows per group): boundaries inside a 128-row
@@ -3010,6 +3320,7 @@ def main():
         train_launches = timed("train", phase_train, smi, data)
         flash_kernels = timed("kernel_flash", phase_kernel_flash)
         former_launches = timed("train_former", phase_train_former, smi, data)
+        timed("yield", phase_yield, smi, Path(tmp))
         gmm_kernel, tgmm_kernel = timed("kernel_gmm", phase_kernel_gmm)
         moe_launches = timed("train_moe", phase_train_moe, smi, data)
     ffn_kernels = timed("kernel_ffn", phase_kernel_ffn)

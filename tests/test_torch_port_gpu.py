@@ -127,7 +127,7 @@ def test_train_kernels_match_plain(cuda, dtype, rate, b, t, h, nh):
     o_ref, qkv_ref = fused_qkv_attention_train_reference(x, w, bias, nh,
                                                          rate, seed)
     do = torch.randn(o.shape, device=cuda,
-                     generator=torch.Generator(cuda).manual_seed(1)).to(dtype)
+                     generator=torch.Generator(device=cuda).manual_seed(1)).to(dtype)
     # B2 on the reference's qkv, so that both see the same input
     dqkv = fused_qkv_attention_bwd(qkv_ref, do, nh, rate, seed)
     dqkv_ref = fused_qkv_attention_bwd_reference(qkv_ref, do, nh, rate, seed)
@@ -594,6 +594,105 @@ def test_weatherformer_step_flash_path_matches_plain_path(cuda):
     with torch.inference_mode():
         models[0].eval()(*batch[:4], mask)
     assert flash_attention_fwd.launches == before[0] + 2 * n
+
+
+def _yield_batch(device, b=4, n_past=1, seed=0):
+    from weathermodel_tpu_torch.train.yield_trainer import YieldBatch
+
+    rng = np.random.default_rng(seed)
+    t = (n_past + 1) * 52
+    mask = np.ones((b, t, 31), dtype=bool)
+    mask[:, :, [7, 8, 11, 1, 2, 29]] = False
+    arrays = (rng.normal(size=(b, t, 31)), rng.uniform(30, 48, (b, 2)),
+              2005.0 + np.arange(t)[None] / 52 + np.zeros((b, 1)),
+              np.full((b, 1), 7.0), mask, rng.normal(size=(b, n_past + 1)),
+              rng.normal(size=(b, 1)), np.ones(b),
+              np.zeros((b, n_past + 1, 11, 6)), np.zeros((b, n_past + 1, 14)))
+    return YieldBatch(*(torch.tensor(a, device=device,
+                                     dtype=torch.bool if a.dtype == bool
+                                     else torch.float32) for a in arrays))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_yield_step_flash_path_matches_plain_path(cuda, dtype):
+    """WeatherFormer-small's yield ELBO step through B3f/B3b against the
+    plain attention path, same weights, batch and eps, dropout off. fp32 at
+    chip_smoke.py's STEP_TOL (1e-5 of the loss, 1e-3 of each gradient's
+    norm: every gradient comes back through all layers from one pooled
+    prediction a window, and the plain path alone differs by ~1.7e-4
+    between the card and the CPU); bf16 at 2^-6 of the loss and 5e-2 of
+    each gradient's norm. The pooling logit's bias is left out: its
+    gradient is zero in exact arithmetic. Then with dropout on each B3
+    kernel launches once per layer, and the eval step runs B3f once per
+    layer."""
+    from weathermodel_tpu_torch.models.yield_models import (
+        WeatherFormerYieldModel,
+    )
+    from weathermodel_tpu_torch.train.yield_trainer import (
+        make_yield_eval_step,
+        make_yield_train_step,
+    )
+
+    cfg = model_config_for_size("small", max_len=104, compute_dtype=dtype)
+    batch = _yield_batch(cuda)
+    eps = torch.randn(batch.weather.shape, device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(1))
+    models, losses = [], []
+    for impl in ("flash", "torch"):
+        model = WeatherFormerYieldModel(cfg, 1, impl)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model = model.to(cuda)
+        step = make_yield_train_step(model, make_optimizer(model), "elbo",
+                                     1e-4)
+        out = step(batch, torch.Generator().manual_seed(0), 0.0, eps=eps,
+                   dropout_rate=0.0)
+        models.append(model)
+        losses.append(out["total_loss"].item())
+    loss_bar, grad_bar = (1e-5, 1e-3) if dtype == "float32" else (2**-6, 5e-2)
+    assert abs(losses[0] - losses[1]) <= loss_bar * abs(losses[1])
+    for (name, pk), pp in zip(models[0].named_parameters(),
+                              models[1].parameters()):
+        if name == "weather_attention.2.bias":
+            continue  # the softmax over T ignores it: its gradient is 0
+        assert (pk.grad - pp.grad).norm() <= grad_bar * pp.grad.norm(), name
+
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    step = make_yield_train_step(models[0], make_optimizer(models[0]), "elbo",
+                                 1e-4)
+    out = step(batch, torch.Generator().manual_seed(1), 1e-4)
+    assert np.isfinite(out["total_loss"].item())
+    n = cfg.num_layers
+    assert (flash_attention_fwd.launches,
+            flash_attention_bwd.launches) == (before[0] + n, before[1] + n)
+    rmse = make_yield_eval_step(models[0], "elbo")(
+        batch, torch.Generator().manual_seed(2))["total_loss"]
+    assert np.isfinite(rmse.item())
+    assert flash_attention_fwd.launches == before[0] + 2 * n
+
+
+def test_wm_yield_torch_on_the_card(cuda):
+    """`wm-yield-torch`'s run at WeatherFormer-small on a small synthetic
+    frame: 4 B3f and 4 B3b launches a training step, 4 B3f a validation
+    batch, none of B1/B2, finite RMSE."""
+    from weathermodel_tpu_torch.cli import yield_main
+    from weathermodel_tpu_torch.data.yield_data import synthetic_yield_df
+
+    args = yield_main.build_parser().parse_args([
+        "--country", "synthetic", "--n-past-years", "1", "--n-train-years",
+        "4", "--test-year", "2016", "--n-epochs", "2", "--n-warmup-epochs",
+        "0", "--batch-size", "8"])
+    args.crop_df = synthetic_yield_df(seed=0, n_locs=5)
+    counted = (flash_attention_fwd, flash_attention_bwd,
+               fused_qkv_attention_train, fused_qkv_attention_bwd,
+               fused_qkv_attention)
+    before = [fn.launches for fn in counted]
+    result = yield_main.run(args)
+    (trainer,) = result["trainers"]
+    steps = sum(len(s) for s in trainer.train_step_seconds)
+    val_batches = 2 * -(-trainer.test_arrays.weather.shape[0] // 8)
+    got = [fn.launches - b for fn, b in zip(counted, before)]
+    assert got == [4 * (steps + val_batches), 4 * steps, 0, 0, 0]
+    assert np.isfinite(result["avg_rmse_bu_acre"])
 
 
 # group layouts of the grouped matmul (rows per group, summing to S): group

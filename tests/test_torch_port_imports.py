@@ -30,7 +30,16 @@ def test_port_imports_no_jax():
             "weathermodel_tpu_torch.ops.blocked_mm",
             "weathermodel_tpu_torch.scripts.abl_headpack",
             "weathermodel_tpu_torch.scripts.abl_gemm_probe",
-            "weathermodel_tpu_torch.serving_daemon"} <= set(modules)
+            "weathermodel_tpu_torch.serving_daemon",
+            "weathermodel_tpu_torch.data.yield_data",
+            "weathermodel_tpu_torch.data.cropnet_data",
+            "weathermodel_tpu_torch.models.yield_models",
+            "weathermodel_tpu_torch.train.yield_trainer",
+            "weathermodel_tpu_torch.train.lr_finder",
+            "weathermodel_tpu_torch.cli.yield_main",
+            "weathermodel_tpu_torch.cli.cropnet_main",
+            "weathermodel_tpu_torch.cli.grid_search",
+            "weathermodel_tpu_torch.cli.best_config"} <= set(modules)
     code = (
         "import sys\n"
         "import chip_smoke\n"
@@ -71,6 +80,8 @@ def test_size_table_matches_jax_package():
 def test_constants_match_jax_package():
     for name in ("VALIDATION_CHUNK_IDS", "DRY_RUN_TRAIN_CHUNK_IDS",
                  "NUM_DATASET_PARTS", "PRETRAIN_CUTOFF_YEAR", "DRY_RUN",
-                 "DATA_DIR", "TOTAL_WEATHER_VARS", "MAX_CONTEXT_LENGTH"):
+                 "DATA_DIR", "TOTAL_WEATHER_VARS", "MAX_CONTEXT_LENGTH",
+                 "CROPS", "YIELD_FEATURE_INDICES",
+                 "CROPNET_FEATURE_INDICES"):
         assert getattr(port_constants, name) == \
             getattr(jax_constants, name), name

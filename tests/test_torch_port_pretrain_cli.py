@@ -102,7 +102,7 @@ def test_pretrained_state_initialises_the_trainer(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--resume-from-checkpoint", "x"], ["--use-optimal-lr"], ["--remat"],
+    ["--resume-from-checkpoint", "x"], ["--remat"],
     ["--seq-parallel", "2"], ["--pipeline-stages", "2"],
     ["--pipeline-microbatches", "8"], ["--tensor-parallel", "2"],
     ["--moe-experts", "4", "--moe-dispatch", "sort"],
@@ -115,6 +115,46 @@ def test_unported_flags_exit_naming_the_roadmap(store, tmp_path, flag):
         _argv(store, tmp_path) + ["--device", "cpu"] + flag)
     with pytest.raises(SystemExit, match="ROADMAP.md queue A item"):
         pretrain.run(args)
+
+
+def test_use_optimal_lr_runs_the_range_test_and_records_its_lr(
+        store, tmp_path, monkeypatch):
+    """--use-optimal-lr runs the LR range test on a throwaway copy (5 steps
+    under DRY_RUN), records the LR in output_json's model_config, as
+    `wm-pretrain` does, and the epochs train at the schedule from it."""
+    from weathermodel_tpu_torch.train import lr_finder
+    from weathermodel_tpu_torch.train.trainer import PretrainTrainer
+    from weathermodel_tpu_torch.utils import constants
+
+    monkeypatch.setattr(constants, "DRY_RUN", True)
+    found = []
+    real = lr_finder.find_optimal_lr
+
+    def spy(run_step, batches, **kw):
+        out = real(run_step, batches, **kw)
+        found.append((out, kw["num_iter"]))
+        return out
+
+    monkeypatch.setattr(lr_finder, "find_optimal_lr", spy)
+    seen = []
+    real_epoch = PretrainTrainer._run_epoch
+
+    def run_epoch(self, epoch, split):
+        seen.append(self.lr_schedule(epoch))
+        return real_epoch(self, epoch, split)
+
+    monkeypatch.setattr(PretrainTrainer, "_run_epoch", run_epoch)
+    pretrain.run(pretrain.build_parser().parse_args(
+        _argv(store, tmp_path) + ["--device", "cpu", "--use-optimal-lr",
+                                  "--n-epochs", "1"]))
+    ((optimal, lrs, losses), num_iter), = found
+    assert num_iter == 5 and len(lrs) == len(losses) <= 5
+    with open(tmp_path / "weatherbert_output.json") as f:
+        record = json.load(f)
+    assert record["model_config"]["optimal_lr"] == optimal
+    assert record["model_config"]["init_lr"] == 5e-4
+    # warmup 0, so epoch 0 trains at the found LR itself
+    assert seen == [optimal, optimal]
 
 
 def test_unported_models_and_sizes_raise(store, tmp_path):

@@ -61,7 +61,6 @@ TRAINER_KEY = {"weatherformersinusoid": "weatherformer_sinusoid",
 _UNPORTED = {
     "resume_from_checkpoint": "resume from a full train-state checkpoint "
                               "(ROADMAP.md queue A item 7)",
-    "use_optimal_lr": "the LR range test (ROADMAP.md queue A item 10)",
     "remat": "layer rematerialization (ROADMAP.md queue A item 14)",
     "seq_parallel": "sequence parallelism (ROADMAP.md queue A item 14)",
     "pipeline_stages": "pipeline parallelism (ROADMAP.md queue A item 14)",
@@ -127,7 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-epochs", default=100, type=int)
     p.add_argument("--init-lr", default=5e-4, type=float)
     p.add_argument("--use-optimal-lr", action="store_true",
-                   help="not ported yet")
+                   help="run the LR range test (train/lr_finder.py) on a "
+                        "throwaway copy first and train at the LR it finds")
     p.add_argument("--n-warmup-epochs", default=10, type=int)
     p.add_argument("--decay-factor", default=0.99, type=float)
     p.add_argument("--model-size", default="small",
@@ -223,6 +223,7 @@ def run(args: argparse.Namespace) -> dict:
         masking_prob=args.masking_prob,
         n_masked_features=args.n_masked_features,
         beta=args.beta,
+        use_optimal_lr=args.use_optimal_lr,
     )
     dcfg = PretrainDataConfig(
         data_dir=args.data_dir or constants.DATA_DIR,

@@ -9,7 +9,12 @@ WeatherFormer family to that state dict: for dense layers it is the exact
 inverse of the JAX package's `convert_torch_state_dict`. MoE layers
 (`layer_i/moe`, models/moe.py) map to `....moe.router.{weight,bias}` (the
 kernel transposed) and `....moe.expert_{w1,b1,w2,b2}` in the JAX layout,
-which is what the grouped matmul takes.
+which is what the grouped matmul takes. `yield_state_dict_from_jax_params`
+does the same for a flax yield-model tree (models/yield_models.py): the
+`weather_model` subtree as above under `weather_model.`, the head's
+`yield_head/{attn_fc1,attn_fc2,mlp_fc1,mlp_fc2}` as
+`weather_attention.{0,2}` and `yield_mlp.{0,2}`, and the variational heads'
+dense layers and priors under their own names.
 
 `load_pretrained` applies the JAX package's transfer rules to these state
 dicts: the encoder trunk (`in_proj.*`, `transformer_encoder.*`) always
@@ -125,6 +130,17 @@ def _tensor(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a))
 
 
+def _dense_into(sd: dict):
+    """dense(prefix, node): a flax Dense's kernel [in, out] and bias into
+    `sd` as torch's `{prefix}weight` [out, in] and `{prefix}bias`."""
+
+    def dense(prefix, node):
+        sd[prefix + "weight"] = _tensor(np.asarray(node["kernel"]).T)
+        sd[prefix + "bias"] = _tensor(node["bias"])
+
+    return dense
+
+
 def state_dict_from_jax_params(params) -> dict:
     """flax WeatherBERT or WeatherFormer param tree (numpy or jax arrays,
     with or without the top-level 'params') -> the port's state dict of CPU
@@ -135,10 +151,7 @@ def state_dict_from_jax_params(params) -> dict:
         raise ValueError(f"not a WeatherBERT/WeatherFormer param tree: "
                          f"unexpected top-level entries {sorted(unknown)}")
     sd = {}
-
-    def dense(prefix, node):
-        sd[prefix + "weight"] = _tensor(np.asarray(node["kernel"]).T)
-        sd[prefix + "bias"] = _tensor(node["bias"])
+    dense = _dense_into(sd)
 
     def norm(prefix, node):
         sd[prefix + "weight"] = _tensor(node["scale"])
@@ -167,6 +180,41 @@ def state_dict_from_jax_params(params) -> dict:
     if "out_proj" in p:
         dense("out_proj.", p["out_proj"])
     for name in PRIOR_PARAM_NAMES:
+        if name in p:
+            sd[name] = _tensor(p[name])
+    return sd
+
+
+# flax yield-head Dense name -> the port's module prefix
+_YIELD_HEAD = {"attn_fc1": "weather_attention.0.",
+               "attn_fc2": "weather_attention.2.",
+               "mlp_fc1": "yield_mlp.0.", "mlp_fc2": "yield_mlp.2."}
+_YIELD_DENSE = ("log_var_fc1", "log_var_fc2", "theta_p", "linear")
+_YIELD_PRIORS = ("A_p", "log_var_p", "mu_k", "log_var_k")
+
+
+def yield_state_dict_from_jax_params(params) -> dict:
+    """flax yield-model param tree (weathermodel_tpu/models/yield_models.py,
+    with or without the top-level 'params') -> the port's yield-model state
+    dict of CPU tensors."""
+    p = params["params"] if "params" in params else params
+    unknown = set(p) - {"weather_model", "yield_head", *_YIELD_DENSE,
+                        *_YIELD_PRIORS}
+    if unknown:
+        raise ValueError(f"not a yield-model param tree: unexpected "
+                         f"top-level entries {sorted(unknown)}")
+    sd = {}
+    if "weather_model" in p:
+        sd.update({"weather_model." + k: v for k, v in
+                   state_dict_from_jax_params(p["weather_model"]).items()})
+    dense = _dense_into(sd)
+    if "yield_head" in p:
+        for name, prefix in _YIELD_HEAD.items():
+            dense(prefix, p["yield_head"][name])
+    for name in _YIELD_DENSE:
+        if name in p:
+            dense(name + ".", p[name])
+    for name in _YIELD_PRIORS:
         if name in p:
             sd[name] = _tensor(p[name])
     return sd

@@ -10,12 +10,18 @@ seed_base = seed + (2 * epoch + split) * 100003, split 0 = train,
 1 = validation, as the JAX trainer does. The record's losses are every
 metric the step returns (`moe_aux` too for a MoE model), per scope.
 
+With `use_optimal_lr` the LR range test (train/lr_finder.py) runs first on a
+throwaway deep copy of the model and optimizer (JAX trainer.py:360-390); the
+LR it finds is recorded as `model_config.optimal_lr` in output_json, and the
+epoch schedule takes its base LR from that record, as the JAX trainer's
+resume restores it (trainer.py:279-288).
+
 Not ported yet, and raising or absent until then: SIGTERM with mid-epoch
-resume and full-state checkpoints (ROADMAP.md queue A item 7), the LR range
-test (`use_optimal_lr`, item 10), the profiler hook, and mesh/parallel
-options (item 14).
+resume and full-state checkpoints (ROADMAP.md queue A item 7), the profiler
+hook, and mesh/parallel options (item 14).
 """
 
+import copy
 import logging
 import time
 from typing import Callable, Dict, Iterator, Optional
@@ -71,10 +77,6 @@ class PretrainTrainer:
             raise NotImplementedError(
                 f"pretraining {model_name!r} is not ported yet; see "
                 "ROADMAP.md queue A items 8 (mlp) and 11 (weathercnn)")
-        if train_cfg.use_optimal_lr:
-            raise NotImplementedError(
-                "use_optimal_lr (the LR range test, train/lr_finder.py) is "
-                "not ported yet; see ROADMAP.md queue A item 10")
         self.model_name = model_name
         self.cfg = train_cfg
         self.make_loaders = make_loaders
@@ -88,16 +90,18 @@ class PretrainTrainer:
                 model_name, model.state_dict(), pretrained_state))
         self.model = model.to(self.device)
         self.optimizer = make_optimizer(self.model)
-        self._train_step = make_train_step(
-            self.model, self.optimizer, self.masking,
-            masking_prob=train_cfg.masking_prob, grad_accum=grad_accum,
-            objective=objective, beta=train_cfg.beta)
+
+        def train_step_for(model, optimizer):
+            return make_train_step(
+                model, optimizer, self.masking,
+                masking_prob=train_cfg.masking_prob, grad_accum=grad_accum,
+                objective=objective, beta=train_cfg.beta)
+
+        self._train_step_for = train_step_for
+        self._train_step = train_step_for(self.model, self.optimizer)
         self._eval_step = make_eval_step(
             self.model, self.masking, masking_prob=train_cfg.masking_prob,
             objective=objective, beta=train_cfg.beta)
-        self.lr_schedule = epoch_lr_schedule(
-            train_cfg.init_lr, train_cfg.num_warmup_epochs,
-            train_cfg.num_epochs, train_cfg.decay_factor)
         self.best_val_loss = float("inf")
         self._last_epoch_batches = 0
         self.output_json = {
@@ -120,6 +124,41 @@ class PretrainTrainer:
             },
             "losses": {"train": {}, "val": {}},
         }
+
+    def lr_schedule(self, epoch: int) -> float:
+        """The epoch's LR: the schedule from init_lr, or from the LR range
+        test's result where output_json records one."""
+        cfg = self.cfg
+        base = self.output_json["model_config"].get("optimal_lr",
+                                                    cfg.init_lr)
+        return epoch_lr_schedule(base, cfg.num_warmup_epochs,
+                                 cfg.num_epochs, cfg.decay_factor)(epoch)
+
+    def _maybe_find_optimal_lr(self):
+        """LR range test on a throwaway copy of the model and optimizer
+        (reference base_trainer.py:418-441 + find_optimal_lr.py), at the
+        base n_masked_features, its generator seeded with seed + 999."""
+        if not self.cfg.use_optimal_lr:
+            return
+        from weathermodel_tpu_torch.train.lr_finder import find_optimal_lr
+        from weathermodel_tpu_torch.utils.constants import DRY_RUN
+
+        model, optimizer = copy.deepcopy((self.model, self.optimizer))
+        step = self._train_step_for(model, optimizer)
+        generator = torch.Generator().manual_seed(self.cfg.seed + 999)
+
+        def run_step(batch, lr):
+            batch = batch_to_device(batch, self.device)
+            return float(step(batch, generator, lr,
+                              self.cfg.n_masked_features)["total_loss"])
+
+        optimal, _, _ = find_optimal_lr(
+            run_step, self.make_loaders("train", True, self.cfg.seed),
+            num_iter=5 if DRY_RUN else 100)
+        del model, optimizer
+        logger.info("Using optimal LR %.3e (was %.3e)", optimal,
+                    self.cfg.init_lr)
+        self.output_json["model_config"]["optimal_lr"] = optimal
 
     def _run_epoch(self, epoch: int, split: str):
         """One pass over `split`: (mean metrics, host seconds per step, each
@@ -157,6 +196,7 @@ class PretrainTrainer:
         cfg = self.cfg
         result = {"best_val_loss": self.best_val_loss,
                   "train_step_seconds": [], "val_batches": []}
+        self._maybe_find_optimal_lr()
         for epoch in range(cfg.num_epochs):
             t0 = time.time()
             train_losses, step_seconds = self._run_epoch(epoch, "train")

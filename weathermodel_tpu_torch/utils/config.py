@@ -76,9 +76,9 @@ def model_config_for_size(size: str, **overrides) -> ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (reference pretraining_main.py:41-67
-    defaults). `use_optimal_lr` and `checkpoint_every` are carried so the
-    table stays the JAX package's; the port's trainer raises on the first
-    and writes no full-state checkpoints yet (ROADMAP.md queue A item 7)."""
+    defaults). `checkpoint_every` is carried so the table stays the JAX
+    package's; the port's trainer writes no full-state checkpoints yet
+    (ROADMAP.md queue A item 7)."""
 
     batch_size: int = 256
     num_epochs: int = 100
