@@ -3,6 +3,7 @@
     python3 chip_compare.py TAG            # from a tree's root
     python3 chip_compare.py TAG --splits   # and bf16 B6b's row slices
     python3 chip_compare.py TAG --masks    # the keep-mask readings alone
+    python3 chip_compare.py TAG --attention  # the attention readings alone
 
 Run from the root of a checkout; it imports that checkout's `chip_smoke`
 and `weathermodel_tpu_torch`, so the same file compares an older tree too
@@ -40,7 +41,12 @@ It prints progress lines and last one line `RESULT {json}` holding TAG and:
 With --splits, also bf16 B6b's time and its passes' device ms (one profile
 of 3 calls) at the row slices `ops.fused_ffn_ln._wgrad_splits` picks and at
 other counts (dW1's, dW2's). With --masks, only the keep-mask family's
-hashes, times and SASS.
+hashes, times and SASS. With --attention, only B3f, B3b and B2 in bf16 and in
+fp32 (keys "fp32 B3f hash" and so on; the fp32 forms also at the yield step's
+64 x 364) and the yield train step (chip_smoke.py's `_yield_profile` model
+and batch: WeatherFormer-small, ELBO, batch 64, T = 364, dropout 0.1) in
+fp32 and bf16: the median host ms of 20 steps, each ending in the loss's
+read, and windows/s.
 """
 
 import hashlib
@@ -123,13 +129,6 @@ def kernels(out):
 
 
 def probes_and_attention(out):
-    from weathermodel_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd,
-        flash_attention_fwd,
-    )
-    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
-        fused_qkv_attention_bwd,
-    )
     from weathermodel_tpu_torch.ops.headpack import headpack_v0, headpack_v1
     from weathermodel_tpu_torch.scripts import abl_headpack
 
@@ -144,18 +143,78 @@ def probes_and_attention(out):
     reading("P1", lambda: headpack_v0(q, k, v))
     reading("P2", lambda: headpack_v1(q, k, v)[..., :live])
     del q, k, v
-    g = torch.Generator(device="cuda").manual_seed(77)
+    attention(out, (torch.bfloat16,))
 
-    def rand(*shape):
-        return torch.randn(*shape, device="cuda", generator=g).to(torch.bfloat16)
 
-    qkv, do = rand(256, 365, 600), rand(256, 365, 200)
-    q, k, v = qkv.chunk(3, dim=-1)
-    reading("B3f", lambda: flash_attention_fwd(q, k, v, 10, cs.DROPOUT, 7))
-    reading("B3b", lambda: flash_attention_bwd(q, k, v, do, 10, cs.DROPOUT, 7))
-    del qkv, do, q, k, v
-    qkv, do = rand(288, 365, 1728), rand(288, 365, 576)
-    reading("B2", lambda: fused_qkv_attention_bwd(qkv, do, 16, cs.DROPOUT, 7))
+def attention(out, dtypes=(torch.bfloat16, torch.float32)):
+    """B3f and B3b (B = 256, T = 365, H = 200, 10 heads) and B2 (B = 288,
+    H = 576, 16 heads), dropout 0.1, in each of `dtypes`: output hashes and
+    CUDA-event ms (fp32 keys prefixed "fp32 "; fp32 B3f and B3b also at
+    B = 64, T = 364)."""
+    from weathermodel_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+        fused_qkv_attention_bwd,
+    )
+
+    for dtype in dtypes:
+        tag = "" if dtype == torch.bfloat16 else "fp32 "
+        g = torch.Generator(device="cuda").manual_seed(77)
+
+        def rand(*shape):
+            return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+        def reading(name, fn, iters=20):
+            got = fn()
+            got = got if isinstance(got, tuple) else (got,)
+            out[f"{tag}{name} hash"] = ",".join(digest(a) for a in got)
+            out[f"{tag}{name} ms"] = cs._cuda_ms(fn, iters=iters, warmup=3)
+
+        shapes = [(256, 365, "")]
+        if dtype == torch.float32:
+            shapes.append((64, 364, " 64x364"))
+        for b, t, label in shapes:
+            qkv, do = rand(b, t, 600), rand(b, t, 200)
+            q, k, v = qkv.chunk(3, dim=-1)
+            reading("B3f" + label,
+                    lambda: flash_attention_fwd(q, k, v, 10, cs.DROPOUT, 7))
+            reading("B3b" + label, lambda: flash_attention_bwd(
+                q, k, v, do, 10, cs.DROPOUT, 7))
+            del qkv, do, q, k, v
+        qkv, do = rand(288, 365, 1728), rand(288, 365, 576)
+        reading("B2", lambda: fused_qkv_attention_bwd(qkv, do, 16, cs.DROPOUT,
+                                                      7), iters=10)
+        del qkv, do
+        torch.cuda.empty_cache()
+
+
+def yield_step(out):
+    """The yield train step in fp32 and bf16: median host ms of 20 steps
+    after 3 warm-up ones, each ending in the loss's read, and windows/s."""
+    from weathermodel_tpu_torch.train.state import make_optimizer
+    from weathermodel_tpu_torch.train.yield_trainer import (
+        make_yield_train_step,
+    )
+
+    for dtype in ("float32", "bfloat16"):
+        model = cs._yield_model("flash", dtype, "cuda")
+        step = make_yield_train_step(model, make_optimizer(model), "elbo",
+                                     1e-4)
+        batch = cs._yield_batch(cs.YIELD_BATCH, "cuda", cs.SEED + 6)
+        gen = torch.Generator().manual_seed(cs.SEED)
+        times = []
+        for i in range(23):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(step(batch, gen, 1e-4)["total_loss"])
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms = sorted(times)[len(times) // 2]
+        out[f"yield {dtype} step ms"] = ms
+        out[f"yield {dtype} windows/s"] = cs.YIELD_BATCH / ms * 1e3
+        print(out["tree"], dtype, "yield step", ms, flush=True)
 
 
 def splits(out):
@@ -478,6 +537,11 @@ def main():
         raise SystemExit("chip_compare: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"tree": sys.argv[1]}
+    if "--attention" in sys.argv[2:]:
+        attention(out)
+        yield_step(out)
+        print("RESULT " + json.dumps(out), flush=True)
+        return
     if "--masks" in sys.argv[2:]:
         masks(out)
         print("RESULT " + json.dumps(out), flush=True)

@@ -68,7 +68,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
                ptxas report for the training form and the backward body's
                (attention_bwd_wgmma_kernel: bf16 B2 and B3b) with its shared
                memory; bf16 B1 train's and B2's times beside the recorded
-               ones (B2's on the scalar passes); B1 train (o and qkv) at the
+               ones (B2's on the scalar passes), and fp32 B2's on the FFMA
+               body (csrc/attention_ffma.cuh) beside its scalar passes'
+               recorded time, its bound and its share of it; B2 twice,
+               bitwise equal, in both dtypes; B1 train (o and qkv) at the
                edge shapes, and B2 at the backward's edge shapes (the
                backward body's tile edges T = 1, 64, 65, 383, 384 at the
                four head dims, 365, its dispatch boundary 576/577 at hd 36
@@ -99,9 +102,17 @@ Phases, each printing one line; any failure raises and exits non-zero:
                scalar flash_attention_kernel does; the forward and the
                backward bodies' ptxas reports (B3b's as its file compiles
                it) and shared memory, and bf16 B3f's and B3b's times beside
-               the recorded ones on the scalar bodies; both at the edge
-               shapes (the bodies' tile edges and dispatch boundaries),
-               dropout 0.1 and 0
+               the recorded ones on the scalar bodies; B3f and B3b twice,
+               bitwise equal, in both dtypes; the fp32 FFMA bodies'
+               (csrc/attention_ffma.cuh) ptxas report and shared memory, a
+               profile of fp32 B3f (slices and tensors), B3b and B2 (at
+               WeatherBERT-large's width) at both rates, which fails unless
+               the FFMA bodies run and no fp32 scalar body does, and fp32
+               B3f's and B3b's times at dropout 0.1 and 0 beside the scalar
+               bodies' recorded ones, SDPA, the bound and the share of it,
+               at B=256 T=365 and at the yield step's 64 x 364; both at the
+               edge shapes (the bodies' tile edges and dispatch boundaries,
+               the FFMA bodies' too), dropout 0.1 and 0
   10. train_former - `wm-pretrain-torch`'s run(args) with the JAX CLI's
                defaults (WeatherFormer-small, ELBO, beta 0.5, 10 masked
                features, --attention-impl auto) in bf16 at --batch-size 256,
@@ -122,8 +133,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                of B3f per validation batch, none of B1/B2; finite losses,
                the train loss falls, a finite RMSE and R^2; ms per step,
                windows/s, the fold's seconds and peak memory; then the same
-               run in bf16; a profiled fp32 step naming B3f's and B3b's
-               scalar bodies and their share of device time, and a bf16 one
+               run in bf16; a profiled fp32 step requiring B3f's and B3b's
+               FFMA bodies and forbidding their fp32 scalar ones, with their
+               share of device time, and a bf16 one
                requiring their wgmma bodies and forbidding their bf16 scalar
                kernels; one yield step of the kernel path against the plain
                path at 16 windows, dropout off, eps injected, fp32 and bf16
@@ -386,7 +398,10 @@ ATTN_EDGE_SHAPES = [(4, 1, 576, 16), (4, 64, 336, 12), (4, 65, 200, 10),
 # scalar passes; the forward body's (768 and 769 at hd 36, 1152 and 1153 at
 # hd 20), past which bf16 B3f runs its scalar body; past the rows the scalar
 # passes keep in shared memory (about 530 at hd 36), each head dim at 1024;
-# the limit at hd 36 and at hd 12 (the bf16 bodies' own there)
+# the limit at hd 36 and at hd 12 (the bf16 bodies' own there); the fp32
+# FFMA bodies' dispatch boundaries, past which fp32 runs the scalar bodies:
+# the backward's 760/761 (hd 36), 968/969 (hd 28) and 1320/1321 (hd 20), the
+# forward's 800/801, 1032/1033 and 1448/1449
 ATTN_BWD_EDGE_SHAPES = [(2, 1, 576, 16), (2, 64, 336, 12), (2, 65, 200, 10),
                         (2, 383, 48, 4), (2, 384, 576, 16), (2, 365, 576, 16),
                         (1, 576, 576, 16), (1, 577, 576, 16),
@@ -396,7 +411,13 @@ ATTN_BWD_EDGE_SHAPES = [(2, 1, 576, 16), (2, 64, 336, 12), (2, 65, 200, 10),
                         (1, 600, 576, 16), (1, 1024, 576, 16),
                         (1, 1024, 336, 12), (1, 1024, 200, 10),
                         (1, 1024, 48, 4), (1, 1536, 576, 16),
-                        (1, 1536, 48, 4)]
+                        (1, 1536, 48, 4), (1, 760, 576, 16),
+                        (1, 761, 576, 16), (1, 968, 336, 12),
+                        (1, 969, 336, 12), (1, 1320, 200, 10),
+                        (1, 1321, 200, 10), (1, 800, 576, 16),
+                        (1, 801, 576, 16), (1, 1032, 336, 12),
+                        (1, 1033, 336, 12), (1, 1448, 200, 10),
+                        (1, 1449, 200, 10)]
 # the bf16 times at T = 365 recorded for the attention body before its long-T
 # path (B1 eval and B5 at B = 256, B1 train at 288, dropout 0.1; PERF.md §6,
 # H100 80GB HBM3, 700 W), printed beside this run's: the short-T path must not
@@ -406,6 +427,10 @@ SHORT_T_MS = {"B1 eval": 1.258, "B1 train": 2.073, "B5": 1.914}
 # the scalar passes before their wgmma body (PERF.md §6; H100 80GB
 # HBM3, 700 W), printed beside this run's
 SCALAR_BWD_MS = {"B2": 34.649, "B3b": 15.594}
+# fp32 B3f and B3b (B = 256, T = 365, dropout 0.1) and fp32 B2 (B = 288) on
+# the scalar bodies before the FFMA bodies (PERF.md §6; H100 80GB HBM3,
+# 700 W), printed beside this run's
+SCALAR_FP32_MS = {"B3f": 4.134, "B3b": 15.430, "B2": 34.662}
 # WeatherBERT-large served on windows of two years (T = 730), the length
 # `wm-serve-torch` takes from its input file
 LONG_SEQ_LEN, LONG_WINDOWS = 730, 64
@@ -746,6 +771,49 @@ def _fwd_body_report():
     return (f"{FLASH_BODY}<hd> ptxas: {'; '.join(report)}; "
             f"dynamic shared memory a block by hd at T = {SEQ_LEN}, (its "
             f"largest T, there) and {MAX_CONTEXT}: {smem} B")
+
+
+def _ffma_body_report():
+    """The fp32 FFMA bodies' ptxas report (registers and spills of each
+    kernel by head dim and dropout) and their dynamic shared memory a block
+    at T = 365, at the largest T they take (0 past it: the scalar bodies
+    run) and at MAX_CONTEXT, by head dim."""
+    import re
+
+    from weathermodel_tpu_torch.kernels import build
+    from weathermodel_tpu_torch.ops.attention import MAX_CONTEXT
+
+    built = build.load_library()
+    lines = built.ptxas_log.splitlines()
+    report = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '.*(attention_(?:fwd|bwd)_"
+                      r"ffma_\w*?kernel)ILi(\d+)ELb([01])EE", line)
+        if m is None or m.groups() in report:  # B2's and B3b's files each
+            continue                            # compile the backward
+        block = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        spilled = "/".join(spill.groups()) if spill else "?"
+        report[m.groups()] = (f"{regs.group(1) if regs else '?'} registers, "
+                              f"spill {spilled} B")
+    if len(report) != 24:
+        raise AssertionError(f"ptxas reported {sorted(report)} for the FFMA "
+                             f"bodies, not their 3 kernels x 4 head dims x 2")
+    text = "; ".join(f"{name}<{hd}, {drop}>: {r}" for (name, hd, drop), r in
+                     sorted(report.items()))
+    smem = {}
+    for label, smem_at in (("fwd", built.lib.wm_flash_attention_ffma_smem),
+                           ("bwd", built.lib.wm_attention_bwd_ffma_smem)):
+        top = {hd: max(t for t in range(1, MAX_CONTEXT + 1)
+                       if smem_at(hd, t) > 0) for hd in (12, 20, 28, 36)}
+        smem[label] = {hd: (smem_at(hd, SEQ_LEN), (t, smem_at(hd, t)),
+                            smem_at(hd, MAX_CONTEXT))
+                       for hd, t in top.items()}
+    return (f"FFMA bodies (attention_ffma.cuh) ptxas: {text}; dynamic shared "
+            f"memory a block by hd at T = {SEQ_LEN}, (the largest T, there) "
+            f"and {MAX_CONTEXT}: {smem} B")
 
 
 def _check_kernel_names(what, keys, require=(), forbid=()):
@@ -1244,6 +1312,10 @@ def _train_kernels_case(x, w, b, do, nh, dtype, rate, seed, timed: bool):
     o_ref, qkv_ref = fused_qkv_attention_train_reference(*args, rate, seed)
     dqkv = fused_qkv_attention_bwd(qkv_ref, g, nh, rate, seed)
     dqkv_ref = fused_qkv_attention_bwd_reference(qkv_ref, g, nh, rate, seed)
+    if not torch.equal(dqkv, fused_qkv_attention_bwd(qkv_ref, g, nh, rate,
+                                                     seed)):
+        raise AssertionError(f"B2 {dtype} dropout {rate}: two calls gave "
+                             f"different bits")
     torch.cuda.synchronize()
     errs = {name: _check_kernel(f"{name} {dtype} dropout {rate}", got, want,
                                 dtype)
@@ -1327,6 +1399,13 @@ def phase_kernel_train():
           f"{SHORT_T_MS['B1 train']} ms); bf16 B2 on its wgmma body "
           f"{results[torch.bfloat16, DROPOUT]['bwd_ms']:.3f} ms (recorded on "
           f"the scalar passes: {SCALAR_BWD_MS['B2']} ms)", flush=True)
+    f32 = results[torch.float32, DROPOUT]
+    print(f"kernel_train: fp32 B2 on its FFMA body at T={SEQ_LEN} "
+          f"{f32['bwd_ms']:.3f} ms (recorded on the scalar passes: "
+          f"{SCALAR_FP32_MS['B2']} ms), SDPA fwd+bwd "
+          f"{f32['bwd_library_ms']:.3f}, bound {f32['bwd_bound'][0]:.3f} ms "
+          f"by {f32['bwd_bound'][1]}, "
+          f"{f32['bwd_bound'][0] / f32['bwd_ms']:.3f} of it", flush=True)
     for rate in (DROPOUT, 0.0):
         print(f"kernel_train: B1 train (o, qkv) dropout {rate} "
               + _attention_edges(
@@ -1721,7 +1800,13 @@ def _flash_case(qkv, do, nh, dtype, rate, seed, timed: bool):
     o_ref = flash_attention_fwd_reference(*args)
     grads = flash_attention_bwd(*bwd_args)
     grads_ref = flash_attention_bwd_reference(*bwd_args)
+    # a fixed summation order and no atomics: a second call gives the bits
+    again = (flash_attention_fwd(*args), *flash_attention_bwd(*bwd_args))
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((o, *grads), again)):
+        raise AssertionError(f"B3f/B3b {dtype} dropout {rate}: two calls "
+                             f"gave different bits")
+    del again
     errs = {name: _check_kernel(f"{name} {dtype} dropout {rate}", got, want,
                                 dtype)
             for name, got, want in (("o", o, o_ref),
@@ -1796,6 +1881,105 @@ def _b3f_profiles():
                 require=(FLASH_BODY,), forbid=(FLASH_SCALAR_BF16,))
 
 
+def _ffma_profiles():
+    """fp32 B3f (on the column slices of a packed projection and on three
+    tensors) and B3b at kernel_flash's shape, and fp32 B2 at
+    WeatherBERT-large's width, dropout 0.1 and 0, each call profiled: fails
+    unless the FFMA bodies run and no fp32 scalar body does."""
+    from weathermodel_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+        fused_qkv_attention_bwd,
+    )
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    forbid = (FLASH_SCALAR_FP32, *ATTN_BWD_SCALAR_FP32)
+    cfg = model_config_for_size(FORMER_SIZE)
+    h, nh = cfg.hidden_dim, cfg.num_heads
+    qkv = torch.randn(FORMER_BATCH, SEQ_LEN, 3 * h, device="cuda", generator=g)
+    do = torch.randn(FORMER_BATCH, SEQ_LEN, h, device="cuda", generator=g)
+    slices = qkv.chunk(3, dim=-1)
+    tensors = tuple(a.contiguous() for a in slices)
+    large = model_config_for_size(MODEL_SIZE)
+    qkv_l = torch.randn(2, SEQ_LEN, 3 * large.hidden_dim, device="cuda",
+                        generator=g)
+    do_l = torch.randn(2, SEQ_LEN, large.hidden_dim, device="cuda",
+                       generator=g)
+    for rate in (DROPOUT, 0.0):
+        calls = [(f"fp32 B3f on {layout}", (FLASH_FFMA,),
+                  lambda ops=ops: flash_attention_fwd(*ops, nh, rate, 7))
+                 for layout, ops in (("slices", slices),
+                                     ("tensors", tensors))]
+        calls += [("fp32 B3b", ATTN_BWD_FFMA,
+                   lambda: flash_attention_bwd(*slices, do, nh, rate, 7)),
+                  ("fp32 B2", ATTN_BWD_FFMA,
+                   lambda: fused_qkv_attention_bwd(qkv_l, do_l,
+                                                   large.num_heads, rate, 7))]
+        for what, require, call in calls:
+            call()  # warm-up
+            _check_kernel_names(f"{what}, dropout {rate}",
+                                [e.key for e in _profiled(call)],
+                                require=require, forbid=forbid)
+
+
+def _ffma_timings(b, t, h, nh, r=None):
+    """fp32 B3f and B3b at (b, t, h, nh) on the FFMA bodies: kernel ms at
+    dropout 0.1 and 0, SDPA ms (forward; forward and backward) at 0.1, the
+    bounds and the shares of them, on seeded column slices of a packed
+    projection; `r` (kernel_flash's timed fp32 case at that shape) supplies
+    the 0.1 readings where given."""
+    from weathermodel_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    qkv = torch.randn(b, t, 3 * h, device="cuda", generator=g)
+    do = torch.randn(b, t, h, device="cuda", generator=g)
+    q, k, v = qkv.chunk(3, dim=-1)
+    if r is None:
+        heads = [_heads(a, nh) for a in (q, k, v)]
+        qh, kh, vh = (a.detach().requires_grad_() for a in heads)
+        g_heads = _heads(do, nh)
+
+        def library_bwd():
+            out = F.scaled_dot_product_attention(qh, kh, vh, dropout_p=DROPOUT)
+            return torch.autograd.grad(out, (qh, kh, vh), g_heads)
+
+        def library_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(*heads,
+                                                      dropout_p=DROPOUT)
+
+        r = dict(
+            fwd_ms=_cuda_ms(lambda: flash_attention_fwd(q, k, v, nh, DROPOUT,
+                                                        7), iters=20),
+            bwd_ms=_cuda_ms(lambda: flash_attention_bwd(q, k, v, do, nh,
+                                                        DROPOUT, 7), iters=10),
+            fwd_library_ms=_cuda_ms(library_fwd, iters=20),
+            bwd_library_ms=_cuda_ms(library_bwd, iters=10))
+    r = dict(r,
+             fwd0_ms=_cuda_ms(lambda: flash_attention_fwd(q, k, v, nh, 0.0, 7),
+                              iters=20),
+             bwd0_ms=_cuda_ms(lambda: flash_attention_bwd(q, k, v, do, nh,
+                                                          0.0, 7), iters=10),
+             fwd_bound=_flash_bound(b, t, h, nh, torch.float32),
+             bwd_bound=_bwd_bound(b, t, h, nh, torch.float32))
+    text = []
+    for name, key in (("B3f", "fwd"), ("B3b", "bwd")):
+        ms, lib, (bound, by) = r[key + "_ms"], r[key + "_library_ms"], r[
+            key + "_bound"]
+        sdpa = "SDPA fwd+bwd" if key == "bwd" else "SDPA"
+        text.append(f"{name} {ms:.3f} ms at dropout {DROPOUT}, "
+                    f"{r[key + '0_ms']:.3f} at 0, {sdpa} {lib:.3f} (kernel "
+                    f"at or below it: {ms <= lib}), bound {bound:.3f} by "
+                    f"{by}, {bound / ms:.3f} of it")
+    return f"B={b} T={t}: " + "; ".join(text)
+
+
 def phase_kernel_flash():
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
@@ -1832,7 +2016,9 @@ def phase_kernel_flash():
                 f"backend {r['sdpa_backend']}")
         lines.append(line)
     _in_child("cs._b3f_profiles()")  # bf16 B3f's calls, profiled
+    _in_child("cs._ffma_profiles()")  # fp32 B3f's, B3b's and B2's
     print("kernel_flash: " + _fwd_body_report(), flush=True)
+    print("kernel_flash: " + _ffma_body_report(), flush=True)
     print("kernel_flash: " + _bwd_body_report("flash_attention_bwd"),
           flush=True)
     print(f"kernel_flash: B={FORMER_BATCH} T={SEQ_LEN} H={h} heads={nh} (tol "
@@ -1846,6 +2032,14 @@ def phase_kernel_flash():
           f"the scalar body: {SCALAR_FWD_MS['B3f']} ms); on the slices and "
           f"on three tensors the profile shows {FLASH_BODY} and no "
           f"{FLASH_SCALAR_BF16}", flush=True)
+    print(f"kernel_flash: fp32 on the FFMA bodies (recorded on the scalar "
+          f"bodies at B={FORMER_BATCH} T={SEQ_LEN}, dropout {DROPOUT}: B3f "
+          f"{SCALAR_FP32_MS['B3f']} ms, B3b {SCALAR_FP32_MS['B3b']} ms; the "
+          f"profiles show {FLASH_FFMA} and {ATTN_BWD_FFMA} for B3f, B3b and "
+          f"B2, and no fp32 scalar body) | "
+          + _ffma_timings(FORMER_BATCH, SEQ_LEN, h, nh,
+                          results[torch.float32, DROPOUT])
+          + " | " + _ffma_timings(YIELD_BATCH, YIELD_T, h, nh), flush=True)
     for rate in (DROPOUT, 0.0):
         print(f"kernel_flash: B3f and B3b (o, dq, dk, dv) dropout {rate} "
               + _attention_edges(
@@ -1931,7 +2125,12 @@ YIELD_T = 7 * 52
 # so its gradient is zero in exact arithmetic and rounding noise on both
 # paths; the one-step comparison leaves it out
 YIELD_SHIFT_INVARIANT = ("weather_attention.2.bias",)
-# the fp32 scalar bodies of B3f and B3b, which the fp32 yield profile names
+# the fp32 FFMA bodies of B3f and of B2's and B3b's backward
+# (csrc/attention_ffma.cuh), which every fp32 profile at T = 365 must show,
+# and the fp32 scalar bodies they replaced there, which none may show
+FLASH_FFMA = "attention_fwd_ffma_kernel"
+ATTN_BWD_FFMA = ("attention_bwd_ffma_dq_kernel",
+                 "attention_bwd_ffma_dkdv_kernel")
 FLASH_SCALAR_FP32 = "flash_attention_kernel<float"
 ATTN_BWD_SCALAR_FP32 = ("bwd_dq_kernel<float", "bwd_dkdv_kernel<float")
 
@@ -2016,8 +2215,9 @@ def _yield_profile(dtype: str, require=(), forbid=()):
     _check_kernel_names(f"{dtype} yield step", [e.key for e in events],
                         require, forbid)
     total = sum(_device_ms(e) for e in events)
-    fwd_keys = (FLASH_BODY, FLASH_SCALAR_FP32, FLASH_SCALAR_BF16)
-    bwd_keys = (ATTN_BWD_BODY, *ATTN_BWD_SCALAR_FP32, *ATTN_BWD_SCALAR_BF16)
+    fwd_keys = (FLASH_BODY, FLASH_FFMA, FLASH_SCALAR_FP32, FLASH_SCALAR_BF16)
+    bwd_keys = (ATTN_BWD_BODY, *ATTN_BWD_FFMA, *ATTN_BWD_SCALAR_FP32,
+                *ATTN_BWD_SCALAR_BF16)
     parts = {}
     for label, keys in (("B3f", fwd_keys), ("B3b", bwd_keys)):
         hit = [e for e in events if any(k in e.key for k in keys)]
@@ -2164,7 +2364,8 @@ def phase_yield(smi: str, tmp: Path):
               flush=True)
     # profiled in child processes, as _in_child says why
     print(_in_child(
-        f"cs._yield_profile('float32', require=({FLASH_SCALAR_FP32!r}, "
+        f"cs._yield_profile('float32', require=({FLASH_FFMA!r}, "
+        f"*{ATTN_BWD_FFMA!r}), forbid=({FLASH_SCALAR_FP32!r}, "
         f"*{ATTN_BWD_SCALAR_FP32!r}))"), end="", flush=True)
     print(_in_child(
         f"cs._yield_profile('bfloat16', require=({FLASH_BODY!r}, "

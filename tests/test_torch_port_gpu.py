@@ -148,10 +148,10 @@ FLASH_HEADS = {12: (48, 4), 20: (200, 10), 28: (336, 12), 36: (576, 16)}
 
 def _flash_cases():
     """(b, t, h, heads): WeatherFormer-small's width (T=365, H=200, 10 heads
-    of 20) and mini's head dim at T=37; the forward body's 64-row tile edges
-    (T = 1, 64, 65, 383) at each head dim; its largest resident T and one
-    more (the scalar body) at hd 36 and 20."""
-    cases = [(2, 365, 200, 10), (2, 37, 48, 4)]
+    of 20), the yield step's T=364 and mini's head dim at T=37; the forward
+    body's 64-row tile edges (T = 1, 64, 65, 383) at each head dim; its
+    largest resident T and one more (the scalar body) at hd 36 and 20."""
+    cases = [(2, 365, 200, 10), (2, 364, 200, 10), (2, 37, 48, 4)]
     for hd, (h, nh) in FLASH_HEADS.items():
         cases += [(2, t, h, nh) for t in (1, 64, 65, 383)]
     for hd in (36, 20):
@@ -164,7 +164,8 @@ def _flash_cases():
 # B3f and B3b against their plain versions, on the column slices of a packed
 # projection (the model's layout) and on three separate tensors; the bars of
 # the fused kernels, for the same reasons. In bf16 B3f twice, bitwise equal
-# (a fixed summation order), and its body's shared memory query at T
+# (a fixed summation order), and its body's shared memory query at T; in
+# fp32 both twice, bitwise equal, and the FFMA bodies' queries
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -173,8 +174,13 @@ def test_flash_kernels_match_plain(cuda, dtype, rate, packed, b, t, h, nh):
     from weathermodel_tpu_torch.kernels import build
 
     hd = h // nh
-    smem = build.load_library().lib.wm_flash_attention_wgmma_smem
-    assert (smem(hd, t) > 0) == (t <= FWD_RESIDENT_T[hd])
+    lib = build.load_library().lib
+    assert (lib.wm_flash_attention_wgmma_smem(hd, t) > 0) == (
+        t <= FWD_RESIDENT_T[hd])
+    assert (lib.wm_flash_attention_ffma_smem(hd, t) > 0) == (
+        t <= FFMA_FWD_T[hd])
+    assert (lib.wm_attention_bwd_ffma_smem(hd, t) > 0) == (
+        t <= FFMA_BWD_T[hd])
     rng = np.random.default_rng(2)
     qkv = torch.tensor(rng.normal(size=(b, t, 3 * h)), dtype=dtype,
                        device=cuda)
@@ -195,8 +201,75 @@ def test_flash_kernels_match_plain(cuda, dtype, rate, packed, b, t, h, nh):
     for got, want in ((o, o_ref), *zip(grads, grads_ref)):
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     _assert_scaled_close(f"B3f o T={t} hd={hd} rate={rate}", o, o_ref, dtype)
-    if dtype == torch.bfloat16:
-        assert torch.equal(o, flash_attention_fwd(q, k, v, nh, rate, seed))
+    assert torch.equal(o, flash_attention_fwd(q, k, v, nh, rate, seed))
+    if dtype == torch.float32:
+        again = flash_attention_bwd(q, k, v, do, nh, rate, seed)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+# The fp32 FFMA bodies (csrc/attention_ffma.cuh) keep a head's k and v (the
+# forward), or each backward pass's operands, in shared memory up to this T
+# at each head dim; past it fp32 runs the scalar bodies
+FFMA_FWD_T = {12: 1536, 20: 1448, 28: 1032, 36: 800}
+FFMA_BWD_T = {12: 1536, 20: 1320, 28: 968, 36: 760}
+
+
+def _ffma_cases():
+    """(b, t, h, heads): the FFMA bodies' edges at each head dim: T = 1, 9
+    (8-row padding), 65 (a block of two rows a thread takes 64 a warp), 193
+    (six warps of one row a thread), 385 (of two), the largest T each body
+    keeps on chip and one more; WeatherBERT-large's T = 365 (B2's
+    geometry)."""
+    cases = [(2, 365, 576, 16)]
+    for hd, (h, nh) in FLASH_HEADS.items():
+        ts = {1, 9, 65, 193, 385, FFMA_FWD_T[hd], FFMA_FWD_T[hd] + 1,
+              FFMA_BWD_T[hd], FFMA_BWD_T[hd] + 1}
+        cases += [(1, t, h, nh) for t in sorted(ts) if t <= 1536]
+    return cases
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,h,nh", _ffma_cases())
+def test_fp32_ffma_bodies_match_plain(cuda, rate, b, t, h, nh):
+    """fp32 B3f and B3b (on the column slices of one projection) and B2 (on
+    the packed qkv) against their plain versions at TOL and 2^-16 of
+    max|plain|, across the FFMA bodies' edges and their dispatch boundary
+    (the shared memory queries say which body runs); each call twice,
+    bitwise equal; one launch each."""
+    from weathermodel_tpu_torch.kernels import build
+
+    hd = h // nh
+    lib = build.load_library().lib
+    assert (lib.wm_flash_attention_ffma_smem(hd, t) > 0) == (
+        t <= FFMA_FWD_T[hd])
+    assert (lib.wm_attention_bwd_ffma_smem(hd, t) > 0) == (
+        t <= FFMA_BWD_T[hd])
+    rng = np.random.default_rng(t + h)
+    qkv = torch.tensor(rng.normal(size=(b, t, 3 * h)), dtype=torch.float32,
+                       device=cuda)
+    do = torch.tensor(rng.normal(size=(b, t, h)), dtype=torch.float32,
+                      device=cuda)
+    q, k, v = qkv.chunk(3, dim=-1)
+    seed = 161803
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches,
+              fused_qkv_attention_bwd.launches)
+    runs = [("B3f", lambda: (flash_attention_fwd(q, k, v, nh, rate, seed),),
+             (flash_attention_fwd_reference(q, k, v, nh, rate, seed),)),
+            ("B3b", lambda: flash_attention_bwd(q, k, v, do, nh, rate, seed),
+             flash_attention_bwd_reference(q, k, v, do, nh, rate, seed)),
+            ("B2", lambda: (fused_qkv_attention_bwd(qkv, do, nh, rate, seed),),
+             (fused_qkv_attention_bwd_reference(qkv, do, nh, rate, seed),))]
+    for name, run, want in runs:
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        for i, (got, again, ref) in enumerate(zip(first, second, want)):
+            assert torch.equal(got, again), (name, i)
+            torch.testing.assert_close(got, ref, **TOL[torch.float32])
+            _assert_scaled_close(f"{name} {i} T={t} hd={hd} rate={rate}", got,
+                                 ref, torch.float32)
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches,
+            fused_qkv_attention_bwd.launches) == (before[0] + 2, before[1] + 2,
+                                                  before[2] + 2)
 
 
 # The bf16 backward body (csrc/attention_bwd_hopper.cuh, B2 and B3b) keeps a

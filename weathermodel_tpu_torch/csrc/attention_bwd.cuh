@@ -19,14 +19,17 @@
 // regenerated from the forward's seed and the global (batch row, head) (attention_common.cuh),
 // not stored.
 //
-// Two bodies, chosen by an explicit dispatch on the dtype and the shape in `launch_bwd`:
+// Three bodies, chosen by an explicit dispatch on the dtype and the shape in `launch_bwd`:
 //   * bfloat16 runs attention_bwd_hopper.cuh's (wgmma on operands resident in shared
 //     memory; its note has the design) wherever they fit: T up to 576 at hd 36, 832 at hd
 //     28 and 20, every T at hd 12 (`attn_bwd_hopper::takes`). T = 365 never reaches the
 //     scalar passes.
-//   * float32 (TF32 would change its numerics), and bfloat16 past that T, run the scalar
-//     passes below. Streaming the bf16 body's slabs through a ring past that T is ROADMAP
-//     R5's follow-up.
+//   * float32 runs attention_ffma.cuh's (fp32 FMA on the SIMT pipes, a thread a row over
+//     broadcast float4 reads; its note has the design; TF32 would change the numerics)
+//     wherever each pass's resident operands fit: T up to 760 at hd 36, 968 at hd 28, 1320
+//     at hd 20, every T at hd 12 (`attn_ffma::bwd_takes`).
+//   * Both dtypes past those T run the scalar passes below. Streaming the bf16 body's slabs
+//     through a ring past that T is ROADMAP R5's follow-up.
 //
 // The scalar passes: the flash-attention-2 split into two launches, because one head's
 // q, k, v and dO do not fit a block's shared memory next to the score rows (as fp32 with
@@ -65,6 +68,7 @@
 
 #include "attention_bwd_hopper.cuh"
 #include "attention_common.cuh"
+#include "attention_ffma.cuh"
 
 namespace {
 
@@ -315,18 +319,26 @@ cudaError_t launch_passes(BwdArgs<T> a, int batch, int t, int h, int num_heads,
   return cudaGetLastError();
 }
 
-// bfloat16 at a T whose operands stay resident runs the wgmma body; otherwise the scalar
-// passes, each keeping its rows in shared memory where they fit, else in the workspace.
+// bfloat16 at a T whose operands stay resident runs the wgmma body, float32 at a T whose
+// passes' operands do the FFMA body; otherwise the scalar passes, each keeping its rows in
+// shared memory where they fit, else in the workspace.
 template <typename T, int HD>
 cudaError_t launch_bwd(BwdArgs<T> a, int batch, int t, int h, int num_heads,
                        wm::Dropout drop, cudaStream_t stream) {
+  const float scale = (float)(1.0 / sqrt((double)HD));  // as the forward
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (attn_bwd_hopper::takes<HD>(t)) {
-      const float scale = (float)(1.0 / sqrt((double)HD));  // as the forward
       const attn_bwd_hopper::Params p{a.q,  a.k,  a.v,          a.in_stride, a.dout, a.dq,
                                       a.dk, a.dv, a.out_stride, t,           h,      num_heads,
                                       0,    scale, drop};
       return attn_bwd_hopper::launch<HD>(p, batch, stream);
+    }
+  } else {
+    if (attn_ffma::bwd_takes<HD>(t)) {
+      const attn_ffma::BwdParams p{a.q,  a.k,  a.v,          a.in_stride, a.dout, a.dq,
+                                   a.dk, a.dv, a.out_stride, a.stats,     t,      h,
+                                   num_heads, scale, drop};
+      return attn_ffma::launch_bwd<HD>(p, batch, stream);
     }
   }
   if (bwd_workspace_bytes<HD>(t) == 0)

@@ -13,11 +13,14 @@
 // The dropout keep bits are those of B1's training form for the same seed and global
 // (batch row, head) (attention_common.cuh); B3b regenerates them.
 //
-// Two bodies, chosen by an explicit dispatch on dtype and shape in `launch`:
+// Three bodies, chosen by an explicit dispatch on dtype and shape in `launch`:
 //   * bf16 at a T whose q, k and v stay in a block's shared memory (up to 768 at hd 36, 1152
 //     at hd 28 and 20, every T at hd 12): the wgmma body of flash_attention_hopper.cuh, the
 //     backward body's query sweep on its operand layout (its note has the design).
-//   * fp32, and bf16 past that T: the scalar body below, B1's attention phase
+//   * fp32 at a T whose k and v stay in a block's shared memory (up to 800 at hd 36, 1032 at
+//     hd 28, 1448 at hd 20, every T at hd 12): the FFMA body of attention_ffma.cuh, a thread
+//     a query row over broadcast float4 reads (its note has the design).
+//   * fp32 and bf16 past those T: the scalar body below, B1's attention phase
 //     (`wm::attend_rows`, attention_fwd.cuh) without the projection. One block per (batch
 //     row, head), 512 threads, loads that head's q (scaled and rounded), k and v into shared
 //     memory as fp32 [T][hd + 1], then each warp takes query rows. Shared memory at T = 365:
@@ -27,8 +30,7 @@
 //     score rows stay in shared memory: the same code reads them through the caches, in the
 //     same fmaf order. What bounds it: scalar fp32 FMA and shared-memory loads, one
 //     512-thread block per SM; per weight hd FMAs for the score, an exp, a hash when dropout
-//     is on, and in p . V one FMA per head-dim lane with 32 - hd lanes idle at hd = 20
-//     (ROADMAP R7 for fp32).
+//     is on, and in p . V one FMA per head-dim lane with 32 - hd lanes idle at hd = 20.
 // Both take q, k and v as a base pointer each with one row stride, so the wrapper passes
 // either three [B, T, H] tensors (stride H) or the column slices of a packed [B, T, 3H]
 // projection (stride 3H) without copying them. T up to wm::kMaxContext (1536).
@@ -38,6 +40,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "attention_ffma.cuh"
 #include "attention_fwd.cuh"
 #include "flash_attention_hopper.cuh"
 
@@ -50,11 +53,12 @@ size_t smem_bytes(int t, bool global) {
   return ((global ? 0ull : 3ull * t * (HD + 1)) + (size_t)wm::kWarps * t) * sizeof(float);
 }
 
-// A scalar block's device workspace in bytes: 0 where its rows fit in shared memory, and
-// where bf16 runs the wgmma body.
+// A scalar block's device workspace in bytes: 0 where its rows fit in shared memory, where
+// bf16 runs the wgmma body and where fp32 runs the FFMA body.
 template <typename T, int HD>
 size_t workspace_bytes(int t) {
   if (std::is_same<T, __nv_bfloat16>::value && flash_fwd_hopper::takes<HD>(t)) return 0;
+  if (std::is_same<T, float>::value && attn_ffma::fwd_takes<HD>(t)) return 0;
   return smem_bytes<HD>(t, false) <= wm::kSmemMax ? 0 : 3ull * t * (HD + 1) * sizeof(float);
 }
 
@@ -119,8 +123,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, int stride
   return flash_fwd_hopper::launch<HD>(p, batch, stream);
 }
 
-// bfloat16 at a T whose operands stay in shared memory runs the wgmma body; otherwise the
-// scalar body, its rows in shared memory where they fit, else in the workspace.
+// bfloat16 at a T whose operands stay in shared memory runs the wgmma body, float32 at a T
+// whose k and v do the FFMA body; otherwise the scalar body, its rows in shared memory where
+// they fit, else in the workspace.
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, int stride, void* o,
                    int batch, int t, int h, int num_heads, wm::Dropout drop, void* ws,
@@ -128,6 +133,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, int stride, void
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (flash_fwd_hopper::takes<HD>(t))
       return launch_wgmma<HD>(q, k, v, stride, o, batch, t, h, num_heads, drop, stream);
+  } else {
+    if (attn_ffma::fwd_takes<HD>(t)) {
+      const attn_ffma::FwdParams p{static_cast<const float*>(q),
+                                   static_cast<const float*>(k),
+                                   static_cast<const float*>(v),
+                                   stride,
+                                   static_cast<float*>(o),
+                                   t,
+                                   h,
+                                   num_heads,
+                                   (float)(1.0 / sqrt((double)HD)),  // as the scalar body's
+                                   drop};
+      return attn_ffma::launch_fwd<HD>(p, batch, stream);
+    }
   }
   if (workspace_bytes<T, HD>(t) == 0)
     return launch_body<T, HD, false>(q, k, v, stride, o, batch, t, h, num_heads, drop, ws,
@@ -181,7 +200,8 @@ int wm_flash_attention(int dtype, const void* q, const void* k, const void* v, i
 
 // The device workspace kernel B3f needs for each (batch row, head) block at (dtype,
 // head_dim, t), in bytes (its rows are fp32 in both dtypes); 0 where the rows fit in shared
-// memory or bf16 runs the wgmma body, -1 where the kernel does not take (head_dim, t).
+// memory or bf16 runs the wgmma body or fp32 the FFMA body, -1 where the kernel does not take
+// (head_dim, t).
 long long wm_flash_attention_workspace(int dtype, int head_dim, int t) {
   if (t <= 0 || t > wm::kMaxContext || (dtype != 0 && dtype != 1)) return -1;
   switch (head_dim * 2 + dtype) {
@@ -201,6 +221,12 @@ long long wm_flash_attention_workspace(int dtype, int head_dim, int t) {
 // bytes; 0 where bf16 runs the scalar body instead.
 int wm_flash_attention_wgmma_smem(int head_dim, int t) {
   return flash_fwd_hopper::smem_bytes(head_dim, t);
+}
+
+// The dynamic shared memory a block of fp32 B3f's FFMA body takes at (head_dim, t), in bytes;
+// 0 where fp32 runs the scalar body instead.
+int wm_flash_attention_ffma_smem(int head_dim, int t) {
+  return attn_ffma::fwd_smem_bytes(head_dim, t);
 }
 
 }  // extern "C"

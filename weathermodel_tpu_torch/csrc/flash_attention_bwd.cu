@@ -10,7 +10,8 @@
 // The math, the two bodies and what bounds them are those of the attention backward this
 // kernel shares with B2 (attention_bwd.cuh): bf16 runs the wgmma body of
 // attention_bwd_hopper.cuh (105,472 B of shared memory a block at T = 365, hd = 20), float32
-// and bf16 past the T that body keeps resident run the two scalar passes (107 and 113 KB at
+// the FFMA body of attention_ffma.cuh (two passes of 58,880 and 64,768 B a block there), and
+// both past the T those bodies keep resident the two scalar passes (107 and 113 KB at
 // T = 365, hd = 20). Here q, k and v have one row stride (H for three tensors, 3H for the
 // column slices of a packed projection) and dq, dk, dv a row stride of H.
 
@@ -44,6 +45,12 @@ long long wm_attention_bwd_workspace(int head_dim, int t) {
 // (head_dim, t), in bytes; 0 where bf16 runs the scalar passes instead.
 int wm_attention_bwd_wgmma_smem(int head_dim, int t) {
   return attn_bwd_hopper::smem_bytes(head_dim, t);
+}
+
+// The dynamic shared memory a block of the fp32 FFMA body of B2 and B3b takes at (head_dim,
+// t), in bytes (the larger of its two passes'); 0 where fp32 runs the scalar passes instead.
+int wm_attention_bwd_ffma_smem(int head_dim, int t) {
+  return attn_ffma::bwd_smem_bytes(head_dim, t);
 }
 
 }  // extern "C"

@@ -7,9 +7,10 @@
 // qkv [B, T, 3H] and dO [T, hd] the slice of do [B, T, H]; dq, dk and dv go to the same
 // slices of dqkv [B, T, 3H].
 //
-// The math, the two bodies (bf16: the wgmma body of attention_bwd_hopper.cuh, 154,624 B of
-// shared memory a block at T = 365, hd = 36; float32, and bf16 past the T that body keeps
-// resident: the two scalar passes), their shared memory and what bounds them are those of
+// The math, the three bodies (bf16: the wgmma body of attention_bwd_hopper.cuh, 154,624 B of
+// shared memory a block at T = 365, hd = 36; float32: the FFMA body of attention_ffma.cuh,
+// passes of 105,984 and 111,872 B there; both past the T those bodies keep resident: the two
+// scalar passes), their shared memory and what bounds them are those of
 // the attention backward this kernel shares with B3b (attention_bwd.cuh): here each
 // operand is the packed buffer at column offset 0, H or 2H with a row stride of 3H.
 

@@ -105,6 +105,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     # in bytes, 0 where bf16 runs the scalar body
     lib.wm_flash_attention_wgmma_smem.argtypes = [i, i]
     lib.wm_flash_attention_wgmma_smem.restype = i
+    # (head dim, t) -> fp32 B3f's FFMA body's dynamic shared memory per block
+    # in bytes, 0 where fp32 runs the scalar body
+    lib.wm_flash_attention_ffma_smem.argtypes = [i, i]
+    lib.wm_flash_attention_ffma_smem.restype = i
     # dtype, q, k, v, row stride, do, dq, dk, dv, stats, workspace, batch, t,
     # h, heads, dropout_on, seed, threshold, inv_keep, stream
     lib.wm_flash_attention_bwd.argtypes = [i, p, p, p, i, p, p, p, p, p, p, i,
@@ -150,6 +154,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     # shared memory per block in bytes, 0 where bf16 runs the scalar passes
     lib.wm_attention_bwd_wgmma_smem.argtypes = [i, i]
     lib.wm_attention_bwd_wgmma_smem.restype = i
+    # (head dim, t) -> the fp32 attention backward body's (B2, B3b) dynamic
+    # shared memory per block in bytes (the larger pass's), 0 where fp32 runs
+    # the scalar passes
+    lib.wm_attention_bwd_ffma_smem.argtypes = [i, i]
+    lib.wm_attention_bwd_ffma_smem.restype = i
     # dtype, x, w1, b1, w2, b2, ln_scale, do, dx, dw1, db1, dw2, db2,
     # dln_scale, dln_bias, scratch hd, df, dy, dz, ln_part, w_part, m, h, f,
     # dropout_on, seed1, seed2, threshold, inv_keep, splits1, splits2, stream

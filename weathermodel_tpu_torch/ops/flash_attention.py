@@ -32,8 +32,14 @@ the backward B3b (and B2, ops/fused_qkv_attention.py;
 `csrc/attention_bwd_hopper.cuh`, dO resident too) up to 576 at hd 36, 832
 at hd 20 and 28, every T at hd 12. Both bodies take H a multiple of 8 and
 operand rows 8-byte aligned: `check_bf16_body_layout` raises a ValueError
-otherwise for every bf16 call, before any launch. float32 runs the scalar
-kernels.
+otherwise for every bf16 call, before any launch. In float32 both run FFMA
+bodies on the SIMT pipes (`csrc/attention_ffma.cuh`: fp32 products and
+sums, no tensor cores) wherever a head's resident operands fit: B3f up to T
+800 at hd 36, 1032 at hd 28, 1448 at hd 20, B3b and B2 up to 760, 968 and
+1320, both every T at hd 12; the scalar kernels past that. The FFMA bodies
+take any layout `build.on_cuda` takes. `build.load_library().lib`'s
+`wm_flash_attention_ffma_smem` and `wm_attention_bwd_ffma_smem` give a
+block's shared memory at (head dim, T), 0 where the scalar kernels run.
 
 The plain versions below are shared with the fused QKV attention
 (ops/fused_qkv_attention.py), whose training form and backward run the same
@@ -108,8 +114,8 @@ def check_bf16_body_layout(name, h, stride, *tensors):
     forward, B2's and B3b's backward), on top of `build.on_cuda`'s: H a
     multiple of 8 and every operand's rows 8-byte aligned (each base, and a
     row stride of q, k and v a multiple of 4 elements), as their 8-byte
-    loads and 4-byte stores need. float32 runs the scalar kernels, which
-    take any layout `build.on_cuda` takes."""
+    loads and 4-byte stores need. float32's bodies take any layout
+    `build.on_cuda` takes."""
     if tensors[0].dtype != torch.bfloat16:
         return
     if h % 8:
@@ -151,7 +157,8 @@ def flash_attention_fwd(q, k, v, num_heads: int, dropout_rate: float,
     its wgmma body up to the T where q, k and v fill a block's shared memory
     (768 at hd 36, 1152 at hd 20 and 28, every T at hd 12) and its scalar
     body past that (ROADMAP R5), and takes `check_bf16_body_layout`'s
-    layout."""
+    layout; in float32 its FFMA body up to the T where k and v fill a
+    block's shared memory and the scalar body past that."""
     _check_shapes(q, k, v, num_heads)
     if not build.on_cuda("flash_attention_fwd", q.shape[-1] // num_heads, q,
                          k, v):
@@ -215,9 +222,9 @@ def flash_attention_bwd(q, k, v, do, num_heads: int, dropout_rate: float,
     """Kernel B3b: q, k, v, do [B, T, H] -> (dq, dk, dv) [B, T, H], with the
     forward's dropout rate and seed. do must be contiguous.
 
-    CUDA tensors launch the kernel (bf16's wgmma body, or the two scalar
-    passes, counted once in `flash_attention_bwd.launches`) or raise; CPU
-    tensors take the plain version."""
+    CUDA tensors launch the kernel (bf16's wgmma body, fp32's FFMA body,
+    or the two scalar passes, counted once in `flash_attention_bwd.launches`)
+    or raise; CPU tensors take the plain version."""
     _check_shapes(q, k, v, num_heads, do)
     if not build.on_cuda("flash_attention_bwd", q.shape[-1] // num_heads, q,
                          k, v, do):

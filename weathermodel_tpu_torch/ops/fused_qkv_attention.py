@@ -42,8 +42,10 @@ and do 8-byte aligned (`ops.flash_attention.check_bf16_body_layout`). B5's
 second phase, the out-projection, runs in bf16 on the grouped matmul's
 wgmma/TMA body (`csrc/gmm_hopper.cuh`) as one group, whose offsets {0, B T}
 the wrapper puts on the device, where wo and bo are 16-byte aligned (the
-WMMA tiles of `csrc/gmm_common.cuh` otherwise, and in fp32). float32
-runs the scalar bodies. Every kernel here takes T
+WMMA tiles of `csrc/gmm_common.cuh` otherwise, and in fp32). float32 B2
+runs the backward's FFMA body (`csrc/attention_ffma.cuh`, shared with B3b)
+up to the T it keeps on chip (760 at hd 36) and the scalar passes past it;
+float32 B1 and B5 run the scalar body. Every kernel here takes T
 up to `ops.attention.MAX_CONTEXT` (1536) at every head dim; past the T whose
 per-head rows fit in a block's shared memory, it keeps them in a device
 workspace that the wrapper allocates (`_workspace`). A longer T raises a
@@ -221,9 +223,10 @@ def fused_qkv_attention_bwd(qkv, do, num_heads: int, dropout_rate: float,
     """Kernel B2: qkv [B, T, 3H] (the training forward's residual), do
     [B, T, H] -> dqkv [B, T, 3H], with the forward's dropout rate and seed.
 
-    CUDA tensors launch the kernel (bf16's wgmma body, or the two scalar
-    passes, counted once in `fused_qkv_attention_bwd.launches`) or raise;
-    CPU tensors take the plain version."""
+    CUDA tensors launch the kernel (bf16's wgmma body, fp32's FFMA body,
+    or the two scalar passes, counted once in
+    `fused_qkv_attention_bwd.launches`) or raise; CPU tensors take the
+    plain version."""
     _check_bwd_shapes(qkv, do, num_heads)
     if not _on_cuda("fused_qkv_attention_bwd", do.shape[-1] // num_heads,
                    qkv, do):
