@@ -122,7 +122,22 @@ Phases, each printing one line; any failure raises and exits non-zero:
                timings, profile (B3f's forward body and B3b's backward body
                required, their bf16 scalar kernels forbidden) and one-step
                comparison as phase 8
-  11. yield  - `wm-yield-torch`'s run(args) with the JAX CLI's defaults
+  11. resume - the same run's fault tolerance at 3 epochs: (a)
+               uninterrupted; (b) the same argv stopped by a real SIGTERM
+               sent while step 3 of epoch 1 runs, which must return
+               "preempted", leave a checkpoint with mid_epoch.batch_idx 3
+               and restore the SIGTERM handler; (c) (b)'s workdir resumed
+               with --resume-from-checkpoint, whose record's losses, best.pth
+               and last checkpoint (parameters, Adam's moments and step) must
+               equal (a)'s bitwise, with B3f's and B3b's launches over (b) and
+               (c) equal to (a)'s; (d) in a child process, 2 epochs with
+               WEATHERMODEL_PROFILE_DIR set, whose trace must name B3f's and
+               B3b's bf16 bodies; (e) `--model mlp` for 2 epochs (finite
+               losses that fall, no kernel launched). Prints the checkpoint's
+               MB, the seconds the loop blocked on each background boundary
+               save against its write's, the preemption save's seconds and the
+               resume's fast-forward seconds
+  12. yield  - `wm-yield-torch`'s run(args) with the JAX CLI's defaults
                (WeatherFormer-small, ELBO, beta 1e-4, batch 64, fp32,
                --attention-impl auto) and --country synthetic
                --n-train-years 15 --test-year 2016 --n-epochs 2
@@ -142,7 +157,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                (the bars of phase 8); `wm-cropnet-torch --crop-type Corn`
                with the CropNet defaults on the synthetic CropNet frame,
                which fails if the crop's result is None
-  12. kernel_gmm - the grouped matmul B4 (forward, and with rhs^T as the
+  13. kernel_gmm - the grouped matmul B4 (forward, and with rhs^T as the
                backward's d_lhs) and its weight gradient B4t vs their plain
                versions at the MoE microbatch's shapes (S = 96 x 365 x 2 =
                70080 routed rows, E=8, K x N = 576 x 2304 and 2304 x 576),
@@ -155,7 +170,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                one cuBLAS matmul per group); bf16 B4's mean (its four calls
                printed each) and B4t's beside their recorded times on the WMMA
                tiles
-  13. train_moe - `wm-pretrain-torch`'s run(args) for the flagship MoE
+  14. train_moe - `wm-pretrain-torch`'s run(args) for the flagship MoE
                configuration: WeatherBERT-large, --moe-experts 8 --moe-top-k 2
                (ragged dispatch), bf16, --batch-size 288 --grad-accum 3,
                dropout 0.1, 2 epochs, on the same store: per step 96 launches
@@ -167,7 +182,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                kernels, with no bf16 gmm_kernel or tgmm_kernel of the WMMA
                tiles) and one-step comparison with the plain
                path (plain grouped matmuls, plain attention) as phase 8
-  14. kernel_ffn - the bf16 wgmma bodies' (ffn_wgmma_kernel: B6f and B7;
+  15. kernel_ffn - the bf16 wgmma bodies' (ffn_wgmma_kernel: B6f and B7;
                ffn_bwd_wgmma_kernel: B6b's row work) ptxas registers and
                spills and their shared memory; then the fused FFN +
                residual + LayerNorm B6f, its backward B6b and the fused FFN
@@ -187,7 +202,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                the products beside their library pair (two torch.matmul and
                two column sums) and their bound, and B6b beside its recorded
                times
-  15. kernel_maskgen - the keep-mask family at the FFN hidden site of the
+  16. kernel_maskgen - the keep-mask family at the FFN hidden site of the
                bench microbatch (M = 105120 rows, C = 2304, rate 0.1): B8
                (forward and backward) and B8m launched through their public
                functions `kernel_dropout` and `random_keep_mask` with the
@@ -199,7 +214,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                and the library call (bernoulli_ for the bool masks,
                F.dropout for B8, none for B9p) and both bounds (bytes, the
                hash's integer operations)
-  16. probes - the ablation probes through the port's ablation scripts,
+  17. probes - the ablation probes through the port's ablation scripts,
                `python -m weathermodel_tpu_torch.scripts.abl_headpack`'s and
                `.abl_gemm_probe`'s main() at the JAX scripts' full shapes
                with 5 timed steps: P1 and P2 (per-head and head-packed
@@ -227,7 +242,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                version and the library call (two batched torch.matmul over
                the head views with S in bf16 for P1 and P2, torch.matmul for
                P3) and the bounds
-  17. bench - `python -m weathermodel_tpu_torch.bench`'s run(env) at
+  18. bench - `python -m weathermodel_tpu_torch.bench`'s run(env) at
                WeatherBERT-large, 2 x 288, bf16, dropout 0.1, for
                BENCH_FFN_IMPL torch, fused_ffn_ln and fused_ffn (each JSON
                line printed): per step 16 launches of B1 train and B2 in all
@@ -2111,6 +2126,149 @@ def phase_train_former(smi: str, data: Path):
     return launches
 
 
+def _former_argv(data: Path, workdir: Path, epochs: int, *extra):
+    """`wm-pretrain-torch` with the JAX CLI's defaults at FORMER_BATCH, as
+    in train_former."""
+    return ["--model", "weatherformer", "--model-size", FORMER_SIZE,
+            "--batch-size", str(FORMER_BATCH), "--compute-dtype", "bfloat16",
+            "--n-epochs", str(epochs), "--n-warmup-epochs", "0",
+            "--data-dir", str(data), "--workdir", str(workdir),
+            "--device", "cuda", *extra]
+
+
+def _load_run_files(workdir: Path, epoch: int):
+    """(record, best.pth, epoch's checkpoint state) of a pretraining run."""
+    with open(workdir / "weatherformer_output.json") as f:
+        record = json.load(f)
+    best = torch.load(workdir / "best.pth", weights_only=True)
+    state = torch.load(workdir / "checkpoints" / str(epoch) / "state.pt",
+                       weights_only=True)
+    return record, best, state
+
+
+def _check_bitwise(what, want, got):
+    """Tensors of two nested dicts equal bit for bit, plain values equal."""
+    if isinstance(want, dict):
+        if want.keys() != got.keys():
+            raise AssertionError(f"{what}: keys {sorted(want)} != "
+                                 f"{sorted(got)}")
+        for k in want:
+            _check_bitwise(f"{what}/{k}", want[k], got[k])
+    elif isinstance(want, torch.Tensor):
+        if not (want.dtype == got.dtype and want.shape == got.shape
+                and torch.equal(want, got)):
+            raise AssertionError(f"{what}: differs after preempt + resume")
+    elif want != got:
+        raise AssertionError(f"{what}: {want} != {got}")
+
+
+def _resume_profile(data: str):
+    """Child-process part of phase_resume: 2 epochs with
+    WEATHERMODEL_PROFILE_DIR set; fails unless epoch 1's Chrome trace names
+    B3f's and B3b's bf16 bodies. Prints their kernel events' counts."""
+    import os
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["WEATHERMODEL_PROFILE_DIR"] = str(Path(tmp) / "prof")
+        result, _, _, _, _ = _run_pretrain(
+            _former_argv(Path(data), Path(tmp) / "run", 2), ())
+        (trace,) = (Path(tmp) / "prof").iterdir()
+        mb = trace.stat().st_size / 1e6
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    _check_kernel_names(f"the profiler hook's trace {trace.name}",
+                        sorted(set(kernels)),
+                        require=(FLASH_BODY, ATTN_BWD_BODY))
+    counts = {body: sum(body in k for k in kernels)
+              for body in (FLASH_BODY, ATTN_BWD_BODY)}
+    print(json.dumps({"trace": trace.name, "mb": mb, "counts": counts,
+                      "steps": len(result["train_step_seconds"][1]),
+                      "kernel_events": len(kernels)}))
+
+
+def phase_resume(smi: str, data: Path):
+    """Preempt and resume `wm-pretrain-torch` at train_former's
+    configuration; the profiler hook; the MLP baseline."""
+    from weathermodel_tpu_torch.testing import sigterm_during_step
+
+    t_phase = time.perf_counter()
+    epochs = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = Path(tmp) / "a", Path(tmp) / "b"
+        base, base_launches, base_wall, _, _ = _run_pretrain(
+            _former_argv(data, a, epochs), _all_kernels())
+        handler = signal.getsignal(signal.SIGTERM)
+        with sigterm_during_step(epoch=1, step=3):
+            pre, pre_launches, pre_wall, _, _ = _run_pretrain(
+                _former_argv(data, b, epochs), _all_kernels())
+        if pre.get("preempted") is not True:
+            raise AssertionError(f"the SIGTERM did not preempt: {pre}")
+        if signal.getsignal(signal.SIGTERM) is not handler:
+            raise AssertionError("the trainer left its SIGTERM handler in")
+        with open(b / "checkpoints" / "1" / "meta.json") as f:
+            mid = json.load(f)["mid_epoch"]
+        if mid["batch_idx"] != 3:
+            raise AssertionError(f"preemption checkpoint at {mid}")
+        res, res_launches, res_wall, _, _ = _run_pretrain(
+            _former_argv(data, b, epochs, "--resume-from-checkpoint", str(b)),
+            _all_kernels())
+        if "preempted" in res:
+            raise AssertionError(f"the resumed run stopped: {res}")
+        want_record, want_best, want_state = _load_run_files(a, epochs - 1)
+        got_record, got_best, got_state = _load_run_files(b, epochs - 1)
+        _check_bitwise("output_json losses", want_record["losses"],
+                       got_record["losses"])
+        _check_bitwise("best.pth", want_best, got_best)
+        _check_bitwise(f"checkpoint {epochs - 1}", want_state, got_state)
+        ckpt_mb = (a / "checkpoints" / str(epochs - 1) /
+                   "state.pt").stat().st_size / 1e6
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        if not base_launches[name] or not res_launches[name]:
+            raise AssertionError(f"{name} not launched: {base_launches}, "
+                                 f"{res_launches}")
+    split = {k: pre_launches[k] + res_launches[k] for k in base_launches}
+    if split != base_launches:
+        raise AssertionError(f"launches over preempt + resume {split} != "
+                             f"uninterrupted {base_launches}")
+    boundary = [(s["epoch"], round(s["blocked_s"], 4), round(s["write_s"], 4))
+                for s in base["checkpoint_saves"] if not s["wait"]]
+    (preempt_save,) = [s for s in pre["checkpoint_saves"] if s["wait"]]
+    losses = want_record["losses"]["train"]["total_loss"]
+    print(f"resume: wm-pretrain-torch WeatherFormer-{FORMER_SIZE} bf16 "
+          f"--batch-size {FORMER_BATCH}, {epochs} epochs: (a) uninterrupted "
+          f"{base_wall:.1f} s, train loss {losses}; (b) SIGTERM in step 3 of "
+          f"epoch 1 {pre_wall:.1f} s; (c) resumed {res_wall:.1f} s, losses, "
+          f"best.pth and checkpoint {epochs - 1} (params, Adam moments and "
+          f"step) bitwise equal to (a); B3f/B3b launches (a) "
+          f"{base_launches['flash_attention_fwd']}/"
+          f"{base_launches['flash_attention_bwd']} = (b) "
+          f"{pre_launches['flash_attention_fwd']}/"
+          f"{pre_launches['flash_attention_bwd']} + (c) "
+          f"{res_launches['flash_attention_fwd']}/"
+          f"{res_launches['flash_attention_bwd']}; checkpoint "
+          f"{ckpt_mb:.3f} MB; background boundary saves (epoch, loop blocked "
+          f"s, write s) {boundary}; preemption save "
+          f"{preempt_save['blocked_s']:.4f} s; fast-forward "
+          f"{res['fast_forward_seconds']:.4f} s; card {smi}", flush=True)
+    print("resume: profiler hook (child process): "
+          + _in_child(f"cs._resume_profile({str(data)!r})").strip(),
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        result, launches, wall, _, record = _run_pretrain([
+            "--model", "mlp", "--batch-size", str(FORMER_BATCH),
+            "--n-epochs", "2", "--n-warmup-epochs", "0", "--data-dir",
+            str(data), "--workdir", tmp, "--device", "cuda"], _all_kernels())
+    _check_launches(launches, dict.fromkeys(launches, 0),
+                    sum(map(len, result["train_step_seconds"])),
+                    sum(result["val_batches"]))
+    train_loss, val_loss = _check_record(record, tuple(
+        record["losses"]["train"]))
+    print(f"resume: --model mlp, 2 epochs: train loss {train_loss}, val loss "
+          f"{val_loss}, {wall:.1f} s; phase {time.perf_counter() - t_phase:.1f}"
+          " s", flush=True)
+
+
 # the yield path: `wm-yield-torch` with the JAX CLI's defaults
 # (weathermodel_tpu/cli/yield_main.py:91-122: WeatherFormer-small, ELBO, beta
 # 1e-4, batch 64, fp32, --attention-impl auto) on the JAX package's synthetic
@@ -3521,6 +3679,7 @@ def main():
         train_launches = timed("train", phase_train, smi, data)
         flash_kernels = timed("kernel_flash", phase_kernel_flash)
         former_launches = timed("train_former", phase_train_former, smi, data)
+        timed("resume", phase_resume, smi, data)
         timed("yield", phase_yield, smi, Path(tmp))
         gmm_kernel, tgmm_kernel = timed("kernel_gmm", phase_kernel_gmm)
         moe_launches = timed("train_moe", phase_train_moe, smi, data)

@@ -768,6 +768,63 @@ def test_wm_yield_torch_on_the_card(cuda):
     assert np.isfinite(result["avg_rmse_bu_acre"])
 
 
+def test_preempt_and_resume_on_the_card_is_bitwise(cuda, tmp_path):
+    """`wm-pretrain-torch`'s defaults (WeatherFormer-small, bf16, B3f/B3b) on
+    a small store: (a) 3 epochs uninterrupted; (b) the same, stopped by a
+    real SIGTERM while step 3 of epoch 1 runs; (c) (b) resumed with
+    `--resume-from-checkpoint`. (c) ends bitwise equal to (a) in every loss,
+    in best.pth and in the last checkpoint's state, and (b) + (c) launch B3f
+    and B3b as often as (a): no step repeated or skipped."""
+    import json
+
+    from weathermodel_tpu_torch.cli import pretrain
+    from weathermodel_tpu_torch.data.chunks import write_synthetic_dataset
+    from weathermodel_tpu_torch.testing import sigterm_during_step
+
+    store = tmp_path / "store"
+    write_synthetic_dataset(str(store), n_chunks=8, n_samples=96,
+                            seq_len=64, seed=0)
+
+    def run(workdir, *extra):
+        before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+        result = pretrain.run(pretrain.build_parser().parse_args([
+            "--batch-size", "16", "--n-epochs", "3", "--n-warmup-epochs",
+            "0", "--data-dir", str(store), "--workdir", str(workdir),
+            *extra]))
+        return result, (flash_attention_fwd.launches - before[0],
+                        flash_attention_bwd.launches - before[1])
+
+    base, launches = run(tmp_path / "a")
+    assert "preempted" not in base and launches[1] > 0
+    with sigterm_during_step(epoch=1, step=3):
+        pre, pre_launches = run(tmp_path / "b")
+    assert pre["preempted"] is True
+    res, res_launches = run(tmp_path / "b", "--resume-from-checkpoint",
+                            str(tmp_path / "b"))
+    assert "preempted" not in res
+    assert tuple(map(sum, zip(pre_launches, res_launches))) == launches
+
+    def load(root, name):
+        if name.endswith(".json"):
+            with open(root / name) as f:
+                return json.load(f)
+        return torch.load(root / name, weights_only=True)
+
+    a, c = tmp_path / "a", tmp_path / "b"
+    assert (load(a, "weatherformer_output.json")["losses"]
+            == load(c, "weatherformer_output.json")["losses"])
+    for x, y in ((load(a, "best.pth"), load(c, "best.pth")),
+                 (load(a, "checkpoints/2/state.pt")["model"],
+                  load(c, "checkpoints/2/state.pt")["model"])):
+        assert x.keys() == y.keys()
+        assert all(torch.equal(x[k], y[k]) for k in x)
+    want = load(a, "checkpoints/2/state.pt")["optimizer"]["state"]
+    got = load(c, "checkpoints/2/state.pt")["optimizer"]["state"]
+    for i in want:
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(want[i][k], got[i][k]), (i, k)
+
+
 # group layouts of the grouped matmul (rows per group, summing to S): group
 # boundaries inside a 128-row tile, empty first/middle/last groups, S not a
 # multiple of 128, one group over many tiles, tiny groups sharing one tile

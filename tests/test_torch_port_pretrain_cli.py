@@ -102,7 +102,7 @@ def test_pretrained_state_initialises_the_trainer(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--resume-from-checkpoint", "x"], ["--remat"],
+    ["--remat"],
     ["--seq-parallel", "2"], ["--pipeline-stages", "2"],
     ["--pipeline-microbatches", "8"], ["--tensor-parallel", "2"],
     ["--moe-experts", "4", "--moe-dispatch", "sort"],
@@ -115,6 +115,57 @@ def test_unported_flags_exit_naming_the_roadmap(store, tmp_path, flag):
         _argv(store, tmp_path) + ["--device", "cpu"] + flag)
     with pytest.raises(SystemExit, match="ROADMAP.md queue A item"):
         pretrain.run(args)
+
+
+def test_resume_from_checkpoint_continues_from_the_workdir(store, tmp_path,
+                                                          caplog):
+    """`wm-pretrain-torch` with its defaults (WeatherFormer-small, ELBO, bf16,
+    attention auto -> the flash kernels' plain versions here), stopped by a
+    real SIGTERM while step 3 of epoch 1 runs, then run again with
+    `--resume-from-checkpoint`: as in `wm-pretrain`, any value turns resume
+    on and the run resumes from --workdir (a warning names the difference).
+    The resumed run ends bitwise equal to an uninterrupted one: every loss
+    of the record, best.pth, and the last checkpoint's parameters and Adam
+    state."""
+    from weathermodel_tpu_torch.testing import sigterm_during_step
+
+    def run(workdir, *extra):
+        return pretrain.run(pretrain.build_parser().parse_args([
+            "--batch-size", "8", "--n-epochs", "3", "--n-warmup-epochs",
+            "0", "--data-dir", store, "--workdir", str(workdir),
+            "--device", "cpu", *extra]))
+
+    assert "preempted" not in run(tmp_path / "base")
+    with sigterm_during_step(epoch=1, step=3):
+        assert run(tmp_path / "pre")["preempted"] is True
+    with open(tmp_path / "pre" / "checkpoints" / "1" / "meta.json") as f:
+        assert json.load(f)["mid_epoch"]["batch_idx"] == 3
+    with caplog.at_level("WARNING"):
+        result = run(tmp_path / "pre", "--resume-from-checkpoint",
+                     str(tmp_path / "elsewhere"))
+    assert "resumes from --workdir" in caplog.text
+    assert "preempted" not in result and len(result["val_batches"]) == 2
+
+    def load(workdir, name):
+        if name.endswith(".json"):
+            with open(workdir / name) as f:
+                return json.load(f)
+        return torch.load(workdir / name, weights_only=True)
+
+    base, res = tmp_path / "base", tmp_path / "pre"
+    assert (load(base, "weatherformer_output.json")["losses"]
+            == load(res, "weatherformer_output.json")["losses"])
+    for a, b in ((load(base, "best.pth"), load(res, "best.pth")),
+                 (load(base, "checkpoints/2/state.pt")["model"],
+                  load(res, "checkpoints/2/state.pt")["model"])):
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    want = load(base, "checkpoints/2/state.pt")["optimizer"]["state"]
+    got = load(res, "checkpoints/2/state.pt")["optimizer"]["state"]
+    assert want.keys() == got.keys()
+    for i in want:
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(want[i][k], got[i][k]), (i, k)
 
 
 def test_use_optimal_lr_runs_the_range_test_and_records_its_lr(
@@ -139,9 +190,9 @@ def test_use_optimal_lr_runs_the_range_test_and_records_its_lr(
     seen = []
     real_epoch = PretrainTrainer._run_epoch
 
-    def run_epoch(self, epoch, split):
+    def run_epoch(self, epoch, split, mid=None):
         seen.append(self.lr_schedule(epoch))
-        return real_epoch(self, epoch, split)
+        return real_epoch(self, epoch, split, mid)
 
     monkeypatch.setattr(PretrainTrainer, "_run_epoch", run_epoch)
     pretrain.run(pretrain.build_parser().parse_args(
@@ -158,7 +209,7 @@ def test_use_optimal_lr_runs_the_range_test_and_records_its_lr(
 
 
 def test_unported_models_and_sizes_raise(store, tmp_path):
-    for model in ("mlp", "weathercnn"):
+    for model in ("weathercnn",):
         args = pretrain.build_parser().parse_args(
             _argv(store, tmp_path) + ["--device", "cpu", "--model", model])
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -14,20 +14,31 @@ with the dropless ragged dispatch (the grouped-matmul kernels B4/B4t).
         --moe-experts 8 --moe-top-k 2 --batch-size 288 --grad-accum 3 \\
         --data-dir data/ --workdir run/
 
-It writes `{workdir}/{model}_output.json` every epoch and the best
+It writes `{workdir}/{model}_output.json` every epoch, the best
 parameters as a reference-format `{workdir}/best.pth`, which
-`wm-serve-torch --checkpoint` serves. The module also holds `make_model`
-and `load_pretrained_params`, which the serving path shares. Flags of the
-JAX entry point whose feature is not ported exit non-zero when set, naming
-their ROADMAP.md item.
+`wm-serve-torch --checkpoint` serves, and full train-state checkpoints
+under `{workdir}/checkpoints/{epoch}/` (train/checkpoint.py). SIGTERM stops
+a run at the next step boundary with a checkpoint of the state inside the
+epoch; `--resume-from-checkpoint` continues it from `--workdir`, bitwise as
+if it had not stopped:
+
+    wm-pretrain-torch --data-dir data/ --workdir run/ \
+        --resume-from-checkpoint run/
+
+`--model mlp` trains the per-timestep MLP baseline (models/mlp.py). The
+module also holds `make_model` and `load_pretrained_params`, which the
+serving path shares. Flags of the JAX entry point whose feature is not
+ported exit non-zero when set, naming their ROADMAP.md item.
 """
 
 import argparse
 import logging
+import os
 import sys
 
 import torch
 
+from weathermodel_tpu_torch.models.mlp import WeatherMLP
 from weathermodel_tpu_torch.models.transfer import load_reference_checkpoint
 from weathermodel_tpu_torch.models.weatherbert import (
     SimMTM,
@@ -50,17 +61,19 @@ PORTED_MODELS = {
     "weatherformermixture": WeatherFormerMixture,
     "weatherautoencoder": WeatherAutoencoder,
     "simmtm": SimMTM,
+    "mlp": WeatherMLP,
 }
 # models of the JAX package that the port does not have yet
-UNPORTED_MODELS = ("mlp", "weathercnn")
+UNPORTED_MODELS = ("weathercnn",)
+# models without a transformer encoder trunk
+# (weathermodel_tpu/cli/pretrain.py:200-206)
+NO_ENCODER_MODELS = ("mlp", "weathercnn")
 # CLI model name -> the trainer's key (weathermodel_tpu/cli/pretrain.py:161-170)
 TRAINER_KEY = {"weatherformersinusoid": "weatherformer_sinusoid",
                "weatherformermixture": "weatherformer_mixture"}
 
 # flags of the JAX entry point whose feature the port does not have yet
 _UNPORTED = {
-    "resume_from_checkpoint": "resume from a full train-state checkpoint "
-                              "(ROADMAP.md queue A item 7)",
     "remat": "layer rematerialization (ROADMAP.md queue A item 14)",
     "seq_parallel": "sequence parallelism (ROADMAP.md queue A item 14)",
     "pipeline_stages": "pipeline parallelism (ROADMAP.md queue A item 14)",
@@ -84,22 +97,27 @@ def make_model(name: str, cfg: ModelConfig, attention_impl: str,
     if name in UNPORTED_MODELS:
         raise NotImplementedError(
             f"model {name!r} is not ported yet; see ROADMAP.md queue A "
-            "items 8 (mlp) and 11 (weathercnn)")
+            "item 11 (weathercnn)")
     if name not in PORTED_MODELS:
         raise ValueError(f"Unknown model type: {name}. Choose one of "
                          + ", ".join((*PORTED_MODELS, *UNPORTED_MODELS)))
+    if name == "mlp":
+        return WeatherMLP(cfg)
     return PORTED_MODELS[name](cfg, attention_impl=attention_impl,
                                ffn_impl=ffn_impl, gmm_impl=gmm_impl)
 
 
 def load_pretrained_params(path: str) -> dict:
-    """State dict of a reference torch checkpoint (.pth / .pt)."""
+    """State dict of a reference torch checkpoint (.pth / .pt). The port
+    reads no orbax directory (the JAX trainer's output): that would need JAX
+    or tensorstore beside the card (ROADMAP.md queue A item 16, decided)."""
     if path.endswith((".pth", ".pt")):
         return load_reference_checkpoint(path)
     raise NotImplementedError(
-        f"{path} is not a .pth/.pt file. Orbax checkpoint directories (the "
-        "JAX trainer's output) cannot be read without JAX; see ROADMAP.md "
-        "queue A item 16")
+        f"{path} is not a .pth/.pt file. The port reads no orbax checkpoint "
+        "directory (the JAX trainer's output): that would need JAX or "
+        "tensorstore on the card's host; see ROADMAP.md queue A item 16 "
+        "(decided)")
 
 
 def resolve_device(device: str) -> torch.device:
@@ -116,9 +134,11 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--model", default="weatherformer",
                    help="one of: " + ", ".join(PORTED_MODELS)
-                        + " (mlp and weathercnn are not ported yet)")
+                        + " (weathercnn is not ported yet)")
     p.add_argument("--resume-from-checkpoint", default=None,
-                   help="not ported yet")
+                   help="resume the full train state from --workdir's "
+                        "newest checkpoint; as in wm-pretrain, any value "
+                        "turns resume on and --workdir is read")
     p.add_argument("--pretrained-model-path", default=None,
                    help="reference-format .pth to initialise from")
     p.add_argument("--batch-size", default=256, type=int)
@@ -198,12 +218,18 @@ def run(args: argparse.Namespace) -> dict:
         if getattr(args, flag) != getattr(defaults, flag):
             raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not "
                              "ported to weathermodel_tpu_torch yet")
-    if args.moe_experts > 0 and args.model in UNPORTED_MODELS:
+    if args.moe_experts > 0 and args.model in NO_ENCODER_MODELS:
         # these models have no transformer FFN to replace
-        # (weathermodel_tpu/cli/pretrain.py:200-206)
         raise ValueError(
             f"--moe-experts is not supported for --model {args.model} "
             "(no transformer encoder trunk)")
+    resume = args.resume_from_checkpoint is not None
+    if resume and (os.path.abspath(args.resume_from_checkpoint)
+                   != os.path.abspath(args.workdir)):
+        logger.warning(
+            "--resume-from-checkpoint %s: the run resumes from --workdir %s, "
+            "as wm-pretrain does; the value only turns resume on",
+            args.resume_from_checkpoint, args.workdir)
     device = resolve_device(args.device)
     k = args.n_mixture_components
     if args.model == "weatherformersinusoid" and k == 1:
@@ -244,7 +270,7 @@ def run(args: argparse.Namespace) -> dict:
         model, TRAINER_KEY.get(args.model, args.model), mcfg, tcfg,
         make_loaders, workdir=args.workdir,
         device=device, pretrained_state=pretrained,
-        grad_accum=args.grad_accum)
+        grad_accum=args.grad_accum, resume=resume)
     return trainer.train()
 
 
@@ -256,8 +282,12 @@ def main():
     for k, v in vars(args).items():
         logger.info("%s: %s", k, v)
     result = run(args)
-    logger.info("Training complete: best val loss %.6f",
-                result["best_val_loss"])
+    if result.get("preempted"):
+        logger.info("Stopped by a signal: resume with "
+                    "--resume-from-checkpoint %s", args.workdir)
+    else:
+        logger.info("Training complete: best val loss %.6f",
+                    result["best_val_loss"])
 
 
 if __name__ == "__main__":

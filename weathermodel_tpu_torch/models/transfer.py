@@ -4,9 +4,10 @@ weathermodel_tpu/models/transfer.py:53-171).
 
 The port's models' `state_dict()`s use the reference's keys and torch's
 [out, in] weight layout, so a reference `.pth` loads with no conversion.
-`state_dict_from_jax_params` maps a flax param tree of WeatherBERT or of the
-WeatherFormer family to that state dict: for dense layers it is the exact
-inverse of the JAX package's `convert_torch_state_dict`. MoE layers
+`state_dict_from_jax_params` maps a flax param tree of WeatherBERT, of the
+WeatherFormer family or of the MLP baseline (`fc1`, `fc2`) to that state
+dict: for dense layers it is the exact inverse of the JAX package's
+`convert_torch_state_dict`. MoE layers
 (`layer_i/moe`, models/moe.py) map to `....moe.router.{weight,bias}` (the
 kernel transposed) and `....moe.expert_{w1,b1,w2,b2}` in the JAX layout,
 which is what the grouped matmul takes. `yield_state_dict_from_jax_params`
@@ -142,13 +143,19 @@ def _dense_into(sd: dict):
 
 
 def state_dict_from_jax_params(params) -> dict:
-    """flax WeatherBERT or WeatherFormer param tree (numpy or jax arrays,
-    with or without the top-level 'params') -> the port's state dict of CPU
-    tensors."""
+    """flax WeatherBERT, WeatherFormer or WeatherMLP param tree (numpy or
+    jax arrays, with or without the top-level 'params') -> the port's state
+    dict of CPU tensors."""
     p = params["params"] if "params" in params else params
+    if set(p) == {"fc1", "fc2"}:
+        sd = {}
+        dense = _dense_into(sd)
+        dense("fc1.", p["fc1"])
+        dense("fc2.", p["fc2"])
+        return sd
     unknown = set(p) - {"core", "out_proj", *PRIOR_PARAM_NAMES}
     if unknown:
-        raise ValueError(f"not a WeatherBERT/WeatherFormer param tree: "
+        raise ValueError(f"not a WeatherBERT/WeatherFormer/MLP param tree: "
                          f"unexpected top-level entries {sorted(unknown)}")
     sd = {}
     dense = _dense_into(sd)

@@ -15,6 +15,9 @@ Objectives (weathermodel_tpu/train/steps.py:109-169):
                   n_masked the batch-mean masked count
   elbo_sinusoid - the KL against the model's sinusoidal prior
   elbo_mixture  - the one-sample mixture KL at z = mu + sqrt(var) * eps
+  mlp_mse       - the MLP baseline: the full-sequence MSE on its six target
+                  features, and one `feature_{f}_mse` each; the drawn mask
+                  is ignored, as in JAX (steps.py:119-133)
 The ELBO objectives also report `reconstruction`, `kl_term` and the `mae`
 of mu. A model with MoE layers also reports `moe_aux`, the mean of its
 layers' aux losses; the training total adds cfg.moe_aux_weight times it,
@@ -32,6 +35,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from weathermodel_tpu_torch.models.mlp import MLP_TARGET_FEATURES
 from weathermodel_tpu_torch.ops.dropout import draw_seed
 from weathermodel_tpu_torch.ops.losses import (
     gaussian_kl_divergence,
@@ -61,6 +65,9 @@ OBJECTIVE_FOR_MODEL = {
     "weatherformer": ("elbo", "weatherformer"),
     "weatherformer_sinusoid": ("elbo_sinusoid", "weatherformer"),
     "weatherformer_mixture": ("elbo_mixture", "weatherformer"),
+    # the mask is drawn and ignored, so the generator's draws are those of
+    # the other models (trainer.py:45)
+    "mlp": ("mlp_mse", "weatherbert"),
 }
 
 
@@ -84,6 +91,20 @@ def masked_mse_losses(outputs, weather, mask, weight=None) -> dict:
     err = weather - outputs
     return {"total_loss": (err.square() * wm).sum() / msum,
             "mae": (err.abs() * wm).sum() / msum}
+
+
+def mlp_mse_losses(outputs, weather, weight=None) -> dict:
+    """The weighted full-sequence MSE of each MLP target feature and their
+    mean (weathermodel_tpu/train/steps.py:119-133)."""
+    w1 = _sample_weights(weather, weight)
+    target = weather[:, :, list(MLP_TARGET_FEATURES)]
+    t = target.shape[1]
+    feature_losses = (((outputs - target).square() * w1[:, None, None])
+                      .sum(dim=(0, 1)) / (w1.sum().clamp(min=1.0) * t))
+    losses = {"total_loss": feature_losses.mean()}
+    for i, feat in enumerate(MLP_TARGET_FEATURES):
+        losses[f"feature_{feat}_mse"] = feature_losses[i]
+    return losses
 
 
 def elbo_losses(objective, outputs, weather, mask, weight=None,
@@ -151,6 +172,8 @@ def _forward_losses(model, batch: Batch, mask, generator, dropout_rate,
         outputs, moe_aux = outputs
     if objective == "masked_mse":
         losses = masked_mse_losses(outputs, batch.weather, mask, batch.weight)
+    elif objective == "mlp_mse":
+        losses = mlp_mse_losses(outputs, batch.weather, batch.weight)
     else:
         if objective == "elbo_mixture" and eps is None:
             eps = torch.randn(

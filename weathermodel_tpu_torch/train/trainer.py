@@ -1,28 +1,46 @@
 """Epoch-driven pretraining trainer (port of the single-device path of
-weathermodel_tpu/train/trainer.py:52-358,429-502).
+weathermodel_tpu/train/trainer.py:52-502).
 
 Per epoch: the learning rate of the per-epoch schedule, the masking
 curriculum's n_masked, a training pass, a validation pass, the best
-parameters saved on a better validation loss, and `output_json` with the
-JAX trainer's keys. Each pass seeds its loader shuffle and a CPU
-`torch.Generator` (masks and dropout) from
-seed_base = seed + (2 * epoch + split) * 100003, split 0 = train,
-1 = validation, as the JAX trainer does. The record's losses are every
-metric the step returns (`moe_aux` too for a MoE model), per scope.
+parameters saved on a better validation loss, a full train-state checkpoint
+on the JAX cadence (epoch % checkpoint_every == 1, and the last epoch),
+written in the background, and `output_json` with the JAX trainer's keys.
+Each pass seeds its loader shuffle and a CPU `torch.Generator` (masks and
+dropout) from seed_base = seed + (2 * epoch + split) * 100003, split 0 =
+train, 1 = validation, as the JAX trainer does. The record's losses are
+every metric the step returns (`moe_aux` too for a MoE model), per scope.
 
 With `use_optimal_lr` the LR range test (train/lr_finder.py) runs first on a
 throwaway deep copy of the model and optimizer (JAX trainer.py:360-390); the
 LR it finds is recorded as `model_config.optimal_lr` in output_json, and the
-epoch schedule takes its base LR from that record, as the JAX trainer's
-resume restores it (trainer.py:279-288).
+epoch schedule takes its base LR from that record, so a resumed run keeps it
+(trainer.py:279-288).
 
-Not ported yet, and raising or absent until then: SIGTERM with mid-epoch
-resume and full-state checkpoints (ROADMAP.md queue A item 7), the profiler
-hook, and mesh/parallel options (item 14).
+Preemption (trainer.py:396-501): `train()` installs a SIGTERM handler that
+only asks for a stop. The step in flight finishes, a checkpoint of the state
+inside the epoch is written (`mid_epoch`: the completed steps, the running
+metric sums, and the training pass's generator as it stood after the last
+step), and `train()` returns with "preempted": True; a signal during
+validation stops after that epoch's boundary save. `resume=True` restores
+the newest checkpoint of `workdir` and continues: inside the saved epoch
+(the loader skips the completed batches on the host, the generator is
+restored) or after it, so the resumed run ends bitwise equal to an
+uninterrupted one. Neither the LR range test nor a re-seeded epoch runs
+again.
+
+With WEATHERMODEL_PROFILE_DIR set, a `torch.profiler` run (CPU, and CUDA on
+the card) covers epoch start_epoch + 1's training pass and writes a Chrome
+trace into that directory (trainer.py:437-458).
+
+Mesh and parallel options (ROADMAP.md queue A item 14) are not ported.
 """
 
+import contextlib
 import copy
 import logging
+import os
+import signal
 import time
 from typing import Callable, Dict, Iterator, Optional
 
@@ -31,6 +49,7 @@ import torch
 from weathermodel_tpu_torch.models.transfer import load_pretrained
 from weathermodel_tpu_torch.ops.schedules import epoch_lr_schedule
 from weathermodel_tpu_torch.train.checkpoint import (
+    Checkpointer,
     save_best_params,
     write_output_json,
 )
@@ -63,6 +82,7 @@ class PretrainTrainer:
         device="cuda",
         pretrained_state: Optional[dict] = None,
         grad_accum: int = 1,
+        resume: bool = False,
     ):
         """make_loaders(split, shuffle, seed) -> iterator of numpy Batch.
 
@@ -72,11 +92,12 @@ class PretrainTrainer:
         initialised from `train_cfg.seed` (or loaded from
         `pretrained_state`, a reference-format state dict, through the JAX
         trainer's transfer rules, models/transfer.py's `load_pretrained`)
-        and moved to `device`."""
+        and moved to `device`. `resume` restores the newest checkpoint of
+        `workdir`, if there is one."""
         if model_name not in OBJECTIVE_FOR_MODEL:
             raise NotImplementedError(
                 f"pretraining {model_name!r} is not ported yet; see "
-                "ROADMAP.md queue A items 8 (mlp) and 11 (weathercnn)")
+                "ROADMAP.md queue A item 11 (weathercnn)")
         self.model_name = model_name
         self.cfg = train_cfg
         self.make_loaders = make_loaders
@@ -102,8 +123,14 @@ class PretrainTrainer:
         self._eval_step = make_eval_step(
             self.model, self.masking, masking_prob=train_cfg.masking_prob,
             objective=objective, beta=train_cfg.beta)
+        self.checkpointer = Checkpointer(workdir)
+        self.start_epoch = 0
         self.best_val_loss = float("inf")
         self._last_epoch_batches = 0
+        # graceful preemption: SIGTERM -> checkpoint at the step boundary
+        self._stop_requested = False
+        self._resume_mid: Optional[dict] = None
+        self.fast_forward_seconds: Optional[float] = None
         self.output_json = {
             "model_config": {
                 "model": model_name,
@@ -124,6 +151,30 @@ class PretrainTrainer:
             },
             "losses": {"train": {}, "val": {}},
         }
+        if resume:
+            self._resume()
+
+    def _resume(self):
+        if self.checkpointer.latest_epoch() is None:
+            logger.info("No checkpoint to resume from in %s", self.workdir)
+            return
+        (epoch, self.best_val_loss, self.output_json, mid,
+         generator_state) = self.checkpointer.restore(self.model,
+                                                      self.optimizer)
+        optimal = self.output_json["model_config"].get("optimal_lr")
+        if optimal is not None:
+            logger.info("Restored optimal LR %.3e from checkpoint", optimal)
+        if mid is not None:
+            # a preemption checkpoint taken inside `epoch`: continue that
+            # epoch at the recorded step
+            self.start_epoch = epoch
+            self._resume_mid = dict(mid, generator=generator_state)
+            logger.info("Resumed mid-epoch %d at batch %d (best val %.6f)",
+                        epoch, mid["batch_idx"], self.best_val_loss)
+        else:
+            self.start_epoch = epoch + 1
+            logger.info("Resumed from epoch %d (best val %.6f)", epoch,
+                        self.best_val_loss)
 
     def lr_schedule(self, epoch: int) -> float:
         """The epoch's LR: the schedule from init_lr, or from the LR range
@@ -160,9 +211,13 @@ class PretrainTrainer:
                     self.cfg.init_lr)
         self.output_json["model_config"]["optimal_lr"] = optimal
 
-    def _run_epoch(self, epoch: int, split: str):
+    def _run_epoch(self, epoch: int, split: str, mid: Optional[dict] = None):
         """One pass over `split`: (mean metrics, host seconds per step, each
-        ending in a device sync as the metrics are read)."""
+        ending in a device sync as the metrics are read). `mid` (training
+        only) continues the epoch after a preemption checkpoint: the loader
+        skips the completed batches and the generator takes its saved
+        state. Returns None when a stop was requested during the pass; the
+        preemption checkpoint is then written."""
         train = split == "train"
         cfg = self.cfg
         n_masked = n_masked_features_for_epoch(cfg, epoch,
@@ -170,9 +225,19 @@ class PretrainTrainer:
         lr = self.lr_schedule(epoch)
         seed_base = cfg.seed + (epoch * 2 + (0 if train else 1)) * 100003
         generator = torch.Generator().manual_seed(seed_base)
+        loader = iter(self.make_loaders(split, train, seed_base))
         sums: Dict[str, float] = {}
+        n_batches = 0
+        if mid is not None:
+            t0 = time.perf_counter()
+            n_batches = int(mid["batch_idx"])
+            sums = dict(mid["sums"])
+            for _ in range(n_batches):
+                next(loader)  # host-side skip
+            generator.set_state(mid["generator"])
+            self.fast_forward_seconds = time.perf_counter() - t0
         step_seconds = []
-        for batch in self.make_loaders(split, train, seed_base):
+        for batch in loader:
             t0 = time.perf_counter()
             batch = batch_to_device(batch, self.device)
             if train:
@@ -181,25 +246,93 @@ class PretrainTrainer:
                 losses = self._eval_step(batch, generator, n_masked)
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
+            n_batches += 1
             step_seconds.append(time.perf_counter() - t0)
-        if not step_seconds:
+            if train and self._stop_requested:
+                self.checkpointer.save(
+                    epoch, self.model, self.optimizer, self.best_val_loss,
+                    self.output_json,
+                    mid_epoch={"batch_idx": n_batches, "sums": sums},
+                    generator=generator)
+                logger.warning(
+                    "Preemption checkpoint written: epoch %d, batch %d "
+                    "(--resume-from-checkpoint continues here exactly)",
+                    epoch, n_batches)
+                return None
+        if n_batches == 0:
             raise RuntimeError(f"empty {split} loader at epoch {epoch}")
         if train:
-            self._last_epoch_batches = len(step_seconds)
-        n = len(step_seconds)
-        return {k: v / n for k, v in sums.items()}, step_seconds
+            self._last_epoch_batches = n_batches
+        return {k: v / n_batches for k, v in sums.items()}, step_seconds
+
+    def _profiler(self, epoch: int, profile_dir: Optional[str]):
+        """A torch.profiler context over epoch start_epoch + 1's training
+        pass when `profile_dir` is set, else a null context."""
+        if not (profile_dir and epoch == self.start_epoch + 1):
+            return contextlib.nullcontext()
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities)
 
     def train(self) -> dict:
         """Run the epoch loop. Returns the best validation loss and, per
-        epoch, the seconds of each training step and the number of
-        validation batches."""
+        completed epoch, the seconds of each training step and the number
+        of validation batches; "preempted": True when a SIGTERM stopped it
+        (a checkpoint then holds the state to resume from);
+        "checkpoint_saves", the Checkpointer's record of each save; and
+        "fast_forward_seconds" after a mid-epoch resume."""
+        old_handlers = {}
+
+        def on_signal(signum, frame):
+            logger.warning("signal %d received: checkpointing at the next "
+                           "step boundary, then stopping", signum)
+            self._stop_requested = True
+
+        # a previous preempted train() must not stop this one at once
+        self._stop_requested = False
+        try:
+            old_handlers[signal.SIGTERM] = signal.signal(signal.SIGTERM,
+                                                         on_signal)
+        except ValueError:  # not the main thread: no handler, no stop
+            pass
+        try:
+            return self._train_loop()
+        finally:
+            # settle the background write before the caller reads the files
+            self.checkpointer.wait_until_finished()
+            for sig, handler in old_handlers.items():
+                signal.signal(sig, handler)
+
+    def _train_loop(self) -> dict:
         cfg = self.cfg
         result = {"best_val_loss": self.best_val_loss,
-                  "train_step_seconds": [], "val_batches": []}
-        self._maybe_find_optimal_lr()
-        for epoch in range(cfg.num_epochs):
+                  "train_step_seconds": [], "val_batches": [],
+                  "checkpoint_saves": self.checkpointer.saves}
+        # a resumed run keeps the LR its record holds; a run preempted
+        # inside epoch 0 must not re-run the range test from its state
+        if self.start_epoch == 0 and self._resume_mid is None:
+            self._maybe_find_optimal_lr()
+        profile_dir = os.environ.get("WEATHERMODEL_PROFILE_DIR")
+        for epoch in range(self.start_epoch, cfg.num_epochs):
             t0 = time.time()
-            train_losses, step_seconds = self._run_epoch(epoch, "train")
+            mid, self._resume_mid = self._resume_mid, None
+            with self._profiler(epoch, profile_dir) as prof:
+                train_out = self._run_epoch(epoch, "train", mid)
+            if prof is not None:
+                os.makedirs(profile_dir, exist_ok=True)
+                path = os.path.join(profile_dir,
+                                    f"{self.model_name}_epoch{epoch}.json")
+                prof.export_chrome_trace(path)
+                logger.info("profiler trace written to %s", path)
+            if train_out is None:  # preempted; the checkpoint is written
+                write_output_json(self.workdir, self.model_name,
+                                  self.output_json)
+                result["preempted"] = True
+                break
+            train_losses, step_seconds = train_out
             train_time = time.time() - t0
             val_losses, val_seconds = self._run_epoch(epoch, "validation")
             dt = time.time() - t0
@@ -222,9 +355,27 @@ class PretrainTrainer:
             if val_losses["total_loss"] < self.best_val_loss:
                 self.best_val_loss = val_losses["total_loss"]
                 save_best_params(self.workdir, self.model)
+            # the reference cadence (base_trainer.py:110), in the background
+            saved = (epoch % cfg.checkpoint_every == 1
+                     or epoch == cfg.num_epochs - 1)
+            if saved:
+                self.checkpointer.save(epoch, self.model, self.optimizer,
+                                       self.best_val_loss, self.output_json,
+                                       wait=False)
             write_output_json(self.workdir, self.model_name,
                               self.output_json)
             result["train_step_seconds"].append(step_seconds)
             result["val_batches"].append(len(val_seconds))
+            if self._stop_requested:  # the signal came during validation
+                if not saved:
+                    self.checkpointer.save(
+                        epoch, self.model, self.optimizer,
+                        self.best_val_loss, self.output_json)
+                logger.warning("Stopping after completed epoch %d "
+                               "(checkpoint written)", epoch)
+                result["preempted"] = True
+                break
         result["best_val_loss"] = self.best_val_loss
+        if self.fast_forward_seconds is not None:
+            result["fast_forward_seconds"] = self.fast_forward_seconds
         return result

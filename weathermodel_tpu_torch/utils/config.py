@@ -76,9 +76,8 @@ def model_config_for_size(size: str, **overrides) -> ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (reference pretraining_main.py:41-67
-    defaults). `checkpoint_every` is carried so the table stays the JAX
-    package's; the port's trainer writes no full-state checkpoints yet
-    (ROADMAP.md queue A item 7)."""
+    defaults). `checkpoint_every` sets the full-state checkpoints' cadence:
+    epochs with epoch % checkpoint_every == 1, and the last."""
 
     batch_size: int = 256
     num_epochs: int = 100
