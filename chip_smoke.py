@@ -269,11 +269,45 @@ Phases, each printing one line; any failure raises and exits non-zero:
                scalar pass; one step of each
                fused path against the plain path (plain attention and FFN) at 16
                windows, dropout off, fp32 and bf16
+  19. serve_int8 (run after phase 6) - phase 5's checkpoint and 300
+               windows through `wm-serve-torch` (bf16, --batch-size 256,
+               auto: B1 eval) with --quantize int8, --quantize int8_static
+               --calibrate-input (32 seeded windows) and int8_static with the
+               attention out-projection quantized too (ops.quant.
+               set_attn_out_quant, the WM_QUANT_ATTN_OUT switch), each called
+               twice and timed the second time: windows/s beside the bf16
+               serve's in the same phase and the relative RMS difference from
+               its outputs, at most 5%; B1 eval's launches, 16 per call plus
+               8 for the calibration pass's 32 windows; then
+               int8_dense_static and int8_expert_einsum on the card against
+               the same call on the CPU at K = 576 and 2304 (int8 codes equal,
+               outputs bitwise equal), and int8_dense_static's time at the
+               serving FFN's shape beside F.linear's and torch._int_mm's
+  20. serve_moe_int8 (after 19) - a seeded WeatherBERT-large with 8 experts,
+               top-2, served in bf16 through the ragged dispatch (16 B1 eval
+               and 32 B4 launches per call) and then with --moe-experts 8
+               --quantize int8_static --calibrate-input: the calibration's
+               16 B4 launches (ragged, dropless statistics) and none in the
+               int8 serving (sort layout); windows/s; the relative RMS
+               difference from a bf16 predictor in the sort layout, at most
+               5%, and from the bf16 ragged serve, printed with the share of
+               routed assignments the sort layout's capacity drops
+  21. train_moe_dispatch (after 14) - phase 14's configuration for one epoch
+               with --moe-dispatch ragged, sort, scatter and sort
+               --moe-remat: 24 launches of B1 train and of B2 per step and 8
+               of B1 eval per validation batch, no B4 or B4t outside ragged;
+               samples/s and peak GB of each above what is allocated at its
+               start, after a garbage collection (remat must lower sort's);
+               one step at 16 windows, dropout off, sort against scatter (loss
+               and worst gradient within MOE_LAYOUT_TOL), and one step with
+               dropout 0.1 from one generator seed, sort with --moe-remat
+               against sort without: every gradient bitwise equal
 The seconds each phase took are printed after the phases; the card's name
 and power limit are printed by phase 1 and again before the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.
 """
 
+import gc
 import io
 import json
 import signal
@@ -3639,6 +3673,372 @@ def phase_bench(smi: str):
     return launches
 
 
+# int8 serving (phases 19-20): the windows the int8_static scales are
+# calibrated on, and the bar on the relative RMS difference of the int8
+# outputs from the bf16 serve's
+N_CALIBRATION, INT8_DRIFT = 32, 0.05
+# the int8 ops on the card against the CPU: rows of the dense form, rows per
+# expert of the expert form, at the serving FFN's two matmuls
+INT8_ROWS, INT8_EXPERT_ROWS = 1024, 128
+# one MoE training step, sort against scatter (phase 21), bf16, dropout off:
+# the two layouts run the same bf16 batched products on the same rows and
+# combine each token's k outputs in the same order, so only cuBLAS's choice
+# of kernel for their different batch shapes may move a sum, by a bf16
+# rounding (2^-8) at most: (loss rel, worst gradient ||diff|| / ||grad||)
+MOE_LAYOUT_TOL = dict(loss=1e-3, grad=2e-2)
+MOE_DISPATCH_RUNS = (("ragged", False), ("sort", False), ("scatter", False),
+                     ("sort", True))
+
+
+def _serve_cli(tmp: Path, checkpoint: str, tag: str, *extra):
+    """`wm-serve-torch` on phase 5's 300 windows (WeatherBERT-large, bf16,
+    --batch-size 256, auto) with `extra` flags, every kernel count at 0
+    just before: (output, predict seconds, launches by wrapper)."""
+    from weathermodel_tpu_torch.cli import serve
+
+    out_path = tmp / f"out_{tag}.npz"
+    args = serve.build_parser().parse_args([
+        "--checkpoint", str(tmp / checkpoint), "--model", "weatherbert",
+        "--model-size", MODEL_SIZE, "--input", str(tmp / "windows.npz"),
+        "--output", str(out_path), "--batch-size", str(BATCH),
+        "--compute-dtype", "bfloat16", "--attention-impl", "auto",
+        "--device", "cuda", *extra])
+    counted = _all_kernels()
+    for fn in counted:
+        fn.launches = 0
+    res = serve.run(args)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    with np.load(out_path) as z:
+        out = z["output"]
+    if out.shape != (N_WINDOWS, SEQ_LEN, N_FEATURES) or \
+            not np.isfinite(out).all():
+        raise AssertionError(f"{tag}: served output {out.shape}, finite "
+                             f"{np.isfinite(out).all()}")
+    return out, res["predict_s"], launches
+
+
+def _rms_rel(got, want) -> float:
+    return float(np.sqrt(np.mean(np.square(got - want)))
+                 / np.sqrt(np.mean(np.square(want))))
+
+
+def _only(launches, **want):
+    """`launches` must be `want` and 0 for every other kernel."""
+    expected = {name: want.get(name, 0) for name in launches}
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{expected}")
+
+
+def _int8_ops_card_vs_cpu():
+    """int8_dense_static and int8_expert_einsum on the card against the same
+    call on the CPU, at the serving FFN's two matmuls (K = 576 -> 2304 and
+    2304 -> 576), bf16 inputs: the int8 codes equal and the outputs bitwise
+    equal. Returns the text of the line."""
+    from weathermodel_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    h, f, e = 576, 2304, MOE["num_experts"]
+    checked = []
+    for k, o in ((h, f), (f, h)):
+        x = torch.randn(INT8_ROWS, k, generator=g).to(torch.bfloat16)
+        w = torch.randn(o, k, generator=g) / k ** 0.5
+        b = torch.randn(o, generator=g)
+        amax = x.float().abs().amax(0) * 0.9
+        ex = torch.randn(e, INT8_EXPERT_ROWS, k, generator=g).to(
+            torch.bfloat16)
+        ex[1, 40:] = 0  # capacity padding rows
+        ew = torch.randn(e, k, o, generator=g) / k ** 0.5
+        eamax = ex.float().abs().amax(1) * 0.9
+        for what, fn, args in (
+                ("int8_dense_static", quant.int8_dense_static,
+                 (x, w, amax, b)),
+                ("int8_expert_einsum", quant.int8_expert_einsum,
+                 (ex, ew, eamax))):
+            cpu = fn(*args)
+            card = fn(*(a.cuda() for a in args)).cpu()
+            if not torch.equal(card, cpu):
+                n = int((card != cpu).sum())
+                raise AssertionError(f"{what} K={k}: {n} outputs differ "
+                                     "between the card and the CPU")
+            checked.append(f"{what} K={k} -> {o}")
+        scale = quant._static_scale(amax)
+        codes = [quant._codes(xx, ss) for xx, ss in
+                 ((x, scale), (x.cuda(), scale.cuda()))]
+        wq = [quant.quantize_int8(ww * ss.reshape(1, -1), 1)[0] for ww, ss in
+              ((w, scale), (w.cuda(), scale.cuda()))]
+        if not (torch.equal(codes[0], codes[1].cpu())
+                and torch.equal(wq[0], wq[1].cpu())):
+            raise AssertionError(f"int8 codes at K={k} differ between the "
+                                 "card and the CPU")
+    # the dense form's time at the serving FFN's first matmul
+    m = BATCH * SEQ_LEN
+    x = torch.randn(m, h, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(f, h, device="cuda") / h ** 0.5
+    b = torch.randn(f, device="cuda")
+    amax = x.float().abs().amax(0)
+    xq = quant._codes(x, quant._static_scale(amax))
+    wq = quant.quantize_int8(w, 1)[0].t()
+    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    times = {"int8_dense_static": _cuda_ms(
+                 lambda: quant.int8_dense_static(x, w, amax, b)),
+             "torch._int_mm": _cuda_ms(lambda: torch._int_mm(xq, wq)),
+             "F.linear bf16": _cuda_ms(lambda: F.linear(x, wb, bb))}
+    return (f"{', '.join(checked)} on the card bitwise equal to the CPU "
+            f"(int8 codes equal; {INT8_ROWS} rows, {INT8_EXPERT_ROWS} a "
+            f"expert); at [{m}, {h}] x [{h}, {f}]: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+
+
+def phase_serve_int8(smi: str, tmp: Path):
+    from weathermodel_tpu_torch.ops import quant
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    n_layers = model_config_for_size(MODEL_SIZE).num_layers
+    chunks = -(-N_WINDOWS // BATCH)
+    np.savez(tmp / "calibration.npz",
+             **_windows(np.random.default_rng(SEED + 5), N_CALIBRATION))
+    calib = ("--calibrate-input", str(tmp / "calibration.npz"))
+    modes = (("bf16", (), False), ("int8", ("--quantize", "int8"), False),
+             ("int8_static", ("--quantize", "int8_static", *calib), False),
+             ("int8_static + attn out", ("--quantize", "int8_static",
+                                         *calib), True))
+    rates, drifts, launches, outs = {}, {}, {}, {}
+    for mode, flags, attn_out in modes:
+        quant.set_attn_out_quant(attn_out)
+        try:
+            for _ in range(2):  # the second call is timed
+                out, predict_s, counts = _serve_cli(
+                    tmp, "weatherbert_large.pth", mode.replace(" ", ""),
+                    *flags)
+        finally:
+            quant.set_attn_out_quant(False)
+        # B1 eval: 8 layers x 2 chunks, and 8 for a calibration pass over
+        # the 32 calibration windows (one batch)
+        calibrated = "int8_static" in mode
+        _only(counts, fused_qkv_attention=n_layers * chunks
+              + (n_layers if calibrated else 0))
+        launches[mode] = counts["fused_qkv_attention"]
+        rates[mode] = N_WINDOWS / predict_s
+        outs[mode] = out
+        if mode != "bf16":
+            drifts[mode] = _rms_rel(out, outs["bf16"])
+            if drifts[mode] > INT8_DRIFT:
+                raise AssertionError(
+                    f"{mode}: served output's RMS difference from bf16 "
+                    f"{drifts[mode]:.4f} exceeds {INT8_DRIFT}")
+    if np.array_equal(outs["int8_static"], outs["int8_static + attn out"]):
+        raise AssertionError("the attention out-projection's int8_static "
+                             "left the output unchanged")
+    print(f"serve_int8: {N_WINDOWS} windows WeatherBERT-{MODEL_SIZE} "
+          f"--batch-size {BATCH}, auto (B1 eval), int8_static calibrated on "
+          f"{N_CALIBRATION} windows: windows/s "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + "; relative RMS difference from bf16 "
+          + ", ".join(f"{k} {v:.5f}" for k, v in drifts.items())
+          + f" (bar {INT8_DRIFT}); B1 eval launches per call {launches}; "
+          f"card {smi}", flush=True)
+    print("serve_int8: " + _int8_ops_card_vs_cpu(), flush=True)
+
+
+def _serve_sort_bf16(tmp: Path, cfg):
+    """Phase 5's windows through a bf16 predictor of the MoE checkpoint in
+    the sort layout (the layout int8_static serves in; `wm-serve-torch`
+    serves bf16 through ragged): (output, share of routed assignments that
+    the capacity dropped)."""
+    import dataclasses
+
+    from weathermodel_tpu_torch.cli.pretrain import make_model
+    from weathermodel_tpu_torch.models import moe
+    from weathermodel_tpu_torch.serve import DEFAULT_BUCKETS, WeatherPredictor
+
+    model = make_model("weatherbert", dataclasses.replace(
+        cfg, compute_dtype="bfloat16", moe_dispatch="sort"), "fused_qkv")
+    model.load_state_dict(torch.load(tmp / "weatherbert_large_moe.pth"))
+    predictor = WeatherPredictor(model, tuple(
+        b for b in DEFAULT_BUCKETS if b < BATCH) + (BATCH,), device="cuda")
+    kept, routed = [], []
+    real = moe.sort_routing
+
+    def counting(flat_idx, e, cap):
+        out = real(flat_idx, e, cap)
+        kept.append(out[1].sum())
+        routed.append(out[1].numel())
+        return out
+
+    moe.sort_routing = counting
+    try:
+        with np.load(tmp / "windows.npz") as z:
+            out = predictor(z["weather"], z["coords"], z["year"],
+                            z["interval"], z["mask"])
+    finally:
+        moe.sort_routing = real
+    return out, 1.0 - float(sum(k.item() for k in kept)) / sum(routed)
+
+
+def phase_serve_moe_int8(smi: str, tmp: Path):
+    from weathermodel_tpu_torch.models.weatherbert import WeatherBERT
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(MODEL_SIZE, max_len=SEQ_LEN, **MOE)
+    model = WeatherBERT(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(SEED + 6))
+    torch.save(model.state_dict(), tmp / "weatherbert_large_moe.pth")
+    del model
+    chunks = -(-N_WINDOWS // BATCH)
+    moe = ("--moe-experts", str(cfg.num_experts), "--moe-top-k",
+           str(cfg.moe_top_k))
+    calib = ("--quantize", "int8_static", "--calibrate-input",
+             str(tmp / "calibration.npz"))
+    rates, outs = {}, {}
+    for mode, flags in (("bf16 ragged", moe), ("int8_static sort",
+                                               moe + calib)):
+        for _ in range(2):  # the second call is timed
+            out, predict_s, counts = _serve_cli(
+                tmp, "weatherbert_large_moe.pth", mode.replace(" ", "_"),
+                *flags)
+        if mode == "bf16 ragged":  # 2 B4 a layer a chunk
+            _only(counts, fused_qkv_attention=cfg.num_layers * chunks,
+                  gmm=2 * cfg.num_layers * chunks)
+        else:  # B4 only in the calibration pass (one batch), none serving
+            _only(counts, fused_qkv_attention=cfg.num_layers * (chunks + 1),
+                  gmm=2 * cfg.num_layers)
+        rates[mode], outs[mode] = N_WINDOWS / predict_s, out
+        launches = counts
+    # int8_static serves through the capacity layout, which drops the
+    # tokens past an expert's capacity (JAX's design, serve.py:233-238): its
+    # quantization error is held against the bf16 sort layout's output, and
+    # the difference from the dropless ragged serve is printed beside it
+    outs["bf16 sort"], dropped = _serve_sort_bf16(tmp, cfg)
+    drift = _rms_rel(outs["int8_static sort"], outs["bf16 sort"])
+    if drift > INT8_DRIFT:
+        raise AssertionError(f"MoE int8_static: served output's RMS "
+                             f"difference from the bf16 sort layout's "
+                             f"{drift:.4f} exceeds {INT8_DRIFT}")
+    print(f"serve_moe_int8: {N_WINDOWS} windows WeatherBERT-{MODEL_SIZE} MoE "
+          f"E={cfg.num_experts} top-{cfg.moe_top_k} --batch-size {BATCH}: "
+          "windows/s " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f"; relative RMS difference of int8_static from bf16 sort "
+          f"{drift:.5f} (bar {INT8_DRIFT}), from bf16 ragged "
+          f"{_rms_rel(outs['int8_static sort'], outs['bf16 ragged']):.5f}; "
+          f"bf16 sort from bf16 ragged "
+          f"{_rms_rel(outs['bf16 sort'], outs['bf16 ragged']):.5f} (the "
+          f"capacity dropped {dropped:.4f} of the routed assignments); "
+          f"int8_static call's launches {launches} (B4 in its calibration "
+          f"only); card {smi}", flush=True)
+
+
+def _moe_layout_model(cfg, dispatch):
+    """The MoE kernel path with `dispatch` on the card (the smoke's seeded
+    weights) and a function running its train step at STEP_WINDOWS windows
+    on the smoke's batch, mask and generator seed, lr 0 (the weights stay),
+    with dropout `rate`: (model, step(rate) -> loss)."""
+    import dataclasses
+
+    from weathermodel_tpu_torch.train.steps import batch_to_device
+
+    batch, mask = _windows_batch(STEP_WINDOWS, SEED + 2)
+    batch, mask = batch_to_device(batch, "cuda"), torch.from_numpy(mask)
+    model, step = _train_step_fn(
+        "weatherbert", dataclasses.replace(cfg, moe_dispatch=dispatch),
+        "fused_qkv", "cuda")
+
+    def run(rate):
+        return float(step(batch, torch.Generator().manual_seed(SEED), 0.0,
+                          10, mask=mask.cuda(), dropout_rate=rate)[
+            "total_loss"])
+
+    return model, run
+
+
+def phase_train_moe_dispatch(smi: str, data: Path):
+    from weathermodel_tpu_torch.models.moe import MoEFFN
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(MODEL_SIZE, compute_dtype="bfloat16", **MOE)
+    n_train, _ = _store_batches(data, MOE_BATCH)
+    per_step = MOE_ACCUM * cfg.num_layers
+    runs = {}
+    for dispatch, remat in MOE_DISPATCH_RUNS:
+        # what the earlier runs left (their trainers' reference cycles,
+        # collected only when the collector runs) is freed first, and each
+        # run's peak is counted above what is still allocated at its start
+        gc.collect()
+        torch.cuda.empty_cache()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        with tempfile.TemporaryDirectory() as workdir:
+            result, launches, wall, peak_gb, record = _run_pretrain([
+                "--model", "weatherbert", "--model-size", MODEL_SIZE,
+                "--moe-experts", str(cfg.num_experts), "--moe-top-k",
+                str(cfg.moe_top_k), "--moe-dispatch", dispatch,
+                *(("--moe-remat",) if remat else ()),
+                "--batch-size", str(MOE_BATCH), "--grad-accum",
+                str(MOE_ACCUM), "--n-epochs", "1", "--n-warmup-epochs", "0",
+                "--masking-prob", "0.15", "--data-dir", str(data),
+                "--workdir", workdir, "--compute-dtype", "bfloat16",
+                "--device", "cuda"], _all_kernels())
+        steps = sum(len(s) for s in result["train_step_seconds"])
+        val_batches = sum(result["val_batches"])
+        ragged = dispatch == "ragged"
+        _only(launches,
+              fused_qkv_attention=cfg.num_layers * val_batches,
+              fused_qkv_attention_train=per_step * steps,
+              fused_qkv_attention_bwd=per_step * steps,
+              gmm=(4 * per_step * steps + 2 * cfg.num_layers * val_batches
+                   if ragged else 0),
+              tgmm=2 * per_step * steps if ragged else 0)
+        losses = record["losses"]["train"]
+        if not (np.isfinite(losses["total_loss"]).all()
+                and np.isfinite(losses["moe_aux"]).all()):
+            raise AssertionError(f"{dispatch}: non-finite losses {losses}")
+        ms, rate, _, _ = _throughput(result, cfg, MOE_BATCH)
+        name = dispatch + (" remat" if remat else "")
+        runs[name] = dict(rate=round(rate, 1), ms=round(ms, 1),
+                          peak_gb=round(peak_gb - base_gb, 2),
+                          base_gb=round(base_gb, 2),
+                          loss=round(losses["total_loss"][0], 5),
+                          launches={k: v for k, v in launches.items() if v})
+    if not runs["sort remat"]["peak_gb"] < runs["sort"]["peak_gb"]:
+        raise AssertionError(f"--moe-remat did not lower sort's peak memory: "
+                             f"{runs}")
+    sort_model, sort_step = _moe_layout_model(cfg, "sort")
+    scatter_model, scatter_step = _moe_layout_model(cfg, "scatter")
+    loss_s, loss_c = sort_step(0.0), scatter_step(0.0)
+    loss_rel = abs(loss_s - loss_c) / abs(loss_c)
+    grad_rel = _grad_rel(sort_model, scatter_model)
+    if loss_rel > MOE_LAYOUT_TOL["loss"] or \
+            grad_rel[0] > MOE_LAYOUT_TOL["grad"]:
+        raise AssertionError(f"one step, sort vs scatter (loss rel, worst "
+                             f"gradient, its parameter) {loss_rel}, "
+                             f"{grad_rel}, bars {MOE_LAYOUT_TOL}")
+    del scatter_model
+    # the same weights (lr 0), dropout on, the same generator seed: without
+    # and then with the expert region recomputed in the backward
+    losses, grads = [], []
+    for remat in (False, True):
+        for module in sort_model.modules():
+            if isinstance(module, MoEFFN):
+                module.remat = remat
+        losses.append(sort_step(cfg.dropout_rate))
+        grads.append({name: p.grad.clone()
+                      for name, p in sort_model.named_parameters()})
+    if losses[0] != losses[1]:
+        raise AssertionError(f"remat changed the loss: {losses}")
+    for name, g in grads[0].items():
+        if not torch.equal(g, grads[1][name]):
+            raise AssertionError(f"remat's gradient of {name} is not the "
+                                 "saved-activation step's bit for bit")
+    print(f"train_moe_dispatch: wm-pretrain-torch WeatherBERT-{MODEL_SIZE} "
+          f"MoE E={cfg.num_experts} top-{cfg.moe_top_k} bf16 --batch-size "
+          f"{MOE_BATCH} --grad-accum {MOE_ACCUM}, dropout {cfg.dropout_rate}, "
+          f"1 epoch ({n_train} steps) each: {runs}; one step at "
+          f"{STEP_WINDOWS} windows, dropout off, sort vs scatter: loss rel "
+          f"{loss_rel:.2e}, worst gradient {grad_rel[0]:.2e} ({grad_rel[1]}) "
+          f"(bars {MOE_LAYOUT_TOL}); dropout {cfg.dropout_rate}, sort with "
+          "--moe-remat vs without: loss and every gradient bitwise equal; "
+          f"card {smi}", flush=True)
+
+
 def _record(name, source, replaces, launches, k, prefix,
             folder="weathermodel_tpu/ops/"):
     """One kernel's entry of the JSON line: `replaces` is "file:line" under
@@ -3673,6 +4073,8 @@ def main():
         _write_inputs(Path(tmp))
         serve_launches = timed("serve", phase_serve, smi, Path(tmp))
         timed("serve_daemon", phase_serve_daemon, smi, Path(tmp))
+        timed("serve_int8", phase_serve_int8, smi, Path(tmp))
+        timed("serve_moe_int8", phase_serve_moe_int8, smi, Path(tmp))
     train_kernels = timed("kernel_train", phase_kernel_train)
     with tempfile.TemporaryDirectory() as tmp:
         data = _write_store(Path(tmp))
@@ -3683,6 +4085,7 @@ def main():
         timed("yield", phase_yield, smi, Path(tmp))
         gmm_kernel, tgmm_kernel = timed("kernel_gmm", phase_kernel_gmm)
         moe_launches = timed("train_moe", phase_train_moe, smi, data)
+        timed("train_moe_dispatch", phase_train_moe_dispatch, smi, data)
     ffn_kernels = timed("kernel_ffn", phase_kernel_ffn)
     mask_kernels = timed("kernel_maskgen", phase_kernel_maskgen)
     probes = timed("probes", phase_probes, smi)

@@ -1,8 +1,9 @@
 """The port's bench (`python -m weathermodel_tpu_torch.bench`) on the CPU:
 one parseable JSON line with the keys of the JAX package's bench.py for
 each FFN impl and for the ELBO objective, its analytic FLOP count equal to
-bench.py's, its grad-accum rule, and its refusals of what is not ported
-(BENCH_ATTENTION=fused_qkv_op, kernel B5, is in test_torch_port_outproj.py)."""
+bench.py's, its grad-accum rule, the int8 FFN impls and the MoE capacity
+dispatches and remat (BENCH_ATTENTION=fused_qkv_op, kernel B5, is in
+test_torch_port_outproj.py)."""
 
 import json
 
@@ -72,13 +73,33 @@ def test_grad_accum_rule_is_bench_py_s():
     assert rule({"BENCH_GRAD_ACCUM": "3"}, "large", 8) == 3
 
 
-@pytest.mark.parametrize("name,value", [
-    ("BENCH_FFN_IMPL", "int8"), ("BENCH_FFN_IMPL", "int8_static"),
-    ("BENCH_MOE_DISPATCH", "sort"), ("BENCH_MOE_DISPATCH", "scatter"),
-    ("BENCH_MOE_REMAT", "1")])
-def test_unported_values_raise(name, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bench.run({**MINI, name: value}, device="cpu")
+MOE4 = {"BENCH_MOE_EXPERTS": "4"}
+
+
+@pytest.mark.parametrize("env", [
+    {"BENCH_FFN_IMPL": "int8", "BENCH_MODE": "eval"},
+    {"BENCH_FFN_IMPL": "int8_static", "BENCH_MODE": "eval"},
+    {**MOE4, "BENCH_MOE_DISPATCH": "sort", "BENCH_MOE_CF": "0.5"},
+    {**MOE4, "BENCH_MOE_DISPATCH": "scatter"},
+    {**MOE4, "BENCH_MOE_DISPATCH": "sort", "BENCH_MOE_REMAT": "1"}],
+    ids=["int8", "int8_static", "sort", "scatter", "remat"])
+def test_int8_and_moe_variables_run(env, capsys):
+    """bench.py's int8 FFN impls (eval; int8_static calibrated on the
+    batch's first windows) and MoE capacity dispatches, capacity factor and
+    remat run and print their record."""
+    record = bench.run({**MINI, **env}, device="cpu")
+    assert json.loads(capsys.readouterr().out.strip()) == record
+    assert record["ffn_impl"] == env.get("BENCH_FFN_IMPL", "torch")
+    moe = "BENCH_MOE_EXPERTS" in env
+    assert record["moe_dispatch"] == env.get("BENCH_MOE_DISPATCH") and \
+        record["moe_remat"] == (("BENCH_MOE_REMAT" in env) if moe else None)
+    assert record["metric"].endswith("_moe4_mini" if moe else "_mini")
+    assert record["value"] > 0 and record["loss"] == record["loss"]
+
+
+def test_int8_static_needs_eval_mode():
+    with pytest.raises(SystemExit, match="BENCH_MODE=eval"):
+        bench.run({**MINI, "BENCH_FFN_IMPL": "int8_static"}, device="cpu")
 
 
 def test_command_line_needs_a_card(monkeypatch):

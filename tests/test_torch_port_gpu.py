@@ -999,6 +999,89 @@ def test_moe_path_never_waits_on_the_host(cuda):
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
 
 
+@pytest.mark.parametrize("k,o", [(576, 2304), (2304, 576)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_ops_on_the_card_match_the_cpu(cuda, dtype, k, o):
+    """ops/quant.py's int8 forms on the card (torch._int_mm) against the
+    same call on the CPU (an int32 matmul): the int8 codes and the outputs
+    bitwise equal, at the serving FFN's two matmuls; a shape the card's
+    int8 GEMM does not take raises."""
+    from weathermodel_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(k)
+    x = torch.randn(96, k, generator=g).to(dtype)
+    w = torch.randn(o, k, generator=g) / k ** 0.5
+    b = torch.randn(o, generator=g)
+    amax = x.float().abs().amax(0) * 0.9
+    ex = torch.randn(4, 40, k, generator=g).to(dtype)
+    ex[2, 9:] = 0
+    ew = torch.randn(4, k, o, generator=g) / k ** 0.5
+    eamax = ex.float().abs().amax(1) * 0.9
+    eamax[3] = 0
+    for fn, args in ((quant.int8_dense, (x, w, b)),
+                     (quant.int8_dense_static, (x, w, amax, b)),
+                     (quant.int8_expert_einsum, (ex, ew, eamax))):
+        got = fn(*(a.to(cuda) for a in args))
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), fn(*args)), fn.__name__
+    for axis in (0, -1):
+        q, scale = quant.quantize_int8(x.to(cuda), axis)
+        want_q, want_scale = quant.quantize_int8(x, axis)
+        assert torch.equal(q.cpu(), want_q)
+        assert torch.equal(scale.cpu(), want_scale)
+    with pytest.raises(ValueError, match="torch._int_mm"):
+        quant.int8_dense(x[:16].to(cuda), w.to(cuda))
+
+
+def _moe_step(cuda, dispatch, remat, rate, cf=0.5):
+    """One train step of a MoE WeatherBERT-mini (E=4) on the card with
+    `dispatch` and `remat`, dropout `rate`, seeded weights, batch, mask and
+    generator, lr 0: (loss, the model)."""
+    cfg = model_config_for_size("mini", max_len=32, num_experts=4,
+                                moe_dispatch=dispatch, moe_remat=remat,
+                                moe_capacity_factor=cf)
+    model = make_model("weatherbert", cfg, "fused_qkv")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(cuda)
+    step = make_train_step(model, make_optimizer(model), "weatherbert")
+    rng = np.random.default_rng(1)
+    batch = batch_to_device(Batch(
+        weather=rng.normal(size=(6, 32, 31)).astype(np.float32),
+        coords=rng.uniform(-90, 90, (6, 2)).astype(np.float32),
+        year=np.full((6, 32), 1995.0, np.float32),
+        interval=np.full((6, 1), 7.0, np.float32)), cuda)
+    mask = torch.tensor(rng.random((6, 32, 31)) < 0.15, device=cuda)
+    out = step(batch, torch.Generator().manual_seed(2), 0.0, 1, mask=mask,
+               dropout_rate=rate)
+    return float(out["total_loss"]), model
+
+
+def test_moe_capacity_layouts_train_step_on_the_card(cuda):
+    """One training step with the sort and the scatter layout (capacity
+    factor 0.5: tokens drop), dropout off: the two compute one function,
+    so their losses and gradients agree to fp32 summation order."""
+    loss_s, sort = _moe_step(cuda, "sort", False, 0.0)
+    loss_c, scatter = _moe_step(cuda, "scatter", False, 0.0)
+    assert np.isfinite(loss_s) and abs(loss_s - loss_c) <= 1e-5 * abs(loss_c)
+    for (name, a), b in zip(sort.named_parameters(), scatter.parameters()):
+        assert torch.isfinite(a.grad).all(), name
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-4,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("dispatch", ["sort", "ragged"])
+def test_moe_remat_is_bitwise_on_the_card(cuda, dispatch):
+    """Dropout 0.1 from one generator seed: --moe-remat's recomputed expert
+    region draws the same mask, and the attention kernels and the expert
+    matmuls sum without atomics, so the step's loss and every gradient
+    equal the saved-activation step's bit for bit."""
+    loss_a, a = _moe_step(cuda, dispatch, False, 0.1)
+    loss_b, b = _moe_step(cuda, dispatch, True, 0.1)
+    assert loss_a == loss_b
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(pa.grad, pb.grad), name
+
+
 def test_serve_entry_point_launches_kernel(cuda, tmp_path):
     cfg = model_config_for_size("mini", max_len=24)
     torch.save(make_model("weatherbert", cfg, "torch").state_dict(),

@@ -38,6 +38,7 @@ def test_port_imports_no_jax():
             "weathermodel_tpu_torch.train.lr_finder",
             "weathermodel_tpu_torch.train.checkpoint",
             "weathermodel_tpu_torch.models.mlp",
+            "weathermodel_tpu_torch.ops.quant",
             "weathermodel_tpu_torch.cli.yield_main",
             "weathermodel_tpu_torch.cli.cropnet_main",
             "weathermodel_tpu_torch.cli.grid_search",

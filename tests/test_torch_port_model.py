@@ -108,10 +108,5 @@ def test_unported_options_raise():
     cfg = model_config_for_size("mini")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_model("weathercnn", cfg, "torch")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model("weatherbert", cfg, "torch", ffn_impl="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model("weatherbert", model_config_for_size(
-            "mini", num_experts=4, moe_dispatch="sort"), "torch")
     with pytest.raises(ValueError):
         make_model("nosuchmodel", cfg, "torch")

@@ -117,11 +117,6 @@ def test_moe_ffn_matches_jax_ragged():
 
 
 def test_moe_options_not_ported_raise():
-    for kwargs in (dict(dispatch="sort"), dict(dispatch="scatter"),
-                   dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A "
-                                                      "item 12"):
-            MoEFFN(8, 16, 4, **kwargs)
     with pytest.raises(ValueError, match="top_k"):
         MoEFFN(8, 16, 2, top_k=3)
 

@@ -105,16 +105,50 @@ def test_pretrained_state_initialises_the_trainer(tmp_path):
     ["--remat"],
     ["--seq-parallel", "2"], ["--pipeline-stages", "2"],
     ["--pipeline-microbatches", "8"], ["--tensor-parallel", "2"],
-    ["--moe-experts", "4", "--moe-dispatch", "sort"],
-    ["--moe-experts", "4", "--moe-dispatch", "scatter"],
-    ["--moe-dispatch", "sort"], ["--moe-experts", "4", "--moe-remat"],
-    ["--moe-remat"], ["--fsdp"],
-    ["--prng", "threefry2x32"]])
+    ["--fsdp"], ["--prng", "threefry2x32"]])
 def test_unported_flags_exit_naming_the_roadmap(store, tmp_path, flag):
     args = pretrain.build_parser().parse_args(
         _argv(store, tmp_path) + ["--device", "cpu"] + flag)
     with pytest.raises(SystemExit, match="ROADMAP.md queue A item"):
         pretrain.run(args)
+
+
+@pytest.mark.parametrize("flags,experts", [
+    (["--moe-dispatch", "sort", "--moe-capacity-factor", "0.5"], 4),
+    (["--moe-dispatch", "scatter"], 4),
+    (["--moe-dispatch", "sort", "--moe-remat"], 4),
+    (["--moe-dispatch", "scatter", "--moe-remat"], 0)],
+    ids=["sort", "scatter", "sort-remat", "no-experts"])
+def test_moe_capacity_dispatch_and_remat_train(store, tmp_path, monkeypatch,
+                                               flags, experts):
+    """One mini epoch with each capacity layout and with --moe-remat: a
+    finite loss and moe_aux, and the layout in the model; without
+    experts the three flags are ignored (a dense model), as in
+    wm-pretrain."""
+    from weathermodel_tpu_torch.models.moe import MoEFFN
+
+    built = []
+    real = pretrain.make_model
+
+    def spy(*args, **kwargs):
+        built.append(real(*args, **kwargs))
+        return built[-1]
+
+    args = pretrain.build_parser().parse_args(
+        _argv(store, tmp_path) + ["--n-epochs", "1", "--device", "cpu",
+                                  "--moe-experts", str(experts)] + flags)
+    monkeypatch.setattr(pretrain, "make_model", spy)
+    result = pretrain.run(args)
+    with open(tmp_path / "weatherbert_output.json") as f:
+        losses = json.load(f)["losses"]["train"]
+    assert np.isfinite(losses["total_loss"]).all()
+    moes = [m for m in built[0].modules() if isinstance(m, MoEFFN)]
+    assert len(moes) == (2 if experts else 0)
+    assert ("moe_aux" in losses) == bool(experts)
+    for m in moes:
+        assert (m.dispatch, m.remat, m.capacity_factor) == (
+            args.moe_dispatch, args.moe_remat, args.moe_capacity_factor)
+    assert np.isfinite(result["best_val_loss"])
 
 
 def test_resume_from_checkpoint_continues_from_the_workdir(store, tmp_path,

@@ -89,13 +89,124 @@ def test_port_serve_matches_jax_serve_for_weatherformer(files, tmp_path):
 # the daemon is ported (test_torch_port_daemon.py), its bundle source not
 @pytest.mark.parametrize("flag", [["--daemon", "--bundle", "x.wmx"],
                                   ["--bundle", "x.wmx"],
-                                  ["--quantize", "int8"],
                                   ["--tensor-parallel", "2"]])
 def test_unported_flags_exit_naming_the_roadmap(files, tmp_path, flag):
     args = port_serve.build_parser().parse_args(
         _argv(files, tmp_path / "o.npz") + ["--device", "cpu"] + flag)
     with pytest.raises(SystemExit, match="ROADMAP"):
         port_serve.run(args)
+
+
+def _calibration_file(files, t=T):
+    path = files / f"calib_{t}.npz"
+    rng = np.random.default_rng(1)
+    np.savez(path, weather=rng.normal(size=(10, t, 31)).astype(np.float32))
+    return path
+
+
+# whole-model int8 against JAX (tests/test_torch_port_quant.py's module
+# docstring): the float part upstream of each quantizer differs from JAX by
+# ~1e-6, which flips a code at a rounding boundary now and then, and a
+# flipped code moves what it feeds by one step of its scale; through two
+# layers: (RMS, max) of |port - JAX| over the RMS of JAX's output
+INT8_MODEL_TOL = (1e-3, 2e-2)
+
+
+@pytest.mark.parametrize("quantize", ["int8", "int8_static"])
+def test_port_serve_int8_matches_jax_serve(files, tmp_path, quantize):
+    """`--quantize int8` and `--quantize int8_static --calibrate-input`
+    through both entry points on the same .pth, windows and calibration
+    windows: the outputs within INT8_MODEL_TOL, and quantized (away from
+    the float serve)."""
+    argv = _argv(files, None) + ["--quantize", quantize]
+    if quantize == "int8_static":
+        argv += ["--calibrate-input", str(_calibration_file(files))]
+    out = argv.index("--output") + 1
+    outs = {}
+    for name, cli, extra in (("jax", jax_serve, []),
+                             ("port", port_serve, ["--device", "cpu"])):
+        argv[out] = str(tmp_path / f"{name}.npz")
+        cli.run(cli.build_parser().parse_args(argv + extra))
+        with np.load(tmp_path / f"{name}.npz") as z:
+            outs[name] = z["output"]
+    port_serve.run(port_serve.build_parser().parse_args(
+        _argv(files, tmp_path / "float.npz") + ["--device", "cpu"]))
+    with np.load(tmp_path / "float.npz") as z:
+        float_out = z["output"]
+    want, got = outs["jax"], outs["port"]
+    rms = np.sqrt(np.mean(np.square(want)))
+    diff = got - want
+    assert np.sqrt(np.mean(np.square(diff))) <= INT8_MODEL_TOL[0] * rms
+    assert np.abs(diff).max() <= INT8_MODEL_TOL[1] * rms
+    drift = np.abs(got - float_out).mean() / np.abs(float_out).mean()
+    assert 1e-3 < drift < 0.05  # JAX's drift budget (tests/test_quant.py)
+
+
+def test_int8_static_needs_matching_calibration_windows(files, tmp_path):
+    """As `wm-serve`: int8_static without --calibrate-input exits, and so
+    does a calibration file whose T differs from the served T."""
+    argv = _argv(files, tmp_path / "o.npz") + ["--device", "cpu",
+                                                "--quantize", "int8_static"]
+    with pytest.raises(SystemExit, match="--calibrate-input"):
+        port_serve.run(port_serve.build_parser().parse_args(argv))
+    with pytest.raises(SystemExit, match="T=12"):
+        port_serve.run(port_serve.build_parser().parse_args(
+            argv + ["--calibrate-input",
+                    str(_calibration_file(files, 12))]))
+
+
+def test_daemon_serves_int8_static_and_reload_keeps_its_scales(files):
+    """The daemon's predictor (`--daemon --quantize int8_static
+    --calibrate-input`) answers /predict as the offline predictor does, and
+    POST /reload of a checkpoint keeps its calibrated scales."""
+    import http.client
+    import io
+    import json
+    import threading
+
+    from weathermodel_tpu_torch.serve import reload_predictor_params
+    from weathermodel_tpu_torch.serving_daemon import make_server
+
+    args = port_serve.build_parser().parse_args(
+        _argv(files, None) + ["--daemon", "--device", "cpu", "--quantize",
+                              "int8_static", "--calibrate-input",
+                              str(_calibration_file(files))])
+    pred = port_serve._make_predictor(args, T, "cpu")
+    srv, batcher = make_server(
+        pred, port=0, max_batch=32, max_wait_ms=1.0,
+        reload_fn=lambda p: reload_predictor_params(pred, p),
+        checkpoint=args.checkpoint)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+
+    def post(path, body):
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          srv.server_address[1], timeout=30)
+        conn.request("POST", path, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, data
+
+    try:
+        with np.load(files / "windows.npz") as z:
+            arrays = {k: z[k][:5] for k in z.files}
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        offline = pred(arrays["weather"], arrays["coords"], arrays["year"],
+                       arrays["interval"], arrays["mask"])
+        for _ in range(2):  # before and after a reload
+            status, data = post("/predict", buf.getvalue())
+            assert status == 200
+            with np.load(io.BytesIO(data)) as z:
+                np.testing.assert_array_equal(z["output"], offline)
+            assert post("/reload", json.dumps(
+                {"checkpoint": args.checkpoint}).encode())[0] == 200
+    finally:
+        srv.shutdown()
+        batcher.close()
+        srv.server_close()
+        th.join(timeout=5)
 
 
 def test_predictor_buckets_and_checkpoint_checks(files):

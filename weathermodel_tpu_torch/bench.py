@@ -28,17 +28,20 @@ The variables are bench.py's, with the port's impl names:
   BENCH_OBJECTIVE       masked_mse (WeatherBERT) or elbo (WeatherFormer)
   BENCH_MODE            train or eval (the forward only, no grad)
   BENCH_DROPOUT_RATE    overrides the model's dropout rate
-  BENCH_MOE_EXPERTS     > 0: the dropless MoE FFN (ragged dispatch)
+  BENCH_MOE_EXPERTS     > 0: the MoE FFN
   BENCH_MOE_TOP_K       experts per token (default 2)
+  BENCH_MOE_DISPATCH    ragged (default; dropless), sort or scatter (the
+                        capacity layouts)
+  BENCH_MOE_CF          the capacity factor of sort/scatter (default 1.25)
+  BENCH_MOE_REMAT       1: recompute the expert computation in the backward
   BENCH_FFN_IMPL        torch/fused_ffn_ln/fused_ffn (JAX xla/pallas/
-                        pallas2); int8 and int8_static are not ported
-BENCH_MOE_DISPATCH sort/scatter and BENCH_MOE_REMAT=1 are not ported either;
-each unported value raises naming its ROADMAP.md item. BENCH_MOE_CF sizes
-only those capacity dispatches and is not read. BENCH_PRNG and
-BENCH_COMPILE_CACHE are JAX-only (its PRNG and its compile cache) and are
-not read. The command line always runs on the card and raises without one;
-`run(env, device="cpu")` runs the kernels' plain versions on the CPU (the
-tests use it).
+                        pallas2), int8 (dynamic W8A8) or int8_static
+                        (calibrated W8A8: BENCH_MODE=eval only; the scales
+                        come from min(B, 32) windows of the batch)
+BENCH_PRNG and BENCH_COMPILE_CACHE are JAX-only (its PRNG and its compile
+cache) and are not read. The command line always runs on the card and
+raises without one; `run(env, device="cpu")` runs the kernels' plain
+versions on the CPU (the tests use it).
 """
 
 import json
@@ -49,7 +52,7 @@ import numpy as np
 import torch
 
 from weathermodel_tpu_torch.cli.pretrain import make_model
-from weathermodel_tpu_torch.models.blocks import FFN_IMPLS
+from weathermodel_tpu_torch.models.transfer import load_quant_scales
 from weathermodel_tpu_torch.ops.attention import resolve_attention_impl
 from weathermodel_tpu_torch.train.state import make_optimizer
 from weathermodel_tpu_torch.train.steps import (
@@ -65,16 +68,9 @@ H100_BF16_PEAK_TFLOPS = 989.0
 # bench.py:90-91
 DEFAULT_BATCH = {"mini": 1024, "small": 512, "medium": 384, "large": 576}
 DEFAULT_ACCUM = {"large": 2}
-# values of bench.py's variables the port does not have yet
-_UNPORTED = {
-    ("BENCH_FFN_IMPL", "int8"): "int8 serving (ROADMAP.md queue A item 13)",
-    ("BENCH_FFN_IMPL", "int8_static"):
-        "int8 serving (ROADMAP.md queue A item 13)",
-    ("BENCH_MOE_DISPATCH", "sort"):
-        "the MoE capacity dispatches (ROADMAP.md queue A item 12)",
-    ("BENCH_MOE_DISPATCH", "scatter"):
-        "the MoE capacity dispatches (ROADMAP.md queue A item 12)",
-}
+FFN_IMPLS = ("torch", "fused_ffn_ln", "fused_ffn", "int8", "int8_static")
+# windows of the batch the int8_static scales are calibrated on (bench.py)
+N_CALIBRATION = 32
 
 
 def analytic_flops_per_sample(cfg, mode: str, out_dim=None) -> float:
@@ -93,17 +89,6 @@ def analytic_flops_per_sample(cfg, mode: str, out_dim=None) -> float:
     return fwd_flops if mode == "eval" else 3.0 * fwd_flops
 
 
-def _check_ported(env) -> None:
-    for (name, value), what in _UNPORTED.items():
-        if env.get(name) == value:
-            raise NotImplementedError(f"{name}={value}: {what} is not ported "
-                                      "to weathermodel_tpu_torch yet")
-    if env.get("BENCH_MOE_REMAT", "0") != "0":
-        raise NotImplementedError("BENCH_MOE_REMAT: MoE rematerialization "
-                                  "(ROADMAP.md queue A item 12) is not "
-                                  "ported to weathermodel_tpu_torch yet")
-
-
 def default_grad_accum(env, size: str, moe_experts: int) -> int:
     """BENCH_GRAD_ACCUM, else bench.py's rule: 2 at large when neither the
     batch nor the MoE variant is set (the effective 576 as 2 x 288), else
@@ -118,7 +103,6 @@ def default_grad_accum(env, size: str, moe_experts: int) -> int:
 def run(env, device: str = "cuda") -> dict:
     """Run the bench configured by the mapping `env` (BENCH_* variables) on
     `device`; returns the JSON record (also printed as one line)."""
-    _check_ported(env)
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("weathermodel_tpu_torch.bench needs a CUDA device")
     size = env.get("BENCH_MODEL_SIZE", "large")
@@ -136,25 +120,44 @@ def run(env, device: str = "cuda") -> dict:
     ffn_impl = env.get("BENCH_FFN_IMPL", "torch")
     if ffn_impl not in FFN_IMPLS:
         raise ValueError(f"BENCH_FFN_IMPL={ffn_impl!r}: one of {FFN_IMPLS}")
+    if ffn_impl == "int8_static" and mode != "eval":
+        raise SystemExit("BENCH_FFN_IMPL=int8_static is a serving path; "
+                         "use BENCH_MODE=eval")
     moe_experts = int(env.get("BENCH_MOE_EXPERTS", "0"))
     overrides = {}
     if "BENCH_DROPOUT_RATE" in env:
         overrides["dropout_rate"] = float(env["BENCH_DROPOUT_RATE"])
     cfg = model_config_for_size(
         size, compute_dtype="bfloat16", num_experts=moe_experts,
-        moe_top_k=int(env.get("BENCH_MOE_TOP_K", "2")), **overrides)
+        moe_top_k=int(env.get("BENCH_MOE_TOP_K", "2")),
+        moe_remat=env.get("BENCH_MOE_REMAT", "0") != "0",
+        moe_dispatch=env.get("BENCH_MOE_DISPATCH", "ragged"),
+        moe_capacity_factor=float(env.get("BENCH_MOE_CF", "1.25")),
+        **overrides)
     name = "weatherformer" if objective == "elbo" else "weatherbert"
     model = make_model(name, cfg, attention_impl, ffn_impl)
     model.reset_parameters(torch.Generator().manual_seed(0))
-    model = model.to(device)
     masking = "weatherformer" if objective == "elbo" else "weatherbert"
     t, f = cfg.max_len, cfg.weather_dim
     rng = np.random.default_rng(0)
-    batch = batch_to_device(Batch(
+    host = Batch(
         weather=rng.normal(size=(batch_size, t, f)).astype(np.float32),
         coords=rng.uniform(-90, 90, size=(batch_size, 2)).astype(np.float32),
         year=np.full((batch_size, t), 1990.0, dtype=np.float32),
-        interval=np.full((batch_size, 1), 7.0, dtype=np.float32)), device)
+        interval=np.full((batch_size, 1), 7.0, dtype=np.float32))
+    if ffn_impl == "int8_static":
+        # the calibrated scales from a slice of the bench's own batch, as
+        # bench.py takes them (serve.calibrate_quant_scales)
+        from weathermodel_tpu_torch.serve import calibrate_quant_scales
+
+        n_cal = min(batch_size, N_CALIBRATION)
+        load_quant_scales(model, calibrate_quant_scales(
+            name, cfg, model.state_dict(),
+            [(host.weather[:n_cal], host.coords[:n_cal], host.year[:n_cal],
+              host.interval[:n_cal], np.zeros((n_cal, t, f), dtype=bool))],
+            attention_impl=attention_impl, device=device))
+    model = model.to(device)
+    batch = batch_to_device(host, device)
     generator = torch.Generator().manual_seed(1)
     n_masked = 10 if objective == "elbo" else 1
     if mode == "eval":
@@ -214,6 +217,8 @@ def run(env, device: str = "cuda") -> dict:
         "device": kind,
         "attention_impl": attention_impl,
         "ffn_impl": ffn_impl,
+        "moe_dispatch": cfg.moe_dispatch if moe_experts > 0 else None,
+        "moe_remat": cfg.moe_remat if moe_experts > 0 else None,
         "loss": loss,
     }
     print(json.dumps(record), flush=True)

@@ -5,7 +5,11 @@ the WeatherFormer family with the ELBO objectives, on one CUDA device
 unless `--device cpu` is given. With no flags it trains what `wm-pretrain`
 does: WeatherFormer-small, ELBO with beta 0.5, 10 masked features.
 `--moe-experts N` swaps every layer's FFN for a top-k routed expert FFN
-with the dropless ragged dispatch (the grouped-matmul kernels B4/B4t).
+with the dropless ragged dispatch (the grouped-matmul kernels B4/B4t), or
+with `--moe-dispatch sort|scatter` a capacity layout of
+`--moe-capacity-factor` (over-capacity tokens drop); `--moe-remat`
+recomputes the expert computation in the backward. Without experts these
+three are ignored, as in `wm-pretrain`.
 
     wm-pretrain-torch --data-dir data/ --workdir run/
     wm-pretrain-torch --model weatherbert --model-size large \\
@@ -13,6 +17,9 @@ with the dropless ragged dispatch (the grouped-matmul kernels B4/B4t).
     wm-pretrain-torch --model weatherbert --model-size large \\
         --moe-experts 8 --moe-top-k 2 --batch-size 288 --grad-accum 3 \\
         --data-dir data/ --workdir run/
+    wm-pretrain-torch --model weatherbert --model-size large \\
+        --moe-experts 8 --moe-dispatch sort --moe-remat \\
+        --batch-size 288 --grad-accum 3 --data-dir data/ --workdir run/
 
 It writes `{workdir}/{model}_output.json` every epoch, the best
 parameters as a reference-format `{workdir}/best.pth`, which
@@ -81,9 +88,6 @@ _UNPORTED = {
                              "item 14)",
     "tensor_parallel": "tensor parallelism (ROADMAP.md queue A item 14)",
     "fsdp": "FSDP sharding (ROADMAP.md queue A item 14)",
-    "moe_dispatch": "the MoE capacity layouts 'sort' and 'scatter' "
-                    "(ROADMAP.md queue A item 12)",
-    "moe_remat": "MoE rematerialization (ROADMAP.md queue A item 12)",
     "prng": "JAX's PRNG choice; the port draws from torch.Generator "
             "(ROADMAP.md queue A item 14)",
 }
@@ -184,12 +188,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--moe-top-k", default=2, type=int)
     p.add_argument("--moe-dispatch", default="ragged",
                    choices=("sort", "ragged", "scatter"),
-                   help="ragged (dropless grouped matmul) is ported; sort "
-                        "and scatter are not yet")
+                   help="ragged: dropless grouped matmul (B4/B4t); sort: "
+                        "stable-argsort capacity layout (gathers); scatter: "
+                        "per-row scatter capacity layout; sort and scatter "
+                        "compute the same function")
     p.add_argument("--moe-capacity-factor", default=1.25, type=float,
-                   help="capacity of the sort/scatter layouts; ragged "
+                   help="per-expert capacity = cf * top_k * T / E (sort/"
+                        "scatter; over-capacity tokens drop); ragged "
                         "ignores it")
-    for flag in ("--remat", "--fsdp", "--moe-remat"):
+    p.add_argument("--moe-remat", action="store_true",
+                   help="recompute the expert computation in the backward "
+                        "(torch.utils.checkpoint) instead of saving its "
+                        "activations")
+    for flag in ("--remat", "--fsdp"):
         p.add_argument(flag, action="store_true", help="not ported yet")
     for flag, default in (("--seq-parallel", 1), ("--pipeline-stages", 1),
                           ("--pipeline-microbatches", 4),
@@ -239,6 +250,7 @@ def run(args: argparse.Namespace) -> dict:
     mcfg = model_config_for_size(
         args.model_size, k=k, compute_dtype=args.compute_dtype,
         num_experts=args.moe_experts, moe_top_k=args.moe_top_k,
+        moe_remat=args.moe_remat, moe_dispatch=args.moe_dispatch,
         moe_capacity_factor=args.moe_capacity_factor)
     tcfg = TrainConfig(
         batch_size=args.batch_size,

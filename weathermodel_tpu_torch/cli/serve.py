@@ -18,6 +18,16 @@ load shedding, hot reload and a SIGTERM drain (serving_daemon.py):
 `--attention-impl fused_qkv_op` runs each layer's projection, attention and
 out-projection as one kernel (B5, inference only).
 
+`--quantize int8` serves the FFN matmuls W8A8 with dynamic activation
+scales; `--quantize int8_static --calibrate-input windows.npz` with static
+per-channel scales calibrated offline on those windows (a MoE checkpoint's
+experts too, through the sort layout); `WM_QUANT_ATTN_OUT=1` extends
+int8_static to the attention out-projection (ops/quant.py):
+
+    wm-serve-torch --checkpoint wb_large.pth --model-size large \
+        --quantize int8_static --calibrate-input calib.npz \
+        --input windows.npz --output preds.npz
+
 Input schema: weather [N, T, F] (+ optional coords [N, 2], year [N, T],
 interval [N, 1], mask [N, T, F]; missing ones get the pretraining
 defaults). A Mixture-of-Experts checkpoint needs `--moe-experts` (and
@@ -38,7 +48,6 @@ logger = logging.getLogger(__name__)
 # flags of the JAX entry point whose feature the port does not have yet
 _UNPORTED = {
     "bundle": "exported bundles (ROADMAP.md queue A item 13)",
-    "quantize": "int8 serving (ROADMAP.md queue A item 13)",
     "tensor_parallel": "tensor-parallel serving (ROADMAP.md queue A item 14)",
 }
 
@@ -103,7 +112,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bundle", help="not ported yet")
     p.add_argument("--quantize", default="none",
                    choices=("none", "int8", "int8_static"),
-                   help="not ported yet (only 'none')")
+                   help="int8: dynamic W8A8 FFN matmuls (ops/quant.py); "
+                        "int8_static: calibrated per-channel activation "
+                        "scales (no on-the-fly absmax; needs "
+                        "--calibrate-input)")
+    p.add_argument("--calibrate-input",
+                   help="int8_static: .npz of representative windows (same "
+                        "schema as --input) used to calibrate the static "
+                        "activation scales offline")
     p.add_argument("--tensor-parallel", default=1, type=int,
                    help="not ported yet (only 1)")
     return p
@@ -136,14 +152,27 @@ def _make_predictor(args: argparse.Namespace, t: int, device):
     # cap the padding buckets at --batch-size
     buckets = tuple(b for b in DEFAULT_BUCKETS if b < args.batch_size)
     buckets = buckets + (args.batch_size,)
+    calibration_batches = None
+    if args.quantize == "int8_static":
+        if not args.calibrate_input:
+            raise SystemExit("--quantize int8_static requires "
+                             "--calibrate-input (representative windows "
+                             ".npz for offline scale calibration)")
+        calib = _load_windows_npz(args.calibrate_input)
+        if calib[0].shape[1] != t:
+            raise SystemExit(
+                f"--calibrate-input has T={calib[0].shape[1]} but the "
+                f"serving sequence length is {t}")
+        calibration_batches = [calib]
     logger.info("serving on %s", device)
     return load_weather_predictor(
         args.checkpoint, model_size=args.model_size, model_name=args.model,
         attention_impl=resolve_attention_impl(
             args.attention_impl, args.model_size, mode="eval"),
         max_len=t, buckets=buckets, num_experts=args.moe_experts,
-        moe_top_k=args.moe_top_k, compute_dtype=args.compute_dtype,
-        device=device)
+        moe_top_k=args.moe_top_k, quantize=args.quantize,
+        compute_dtype=args.compute_dtype, device=device,
+        calibration_batches=calibration_batches)
 
 
 def run(args: argparse.Namespace) -> dict:

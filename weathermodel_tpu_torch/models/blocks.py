@@ -17,16 +17,32 @@ With dropout 0 and no gradient the eval path is the one the serving path
 runs.
 
 `ffn_impl` picks the dense FFN (blocks.py:313-396 of the JAX package; a MoE
-layer ignores it, as there):
+layer ignores the first three, as there):
   "torch"         plain ops (the JAX "xla")
   "fused_ffn_ln"  kernel B6f returns LN(x + FFN(x)) directly, B6b is its
                   backward (the JAX "pallas", ops/fused_ffn_ln.py)
   "fused_ffn"     kernel B7 computes the FFN with both dropouts, then the
                   layer's own residual + LN tail; plain-op backward (the JAX
                   "pallas2", ops/fused_ffn.py)
+  "int8"          serving only: both FFN matmuls W8A8 with dynamic per-row
+                  activation scales (ops/quant.py `int8_dense`); refused by
+                  a MoE layer, as in JAX
+  "int8_static"   serving only: both FFN matmuls (a MoE layer's expert
+                  matmuls) W8A8 with calibrated per-channel activation
+                  scales (`int8_dense_static`, `int8_expert_einsum`)
+  "calibrate"     the "torch" FFN (a MoE layer's float experts) recording
+                  the running per-channel absmax of each matmul int8_static
+                  quantizes (serve.calibrate_quant_scales)
 Each draws two seeds when dropout is on, hidden site then output site, as
 "torch" does, so later layers' seeds do not depend on the impl. The
-parameters are the same for every impl.
+parameters are the same for every impl. The calibrated scales live in
+buffers named after the JAX package's `quant` leaves, outside the state
+dict: `ffn_in_amax` and `ffn_hidden_amax` on the layer, `attn_out_amax` on
+its attention, `expert_in_amax` and `expert_hidden_amax` on its MoE FFN.
+With `ops.quant.set_attn_out_quant(True)` "calibrate" and "int8_static"
+cover the attention out-projection too (blocks.py:86-111,276-281), which
+needs an attention impl that leaves it outside the kernel (not
+"fused_qkv_op").
 """
 
 import numpy as np
@@ -35,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from weathermodel_tpu_torch.models.moe import MoEFFN
+from weathermodel_tpu_torch.ops import quant
 from weathermodel_tpu_torch.ops.attention import ATTENTION_IMPLS, torch_attention
 from weathermodel_tpu_torch.ops.dropout import draw_seed, dropout
 from weathermodel_tpu_torch.ops.flash_attention import (
@@ -50,7 +67,10 @@ from weathermodel_tpu_torch.ops.fused_qkv_attention import (
 )
 
 LN_EPS = 1e-5
-FFN_IMPLS = ("torch", "fused_ffn_ln", "fused_ffn")
+FFN_IMPLS = ("torch", "fused_ffn_ln", "fused_ffn", "int8", "int8_static",
+             "calibrate")
+# the impls that read or record calibrated activation scales
+QUANT_IMPLS = ("calibrate", "int8_static")
 
 
 def sinusoidal_positional_encoding(max_len: int, hidden_dim: int) -> torch.Tensor:
@@ -100,10 +120,12 @@ class SelfAttention(nn.Module):
     B5 and returns its output directly; it is for inference only (the JAX
     layer's "pallas_qkv_op", blocks.py:121-145) and raises when dropout is
     on or a gradient is needed. The parameters are the same for every
-    impl."""
+    impl. With `quant_scales` the out-projection holds the buffer
+    `attn_out_amax`, and the forward's `quant_mode` "calibrate" records
+    into it and "int8_static" runs the projection W8A8 with it."""
 
     def __init__(self, hidden_dim: int, num_heads: int,
-                 attention_impl: str = "torch"):
+                 attention_impl: str = "torch", quant_scales: bool = False):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"Unknown attention impl: {attention_impl}")
@@ -117,8 +139,12 @@ class SelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * hidden_dim))
         torch_linear_init_(self.in_proj_weight, self.in_proj_bias)
         self.out_proj = nn.Linear(hidden_dim, hidden_dim)
+        if quant_scales:
+            self.register_buffer("attn_out_amax", torch.empty(0),
+                                 persistent=False)
 
-    def forward(self, x, dropout_rate: float = 0.0, generator=None):
+    def forward(self, x, dropout_rate: float = 0.0, generator=None,
+                quant_mode: str = "none"):
         w = self.in_proj_weight.to(x.dtype)
         b = self.in_proj_bias.to(x.dtype)
         seed = draw_seed(generator) if dropout_rate > 0.0 else 0
@@ -130,6 +156,12 @@ class SelfAttention(nn.Module):
                     "attention_impl 'fused_qkv_op' (kernel B5) is for "
                     "inference only: it has no backward and no training "
                     "form; train with attention_impl 'fused_qkv'")
+            if quant_mode == "int8_static":
+                raise ValueError(
+                    "attention out-proj int8_static requires the projection "
+                    "to run as a matmul: use attention_impl 'fused_qkv', not "
+                    "'fused_qkv_op' (which fuses the out-projection into "
+                    "the kernel)")
             return fused_qkv_attention_outproj(
                 x, w.contiguous(), b, wo.contiguous(), bo.to(x.dtype),
                 self.num_heads)
@@ -148,6 +180,12 @@ class SelfAttention(nn.Module):
                                            dropout_rate, seed)
             else:
                 out = flash_attention_fwd(q, k, v, self.num_heads, 0.0, 0)
+        if quant_mode == "calibrate":
+            quant.record_amax(self, "attn_out_amax", quant.rows_amax(out))
+        elif quant_mode == "int8_static":
+            scale = quant.calibrated(self, "attn_out_amax")
+            return quant.int8_dense_static(out, self.out_proj.weight, scale,
+                                           self.out_proj.bias)
         return linear(out, self.out_proj)
 
 
@@ -166,21 +204,28 @@ class TransformerEncoderLayer(nn.Module):
                  attention_impl: str = "torch", ffn_impl: str = "torch",
                  moe: dict = None):
         super().__init__()
-        if ffn_impl in ("int8", "int8_static", "calibrate"):
-            raise NotImplementedError(
-                f"ffn_impl={ffn_impl!r} (int8 serving) is not ported yet; see "
-                "ROADMAP.md queue A item 13")
         if ffn_impl not in FFN_IMPLS:
             raise ValueError(f"Unknown ffn impl {ffn_impl!r}; choose one of "
                              f"{FFN_IMPLS}")
         self.ffn_impl = ffn_impl
-        self.self_attn = SelfAttention(hidden_dim, num_heads, attention_impl)
+        quant_scales = ffn_impl in QUANT_IMPLS
+        self.self_attn = SelfAttention(hidden_dim, num_heads, attention_impl,
+                                       quant_scales)
         if moe:
-            self.moe = MoEFFN(hidden_dim, ffn_dim, **moe)
+            if ffn_impl == "int8":
+                raise ValueError(
+                    "dynamic int8 is not supported for the MoE FFN; use "
+                    "ffn_impl='int8_static' with calibration")
+            self.moe = MoEFFN(hidden_dim, ffn_dim, **moe, quant_mode=(
+                ffn_impl if quant_scales else "none"))
         else:
             self.moe = None
             self.linear1 = nn.Linear(hidden_dim, ffn_dim)
             self.linear2 = nn.Linear(ffn_dim, hidden_dim)
+            if quant_scales:
+                for name in ("ffn_in_amax", "ffn_hidden_amax"):
+                    self.register_buffer(name, torch.empty(0),
+                                         persistent=False)
         self.norm1 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
 
@@ -195,14 +240,39 @@ class TransformerEncoderLayer(nn.Module):
                                 norm.bias, LN_EPS).to(y.dtype)
 
         dtype = x.dtype
-        x = layer_norm(x + drop(self.self_attn(x, dropout_rate, generator)),
-                       self.norm1)
+        attn_qm = (self.ffn_impl if self.ffn_impl in QUANT_IMPLS
+                   and quant.attn_out_quant_enabled() else "none")
+        x = layer_norm(x + drop(self.self_attn(x, dropout_rate, generator,
+                                               attn_qm)), self.norm1)
         if self.moe is not None:
             ff, aux = self.moe(x, dropout_rate, generator)
             return layer_norm(x + drop(ff), self.norm2), aux
-        if self.ffn_impl == "torch":
-            ff = drop(F.relu(linear(x, self.linear1)))
-            ff = drop(linear(ff, self.linear2))
+        if self.ffn_impl in ("torch", "calibrate"):
+            calibrate = self.ffn_impl == "calibrate"
+            if calibrate:
+                quant.record_amax(self, "ffn_in_amax", quant.rows_amax(x))
+            ff = F.relu(linear(x, self.linear1))
+            if calibrate:
+                quant.record_amax(self, "ffn_hidden_amax",
+                                  quant.rows_amax(ff))
+            ff = drop(linear(drop(ff), self.linear2))
+        elif self.ffn_impl in ("int8", "int8_static"):
+            if dropout_rate > 0.0:
+                raise ValueError(
+                    f"ffn_impl={self.ffn_impl!r} is a serving/eval path; "
+                    "training with dropout would differentiate through "
+                    "round() (zero gradient). Train in bf16/fp32 and "
+                    "quantize at serve time.")
+            l1, l2 = self.linear1, self.linear2
+            if self.ffn_impl == "int8_static":
+                a1, a2 = (quant.calibrated(self, name) for name in
+                          ("ffn_in_amax", "ffn_hidden_amax"))
+                ff = F.relu(quant.int8_dense_static(x, l1.weight, a1,
+                                                    l1.bias))
+                ff = quant.int8_dense_static(ff, l2.weight, a2, l2.bias)
+            else:
+                ff = F.relu(quant.int8_dense(x, l1.weight, l1.bias))
+                ff = quant.int8_dense(ff, l2.weight, l2.bias)
         else:
             seeds = ((draw_seed(generator), draw_seed(generator))
                      if dropout_rate > 0.0 else (0, 0))

@@ -1,50 +1,90 @@
-"""Mixture-of-Experts FFN, the dropless ragged dispatch (port of
-weathermodel_tpu/models/moe.py).
+"""Mixture-of-Experts FFN (port of weathermodel_tpu/models/moe.py).
 
 A drop-in replacement for the dense FFN half of the encoder layer: router ->
-top-k -> rows sorted by expert -> per-expert linear1 -> ReLU -> dropout ->
-linear2 -> back to token order -> gate-weighted sum over the k choices. The
-residual and post-LN tail stay in the caller (models/blocks.py).
+top-k -> dispatch -> per-expert linear1 -> ReLU -> dropout -> linear2 ->
+combine -> gate-weighted sum over the k choices. The residual and post-LN
+tail stay in the caller (models/blocks.py).
 
 * Router: an fp32 Linear(H, E) on x.float(), softmax, top-k; for k > 1 the k
   gates are renormalised to sum to 1, for k == 1 the raw probability is the
   gate (moe.py:421-435).
-* Ragged dispatch (moe.py:228-252,554-601): one stable argsort of all B*T*k
-  token-major assignments puts rows contiguous by expert (`ragged_routing`);
-  the per-expert counts come from a searchsorted on the sorted ids, so no
-  size is read on the host. Every assignment is computed: no capacity, no
-  dropped token. The expert matmuls are the grouped matmul (ops/gmm.py,
-  kernels B4 and B4t); the row permutation and its inverse are gathers
-  whose backward is the other gather (`PermuteRows`); the per-row expert
-  bias is a one-hot [S, E] . [E, F] matmul, as in the JAX package.
+* `dispatch="ragged"`, the default (moe.py:228-252,554-601): one stable
+  argsort of all B*T*k token-major assignments puts rows contiguous by
+  expert (`ragged_routing`); the per-expert counts come from a searchsorted
+  on the sorted ids, so no size is read on the host. Every assignment is
+  computed: no capacity, no dropped token. The expert matmuls are the
+  grouped matmul (ops/gmm.py, kernels B4 and B4t); the row permutation and
+  its inverse are gathers whose backward is the other gather
+  (`PermuteRows`); the per-row expert bias is a one-hot [S, E] . [E, F]
+  matmul, as in the JAX package.
+* The capacity layouts group one batch row to a dispatch group, each with
+  `expert_capacity(T, E, k, capacity_factor)` slots an expert; tokens past
+  an expert's capacity are dropped (their gate weight is 0), earlier tokens
+  and higher-gate slots first (moe.py:414-419). `dispatch="sort"`
+  (moe.py:187-225,341-360,603-676): a stable argsort of each row's
+  assignments gives every (token, slot) its position in its expert and the
+  two directions of the token <-> expert-slot bijection (`sort_routing`),
+  laid out expert-major [E, B, cap] (`globalize_routing`), so dispatch and
+  combine are gathers whose backward is the inverse gather (`GatherRows`);
+  the experts are two batched matmuls [E, B*cap, H] x [E, H, F], and the
+  bias, ReLU and dropout one autograd Function that saves only its output
+  (`BiasReluDropout`). `dispatch="scatter"` (moe.py:459-470,612-618,
+  672-684): a running count gives the positions, each row scatters into
+  [E, cap+1, H] (dropped tokens into the spare slot `cap`, which is cut
+  off), the experts are batched matmuls over [B, E, cap, H], and the
+  combine a gather. Sort and scatter compute the same function.
+* `remat` (moe.py:688-691): the expert computation (dispatch, experts,
+  combine) runs under `torch.utils.checkpoint` and is recomputed in the
+  backward instead of saving its activations. Its dropout seed is drawn
+  outside the region, so the recomputed forward draws the same mask.
+* `quant_mode` (moe.py:517-548, serving only): "calibrate" records in the
+  buffers `expert_in_amax` [E, H] and `expert_hidden_amax` [E, F] the
+  running per-expert per-channel absmax of the two expert matmuls' inputs
+  (ragged: every routed assignment, `segment_amax`; sort: the dispatched
+  rows); "int8_static" (sort only) runs both expert matmuls through
+  ops/quant.py's `int8_expert_einsum` with those scales, an expert that saw
+  no calibration token taking each channel's max across experts. The
+  buffers are not part of the state dict.
 * Aux loss, returned beside the output (not kept in module state): the
   Switch balance E * sum_e(f_e * P_e) with f_e the fraction of assignments
-  to expert e over k and P_e the mean router probability, plus
-  Z_LOSS_SCALE * mean(logsumexp(logits)^2) (moe.py:478-486).
+  to expert e over k (pre-capacity counts in every layout) and P_e the mean
+  router probability, plus Z_LOSS_SCALE * mean(logsumexp(logits)^2)
+  (moe.py:478-486).
 
 The parameters keep the JAX package's names and layout: `router` (a Linear,
 torch [E, H] weight), `expert_w1` [E, H, F], `expert_b1` [E, F], `expert_w2`
-[E, F, H], `expert_b2` [E, H]. Only `dispatch="ragged"` (the default of
-ModelConfig and `wm-pretrain`) is ported; the capacity layouts ("sort",
-"scatter") and `remat` raise, naming ROADMAP.md queue A item 12.
+[E, F, H], `expert_b2` [E, H].
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from weathermodel_tpu_torch.ops.dropout import draw_seed, dropout
+from weathermodel_tpu_torch.ops.dropout import (
+    draw_seed,
+    dropout,
+    rounded_scale,
+)
 from weathermodel_tpu_torch.ops.gmm import GroupedMatmul, gmm_reference
+from weathermodel_tpu_torch.ops.quant import (
+    calibrated,
+    int8_expert_einsum,
+    record_amax,
+)
 
 # Router z-loss weight relative to the balance loss (moe.py:79-81)
 Z_LOSS_SCALE = 1e-3
 GMM_IMPLS = ("kernel", "plain")
+DISPATCHES = ("sort", "ragged", "scatter")
+QUANT_MODES = ("none", "calibrate", "int8_static")
+QUANT_BUFFERS = ("expert_in_amax", "expert_hidden_amax")
 
 
 def expert_capacity(tokens_per_group: int, num_experts: int, top_k: int,
                     capacity_factor: float) -> int:
-    """Static per-group expert capacity, padded to a multiple of 8
-    (moe.py:84-90). The ragged dispatch has no capacity; the capacity
-    layouts that use it are not ported yet."""
+    """Static per-group expert capacity of the sort and scatter layouts,
+    padded to a multiple of 8 (moe.py:84-90)."""
     c = int(capacity_factor * top_k * tokens_per_group / num_experts)
     c = max(c, top_k)
     return -(-c // 8) * 8
@@ -66,6 +106,56 @@ class PermuteRows(torch.autograd.Function):
         return g.index_select(0, inv), None, None
 
 
+def _masked_rows(x, idx, mask):
+    rows = x.index_select(0, idx)
+    return torch.where(mask[:, None], rows,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class GatherRows(torch.autograd.Function):
+    """y[m] = mask[m] ? x[idx[m]] : 0 for x [N, H], whose backward is the
+    inverse gather dx[n] = inv_mask[n] ? g[inv_idx[n]] : 0 (moe.py:93-125):
+    the dispatch between kept (token, slot) assignments and filled expert
+    slots is a bijection, so the caller hands over its inverse."""
+
+    @staticmethod
+    def forward(ctx, x, idx, mask, inv_idx, inv_mask):
+        ctx.save_for_backward(inv_idx, inv_mask)
+        return _masked_rows(x, idx, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv_idx, inv_mask = ctx.saved_tensors
+        return _masked_rows(g, inv_idx, inv_mask), None, None, None, None
+
+
+class BiasReluDropout(torch.autograd.Function):
+    """relu(pre + bias[:, None]) then dropout (at `rate` > 0, from `seed`)
+    as one Function that saves only its output y (moe.py:149-185): the ReLU
+    and dropout-survivor masks coincide with y > 0 and the dropout scale is
+    a constant, so the backward is one elementwise pass and the bias's sum.
+    pre [E, M, F] in the compute dtype, bias [E, F] fp32. Valid for every
+    dropout impl of the port: each keeps a value as x * 1/(1 - rate)."""
+
+    @staticmethod
+    def forward(ctx, pre, bias, rate, seed):
+        y = torch.relu(pre + bias[:, None].to(pre.dtype))
+        if rate > 0.0:
+            y = dropout(y, rate, seed)
+        ctx.save_for_backward(y)
+        ctx.rate = rate
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        scale = rounded_scale(ctx.rate, g.dtype) if ctx.rate > 0.0 else 1.0
+        dpre = torch.where(y > 0, g * scale,
+                           torch.zeros((), dtype=g.dtype, device=g.device))
+        db = dpre.sum(dim=tuple(range(1, dpre.dim() - 1))).float()
+        return dpre, db, None, None
+
+
 def ragged_routing(flat_idx, num_experts: int):
     """flat_idx [B, T*k] expert ids (token-major) -> (order, inv, n_e,
     sorted_e), as `_ragged_routing` (moe.py:228-252): `order` [S] sorts the
@@ -83,45 +173,125 @@ def ragged_routing(flat_idx, num_experts: int):
     return order, inv, n_e, sorted_e
 
 
-class MoEFFN(nn.Module):
-    """Top-k routed expert FFN with the ragged dispatch: [B, T, H] ->
-    ([B, T, H] in x's dtype, fp32 aux loss).
+def sort_routing(flat_idx, num_experts: int, cap: int):
+    """Per-row capacity routing by a stable argsort, as `_sort_routing`
+    (moe.py:187-225). flat_idx [B, Tk] -> (pos, keep, slot, tok, filled,
+    n_e):
+      pos    [B, Tk] position of each (token, slot) inside its expert
+      keep   [B, Tk] pos < cap
+      slot   [B, Tk] expert-slot id e*cap + min(pos, cap-1)
+      tok    [B, E*cap] token filling each slot (meaningless if empty)
+      filled [B, E*cap] slot actually filled
+      n_e    [B, E] pre-capacity per-expert counts"""
+    b, tk = flat_idx.shape
+    e = num_experts
+    order = torch.argsort(flat_idx, dim=1, stable=True)
+    sorted_e = flat_idx.gather(1, order)
+    experts = torch.arange(e, dtype=flat_idx.dtype, device=flat_idx.device)
+    start = torch.searchsorted(sorted_e, experts.expand(b, e).contiguous(),
+                               side="left")
+    n_e = torch.diff(start, dim=1, append=start.new_full((b, 1), tk))
+    pos_sorted = (torch.arange(tk, dtype=start.dtype,
+                               device=start.device)[None]
+                  - start.gather(1, sorted_e))
+    inv = torch.argsort(order, dim=1)
+    pos = pos_sorted.gather(1, inv)
+    keep = pos < cap
+    slot = flat_idx * cap + pos.clamp(max=cap - 1)
+    c_ar = torch.arange(cap, dtype=start.dtype, device=start.device)
+    slot_pos = start[:, :, None] + c_ar[None, None, :]          # [B, E, cap]
+    filled = c_ar[None, None, :] < n_e.clamp(max=cap)[:, :, None]
+    tok = order.gather(1, slot_pos.clamp(0, tk - 1).reshape(b, e * cap))
+    return pos, keep, slot, tok, filled.reshape(b, e * cap), n_e
 
-    `gmm_impl` "kernel" runs the expert matmuls through `GroupedMatmul`
-    (kernels B4/B4t on the card, their plain versions on the CPU); "plain"
-    runs the plain versions on any device (the reference the kernel path is
-    checked against on the card). `capacity_factor` is taken and ignored,
-    as the JAX module's ragged dispatch ignores it: nothing is dropped."""
+
+def globalize_routing(flat_idx, pos, keep, tok, filled, num_experts: int,
+                      cap: int):
+    """The sort layout's index maps over the whole batch, expert-major
+    ([E, B, cap] slots, [B, Tk] tokens; moe.py:341-360): (gtok, gfill)
+    build the experts' input [E, B*cap, H] from the B*Tk token rows in one
+    gather, (gslot, gkeep) bring each token's slot back. All flat."""
+    b, tk = flat_idx.shape
+    e = num_experts
+    boff = torch.arange(b, dtype=tok.dtype, device=tok.device) * tk
+    gtok = (tok.reshape(b, e, cap) + boff[:, None, None]).transpose(0, 1)
+    gfill = filled.reshape(b, e, cap).transpose(0, 1)
+    brow = torch.arange(b, dtype=tok.dtype, device=tok.device)[:, None]
+    gslot = (flat_idx * b + brow) * cap + pos.clamp(max=cap - 1)
+    return (gtok.reshape(-1), gfill.reshape(-1), gslot.reshape(-1),
+            keep.reshape(-1))
+
+
+def scatter_routing(flat_idx, num_experts: int, cap: int):
+    """The scatter layout's positions from a running count over each row
+    (moe.py:459-472): (pos [B, Tk] with dropped assignments at the spare
+    slot `cap`, keep [B, Tk], the pre-capacity counts [B, E])."""
+    onehot = F.one_hot(flat_idx, num_experts)                  # [B, Tk, E]
+    pos = (torch.cumsum(onehot, dim=1) - onehot).gather(
+        2, flat_idx[..., None])[..., 0]
+    keep = pos < cap
+    return torch.where(keep, pos, cap), keep, onehot.sum(dim=1)
+
+
+def segment_amax(x, seg, num_experts: int):
+    """Per-expert per-channel absmax [E, C] in fp32 of the rows of x [S, C]
+    whose expert is seg [S] (moe.py:255-264): the dropless calibration
+    statistic. An expert with no row gets 0."""
+    c = x.shape[1]
+    out = torch.zeros(num_experts, c, dtype=torch.float32, device=x.device)
+    return out.scatter_reduce(0, seg[:, None].expand(-1, c),
+                              x.abs().float(), "amax", include_self=True)
+
+
+class MoEFFN(nn.Module):
+    """Top-k routed expert FFN: [B, T, H] -> ([B, T, H] in x's dtype, fp32
+    aux loss).
+
+    `gmm_impl` "kernel" runs the ragged dispatch's expert matmuls through
+    `GroupedMatmul` (kernels B4/B4t on the card, their plain versions on
+    the CPU); "plain" runs the plain versions on any device (the reference
+    the kernel path is checked against on the card). The capacity layouts
+    run batched matmuls, as the JAX einsums do; `capacity_factor` sizes
+    them and the ragged dispatch ignores it."""
 
     def __init__(self, hidden_dim: int, ffn_dim: int, num_experts: int,
                  top_k: int = 2, capacity_factor: float = 1.25,
                  dispatch: str = "ragged", remat: bool = False,
-                 gmm_impl: str = "kernel"):
+                 gmm_impl: str = "kernel", quant_mode: str = "none"):
         super().__init__()
         if not 0 < top_k <= num_experts:
             raise ValueError(f"top_k={top_k} must be in [1, num_experts="
                              f"{num_experts}]")
-        if dispatch != "ragged":
-            if dispatch not in ("sort", "scatter"):
-                raise ValueError(f"dispatch must be 'sort', 'ragged' or "
-                                 f"'scatter', got {dispatch!r}")
-            raise NotImplementedError(
-                f"MoE dispatch={dispatch!r} (the capacity layout) is not "
-                "ported yet; see ROADMAP.md queue A item 12")
-        if remat:
-            raise NotImplementedError(
-                "moe_remat is not ported yet; see ROADMAP.md queue A item 12")
+        if dispatch not in DISPATCHES:
+            raise ValueError(f"dispatch must be 'sort', 'ragged' or "
+                             f"'scatter', got {dispatch!r}")
         if gmm_impl not in GMM_IMPLS:
             raise ValueError(f"gmm_impl must be one of {GMM_IMPLS}, got "
                              f"{gmm_impl!r}")
+        if quant_mode not in QUANT_MODES:
+            raise ValueError(f"quant_mode must be 'none', 'calibrate' or "
+                             f"'int8_static', got {quant_mode!r}")
+        if quant_mode == "int8_static" and dispatch != "sort":
+            raise ValueError("MoE int8_static requires dispatch='sort' (the "
+                             "int8 expert einsum is wired to the capacity "
+                             "layout)")
+        if quant_mode == "calibrate" and dispatch == "scatter":
+            raise ValueError("MoE calibrate requires dispatch='sort' or "
+                             "'ragged' (ragged calibrates on dropless "
+                             "statistics: every routed assignment)")
         self.num_experts, self.top_k = num_experts, top_k
-        self.gmm_impl = gmm_impl
+        self.capacity_factor, self.dispatch, self.remat = (capacity_factor,
+                                                           dispatch, remat)
+        self.gmm_impl, self.quant_mode = gmm_impl, quant_mode
         e, h, f = num_experts, hidden_dim, ffn_dim
         self.router = nn.Linear(h, e)
         self.expert_w1 = nn.Parameter(torch.empty(e, h, f))
         self.expert_b1 = nn.Parameter(torch.empty(e, f))
         self.expert_w2 = nn.Parameter(torch.empty(e, f, h))
         self.expert_b2 = nn.Parameter(torch.empty(e, h))
+        if quant_mode != "none":
+            for name in QUANT_BUFFERS:
+                self.register_buffer(name, torch.empty(0), persistent=False)
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator = None) -> None:
@@ -139,8 +309,7 @@ class MoEFFN(nn.Module):
     def route(self, x):
         """(logits, probs, gate, idx): the fp32 router's logits and softmax
         [B, T, E], and the top-k gates and expert ids [B, T, k]."""
-        logits = nn.functional.linear(x.float(), self.router.weight,
-                                      self.router.bias)
+        logits = F.linear(x.float(), self.router.weight, self.router.bias)
         probs = torch.softmax(logits, dim=-1)
         gate, idx = torch.topk(probs, self.top_k, dim=-1)
         if self.top_k > 1:
@@ -153,26 +322,123 @@ class MoEFFN(nn.Module):
         return GroupedMatmul.apply(lhs, rhs, n_e)
 
     def forward(self, x, dropout_rate: float = 0.0, generator=None):
-        b, t, h = x.shape
-        e, k, dtype = self.num_experts, self.top_k, x.dtype
+        b, t, _ = x.shape
+        e, k = self.num_experts, self.top_k
+        if self.quant_mode == "int8_static" and dropout_rate > 0.0:
+            raise ValueError("quant_mode='int8_static' is a serving/eval "
+                             "path; train in bf16/fp32 and quantize at "
+                             "serve time")
         logits, probs, gate, idx = self.route(x)
-        order, inv, n_e, sorted_e = ragged_routing(idx.reshape(b, t * k), e)
+        flat_idx = idx.reshape(b, t * k)
+        cap = expert_capacity(t, e, k, self.capacity_factor)
+        keep = None
+        if self.dispatch == "sort":
+            pos, keep, _, tok, filled, n_e = sort_routing(flat_idx, e, cap)
+            routing = globalize_routing(flat_idx, pos, keep, tok, filled, e,
+                                        cap)
+            density = n_e.float().mean(dim=0) / t
+        elif self.dispatch == "ragged":
+            routing = ragged_routing(flat_idx, e)
+            density = routing[2].float() / (b * t)
+        else:
+            pos, keep, counts = scatter_routing(flat_idx, e, cap)
+            routing = (flat_idx, pos)
+            density = counts.float().mean(dim=0) / t
 
-        density = n_e.float() / (b * t)
         balance = e * torch.sum(density / k * probs.mean(dim=(0, 1)))
         z = torch.logsumexp(logits, dim=-1)
         aux = balance + Z_LOSS_SCALE * z.square().mean()
 
-        s = b * t * k
-        xk = x.unsqueeze(2).expand(b, t, k, h).reshape(s, h)
+        # the seed is drawn outside the remat region: its recomputed
+        # forward draws the same mask
+        seed = draw_seed(generator) if dropout_rate > 0.0 else 0
+        w_gate = gate.reshape(b, t * k)
+        if keep is not None:
+            w_gate = w_gate * keep
+        w_gate = w_gate.to(x.dtype)
+        if self.remat and torch.is_grad_enabled():
+            out = checkpoint(self._experts, x, w_gate, routing, cap,
+                             dropout_rate, seed, use_reentrant=False)
+        else:
+            out = self._experts(x, w_gate, routing, cap, dropout_rate, seed)
+        return out, aux
+
+    def _experts(self, x, w_gate, routing, cap, rate, seed):
+        """Dispatch, the experts, combine and the gate-weighted sum: the
+        region `remat` recomputes."""
+        b, t, h = x.shape
+        k = self.top_k
+        xk = x.unsqueeze(2).expand(b, t, k, h).reshape(b * t * k, h)
+        if self.dispatch == "ragged":
+            got = self._ragged(xk, routing, rate, seed)
+        elif self.dispatch == "sort":
+            got = self._sort(xk, routing, b, cap, rate, seed)
+        else:
+            got = self._scatter(xk.reshape(b, t * k, h), routing, cap, rate,
+                                seed)
+        return (got.reshape(b, t, k, h)
+                * w_gate.reshape(b, t, k)[..., None]).sum(dim=2)
+
+    def _ragged(self, xk, routing, rate, seed):
+        order, inv, n_e, sorted_e = routing
+        e, dtype = self.num_experts, xk.dtype
+        calibrate = self.quant_mode == "calibrate"
         xs = PermuteRows.apply(xk, order, inv)
+        if calibrate:
+            record_amax(self, "expert_in_amax", segment_amax(xs, sorted_e, e))
         onehot = (sorted_e[:, None] == torch.arange(
-            e, device=x.device)).to(dtype)                          # [S, E]
+            e, device=xk.device)).to(dtype)                           # [S, E]
         hdn = self._gmm(xs, self.expert_w1.to(dtype), n_e)
         hdn = torch.relu(hdn + onehot @ self.expert_b1.to(dtype))
-        if dropout_rate > 0.0:
-            hdn = dropout(hdn, dropout_rate, draw_seed(generator))
+        hdn = dropout(hdn, rate, seed)
+        if calibrate:
+            record_amax(self, "expert_hidden_amax",
+                        segment_amax(hdn, sorted_e, e))
         out = self._gmm(hdn, self.expert_w2.to(dtype), n_e)
-        out = out + onehot @ self.expert_b2.to(dtype)                # [S, H]
-        got = PermuteRows.apply(out, inv, order).reshape(b, t, k, h)
-        return (got * gate.to(dtype)[..., None]).sum(dim=2), aux
+        out = out + onehot @ self.expert_b2.to(dtype)                 # [S, H]
+        return PermuteRows.apply(out, inv, order)
+
+    def _sort(self, xk, routing, b, cap, rate, seed):
+        gtok, gfill, gslot, gkeep = routing
+        e, h, dtype = self.num_experts, xk.shape[1], xk.dtype
+        expert_in = GatherRows.apply(xk, gtok, gfill, gslot,
+                                     gkeep).reshape(e, b * cap, h)
+        b1 = self.expert_b1
+        b2 = self.expert_b2[:, None].to(dtype)
+        if self.quant_mode == "int8_static":
+            qa1, qa2 = (calibrated(self, name) for name in QUANT_BUFFERS)
+            # an expert that saw no calibration token: each channel's max
+            # across experts, rather than saturating everything routed to it
+            qa1 = torch.where(qa1 > 0, qa1, qa1.amax(dim=0, keepdim=True))
+            qa2 = torch.where(qa2 > 0, qa2, qa2.amax(dim=0, keepdim=True))
+            hdn = int8_expert_einsum(expert_in, self.expert_w1, qa1, dtype)
+            hdn = torch.relu(hdn + b1[:, None].to(dtype))
+            out = int8_expert_einsum(hdn, self.expert_w2, qa2, dtype) + b2
+        else:
+            calibrate = self.quant_mode == "calibrate"
+            if calibrate:
+                record_amax(self, "expert_in_amax",
+                            expert_in.abs().float().amax(dim=1))
+            hdn = torch.bmm(expert_in, self.expert_w1.to(dtype))
+            hdn = BiasReluDropout.apply(hdn, b1, rate, seed)
+            if calibrate:
+                record_amax(self, "expert_hidden_amax",
+                            hdn.abs().float().amax(dim=1))
+            out = torch.bmm(hdn, self.expert_w2.to(dtype)) + b2  # [E, M, H]
+        return GatherRows.apply(out.reshape(-1, h), gslot, gkeep, gtok,
+                                gfill)
+
+    def _scatter(self, xk, routing, cap, rate, seed):
+        flat_idx, pos = routing
+        b, tk, h = xk.shape
+        e, dtype = self.num_experts, xk.dtype
+        rows = torch.arange(b, device=xk.device)[:, None].expand(b, tk)
+        buf = xk.new_zeros(b, e, cap + 1, h)
+        expert_in = buf.index_put((rows, flat_idx, pos), xk)[:, :, :cap]
+        hdn = torch.einsum("bech,ehf->becf", expert_in,
+                           self.expert_w1.to(dtype))
+        hdn = torch.relu(hdn + self.expert_b1[None, :, None].to(dtype))
+        hdn = dropout(hdn, rate, seed)
+        out = torch.einsum("becf,efh->bech", hdn, self.expert_w2.to(dtype))
+        out = out + self.expert_b2[None, :, None].to(dtype)  # [B, E, cap, H]
+        return out[rows, flat_idx, pos.clamp(max=cap - 1)]

@@ -17,6 +17,12 @@ does the same for a flax yield-model tree (models/yield_models.py): the
 `weather_attention.{0,2}` and `yield_mlp.{0,2}`, and the variational heads'
 dense layers and priors under their own names.
 
+`quant_scales_from_jax` maps the JAX package's `quant` collection (the
+calibrated int8_static activation scales, as `calibrate_quant_scales`
+returns them) to the port's scale-buffer names, which
+`serve.calibrate_quant_scales` returns too, and `load_quant_scales` puts
+such scales into a model's buffers (outside its state dict).
+
 `load_pretrained` applies the JAX package's transfer rules to these state
 dicts: the encoder trunk (`in_proj.*`, `transformer_encoder.*`) always
 transfers; `out_proj.*` only when every shape matches (a WeatherFormer from a
@@ -190,6 +196,63 @@ def state_dict_from_jax_params(params) -> dict:
         if name in p:
             sd[name] = _tensor(p[name])
     return sd
+
+
+# the calibrated activation scales of int8_static: leaf name -> the module
+# that holds it within an encoder layer ("" the layer itself)
+QUANT_SCALE_OWNERS = {"ffn_in_amax": "", "ffn_hidden_amax": "",
+                      "attn_out_amax": "self_attn.",
+                      "expert_in_amax": "moe.", "expert_hidden_amax": "moe."}
+
+
+def quant_scales_from_jax(quant) -> dict:
+    """The JAX `quant` collection of a WeatherBERT/WeatherFormer (nested
+    dicts of numpy or jax arrays, with or without the top-level 'quant':
+    `core/encoder/layer_i/{ffn_in_amax, ffn_hidden_amax, self_attn/
+    attn_out_amax, moe/expert_in_amax, moe/expert_hidden_amax}`) -> the
+    port's {buffer name: fp32 CPU tensor}, e.g.
+    `transformer_encoder.layers.0.self_attn.attn_out_amax`."""
+    q = quant["quant"] if "quant" in quant else quant
+    out = {}
+    encoder = q["core"]["encoder"]
+    for layer_name, layer in encoder.items():
+        pre = f"transformer_encoder.layers.{layer_name[len('layer_'):]}."
+
+        def walk(node, owner):
+            for name, leaf in node.items():
+                if isinstance(leaf, dict):
+                    walk(leaf, owner + name + ".")
+                elif QUANT_SCALE_OWNERS.get(name) != owner:
+                    raise ValueError(f"unknown quant leaf {owner}{name} in "
+                                     f"{layer_name}")
+                else:
+                    out[pre + owner + name] = torch.tensor(
+                        np.asarray(leaf, np.float32))
+
+        walk(layer, "")
+    return out
+
+
+def load_quant_scales(model: torch.nn.Module, scales: dict) -> None:
+    """Put calibrated scales ({buffer name: tensor}, as
+    `serve.calibrate_quant_scales` or `quant_scales_from_jax` return them)
+    into `model`'s scale buffers, on each buffer's device. Every name must
+    be a scale buffer of the model (built with ffn_impl "int8_static" or
+    "calibrate")."""
+    for key, value in scales.items():
+        owner, _, name = key.rpartition(".")
+        try:
+            module = model.get_submodule(owner)
+        except AttributeError:
+            module = None
+        buf = getattr(module, name, None) if module is not None else None
+        if name not in QUANT_SCALE_OWNERS or not isinstance(buf,
+                                                            torch.Tensor):
+            raise ValueError(f"{key} is not a calibrated-scale buffer of "
+                             f"{type(model).__name__} (built with ffn_impl "
+                             "'int8_static'?)")
+        setattr(module, name, value.to(device=buf.device,
+                                       dtype=torch.float32))
 
 
 # flax yield-head Dense name -> the port's module prefix

@@ -14,7 +14,7 @@ after the positional encoding (weathermodel_tpu/models/weatherbert.py:63-98).
 In `eval()` mode it is deterministic.
 
 With `cfg.num_experts` > 0 every layer's FFN is the routed expert FFN
-(models/moe.py, ragged dispatch); `return_moe_aux=True` makes the forward
+(models/moe.py, `cfg.moe_dispatch`); `return_moe_aux=True` makes the forward
 return (outputs, the mean of the layers' aux losses), which the train step
 adds to the objective (train/steps.py).
 

@@ -1,4 +1,4 @@
-"""Batched inference (port of weathermodel_tpu/serve.py:23-135,194-295).
+"""Batched inference (port of weathermodel_tpu/serve.py).
 
 Loads a reference-format `.pth` checkpoint and returns an eval-mode
 predictor on one device. Requests are padded with zero rows up to a small
@@ -10,14 +10,23 @@ the largest bucket are chunked by it.
                                        device="cuda")
     out = predictor(weather, coords, year, interval, mask)
 
+`quantize="int8"` serves the FFN matmuls W8A8 with dynamic activation
+scales, `"int8_static"` with per-channel activation scales that
+`calibrate_quant_scales` takes offline from `calibration_batches` (and the
+attention out-projection too under `ops.quant.set_attn_out_quant`); a MoE
+model serves int8_static through the sort layout (ops/quant.py,
+models/moe.py).
+
 `reload_predictor_params` hot-swaps a predictor's weights from a new `.pth`
 (the online daemon's POST /reload): the new weights are loaded into a
 second copy of the module on the device and the predictor's one reference
 to its module is swapped, so a batch in flight finishes on the weights it
-started with.
+started with. The copy keeps the served calibration (the scale buffers are
+not in a checkpoint), as the JAX package keeps its `quant` collection.
 """
 
 import copy
+import dataclasses
 import logging
 from typing import Sequence
 
@@ -111,6 +120,46 @@ class WeatherPredictor:
         return out.cpu().numpy()[:n]
 
 
+def calibrate_quant_scales(model_name, cfg, state_dict, batches,
+                           attention_impl: str = "torch",
+                           dropless_moe_stats: bool = True,
+                           device="cuda") -> dict:
+    """Offline calibration for `ffn_impl="int8_static"` (JAX
+    serve.py:138-191): run the float model with `state_dict` on `device`
+    over `batches` (an iterable of (weather, coords, year, interval, mask)
+    numpy tuples) and record, per encoder layer, the per-channel absmax of
+    each quantized matmul's input: the FFN input and its post-ReLU hidden
+    (per expert for MoE layers), and the attention out-projection's input
+    under `ops.quant.set_attn_out_quant`. Across batches the statistics
+    combine by an elementwise max. Returns {scale-buffer name: fp32 CPU
+    tensor} for `models/transfer.py::load_quant_scales`.
+
+    MoE models calibrate through the dropless ragged dispatch (unless
+    `dropless_moe_stats` is False), whatever layout serves: the sort
+    layout's over-capacity tokens would be missing from the statistics."""
+    from weathermodel_tpu_torch.cli.pretrain import make_model
+
+    if dropless_moe_stats and cfg.num_experts > 0 \
+            and cfg.moe_dispatch != "ragged":
+        cfg = dataclasses.replace(cfg, moe_dispatch="ragged")
+    model = make_model(model_name, cfg, attention_impl, ffn_impl="calibrate")
+    model.load_state_dict(_model_keys(model, state_dict))
+    model = model.to(device).eval()
+    n = 0
+    with torch.inference_mode():
+        for batch in batches:
+            weather, coords, year, interval, mask = (
+                torch.from_numpy(np.asarray(a, dtype)).to(device)
+                for a, dtype in zip(batch, (np.float32,) * 4 + (bool,)))
+            model(weather, coords, year, interval, mask)
+            n += weather.shape[0]
+    if n == 0:
+        raise ValueError("calibration requires at least one batch")
+    logger.info("calibrated int8 activation scales over %d windows", n)
+    return {name: buf.cpu() for name, buf in model.named_buffers()
+            if name.endswith("_amax") and buf.numel() > 0}
+
+
 def load_weather_predictor(
     checkpoint_path: str,
     model_size: str = "small",
@@ -124,31 +173,50 @@ def load_weather_predictor(
     compute_dtype: str = "bfloat16",
     mesh=None,
     device="cuda",
+    calibration_batches=None,
 ) -> WeatherPredictor:
     """Build the model, load a reference `.pth` state dict into it and wrap
     it in a WeatherPredictor on `device`. Parameters stay fp32; the forward
     computes in `compute_dtype`. `num_experts` and `moe_top_k` must match
     the checkpoint's training config: MoE layers run the dropless ragged
     dispatch (exact under bucket padding: rows are independent), and a
-    checkpoint whose MoE-ness differs from `num_experts` raises."""
+    checkpoint whose MoE-ness differs from `num_experts` raises.
+
+    `quantize` "int8" serves the FFN matmuls W8A8 with dynamic scales;
+    "int8_static" calibrates static scales on `calibration_batches` first
+    (`calibrate_quant_scales`) and serves MoE layers through the sort
+    layout, whose per-row capacity keeps rows independent of the padding
+    too."""
     from weathermodel_tpu_torch.cli.pretrain import (
         load_pretrained_params,
         make_model,
     )
-    from weathermodel_tpu_torch.models.transfer import has_moe_layers
+    from weathermodel_tpu_torch.models.transfer import (
+        has_moe_layers,
+        load_quant_scales,
+    )
 
     if mesh is not None:
         raise NotImplementedError(
             "sharded serving over a device mesh is not ported yet; see "
             "ROADMAP.md queue A item 14")
-    if quantize != "none":
-        raise NotImplementedError(
-            f"quantize={quantize!r} (int8 serving, ops/quant.py) is not "
-            "ported yet; see ROADMAP.md queue A item 13")
+    if quantize not in ("none", "int8", "int8_static"):
+        raise ValueError(f"quantize must be 'none', 'int8' or "
+                         f"'int8_static', got {quantize!r}")
+    if quantize == "int8_static" and calibration_batches is None:
+        raise ValueError(
+            "quantize='int8_static' needs calibration_batches: an iterable "
+            "of (weather, coords, year, interval, mask) tuples of "
+            "representative inputs (see serve.calibrate_quant_scales)")
+    # int8_static's expert einsum is wired to the capacity (sort) layout
+    moe_overrides = ({"moe_dispatch": "sort"}
+                     if quantize == "int8_static" and num_experts > 0
+                     else {})
     cfg = model_config_for_size(model_size, max_len=max_len,
                                 num_experts=num_experts, moe_top_k=moe_top_k,
-                                compute_dtype=compute_dtype)
-    model = make_model(model_name, cfg, attention_impl)
+                                compute_dtype=compute_dtype, **moe_overrides)
+    ffn_impl = quantize if quantize != "none" else "torch"
+    model = make_model(model_name, cfg, attention_impl, ffn_impl=ffn_impl)
     state_dict = load_pretrained_params(checkpoint_path)
     if has_moe_layers(state_dict) != (num_experts > 0):
         raise ValueError(
@@ -164,6 +232,10 @@ def load_weather_predictor(
             f"of {model_name}-{model_size} (first: {missing[:3]}); wrong "
             "--model/--model-size?")
     model.load_state_dict(_model_keys(model, state_dict))
+    if quantize == "int8_static":
+        load_quant_scales(model, calibrate_quant_scales(
+            model_name, cfg, state_dict, calibration_batches,
+            attention_impl=attention_impl, device=device))
     return WeatherPredictor(model, buckets, device=device)
 
 
@@ -179,8 +251,9 @@ def reload_predictor_params(predictor: WeatherPredictor,
     """Hot-reload `predictor` from a new reference `.pth` of the same
     architecture (`swap_state` checks keys, shapes and dtypes; MoE-ness is
     checked here with `load_weather_predictor`'s message), without
-    dropping traffic: the daemon's POST /reload. Returns the parameter
-    count."""
+    dropping traffic: the daemon's POST /reload. An int8_static predictor
+    keeps its calibrated scales (checkpoints carry none; JAX
+    serve.py:286-292). Returns the parameter count."""
     from weathermodel_tpu_torch.cli.pretrain import load_pretrained_params
     from weathermodel_tpu_torch.models.transfer import has_moe_layers
 

@@ -35,9 +35,9 @@ class ModelConfig:
     # Mixture-of-Experts FFN (models/moe.py): num_experts > 0 replaces the
     # dense FFN with a top-k routed expert FFN; 0 = dense. moe_aux_weight
     # weighs the layers' mean Switch balance + router z loss in the training
-    # objective. Only the dropless "ragged" dispatch is ported; the capacity
-    # layouts ("sort", "scatter", which read moe_capacity_factor) and
-    # moe_remat raise (ROADMAP.md queue A item 12).
+    # objective. moe_dispatch: "ragged" (dropless grouped matmul), or the
+    # capacity layouts "sort" and "scatter", which read moe_capacity_factor;
+    # moe_remat recomputes the expert computation in the backward.
     num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
