@@ -302,6 +302,36 @@ Phases, each printing one line; any failure raises and exits non-zero:
                and worst gradient within MOE_LAYOUT_TOL), and one step with
                dropout 0.1 from one generator seed, sort with --moe-remat
                against sort without: every gradient bitwise equal
+  22. train_ep (after 21) - expert parallelism. (a) The grouped matmul's
+               window forms, B4s (gmm_sharded: B4 and its d_lhs form) and B4ts
+               (tgmm_sharded), at the routed rows of 288 seeded windows (S =
+               210240, E = 8, K x N = 576 x 2304 and back) for every offset at
+               e_loc = 4, 2 and 1, bf16 and fp32, each against its plain
+               version (zeros outside the window) at the kernels' bars, the
+               shards' sum against full B4/B4t (bitwise or within the bars,
+               printed), each form's mean time beside full B4/B4t, its bound
+               (the window's operations; its rows, weights and whole output
+               in bytes) and torch._grouped_mm over the window. (b) The EP
+               trainer: parallel/step_check.py under torchrun with 2 and then
+               4 ranks pinned to cuda:0 (gloo; meshes 1 x 2 and 2 x 2) on
+               WeatherBERT-large with 8 experts, top-2, ragged: one fp32 SGD
+               step, dropout off, 4 windows, against the same step in this
+               process (loss and aux to 1e-5 relative, each gradient to 1e-3
+               in norm, updated parameters to 1e-6; 32 B4s and 16 B4ts a rank,
+               no B4/B4t); at three input seeds the 2 x 2 step against a 2 x
+               1 step (pure data parallelism in the two-rank job: the same 2
+               windows a rank, so a route near a top-2 tie cannot flip
+               between them) at those bars, and against one process
+               (printed, at the bars for the first seed), then `wm-pretrain-torch --tensor-parallel 2` in
+               bf16 at --batch-size 32 for 2 epochs on a small store: per rank
+               32 B4s and 16 B4ts a step, 16 B4s a validation batch, none of
+               B4/B4t, finite losses that fall; samples/s (not EP's rate: one
+               card shared, gloo's host copies) and peak memory a rank
+With `--ep-cards N` (an even N of at least 2 cards) the script runs only device, build
+and the EP comparison on separate cards: train_ep's fp32 step on an (N/2) x 2 mesh of
+one card a rank (NCCL, which rank 0 must log) against one process, and
+`wm-pretrain-torch --tensor-parallel 2` in bf16 at --batch-size 192 against the same
+run in one process on one card (samples/s, peak memory, B4s/B4ts a rank).
 The seconds each phase took are printed after the phases; the card's name
 and power limit are printed by phase 1 and again before the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.
@@ -310,6 +340,7 @@ record; the last line is {"ok": true, "device": {...}}.
 import gc
 import io
 import json
+import os
 import signal
 import socket
 import subprocess
@@ -2607,20 +2638,20 @@ GMM_EDGE_GROUPS = [[100, 60, 96], [0, 256, 0], [128, 0, 44, 128],
 GMM_EDGE_DIMS = (80, 200)
 
 
-def _moe_group_sizes(cfg):
-    """The per-expert row counts of the MoE microbatch: a top-2 routing of
-    MOE_MICRO windows of seeded activations through a seeded router, on the
+def _moe_group_sizes(cfg, windows=MOE_MICRO):
+    """The per-expert row counts of a MoE microbatch: a top-2 routing of
+    `windows` windows of seeded activations through a seeded router, on the
     device."""
     from weathermodel_tpu_torch.models.moe import MoEFFN, ragged_routing
 
     ffn = MoEFFN(cfg.hidden_dim, cfg.ffn_dim, cfg.num_experts, cfg.moe_top_k)
     ffn.reset_parameters(torch.Generator().manual_seed(SEED))
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    x = torch.randn(MOE_MICRO, SEQ_LEN, cfg.hidden_dim, device="cuda",
+    x = torch.randn(windows, SEQ_LEN, cfg.hidden_dim, device="cuda",
                     generator=g)
     with torch.no_grad():
         idx = ffn.cuda().route(x)[3]
-    return ragged_routing(idx.reshape(MOE_MICRO, -1), cfg.num_experts)[2]
+    return ragged_routing(idx.reshape(windows, -1), cfg.num_experts)[2]
 
 
 def _gmm_library(op, lhs, other, gs):
@@ -4039,6 +4070,456 @@ def phase_train_moe_dispatch(smi: str, data: Path):
           f"card {smi}", flush=True)
 
 
+# expert parallelism (train_ep): the window forms B4s/B4ts at the step's
+# routed rows (288 windows of 365, top-2: S = 210240) for each offset of E = 8
+# at e_loc = 4 (the main path's: --tensor-parallel 2), 2 and 1; then
+# wm-pretrain-torch under torchrun with 2 and 4 ranks sharing the card
+EP_WINDOWS = 288
+EP_E_LOCS = (4, 2, 1)
+EP_MAIN_E_LOC = 4
+# the fp32 one-step comparison's global batch, its SGD rate and its bars: the
+# loss to 1e-5 relative and each parameter's gradient to 1e-3 in the L2 norm
+# (STEP_TOL's), and the updated parameters entrywise to 1e-6 (a step of
+# EP_LR times a gradient that differs only in its order of sums)
+EP_STEP_BATCH, EP_LR = 4, 0.05
+EP_STEP_TOL = dict(loss=1e-5, grad=1e-3, param=1e-6)
+# the step's input seeds: the first is held against one process at the bars
+# on both meshes; on each, 2 x 2 is held at the bars against 2 x 1 (pure data
+# parallelism: the same 2 windows a rank, so the same rounding below the
+# router), and 2 x 2 against one process is printed (4 windows in one
+# forward round otherwise, and a top-2 near-tie may flip a route)
+EP_STEP_SEEDS = (SEED + 8, SEED + 9, SEED + 10)
+# the bf16 runs: a global batch of 32, 2 epochs on a store of 8 chunks of 24
+EP_BATCH, EP_STORE_SAMPLES = 32, 24
+EP_MESHES = ((1, 2), (2, 2))
+
+
+def _window_call(op, lhs, other, gs, off, e_loc, plain=False):
+    """B4s ("gmm", "gmm_t" for rhs^T) or B4ts ("tgmm") on the window [off,
+    off + e_loc) of the E groups, or its plain version."""
+    from weathermodel_tpu_torch.ops.gmm import (
+        gmm_reference,
+        gmm_sharded,
+        tgmm_reference,
+        tgmm_sharded,
+    )
+
+    if op == "tgmm":
+        return (tgmm_reference if plain else tgmm_sharded)(
+            lhs, other, gs, off, e_loc)
+    w, trans = other[off:off + e_loc], op == "gmm_t"
+    if plain:
+        return gmm_reference(lhs, w, gs, trans, group_offset=off)
+    return gmm_sharded(lhs, w, gs, off, trans_rhs=trans)
+
+
+def _window_rows(gs, off, e_loc):
+    bounds = [0] + torch.cumsum(gs, 0).tolist()
+    return bounds[off], bounds[off + e_loc]
+
+
+def _window_bound(op, lhs, other, gs, off, e_loc, dtype):
+    """A window form's least time: 2 x (the window's rows) x K x N
+    operations; it reads the window's rows of lhs (and of dy) and the local
+    weights once and writes its output once (B4s: all S rows, zeros outside
+    the window)."""
+    lo, hi = _window_rows(gs, off, e_loc)
+    rows, s, k = hi - lo, lhs.shape[0], lhs.shape[1]
+    if op == "tgmm":
+        n = other.shape[1]
+        elems = rows * (k + n) + e_loc * k * n
+    else:
+        n = other.shape[1] if op == "gmm_t" else other.shape[2]
+        elems = rows * k + e_loc * k * n + s * n
+    return _bound(2.0 * rows * k * n, elems * dtype.itemsize, dtype)
+
+
+def _ep_kernels(cfg):
+    """(a): B4s and B4ts against their plain versions for every window, the
+    shards' sum against full B4/B4t, times beside full B4 and the library
+    call over the window. Returns the main path's (e_loc 4) bf16 records."""
+    gs = _moe_group_sizes(cfg, EP_WINDOWS)
+    s, e = int(gs.sum()), cfg.num_experts
+    print(f"train_ep: kernels at S={s} (top-2 routing of {EP_WINDOWS} x "
+          f"{SEQ_LEN} seeded windows, group sizes {gs.tolist()}), E={e}, "
+          f"e_loc {EP_E_LOCS}, K x N = {cfg.hidden_dim} x {cfg.ffn_dim} and "
+          f"back (tol {KERNEL_TOL}, {SCALE_TOL} x max)", flush=True)
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = _gmm_cases(s, cfg.hidden_dim, cfg.ffn_dim, e, dtype,
+                           SEED + 7)
+        for name, (op, lhs, other) in cases.items():
+            full = _gmm_call(op, lhs, other, gs)
+            full_ms = _cuda_ms(lambda: _gmm_call(op, lhs, other, gs))
+            for e_loc in EP_E_LOCS:
+                parts, total, rs = [], None, []
+                for off in range(0, e, e_loc):
+                    got = _window_call(op, lhs, other, gs, off, e_loc)
+                    want = _window_call(op, lhs, other, gs, off, e_loc,
+                                        plain=True)
+                    torch.cuda.synchronize()
+                    err = _check_kernel(f"{name} e_loc {e_loc} off {off} "
+                                        f"{dtype}", got, want, dtype)
+                    del want
+                    lo, hi = _window_rows(gs, off, e_loc)
+                    if op != "tgmm" and (got[:lo].any() or got[hi:].any()):
+                        raise AssertionError(f"{name} off {off}: non-zero "
+                                             "rows outside the window")
+                    if op == "tgmm":
+                        parts.append(got)
+                    else:  # each row is one window's: the sum is exact
+                        total = got if total is None else total + got
+                    del got
+                    library, library_name = _gmm_library(
+                        op, lhs[lo:hi], other[lo:hi] if op == "tgmm"
+                        else other[off:off + e_loc], gs[off:off + e_loc])
+                    rs.append(dict(
+                        err=err[0],
+                        bound=_window_bound(op, lhs, other, gs, off, e_loc,
+                                            dtype),
+                        ms=_cuda_ms(lambda: _window_call(
+                            op, lhs, other, gs, off, e_loc)),
+                        plain_ms=_cuda_ms(lambda: _window_call(
+                            op, lhs, other, gs, off, e_loc, plain=True),
+                            iters=2, warmup=1),
+                        library_ms=_cuda_ms(library), library=library_name))
+                if op == "tgmm":
+                    total = torch.cat(parts)
+                bitwise = torch.equal(total, full)
+                if not bitwise:
+                    _check_kernel(f"{name} e_loc {e_loc}: the shards' sum",
+                                  total, full, dtype)
+                del parts, total
+                mean = {k: sum(r[k] for r in rs) / len(rs)
+                        for k in ("ms", "plain_ms", "library_ms")}
+                timed[dtype, name, e_loc] = dict(
+                    op=op, full_ms=full_ms, bitwise=bitwise,
+                    err=max(r["err"] for r in rs),
+                    bound=sum(r["bound"][0] for r in rs) / len(rs),
+                    bound_by=rs[0]["bound"][1], library=rs[0]["library"],
+                    **mean)
+                r = timed[dtype, name, e_loc]
+                print(f"train_ep: {str(dtype).split('.')[1]} {name} ({op}) "
+                      f"e_loc {e_loc}, {e // e_loc} windows: max|err| "
+                      f"{r['err']:.3g}; window form {r['ms']:.3f} ms a "
+                      f"window (mean), full {'B4t' if op == 'tgmm' else 'B4'}"
+                      f" {full_ms:.3f}, plain {r['plain_ms']:.3f}, "
+                      f"{r['library']} {r['library_ms']:.3f}, bound "
+                      f"{r['bound']:.3f} by {r['bound_by']}; the shards' sum "
+                      f"{'bitwise' if bitwise else 'within the bars of'} the "
+                      f"full kernel's", flush=True)
+            del full
+        del cases
+        torch.cuda.empty_cache()
+
+    def record(ops):
+        rs = [r for (d, _, e_loc), r in timed.items()
+              if d == torch.bfloat16 and e_loc == EP_MAIN_E_LOC
+              and r["op"] in ops]
+        return dict(max_abs_err=max(r["err"] for r in rs),
+                    ms=sum(r["ms"] for r in rs) / len(rs),
+                    plain_ms=sum(r["plain_ms"] for r in rs) / len(rs),
+                    bound_ms=sum(r["bound"] for r in rs) / len(rs),
+                    bound_by=rs[0]["bound_by"],
+                    library_ms=sum(r["library_ms"] for r in rs) / len(rs))
+
+    return record(("gmm", "gmm_t")), record(("tgmm",))
+
+
+def _run_ranks(tmp: Path, name: str, n: int, tasks, device="cuda:0",
+               backend_name="gloo", timeout=600):
+    """`torchrun` of parallel/step_check.py with `n` ranks on `device`
+    (cuda:0: all pinned to card 0; cuda: one card a rank) on `tasks`, from
+    this checkout: (wall seconds, rank 0's line naming its backend, which
+    must be `backend_name`); raises on a failed rank."""
+    job = tmp / f"{name}.json"
+    job.write_text(json.dumps({"device": device, "tasks": tasks}))
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), "-m",
+         "weathermodel_tpu_torch.parallel.step_check", str(job)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{name}: torchrun exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    backend = [ln.split(" - ")[-1] for ln in proc.stderr.splitlines()
+               if "multihost:" in ln]
+    if len(backend) != 1 or f"backend {backend_name}" not in backend[0]:
+        raise AssertionError(f"{name}: rank 0 logged {backend}, not one "
+                             f"line naming {backend_name}")
+    return time.perf_counter() - t0, backend[0]
+
+
+def _ep_step_check(mesh, got, want, check=True):
+    """The fp32 mesh step against a reference step (one process, or
+    another mesh), at EP_STEP_TOL when `check`: text, and whether every
+    number is bitwise equal."""
+    loss = abs(got["metric/total_loss"] - want["metric/total_loss"]) / abs(
+        want["metric/total_loss"])
+    aux = abs(got["metric/moe_aux"] - want["metric/moe_aux"]) / abs(
+        want["metric/moe_aux"])
+    grad, worst = max((float(np.linalg.norm(got[k] - want[k])
+                             / max(np.linalg.norm(want[k]), 1e-30)), k[5:])
+                      for k in want if k.startswith("grad/"))
+    param = max(float(np.abs(got[k] - want[k]).max())
+                for k in want if k.startswith("param/"))
+    keys = [k for k in want if k.startswith(("metric/", "grad/", "param/"))]
+    equal = [k for k in keys if np.array_equal(got[k], want[k])]
+    bitwise = len(equal) == len(keys)
+    if check and not (loss <= EP_STEP_TOL["loss"]
+                      and aux <= EP_STEP_TOL["loss"]
+                      and grad <= EP_STEP_TOL["grad"]
+                      and param <= EP_STEP_TOL["param"]):
+        raise AssertionError(f"mesh {mesh} fp32 step: loss {loss:.3g}, aux "
+                             f"{aux:.3g}, worst gradient {grad:.3g}, updated "
+                             f"parameters {param:.3g} from the reference "
+                             f"step (bars {EP_STEP_TOL})")
+    return (f"{mesh[0]}x{mesh[1]}: loss {got['metric/total_loss']:.7f} "
+            f"(reference {want['metric/total_loss']:.7f}, rel {loss:.3g}), "
+            f"aux rel {aux:.3g}, worst gradient {grad:.3g} ({worst}), "
+            f"updated parameters max|diff| {param:.3g}; {len(equal)} of "
+            f"{len(keys)} metrics, gradients and parameters bitwise equal"
+            ), bitwise
+
+
+def _ep_tasks(tmp: Path, cfg, step_windows, store_samples, batch_size,
+              device, seeds=EP_STEP_SEEDS[:1]):
+    """The seeded fp32 state, the step inputs of each of `seeds` and the
+    store of the EP runs, and step(mesh, seed) / cli(mesh, tag): their
+    step_check tasks."""
+    from weathermodel_tpu_torch.cli.pretrain import make_model
+    from weathermodel_tpu_torch.data.chunks import write_synthetic_dataset
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    overrides = dict(MOE, compute_dtype="float32", dropout_rate=0.0)
+    model = make_model("weatherbert",
+                       model_config_for_size(MODEL_SIZE, **overrides),
+                       "fused_qkv")
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    torch.save(model.state_dict(), tmp / "ep_state.pth")
+    del model
+    for seed in seeds:
+        batch, mask = _windows_batch(step_windows, seed)
+        np.savez(tmp / f"ep_inputs_{seed}.npz", weather=batch.weather,
+                 coords=batch.coords, year=batch.year,
+                 interval=batch.interval, mask=mask)
+    store = tmp / "ep_store"
+    write_synthetic_dataset(str(store), n_chunks=8, n_samples=store_samples,
+                            seq_len=SEQ_LEN, seed=SEED)
+
+    def step(mesh, seed=seeds[0]):
+        return dict(kind="step", mesh=list(mesh), lr=EP_LR,
+                    inputs=str(tmp / f"ep_inputs_{seed}.npz"),
+                    state=str(tmp / "ep_state.pth"),
+                    config=dict(size=MODEL_SIZE, overrides=overrides,
+                                attention_impl="fused_qkv"),
+                    out=str(tmp / f"ep_step_{mesh[0]}x{mesh[1]}_{seed}.npz"))
+
+    def cli(mesh, tag=None):
+        tag = tag or f"{mesh[0]}x{mesh[1]}"
+        argv = ["--model", "weatherbert", "--model-size", MODEL_SIZE,
+                "--moe-experts", str(cfg.num_experts), "--moe-top-k",
+                str(cfg.moe_top_k), "--batch-size", str(batch_size),
+                "--n-epochs", "2", "--n-warmup-epochs", "0",
+                "--masking-prob", "0.15", "--data-dir", str(store),
+                "--workdir", str(tmp / f"ep_run_{tag}"), "--compute-dtype",
+                "bfloat16", "--device", device]
+        if mesh[0] * mesh[1] > 1:
+            argv += ["--tensor-parallel", str(mesh[1])]
+        return dict(kind="pretrain", out=str(tmp / f"ep_cli_{tag}"),
+                    argv=argv)
+
+    return step, cli
+
+
+def phase_train_ep(smi: str, tmp: Path):
+    """(a) the window forms B4s/B4ts; (b) the EP trainer under torchrun on
+    WeatherBERT-large E=8 top-2 (ragged): an fp32 step on meshes 1x2 and
+    2x2 against the one-process step, then wm-pretrain-torch in bf16."""
+    from weathermodel_tpu_torch.parallel.step_check import step_task
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(MODEL_SIZE, **MOE)
+    b4s, b4ts = _ep_kernels(cfg)
+    step, cli = _ep_tasks(tmp, cfg, EP_STEP_BATCH, EP_STORE_SAMPLES,
+                          EP_BATCH, "cuda:0", seeds=EP_STEP_SEEDS)
+    main_seed = EP_STEP_SEEDS[0]
+    ones = {seed: step_task(step((1, 1), seed), torch.device("cuda"))
+            for seed in EP_STEP_SEEDS}
+    torch.cuda.empty_cache()
+    # 2 x 1 runs in the two-rank job, beside 1 x 2
+    tasks = {(1, 2): [step((1, 2)), *(step((2, 1), seed)
+                                      for seed in EP_STEP_SEEDS)],
+             (2, 2): [step((2, 2), seed) for seed in EP_STEP_SEEDS]}
+    wall, backend = {}, {}
+    for mesh in EP_MESHES:
+        wall[mesh], backend[mesh] = _run_ranks(
+            tmp, f"ep_{mesh[0]}x{mesh[1]}", mesh[0] * mesh[1],
+            tasks[mesh] + [cli(mesh)])
+
+    def load(mesh, seed):
+        with np.load(tmp / f"ep_step_{mesh[0]}x{mesh[1]}_{seed}.npz") as z:
+            return dict(z)
+
+    def check_launches(mesh, got, want):
+        for k in ("gmm", "tgmm", "gmm_sharded", "tgmm_sharded"):
+            if got[f"launches/{k}"].tolist() != [want.get(k, 0)] * len(
+                    got[f"launches/{k}"]):
+                raise AssertionError(f"mesh {mesh} step: {k} launches "
+                                     f"{got[f'launches/{k}']}, expected "
+                                     f"{want.get(k, 0)} a rank")
+
+    layers = cfg.num_layers
+    per_rank_step = {"gmm_sharded": 4 * layers, "tgmm_sharded": 2 * layers}
+    full_step = {"gmm": 4 * layers, "tgmm": 2 * layers}
+    for seed, one in ones.items():
+        check_launches((1, 1), one, full_step)
+    main_launches = None
+    for mesh in EP_MESHES:
+        n = mesh[0] * mesh[1]
+        got = load(mesh, main_seed)
+        text, _ = _ep_step_check(mesh, got, ones[main_seed])
+        check_launches(mesh, got, per_rank_step)
+        print(f"train_ep: fp32 step, WeatherBERT-{MODEL_SIZE} E="
+              f"{cfg.num_experts} top-{cfg.moe_top_k}, {EP_STEP_BATCH} "
+              f"windows (input seed {main_seed}), SGD {EP_LR}, {n} ranks on "
+              f"cuda:0 (gloo) against one process: {text}; masked counts a "
+              f"rank {got['mask_counts'].tolist()}; B4s/B4ts launches a rank "
+              f"{got['launches/gmm_sharded'].tolist()} / "
+              f"{got['launches/tgmm_sharded'].tolist()} (expected "
+              f"{per_rank_step['gmm_sharded']} / "
+              f"{per_rank_step['tgmm_sharded']} a microbatch)", flush=True)
+        if mesh == (2, 2):
+            for seed in EP_STEP_SEEDS:
+                ep, dp = load((2, 2), seed), load((2, 1), seed)
+                check_launches((2, 2), ep, per_rank_step)
+                check_launches((2, 1), dp, full_step)
+                vs_dp, _ = _ep_step_check((2, 2), ep, dp)
+                dp_one, _ = _ep_step_check((2, 1), dp, ones[seed],
+                                           check=False)
+                ep_one, _ = _ep_step_check((2, 2), ep, ones[seed],
+                                           check=seed == main_seed)
+                print(f"train_ep: fp32 step, input seed {seed}: 2x2 against "
+                      f"2x1 (the same 2 windows a rank; bars): {vs_dp}; 2x1 "
+                      f"against one process (printed): {dp_one}; 2x2 "
+                      f"against one process ("
+                      f"{'bars' if seed == main_seed else 'printed'}): "
+                      f"{ep_one}", flush=True)
+        ranks = [json.loads((tmp / f"ep_cli_{mesh[0]}x{mesh[1]}.rank{r}.json")
+                 .read_text()) for r in range(n)]
+        result = ranks[0]["result"]
+        steps = sum(len(x) for x in result["train_step_seconds"])
+        val_batches = sum(result["val_batches"])
+        expected = {"gmm_sharded": 32 * steps + 16 * val_batches,
+                    "tgmm_sharded": 16 * steps, "gmm": 0, "tgmm": 0,
+                    "fused_qkv_attention": cfg.num_layers * val_batches,
+                    "fused_qkv_attention_train": cfg.num_layers * steps,
+                    "fused_qkv_attention_bwd": cfg.num_layers * steps}
+        for r in ranks:
+            if r["launches"] != expected:
+                raise AssertionError(f"mesh {mesh} rank {r['rank']}: "
+                                     f"launches {r['launches']}, expected "
+                                     f"{expected} ({steps} steps, "
+                                     f"{val_batches} validation batches)")
+        record = json.loads((tmp / f"ep_run_{mesh[0]}x{mesh[1]}" /
+                             "weatherbert_output.json").read_text())
+        train_loss, val_loss = _check_record(record, ("total_loss",
+                                                      "moe_aux"))
+        if record["model_config"]["n_devices"] != n:
+            raise AssertionError(f"n_devices {record['model_config']}")
+        step_s = float(np.median(result["train_step_seconds"][-1]))
+        if mesh == EP_MESHES[0]:
+            main_launches = {k: sum(r["launches"][k] for r in ranks)
+                             for k in ("gmm_sharded", "tgmm_sharded")}
+        print(f"train_ep: wm-pretrain-torch --tensor-parallel {mesh[1]} on "
+              f"{n} ranks sharing cuda:0 (mesh {mesh[0]}x{mesh[1]}, gloo), "
+              f"bf16 --batch-size {EP_BATCH}, 2 epochs: {steps} steps and "
+              f"{val_batches} validation batches; train loss {train_loss} "
+              f"(moe_aux {record['losses']['train']['moe_aux']}), val loss "
+              f"{val_loss}; launches a rank {expected} (a rank per "
+              f"microbatch: 32 B4s, 16 B4ts); epoch 2 median "
+              f"{step_s * 1e3:.1f} ms/step, {EP_BATCH / step_s:.2f} samples/s "
+              f"(one card: the ranks take turns on it and gloo copies each "
+              f"all_reduce through the host, so this is not EP's rate); peak "
+              f"memory a rank {[round(r['peak_gb'], 2) for r in ranks]} GB; "
+              f"torchrun {wall[mesh]:.1f} s, rank 0 logged '{backend[mesh]}'; "
+              f"card {smi}", flush=True)
+    return (dict(b4s, launches=main_launches["gmm_sharded"]),
+            dict(b4ts, launches=main_launches["tgmm_sharded"]))
+
+
+# expert parallelism on separate cards, `python3 chip_smoke.py --ep-cards N`
+# (not part of the default run, which needs one card): a (N/2) x 2 mesh, one
+# card a rank under NCCL, against one process on one card, at a batch where
+# the one-card MoE step is compute-bound (2 epochs of 4 steps of 192)
+EP_CARDS_BATCH, EP_CARDS_STORE_SAMPLES, EP_CARDS_STEP_WINDOWS = 192, 168, 8
+
+
+def phase_ep_cards(smi: str, tmp: Path, n_cards: int):
+    from weathermodel_tpu_torch.cli import pretrain
+    from weathermodel_tpu_torch.parallel.step_check import (
+        counted_kernels,
+        step_task,
+    )
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    if n_cards < 2 or n_cards % 2 or torch.cuda.device_count() < n_cards:
+        raise SystemExit(f"--ep-cards {n_cards}: needs an even count of at "
+                         f"least 2 of the {torch.cuda.device_count()} cards")
+    cfg = model_config_for_size(MODEL_SIZE, **MOE)
+    mesh = (n_cards // 2, 2)
+    step, cli = _ep_tasks(tmp, cfg, EP_CARDS_STEP_WINDOWS,
+                          EP_CARDS_STORE_SAMPLES, EP_CARDS_BATCH, "cuda")
+    wall, backend = _run_ranks(tmp, "ep_cards", n_cards,
+                               [step(mesh), cli(mesh)], device="cuda",
+                               backend_name="nccl", timeout=1200)
+    one = step_task(step((1, 1)), torch.device("cuda:0"))
+    with np.load(tmp / f"ep_step_{mesh[0]}x{mesh[1]}_{EP_STEP_SEEDS[0]}.npz"
+                 ) as z:
+        text, _ = _ep_step_check(mesh, dict(z), one)
+    print(f"ep_cards: fp32 step, {EP_CARDS_STEP_WINDOWS} windows, {n_cards} "
+          f"ranks a card each against one process: {text}", flush=True)
+    ranks = [json.loads((tmp / f"ep_cli_{mesh[0]}x{mesh[1]}.rank{r}.json")
+             .read_text()) for r in range(n_cards)]
+    result = ranks[0]["result"]
+    steps = sum(len(x) for x in result["train_step_seconds"])
+    val_batches = sum(result["val_batches"])
+    want = {"gmm_sharded": 32 * steps + 16 * val_batches,
+            "tgmm_sharded": 16 * steps, "gmm": 0, "tgmm": 0}
+    for r in ranks:
+        got = {k: r["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"ep_cards rank {r['rank']}: {got}, "
+                                 f"expected {want}")
+    ep_s = float(np.median(result["train_step_seconds"][-1]))
+    kernels = counted_kernels()
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    one_run = pretrain.run(pretrain.build_parser().parse_args(
+        cli((1, 1), "one")["argv"]))
+    one_s = float(np.median(one_run["train_step_seconds"][-1]))
+    one_gb = torch.cuda.max_memory_allocated() / 1e9
+    for tag in (f"{mesh[0]}x{mesh[1]}", "one"):
+        record = json.loads((tmp / f"ep_run_{tag}" /
+                             "weatherbert_output.json").read_text())
+        _check_record(record, ("total_loss", "moe_aux"))
+    print(f"ep_cards: wm-pretrain-torch --tensor-parallel 2 on {n_cards} "
+          f"cards (mesh {mesh[0]}x{mesh[1]}, rank 0 logged '{backend}'), "
+          f"bf16 --batch-size {EP_CARDS_BATCH}, 2 epochs of {steps // 2} "
+          f"steps: epoch 2 median {ep_s * 1e3:.1f} ms/step, "
+          f"{EP_CARDS_BATCH / ep_s:.1f} samples/s, peak "
+          f"{[round(r['peak_gb'], 2) for r in ranks]} GB a rank, B4s/B4ts "
+          f"{want['gmm_sharded']}/{want['tgmm_sharded']} a rank; one process "
+          f"on one card: {one_s * 1e3:.1f} ms/step, "
+          f"{EP_CARDS_BATCH / one_s:.1f} samples/s, peak {one_gb:.2f} GB, "
+          f"{dict((fn.__name__, fn.launches) for fn in kernels)}; torchrun "
+          f"{wall:.1f} s; cards {smi} x {n_cards}", flush=True)
+
+
 def _record(name, source, replaces, launches, k, prefix,
             folder="weathermodel_tpu/ops/"):
     """One kernel's entry of the JSON line: `replaces` is "file:line" under
@@ -4054,9 +4535,18 @@ def _record(name, source, replaces, launches, k, prefix,
                 library_ms=k[prefix + "_library_ms"])
 
 
-def main():
+def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    argv = sys.argv[1:] if argv is None else argv
+    if argv:
+        if len(argv) != 2 or argv[0] != "--ep-cards":
+            raise SystemExit("usage: chip_smoke.py [--ep-cards N]")
+        smi = phase_device()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_ep_cards(smi, Path(tmp), int(argv[1]))
+        return 0
     seconds = {}
 
     def timed(name, fn, *args):
@@ -4086,6 +4576,7 @@ def main():
         gmm_kernel, tgmm_kernel = timed("kernel_gmm", phase_kernel_gmm)
         moe_launches = timed("train_moe", phase_train_moe, smi, data)
         timed("train_moe_dispatch", phase_train_moe_dispatch, smi, data)
+        b4s, b4ts = timed("train_ep", phase_train_ep, smi, Path(tmp))
     ffn_kernels = timed("kernel_ffn", phase_kernel_ffn)
     mask_kernels = timed("kernel_maskgen", phase_kernel_maskgen)
     probes = timed("probes", phase_probes, smi)
@@ -4117,6 +4608,14 @@ def main():
                launches=moe_launches[name], **k)
           for name, line, k in (("gmm", 155, gmm_kernel),
                                 ("tgmm", 233, tgmm_kernel))),
+        # the window forms, launched by wm-pretrain-torch --tensor-parallel 2
+        # on two ranks (their launches summed)
+        *(dict(name=name, route="cuda",
+               source=f"weathermodel_tpu_torch/csrc/{source}.cu",
+               replaces=f"weathermodel_tpu/ops/pallas_gmm.py:{line}", **k)
+          for name, source, line, k in (("gmm_sharded", "gmm", 192, b4s),
+                                        ("tgmm_sharded", "tgmm", 262,
+                                         b4ts))),
         _record("fused_ffn_ln", "fused_ffn_ln.cu", "pallas_ffn.py:63",
                 bench_launches["fused_ffn_ln"]["fused_ffn_ln"], ffn_kernels,
                 "fwd"),

@@ -1969,3 +1969,134 @@ def test_blocked_mm_rejects_what_it_does_not_take(cuda):
     assert blocked_mm.launches == before
     blocked_mm(x[:100], w, 128, 128)  # no whole bm block: nothing to launch
     assert blocked_mm.launches == before
+
+
+def _windows(e):
+    """(off, e_loc) of every shard of each even split of e groups (e_loc = 1
+    included): windows at the start, in the middle and at the end."""
+    return [(j * (e // m), e // m) for m in range(2, e + 1) if e % m == 0
+            for j in range(m)]
+
+
+@pytest.mark.parametrize("k,n", GMM_DIMS + [(576, 2304)])
+@pytest.mark.parametrize("groups", GMM_GROUPS[:3] + GMM_GROUPS[4:])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_window_kernels_match_plain(cuda, dtype, groups, k, n):
+    """B4s and B4ts (the window forms) on every window of the edge cases:
+    windows whose first offset is above 0 and whose edges straddle a 128-row
+    tile (rows 100 and 160 of [100, 60, 96]), empty local groups; against
+    their plain versions at B4's bars, zeros outside the window, and the
+    shards' sum equal to full B4 and B4t bit for bit."""
+    from weathermodel_tpu_torch.ops.gmm import gmm_sharded, tgmm_sharded
+
+    lhs, rhs, dy, gs = _gmm_inputs(groups, k, n, dtype, cuda, seed=11)
+    full = _gmm_body_calls(lhs, rhs, dy, gs)
+    bounds = np.cumsum([0] + groups)
+    e = len(groups)
+    for m in sorted({e // e_loc for _, e_loc in _windows(e)}):
+        e_loc = e // m
+        sums = [torch.zeros_like(full[0]), torch.zeros_like(full[1])]
+        wgrads = []
+        for j in range(m):
+            off = j * e_loc
+            w = rhs[off:off + e_loc]
+            before = (gmm_sharded.launches, tgmm_sharded.launches)
+            got = (gmm_sharded(lhs, w, gs, off),
+                   gmm_sharded(dy, w, gs, off, trans_rhs=True),
+                   tgmm_sharded(lhs, dy, gs, off, e_loc))
+            torch.cuda.synchronize()
+            assert (gmm_sharded.launches, tgmm_sharded.launches) == (
+                before[0] + 2, before[1] + 1)
+            wants = (gmm_reference(lhs, w, gs, group_offset=off),
+                     gmm_reference(dy, w, gs, trans_rhs=True,
+                                   group_offset=off),
+                     tgmm_reference(lhs, dy, gs, off, e_loc))
+            for a, b in zip(got, wants):
+                torch.testing.assert_close(a.float(), b.float(),
+                                           **GMM_TOL[dtype])
+            lo, hi = bounds[off], bounds[off + e_loc]
+            for y in got[:2]:
+                assert not y[:lo].any() and not y[hi:].any()
+            for gi in range(e_loc):
+                if groups[off + gi] == 0:
+                    assert not got[2][gi].any()
+            sums[0] += got[0]
+            sums[1] += got[1]
+            wgrads.append(got[2])
+        assert torch.equal(sums[0], full[0]) and torch.equal(sums[1], full[1])
+        assert torch.equal(torch.cat(wgrads), full[2])
+
+
+def test_grouped_matmul_sharded_gradients_match_plain(cuda):
+    from weathermodel_tpu_torch.ops.gmm import gmm_sharded, tgmm_sharded
+
+    lhs, rhs, dy, gs = _gmm_inputs([70, 0, 150, 36], 48, 192, torch.float32,
+                                   cuda, seed=3)
+    w = rhs[1:3].contiguous().requires_grad_()
+    lhs.requires_grad_()
+    before = (gmm_sharded.launches, tgmm_sharded.launches)
+    got = torch.autograd.grad(GroupedMatmul.apply(lhs, w, gs, 1),
+                              (lhs, w), dy)
+    assert (gmm_sharded.launches, tgmm_sharded.launches) == (
+        before[0] + 2, before[1] + 1)
+    want = torch.autograd.grad(gmm_reference(lhs, w, gs, group_offset=1),
+                               (lhs, w), dy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    assert not got[0][:70].any() and not got[0][220:].any()
+
+
+def test_two_ranks_on_one_card_match_the_one_process_step(cuda, tmp_path):
+    """`torchrun` with two ranks pinned to cuda:0 (gloo) runs one fp32 MoE
+    train step on a 1 x 2 mesh, each rank B4s and B4ts on its two experts;
+    the loss, aux, gradients and updated parameters match the one-process
+    step on the card (B4/B4t) to 2e-5, and the launches are 4 B4s and 2
+    B4ts a layer and rank."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from weathermodel_tpu_torch.parallel.step_check import step_task
+
+    root = Path(__file__).resolve().parents[1]
+    overrides = dict(max_len=32, num_experts=4, compute_dtype="float32",
+                     dropout_rate=0.0)
+    cfg = model_config_for_size("mini", **overrides)
+    model = make_model("weatherbert", cfg, "fused_qkv")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), tmp_path / "state.pth")
+    rng = np.random.default_rng(0)
+    b = 8
+    np.savez(tmp_path / "in.npz",
+             weather=rng.normal(size=(b, 32, 31)).astype(np.float32),
+             coords=rng.uniform(-90, 90, (b, 2)).astype(np.float32),
+             year=np.full((b, 32), 1990.0, np.float32),
+             interval=np.full((b, 1), 7.0, np.float32),
+             mask=rng.random((b, 32, 31)) < 0.3)
+    task = dict(kind="step", mesh=[1, 2], inputs=str(tmp_path / "in.npz"),
+                state=str(tmp_path / "state.pth"), lr=0.05,
+                config=dict(size="mini", overrides=overrides,
+                            attention_impl="fused_qkv"),
+                out=str(tmp_path / "mesh.npz"))
+    with open(tmp_path / "job.json", "w") as f:
+        json.dump({"device": "cuda:0", "tasks": [task]}, f)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m",
+         "weathermodel_tpu_torch.parallel.step_check",
+         str(tmp_path / "job.json")], cwd=root, capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    one = step_task(task, cuda)
+    with np.load(tmp_path / "mesh.npz") as z:
+        mesh = dict(z)
+    for k in one:
+        if k.startswith(("metric/", "grad/", "param/")):
+            np.testing.assert_allclose(mesh[k], one[k], rtol=2e-5, atol=2e-5,
+                                       err_msg=k)
+    layers = cfg.num_layers
+    assert mesh["launches/gmm_sharded"].tolist() == [4 * layers] * 2
+    assert mesh["launches/tgmm_sharded"].tolist() == [2 * layers] * 2
+    assert not mesh["launches/gmm"].any() and not mesh["launches/tgmm"].any()
+    assert one["launches/gmm"].tolist() == [4 * layers]

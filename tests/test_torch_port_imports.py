@@ -42,7 +42,10 @@ def test_port_imports_no_jax():
             "weathermodel_tpu_torch.cli.yield_main",
             "weathermodel_tpu_torch.cli.cropnet_main",
             "weathermodel_tpu_torch.cli.grid_search",
-            "weathermodel_tpu_torch.cli.best_config"} <= set(modules)
+            "weathermodel_tpu_torch.cli.best_config",
+            "weathermodel_tpu_torch.parallel.mesh",
+            "weathermodel_tpu_torch.parallel.multihost",
+            "weathermodel_tpu_torch.parallel.step_check"} <= set(modules)
     code = (
         "import sys\n"
         "import chip_smoke\n"

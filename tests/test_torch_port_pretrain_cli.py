@@ -104,12 +104,28 @@ def test_pretrained_state_initialises_the_trainer(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--remat"],
     ["--seq-parallel", "2"], ["--pipeline-stages", "2"],
-    ["--pipeline-microbatches", "8"], ["--tensor-parallel", "2"],
+    ["--pipeline-microbatches", "8"], ["--fsdp", "--tensor-parallel", "2"],
     ["--fsdp"], ["--prng", "threefry2x32"]])
 def test_unported_flags_exit_naming_the_roadmap(store, tmp_path, flag):
     args = pretrain.build_parser().parse_args(
         _argv(store, tmp_path) + ["--device", "cpu"] + flag)
     with pytest.raises(SystemExit, match="ROADMAP.md queue A item"):
+        pretrain.run(args)
+
+
+@pytest.mark.parametrize("dispatch", ["sort", "scatter"])
+def test_tensor_parallel_with_a_capacity_dispatch_names_the_roadmap(
+        store, tmp_path, dispatch):
+    """--tensor-parallel splits the experts of the ragged dispatch only:
+    with sort or scatter it exits naming the ROADMAP before any rank builds
+    a mesh (the expert weights would otherwise be cut to E / N while the
+    capacity layouts compute all E)."""
+    args = pretrain.build_parser().parse_args(
+        _argv(store, tmp_path) + ["--device", "cpu", "--moe-experts", "4",
+                                  "--moe-dispatch", dispatch,
+                                  "--tensor-parallel", "2"])
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue A item 14"):
         pretrain.run(args)
 
 

@@ -32,6 +32,20 @@ if it had not stopped:
     wm-pretrain-torch --data-dir data/ --workdir run/ \
         --resume-from-checkpoint run/
 
+Under `torchrun` the ranks train one model on a (data, model) mesh
+(parallel/): `--tensor-parallel N` puts N ranks on 'model' (the MoE experts
+split over them, the ragged dispatch's expert parallelism) and the rest on
+'data'; without it every rank is on 'data'. Every rank reads the same
+batches and keeps its rows of each; rank 0 logs and writes. `--device cuda`
+gives each rank its own card (cuda:LOCAL_RANK, NCCL); `--device cuda:0`
+pins every rank to card 0 (gloo: ranks that share a card); `--device cpu`
+runs the ranks on the CPU (gloo):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m weathermodel_tpu_torch.cli.pretrain --model weatherbert \
+        --model-size large --moe-experts 8 --moe-top-k 2 \
+        --tensor-parallel 2 --batch-size 288 --data-dir data/ --workdir run/
+
 `--model mlp` trains the per-timestep MLP baseline (models/mlp.py). The
 module also holds `make_model` and `load_pretrained_params`, which the
 serving path shares. Flags of the JAX entry point whose feature is not
@@ -57,6 +71,7 @@ from weathermodel_tpu_torch.models.weatherformer import (
     WeatherFormerMixture,
     WeatherFormerSinusoid,
 )
+from weathermodel_tpu_torch.parallel import multihost
 from weathermodel_tpu_torch.utils.config import ModelConfig
 
 logger = logging.getLogger(__name__)
@@ -86,11 +101,32 @@ _UNPORTED = {
     "pipeline_stages": "pipeline parallelism (ROADMAP.md queue A item 14)",
     "pipeline_microbatches": "pipeline parallelism (ROADMAP.md queue A "
                              "item 14)",
-    "tensor_parallel": "tensor parallelism (ROADMAP.md queue A item 14)",
     "fsdp": "FSDP sharding (ROADMAP.md queue A item 14)",
     "prng": "JAX's PRNG choice; the port draws from torch.Generator "
             "(ROADMAP.md queue A item 14)",
 }
+
+
+def check_parallel_flags(args: argparse.Namespace) -> None:
+    """The JAX trainer's checks of the parallel flags, with its error text
+    (weathermodel_tpu/train/trainer.py:92-101,143-152), made before the
+    unported flags exit: the combinations JAX refuses raise what JAX
+    raises."""
+    sp, pp, tp = args.seq_parallel, args.pipeline_stages, args.tensor_parallel
+    if (sp > 1) + (pp > 1) + (tp > 1) > 1:
+        raise ValueError(
+            "--seq-parallel, --pipeline-stages and --tensor-parallel "
+            "claim the same mesh 'model' axis and are mutually "
+            "exclusive")
+    if args.fsdp and (sp > 1 or pp > 1):
+        raise ValueError(
+            "--fsdp cannot combine with --seq-parallel/"
+            "--pipeline-stages (use --tensor-parallel for 2-D "
+            "sharding)")
+    if args.moe_experts > 0 and args.moe_dispatch == "ragged" and sp > 1:
+        raise ValueError(
+            "--seq-parallel with a ragged-dispatch MoE is not "
+            "supported; pass --moe-dispatch sort")
 
 
 def make_model(name: str, cfg: ModelConfig, attention_impl: str,
@@ -125,12 +161,22 @@ def load_pretrained_params(path: str) -> dict:
 
 
 def resolve_device(device: str) -> torch.device:
-    """The device an entry point runs on: `cuda` (the default) needs a
-    card, and without one the entry point exits; `cpu` is asked for."""
-    if device == "cuda" and not torch.cuda.is_available():
+    """The device an entry point runs on: `cuda` (the default) or `cuda:N`
+    needs a card, and without one the entry point exits; `cpu` is asked
+    for."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; pass --device cpu "
                          "to run on the CPU")
     return torch.device(device)
+
+
+def _device_arg(value: str) -> str:
+    device = torch.device(value)  # raises on anything torch does not name
+    if device.type not in ("cuda", "cpu") or (device.type == "cpu"
+                                              and device.index is not None):
+        raise argparse.ArgumentTypeError(f"--device must be cuda, cuda:N or "
+                                         f"cpu, got {value!r}")
+    return value
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -179,9 +225,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grad-accum", default=1, type=int,
                    help="split each batch into N microbatches and apply one "
                         "update with the mean gradient")
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="cuda (default) needs a card; cpu runs the kernels' "
-                        "plain versions")
+    p.add_argument("--device", default="cuda", type=_device_arg,
+                   help="cuda (default) needs a card, under torchrun one a "
+                        "rank (cuda:LOCAL_RANK); cuda:N pins every rank to "
+                        "card N; cpu runs the kernels' plain versions")
     p.add_argument("--moe-experts", default=0, type=int,
                    help="num_experts > 0 swaps the dense FFN for a top-k "
                         "routed Mixture-of-Experts FFN (models/moe.py)")
@@ -200,11 +247,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recompute the expert computation in the backward "
                         "(torch.utils.checkpoint) instead of saving its "
                         "activations")
+    p.add_argument("--tensor-parallel", default=1, type=int,
+                   help="ranks on the mesh's 'model' axis: the MoE experts "
+                        "split over them (expert parallelism); dense "
+                        "weights stay whole")
     for flag in ("--remat", "--fsdp"):
         p.add_argument(flag, action="store_true", help="not ported yet")
     for flag, default in (("--seq-parallel", 1), ("--pipeline-stages", 1),
-                          ("--pipeline-microbatches", 4),
-                          ("--tensor-parallel", 1)):
+                          ("--pipeline-microbatches", 4)):
         p.add_argument(flag, default=default, type=int, help="not ported yet")
     p.add_argument("--prng", default="rbg", choices=("rbg", "threefry2x32"),
                    help="not ported (JAX only)")
@@ -225,6 +275,7 @@ def run(args: argparse.Namespace) -> dict:
     )
 
     defaults = build_parser().parse_args([])
+    check_parallel_flags(args)
     for flag, what in _UNPORTED.items():
         if getattr(args, flag) != getattr(defaults, flag):
             raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not "
@@ -241,7 +292,11 @@ def run(args: argparse.Namespace) -> dict:
             "--resume-from-checkpoint %s: the run resumes from --workdir %s, "
             "as wm-pretrain does; the value only turns resume on",
             args.resume_from_checkpoint, args.workdir)
-    device = resolve_device(args.device)
+    if multihost.launched():
+        multihost.initialize(args.device)
+        device = multihost.rank_device(args.device)
+    else:
+        device = resolve_device(args.device)
     k = args.n_mixture_components
     if args.model == "weatherformersinusoid" and k == 1:
         k = 4  # the model's default (reference weatherformer_sinusoid.py:22)
@@ -282,7 +337,8 @@ def run(args: argparse.Namespace) -> dict:
         model, TRAINER_KEY.get(args.model, args.model), mcfg, tcfg,
         make_loaders, workdir=args.workdir,
         device=device, pretrained_state=pretrained,
-        grad_accum=args.grad_accum, resume=resume)
+        grad_accum=args.grad_accum, resume=resume,
+        tensor_parallel=args.tensor_parallel)
     return trainer.train()
 
 

@@ -23,6 +23,15 @@
 //     one set of fp32 accumulators that is written once. Rows past the last offset come
 //     out as zeros. bf16 runs WMMA (mma.sync) from one shared-memory stage per 32-deep
 //     slab; fp32 runs on the FMA pipes.
+// The window form B4s (`gmm_sharded`, replacing `_gmm_pallas(..., group_offset=)` of the
+// expert-parallel shard, pallas_gmm.py:192): the offsets are the e_loc + 1 entries
+// [off, off + e_loc] of the E + 1 global ones, so offsets[0] may be above 0, and rhs holds
+// the e_loc local groups. Neither body assumes that group 0 starts at row 0 or that the
+// last offset is S: a tile meets only the groups whose rows intersect it, rows of no
+// group (below offsets[0], at or past offsets[e]) are staged as zeros in a tile that
+// straddles the window's edge, and a tile of no group runs no K loop and is stored as
+// zeros. So the K loops run over the window's rows only, about e_loc / E of B4's work, and
+// the grid is sized from S and N as for B4.
 // The TPU kernel's virtual-tile table, scalar prefetch and flush-on-last-visit writes
 // exist because a Pallas grid runs in order; here blocks run in parallel and need none of
 // it.
@@ -107,9 +116,11 @@ cudaError_t launch(const void* lhs, const void* rhs, const int* offsets, void* o
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. lhs [s, k] with rows sorted by group; rhs [e, k, n]
-// (trans_rhs = 0) or [e, n, k] (trans_rhs = 1); offsets [e + 1] int32, nondecreasing, the
-// exclusive cumsum of the group sizes; out [s, n]. All contiguous on the current device.
-// Returns a cudaError_t (0 on success).
+// (trans_rhs = 0) or [e, n, k] (trans_rhs = 1); offsets [e + 1] int32, nondecreasing, at
+// most s: the exclusive cumsum of the group sizes (B4), or a window of e + 1 consecutive
+// entries of it (B4s), whose first may be above 0; out [s, n], zeros on the rows outside
+// [offsets[0], offsets[e]). All contiguous on the current device. Returns a cudaError_t
+// (0 on success).
 int wm_gmm(int dtype, const void* lhs, const void* rhs, const void* offsets, void* out, int s,
            int k, int n, int e, int trans_rhs, void* stream) {
   if (s < 0 || k <= 0 || n <= 0 || e <= 0) return cudaErrorInvalidValue;

@@ -64,6 +64,12 @@
 //     (dw2) blocks are 3.6 and 3.3 waves on 132 SMs. Splitting a group's rows over two
 //     blocks (a second, fixed-order reduction pass) or a 192-row M tile were not taken:
 //     neither lowers the number of full-length waves at these shapes.
+//   * The window forms B4s and B4ts (gmm.cu, tgmm.cu: an expert-parallel rank's e_loc
+//     groups, offsets [off, off + e_loc] of the global E + 1) run these kernels unchanged:
+//     B4's tile walk meets only the groups in the offsets it is given, a tile that
+//     straddles the window's first or last offset zeroes its rows of no group as above, a
+//     tile of no group stores zeros without a K loop, and B4t's blocks read their group's
+//     rows from the offsets alone.
 //   * Both operand layouts of B4 run the same tile, slab order and instruction shape,
 //     differing only in B's transpose bit, so gmm(dy, rhs, trans_rhs) equals gmm on a
 //     transposed copy of rhs bit for bit.

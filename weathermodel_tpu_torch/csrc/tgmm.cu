@@ -18,6 +18,12 @@
 //     slabs of 32: lhs's slab is staged as [s][k] and read by the tensor cores as the
 //     column-major lhs^T, dy's as [s][n]; rows of other groups are staged as zeros (both
 //     operands, so that nothing of a neighbouring group reaches the sum).
+// The window form B4ts (`tgmm_sharded`, replacing `_tgmm_pallas(..., group_offset=,
+// e_local=)` of the expert-parallel shard's backward, pallas_gmm.py:262): offsets are the
+// e_loc + 1 entries [off, off + e_loc] of the global ones and out is [e_loc, K, N]. A block
+// reads its group's rows from offsets[g] and offsets[g + 1] alone, so nothing changes:
+// the grid (sized from e_loc, K and N) covers the local groups only, rows of other groups
+// are never read, and an empty local group's blocks run no slab and store zeros.
 // In both the block owns its output tile alone, so there are no atomics and the result
 // does not depend on scheduling: the sum over a group's rows runs in one fixed order. The
 // TPU kernel's virtual-tile table and flush-on-last-visit writes, needed because its grid
@@ -87,7 +93,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. lhs [s, k] and dy [s, n] with rows sorted by group;
 // offsets [e + 1] int32, nondecreasing, the exclusive cumsum of the group sizes (at most
-// s); out [e, k, n]. All contiguous on the current device. Returns a cudaError_t (0 on
+// s), or a window of e + 1 consecutive entries of it (B4ts), whose first may be above 0;
+// out [e, k, n]. All contiguous on the current device. Returns a cudaError_t (0 on
 // success).
 int wm_tgmm(int dtype, const void* lhs, const void* dy, const void* offsets, void* out, int s,
             int k, int n, int e, void* stream) {

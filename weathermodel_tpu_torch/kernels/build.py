@@ -6,7 +6,9 @@ together, and linked into one shared library with a plain C interface. The
 build runs at first use, outside any import, into `build/kernels/<hash>/`
 under the checkout (listed in `.gitignore`), keyed by a hash of the sources
 and the flags, so a changed source rebuilds and an unchanged one is loaded
-from disk.
+from disk. Processes that start together (the ranks of a `torchrun` launch,
+test workers) build under a file lock on that directory: the first builds,
+the others wait and load its library.
 
 Each C entry point returns the `cudaError_t` of its launch; `check` raises
 on anything but 0. `on_cuda` is the device rule every wrapper applies before
@@ -15,6 +17,7 @@ wrapper states its own layout rule beside it.
 """
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -234,14 +237,17 @@ def load_library() -> BuiltLibrary:
     seconds = 0.0
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        # build in a private directory, then rename the library into place:
-        # concurrent processes (test workers) never load a half-written one
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-            log = _compile(sources, Path(tmp))
-            os.replace(Path(tmp) / LIB_NAME, lib_path)
-        seconds = time.perf_counter() - t0
-        log_path.write_text(log)
+        with open(out_dir / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when closed
+            if not lib_path.exists():
+                # build in a private directory, then rename the library into
+                # place: no process loads a half-written one
+                t0 = time.perf_counter()
+                with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+                    log = _compile(sources, Path(tmp))
+                    log_path.write_text(log)
+                    os.replace(Path(tmp) / LIB_NAME, lib_path)
+                seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(lib_path))
     _declare(lib)
     log = log_path.read_text() if log_path.exists() else ""

@@ -54,6 +54,31 @@ tail stay in the caller (models/blocks.py).
 The parameters keep the JAX package's names and layout: `router` (a Linear,
 torch [E, H] weight), `expert_w1` [E, H, F], `expert_b1` [E, F], `expert_w2`
 [E, F, H], `expert_b2` [E, H].
+
+Under a (data, model) mesh (parallel/mesh.py):
+* Expert parallelism (`_ep_ragged_experts`, moe.py:267-338, and its
+  branch :565-580): with the ragged dispatch and a 'model' axis above 1 in
+  the mesh the step runs under (`parallel.mesh.active()`, read once in the
+  forward, so a remat recompute sees the forward's), each rank holds the e_loc = E / n_model experts [off, off +
+  e_loc), off = model index x e_loc (parallel/mesh.py's `shard_params`), and
+  runs the grouped matmul's window forms B4s/B4ts (`GroupedMatmul` with the
+  group offset) over its own rows: the rows of other ranks' experts come out as zeros,
+  and so does their one-hot bias. `reduce_from_model` sums the ranks'
+  outputs (the EP combine) and `copy_to_model`, around the sorted rows, sums
+  their partial row gradients in the backward (JAX's shard_map transpose
+  inserts that sum). The layout differs from JAX's in one thing: each data
+  rank sorts its own tokens by expert and its experts' counts cover its rows
+  only, where JAX sorts the global batch and chunks the sorted rows over
+  'data' (that would need every token gathered). Each row's products are
+  the same; only the order of sums over rows differs. Dropout keeps the data
+  rank's stream (the step folds the data index into the generator); rows of
+  different model ranks are disjoint, so it needs no model index, where JAX
+  folds both.
+* The aux loss is the global batch's (a one-process run's) whenever the
+  'data' axis is above 1: the expert counts, the router probabilities' sums
+  and the squared logsumexp's sum are summed over the data group, each with
+  its gradient on the rank's own rows only, so that the step's sum of the
+  ranks' gradients is the gradient of the global aux.
 """
 
 import torch
@@ -67,6 +92,7 @@ from weathermodel_tpu_torch.ops.dropout import (
     rounded_scale,
 )
 from weathermodel_tpu_torch.ops.gmm import GroupedMatmul, gmm_reference
+from weathermodel_tpu_torch.parallel import mesh as mesh_lib
 from weathermodel_tpu_torch.ops.quant import (
     calibrated,
     int8_expert_einsum,
@@ -243,6 +269,52 @@ def segment_amax(x, seg, num_experts: int):
                               x.abs().float(), "amax", include_self=True)
 
 
+def _global_aux(mesh, counts, probs, z, k: int):
+    """The Switch balance plus the z-loss over the global batch of a mesh
+    whose 'data' axis is above 1: `counts` [E] this rank's assignments per
+    expert, `probs` [b, T, E] and `z` [b, T] its rows'. Each sum is the data
+    group's, with its gradient on this rank's rows only."""
+    e = probs.shape[-1]
+    stats = torch.cat([counts.float(), probs.sum(dim=(0, 1)),
+                       z.square().sum()[None]])
+    stats = mesh_lib.data_sum_with_local_grad(mesh, stats)
+    tokens = probs.shape[0] * probs.shape[1] * mesh.n_data
+    density = stats[:e] / tokens
+    balance = e * torch.sum(density / k * (stats[e:2 * e] / tokens))
+    return balance + Z_LOSS_SCALE * (stats[2 * e] / tokens)
+
+
+def _ep_ragged_experts(mesh, xs, sorted_e, n_e, w1, b1, w2, b2, rate, seed,
+                       dtype, grouped):
+    """The ragged dispatch's expert FFN on this rank's experts [off, off +
+    e_loc) (`_ep_ragged_experts`, moe.py:267-338): xs [S, H], this rank's
+    rows sorted by expert with the per-expert counts n_e [E], and the local
+    expert weights [e_loc, ...]; `grouped(lhs, rhs, n_e, off)` is the
+    grouped matmul over the window. Returns the sum over the model group,
+    [S, H]: every row's output exactly once."""
+    e = n_e.shape[0]
+    m = int(mesh.shape["model"])
+    e_loc = e // m
+    if e_loc * m != e:
+        raise ValueError(f"num_experts={e} not divisible by the mesh "
+                         f"'model' axis ({m})")
+    if w1.shape[0] != e_loc:
+        raise ValueError(f"expert weights hold {w1.shape[0]} experts, the "
+                         f"mesh gives a rank {e_loc}: shard them with "
+                         "parallel.mesh.shard_params")
+    off = mesh.model_index * e_loc
+    xs = mesh_lib.copy_to_model(xs, mesh)
+    le = sorted_e - off
+    onehot = (le[:, None] == torch.arange(
+        e_loc, device=xs.device)).to(dtype)          # zero rows elsewhere
+    hdn = grouped(xs, w1.to(dtype), n_e, off)
+    hdn = torch.relu(hdn + onehot @ b1.to(dtype))
+    hdn = dropout(hdn, rate, seed)
+    out = grouped(hdn, w2.to(dtype), n_e, off)
+    out = out + onehot @ b2.to(dtype)
+    return mesh_lib.reduce_from_model(out, mesh)      # the EP combine
+
+
 class MoEFFN(nn.Module):
     """Top-k routed expert FFN: [B, T, H] -> ([B, T, H] in x's dtype, fp32
     aux loss).
@@ -316,10 +388,12 @@ class MoEFFN(nn.Module):
             gate = gate / gate.sum(dim=-1, keepdim=True).clamp(min=1e-9)
         return logits, probs, gate, idx
 
-    def _gmm(self, lhs, rhs, n_e):
+    def _gmm(self, lhs, rhs, n_e, group_offset=None):
+        """B4 (B4s over the window from `group_offset`), or its plain
+        version with gmm_impl "plain"."""
         if self.gmm_impl == "plain":
-            return gmm_reference(lhs, rhs, n_e)
-        return GroupedMatmul.apply(lhs, rhs, n_e)
+            return gmm_reference(lhs, rhs, n_e, group_offset=group_offset)
+        return GroupedMatmul.apply(lhs, rhs, n_e, group_offset)
 
     def forward(self, x, dropout_rate: float = 0.0, generator=None):
         b, t, _ = x.shape
@@ -337,17 +411,23 @@ class MoEFFN(nn.Module):
             routing = globalize_routing(flat_idx, pos, keep, tok, filled, e,
                                         cap)
             density = n_e.float().mean(dim=0) / t
+            counts = n_e
         elif self.dispatch == "ragged":
             routing = ragged_routing(flat_idx, e)
             density = routing[2].float() / (b * t)
+            counts = routing[2][None]
         else:
             pos, keep, counts = scatter_routing(flat_idx, e, cap)
             routing = (flat_idx, pos)
             density = counts.float().mean(dim=0) / t
 
-        balance = e * torch.sum(density / k * probs.mean(dim=(0, 1)))
         z = torch.logsumexp(logits, dim=-1)
-        aux = balance + Z_LOSS_SCALE * z.square().mean()
+        mesh = mesh_lib.active()
+        if mesh is None or mesh.n_data == 1:
+            balance = e * torch.sum(density / k * probs.mean(dim=(0, 1)))
+            aux = balance + Z_LOSS_SCALE * z.square().mean()
+        else:
+            aux = _global_aux(mesh, counts.sum(dim=0), probs, z, k)
 
         # the seed is drawn outside the remat region: its recomputed
         # forward draws the same mask
@@ -356,21 +436,27 @@ class MoEFFN(nn.Module):
         if keep is not None:
             w_gate = w_gate * keep
         w_gate = w_gate.to(x.dtype)
+        # calibration is an offline one-process pass: always the unsharded
+        # branch (moe.py:565-580)
+        ep = mesh if (mesh is not None and mesh.n_model > 1 and e > 1
+                      and self.dispatch == "ragged"
+                      and self.quant_mode != "calibrate") else None
         if self.remat and torch.is_grad_enabled():
             out = checkpoint(self._experts, x, w_gate, routing, cap,
-                             dropout_rate, seed, use_reentrant=False)
+                             dropout_rate, seed, ep, use_reentrant=False)
         else:
-            out = self._experts(x, w_gate, routing, cap, dropout_rate, seed)
+            out = self._experts(x, w_gate, routing, cap, dropout_rate, seed,
+                                ep)
         return out, aux
 
-    def _experts(self, x, w_gate, routing, cap, rate, seed):
+    def _experts(self, x, w_gate, routing, cap, rate, seed, ep=None):
         """Dispatch, the experts, combine and the gate-weighted sum: the
         region `remat` recomputes."""
         b, t, h = x.shape
         k = self.top_k
         xk = x.unsqueeze(2).expand(b, t, k, h).reshape(b * t * k, h)
         if self.dispatch == "ragged":
-            got = self._ragged(xk, routing, rate, seed)
+            got = self._ragged(xk, routing, rate, seed, ep)
         elif self.dispatch == "sort":
             got = self._sort(xk, routing, b, cap, rate, seed)
         else:
@@ -379,11 +465,16 @@ class MoEFFN(nn.Module):
         return (got.reshape(b, t, k, h)
                 * w_gate.reshape(b, t, k)[..., None]).sum(dim=2)
 
-    def _ragged(self, xk, routing, rate, seed):
+    def _ragged(self, xk, routing, rate, seed, ep=None):
         order, inv, n_e, sorted_e = routing
         e, dtype = self.num_experts, xk.dtype
         calibrate = self.quant_mode == "calibrate"
         xs = PermuteRows.apply(xk, order, inv)
+        if ep is not None:
+            out = _ep_ragged_experts(
+                ep, xs, sorted_e, n_e, self.expert_w1, self.expert_b1,
+                self.expert_w2, self.expert_b2, rate, seed, dtype, self._gmm)
+            return PermuteRows.apply(out, inv, order)
         if calibrate:
             record_amax(self, "expert_in_amax", segment_amax(xs, sorted_e, e))
         onehot = (sorted_e[:, None] == torch.arange(

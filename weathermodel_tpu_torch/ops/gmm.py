@@ -23,9 +23,27 @@ exclusive cumsum, computed there, and size the grid from S, E, K and N
 alone, so nothing waits on the host. The plain versions read the sizes on
 the host.
 
-`gmm_sharded` and `group_offset`, the expert-parallel shard-local form
-(pallas_gmm.py:344-409), are not ported: they need more than one card
-(ROADMAP.md queue A item 14).
+The expert-parallel forms (pallas_gmm.py:344-409), for a rank that holds
+the e_loc experts [off, off + e_loc) of E, are the same kernels over a
+window of the groups:
+* `gmm_sharded` - kernel B4s: rhs_local [e_loc, K, N] (or [e_loc, N, K]
+  with `trans_rhs`), group_sizes [E] of all the rows and the host int
+  `group_offset` = off -> [S, N]; a row of a group in the window multiplies
+  rhs_local[g - off], every other row (below the window, past it, past the
+  sum of the sizes) comes out as zeros, so the sum of the ranks' outputs is
+  `gmm`'s.
+* `tgmm_sharded` - kernel B4ts: [e_loc, K, N], the window's groups only; an
+  empty local group gets zeros.
+* `GroupedMatmul.apply(lhs, rhs_local, group_sizes, off)` - their custom VJP
+  (pallas_gmm.py:389-409): d_lhs = gmm_sharded(dy, rhs^T), zero on the rows
+  of other ranks' groups, and d_rhs = tgmm_sharded(lhs, dy).
+The full forms are the window at off = 0 with e_loc = E: one implementation
+(`_gmm`, `_tgmm`, and the plain versions' `group_offset`) serves both, and
+only the launch counter differs (`gmm`/`tgmm` count B4/B4t, `gmm_sharded`/
+`tgmm_sharded` B4s/B4ts). The kernels are handed the window [off, off +
+e_loc] of the E + 1 device offsets, a slice of the device tensor: they read
+the window's extent from the device and size their grids from S, e_loc, K
+and N alone, so the host int off is all the host knows.
 """
 
 import torch
@@ -49,14 +67,37 @@ def _check_groups(lhs, group_sizes, e):
                          f"{group_sizes.dtype} {tuple(group_sizes.shape)}")
 
 
-def _check_gmm(lhs, rhs, group_sizes, trans_rhs):
+def _window(group_sizes, group_offset, e_local: int) -> int:
+    """The window's first group: `group_offset`, or 0 for the full form
+    (None), whose e_local is all E groups."""
+    e = group_sizes.shape[0]
+    if group_offset is None:
+        return 0
+    if not (isinstance(group_offset, int) and e_local > 0
+            and 0 <= group_offset <= e - e_local):
+        raise ValueError(f"the window [{group_offset}, {group_offset} + "
+                         f"{e_local}) is not inside the {e} groups")
+    return group_offset
+
+
+def _check_gmm(lhs, rhs, group_sizes, trans_rhs, group_offset) -> int:
     if rhs.dim() != 3:
         raise ValueError(f"rhs must be [E, K, N], got {tuple(rhs.shape)}")
-    _check_groups(lhs, group_sizes, rhs.shape[0])
+    _check_groups(lhs, group_sizes, rhs.shape[0] if group_offset is None
+                  else group_sizes.shape[0])
     k = rhs.shape[2] if trans_rhs else rhs.shape[1]
     if lhs.shape[1] != k:
         raise ValueError(f"lhs {tuple(lhs.shape)} and rhs {tuple(rhs.shape)} "
                          f"(trans_rhs={trans_rhs}) do not share K")
+    return _window(group_sizes, group_offset, rhs.shape[0])
+
+
+def _check_tgmm(lhs, dy, group_sizes, group_offset, e_local) -> int:
+    _check_groups(lhs, group_sizes, group_sizes.shape[0])
+    if dy.dim() != 2 or dy.shape[0] != lhs.shape[0]:
+        raise ValueError(f"dy must be [{lhs.shape[0]}, N], got "
+                         f"{tuple(dy.shape)}")
+    return _window(group_sizes, group_offset, e_local)
 
 
 def _on_cuda(name, group_sizes, *tensors) -> bool:
@@ -72,25 +113,54 @@ def _on_cuda(name, group_sizes, *tensors) -> bool:
     return True
 
 
-def _slices(group_sizes):
-    """(group, first row, end row) of each group, read on the host."""
+def _slices(group_sizes, off: int, e_local: int):
+    """(local group, first row, end row) of each group of the window [off,
+    off + e_local), read on the host."""
     start = 0
     for g, size in enumerate(group_sizes.tolist()):
-        yield g, start, start + size
+        if off <= g < off + e_local:
+            yield g - off, start, start + size
         start += size
 
 
-def gmm_reference(lhs, rhs, group_sizes, trans_rhs: bool = False):
-    """Plain PyTorch version of kernel B4: one fp32 matmul per group slice,
-    rounded to lhs.dtype. Differentiable."""
-    _check_gmm(lhs, rhs, group_sizes, trans_rhs)
-    parts, end = [], 0
-    for g, a, end in _slices(group_sizes):
-        w = rhs[g].float()
-        parts.append(lhs[a:end].float() @ (w.T if trans_rhs else w))
+def gmm_reference(lhs, rhs, group_sizes, trans_rhs: bool = False,
+                  group_offset=None):
+    """Plain PyTorch version of kernels B4 and B4s (`_gmm_offset_ref`,
+    pallas_gmm.py:351-362): one fp32 matmul per group of the window [off,
+    off + rhs.shape[0]) (every group without `group_offset`), zeros on every
+    other row, rounded to lhs.dtype. Differentiable."""
+    off = _check_gmm(lhs, rhs, group_sizes, trans_rhs, group_offset)
     n = rhs.shape[1] if trans_rhs else rhs.shape[2]
-    parts.append(lhs.new_zeros(lhs.shape[0] - end, n, dtype=torch.float32))
+    slices = list(_slices(group_sizes, off, rhs.shape[0]))
+    parts = [lhs.new_zeros(slices[0][1], n, dtype=torch.float32)]
+    for g, a, b in slices:
+        w = rhs[g].float()
+        parts.append(lhs[a:b].float() @ (w.T if trans_rhs else w))
+    parts.append(lhs.new_zeros(lhs.shape[0] - slices[-1][2], n,
+                               dtype=torch.float32))
     return torch.cat(parts).to(lhs.dtype)
+
+
+def _gmm(counter, lhs, rhs, group_sizes, group_offset, trans_rhs):
+    """B4 over the window of `group_offset` (None: every group), counted
+    in `counter.launches`."""
+    off = _check_gmm(lhs, rhs, group_sizes, trans_rhs, group_offset)
+    if not _on_cuda(counter.__name__, group_sizes, lhs, rhs):
+        return gmm_reference(lhs, rhs, group_sizes, trans_rhs, group_offset)
+    s, k = lhs.shape
+    e_loc = rhs.shape[0]
+    n = rhs.shape[1] if trans_rhs else rhs.shape[2]
+    offsets = group_offsets(group_sizes)[off:off + e_loc + 1]
+    out = lhs.new_empty(s, n)
+    lib = build.load_library().lib
+    with torch.cuda.device(lhs.device):
+        err = lib.wm_gmm(build.DTYPE_CODES[lhs.dtype], lhs.data_ptr(),
+                         rhs.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+                         s, k, n, e_loc, int(trans_rhs),
+                         build.cuda_stream(lhs.device))
+    build.check(err)
+    counter.launches += 1
+    return out
 
 
 def gmm(lhs, rhs, group_sizes, trans_rhs: bool = False):
@@ -100,41 +170,55 @@ def gmm(lhs, rhs, group_sizes, trans_rhs: bool = False):
 
     CUDA tensors launch the kernel (counted in `gmm.launches`) or raise; CPU
     tensors take the plain version."""
-    _check_gmm(lhs, rhs, group_sizes, trans_rhs)
-    if not _on_cuda("gmm", group_sizes, lhs, rhs):
-        return gmm_reference(lhs, rhs, group_sizes, trans_rhs)
+    return _gmm(gmm, lhs, rhs, group_sizes, None, trans_rhs)
+
+
+def gmm_sharded(lhs, rhs, group_sizes, group_offset: int,
+                trans_rhs: bool = False):
+    """Kernel B4s: lhs [S, K] (rows sorted by group), rhs [e_loc, K, N] (or
+    [e_loc, N, K] with `trans_rhs`), the E group sizes of all the rows and
+    the host int `group_offset` -> [S, N] in lhs.dtype: the rows of groups
+    [off, off + e_loc) times rhs[g - off], every other row zeros.
+
+    CUDA tensors launch the kernel (counted in `gmm_sharded.launches`) or
+    raise; CPU tensors take the plain version."""
+    return _gmm(gmm_sharded, lhs, rhs, group_sizes, group_offset, trans_rhs)
+
+
+gmm.launches = gmm_sharded.launches = 0
+
+
+def tgmm_reference(lhs, dy, group_sizes, group_offset=None, e_local=None):
+    """Plain PyTorch version of kernels B4t and B4ts (`_tgmm_offset_ref`,
+    pallas_gmm.py:365-371): the fp32 lhs_g^T . dy_g of each group of the
+    window [off, off + e_local) (every group without `group_offset`),
+    rounded to lhs.dtype ([e_local, K, N]; zeros for an empty group)."""
+    e_local = group_sizes.shape[0] if group_offset is None else e_local
+    off = _check_tgmm(lhs, dy, group_sizes, group_offset, e_local)
+    return torch.stack([lhs[a:b].float().T @ dy[a:b].float()
+                        for _, a, b in _slices(group_sizes, off, e_local)
+                        ]).to(lhs.dtype)
+
+
+def _tgmm(counter, lhs, dy, group_sizes, group_offset, e_local):
+    """B4t over the window [group_offset, group_offset + e_local) (None:
+    every group), counted in `counter.launches`."""
+    e_local = group_sizes.shape[0] if group_offset is None else e_local
+    off = _check_tgmm(lhs, dy, group_sizes, group_offset, e_local)
+    if not _on_cuda(counter.__name__, group_sizes, lhs, dy):
+        return tgmm_reference(lhs, dy, group_sizes, group_offset, e_local)
     s, k = lhs.shape
-    e = rhs.shape[0]
-    n = rhs.shape[1] if trans_rhs else rhs.shape[2]
-    offsets = group_offsets(group_sizes)
-    out = lhs.new_empty(s, n)
+    n = dy.shape[1]
+    offsets = group_offsets(group_sizes)[off:off + e_local + 1]
+    out = lhs.new_empty(e_local, k, n)
     lib = build.load_library().lib
     with torch.cuda.device(lhs.device):
-        err = lib.wm_gmm(build.DTYPE_CODES[lhs.dtype], lhs.data_ptr(),
-                         rhs.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-                         s, k, n, e, int(trans_rhs),
-                         build.cuda_stream(lhs.device))
+        err = lib.wm_tgmm(build.DTYPE_CODES[lhs.dtype], lhs.data_ptr(),
+                          dy.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+                          s, k, n, e_local, build.cuda_stream(lhs.device))
     build.check(err)
-    gmm.launches += 1
+    counter.launches += 1
     return out
-
-
-gmm.launches = 0
-
-
-def _check_tgmm(lhs, dy, group_sizes):
-    _check_groups(lhs, group_sizes, group_sizes.shape[0])
-    if dy.dim() != 2 or dy.shape[0] != lhs.shape[0]:
-        raise ValueError(f"dy must be [{lhs.shape[0]}, N], got "
-                         f"{tuple(dy.shape)}")
-
-
-def tgmm_reference(lhs, dy, group_sizes):
-    """Plain PyTorch version of kernel B4t: the fp32 lhs_g^T . dy_g of each
-    group slice, rounded to lhs.dtype ([E, K, N])."""
-    _check_tgmm(lhs, dy, group_sizes)
-    return torch.stack([lhs[a:b].float().T @ dy[a:b].float()
-                        for _, a, b in _slices(group_sizes)]).to(lhs.dtype)
 
 
 def tgmm(lhs, dy, group_sizes):
@@ -144,44 +228,51 @@ def tgmm(lhs, dy, group_sizes):
 
     CUDA tensors launch the kernel (counted in `tgmm.launches`) or raise;
     CPU tensors take the plain version."""
-    _check_tgmm(lhs, dy, group_sizes)
-    if not _on_cuda("tgmm", group_sizes, lhs, dy):
-        return tgmm_reference(lhs, dy, group_sizes)
-    s, k = lhs.shape
-    n = dy.shape[1]
-    e = group_sizes.shape[0]
-    offsets = group_offsets(group_sizes)
-    out = lhs.new_empty(e, k, n)
-    lib = build.load_library().lib
-    with torch.cuda.device(lhs.device):
-        err = lib.wm_tgmm(build.DTYPE_CODES[lhs.dtype], lhs.data_ptr(),
-                          dy.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-                          s, k, n, e, build.cuda_stream(lhs.device))
-    build.check(err)
-    tgmm.launches += 1
-    return out
+    return _tgmm(tgmm, lhs, dy, group_sizes, None, None)
 
 
-tgmm.launches = 0
+def tgmm_sharded(lhs, dy, group_sizes, group_offset: int, e_local: int):
+    """Kernel B4ts: lhs [S, K], dy [S, N] (rows sorted by group), the E
+    group sizes and the window [off, off + e_local) -> [e_local, K, N] in
+    lhs.dtype, the per-group lhs^T . dy of the window's groups; an empty
+    group is zeros.
+
+    CUDA tensors launch the kernel (counted in `tgmm_sharded.launches`) or
+    raise; CPU tensors take the plain version."""
+    return _tgmm(tgmm_sharded, lhs, dy, group_sizes, group_offset, e_local)
+
+
+tgmm.launches = tgmm_sharded.launches = 0
 
 
 class GroupedMatmul(torch.autograd.Function):
-    """y = gmm(lhs, rhs, group_sizes): forward kernel B4; backward d_lhs =
-    B4 on dy against rhs^T and d_rhs = B4t (lhs, dy), cast to rhs's dtype.
-    Saves lhs, rhs and the group sizes."""
+    """y = gmm(lhs, rhs, group_sizes), or with `group_offset` y =
+    gmm_sharded(lhs, rhs_local, group_sizes, group_offset): forward kernel
+    B4 (B4s); backward d_lhs = B4 (B4s) on dy against rhs^T and d_rhs = B4t
+    (B4ts) (lhs, dy), cast to rhs's dtype (pallas_gmm.py:307-341, 389-409).
+    A window's d_lhs is zero on the rows of other ranks' groups: the caller
+    sums d_lhs over the ranks. Saves lhs, rhs and the group sizes."""
 
     @staticmethod
-    def forward(ctx, lhs, rhs, group_sizes):
+    def forward(ctx, lhs, rhs, group_sizes, group_offset=None):
         ctx.save_for_backward(lhs, rhs, group_sizes)
-        return gmm(lhs, rhs, group_sizes)
+        ctx.group_offset = group_offset
+        if group_offset is None:
+            return gmm(lhs, rhs, group_sizes)
+        return gmm_sharded(lhs, rhs, group_sizes, group_offset)
 
     @staticmethod
     def backward(ctx, dy):
         lhs, rhs, group_sizes = ctx.saved_tensors
+        off = ctx.group_offset
         dy = dy.contiguous()
         d_lhs = d_rhs = None
         if ctx.needs_input_grad[0]:
-            d_lhs = gmm(dy, rhs, group_sizes, trans_rhs=True)
+            d_lhs = (gmm(dy, rhs, group_sizes, trans_rhs=True) if off is None
+                     else gmm_sharded(dy, rhs, group_sizes, off,
+                                      trans_rhs=True))
         if ctx.needs_input_grad[1]:
-            d_rhs = tgmm(lhs, dy, group_sizes).to(rhs.dtype)
-        return d_lhs, d_rhs, None
+            d_rhs = (tgmm(lhs, dy, group_sizes) if off is None
+                     else tgmm_sharded(lhs, dy, group_sizes, off,
+                                       rhs.shape[0])).to(rhs.dtype)
+        return d_lhs, d_rhs, None, None

@@ -20,6 +20,12 @@ parameters:
 * `save_best_params` - the model's `state_dict()` as a reference-format
   `.pth` (`{workdir}/best.pth`), which `wm-serve-torch --checkpoint` and
   `--pretrained-model-path` load unchanged.
+
+Under a mesh (parallel/mesh.py) each rank holds a slice of the expert
+weights and of their Adam moments. Every rank gathers them over its model
+group (a collective: all ranks save together) and rank 0 alone writes, so
+the files are those of a one-process run; `restore` loads them on every
+rank and keeps the rank's slices.
 """
 
 import copy
@@ -28,9 +34,11 @@ import os
 import shutil
 import threading
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
+
+from weathermodel_tpu_torch.parallel import mesh as mesh_lib
 
 BEST_PARAMS = "best.pth"
 STATE, META, OUTPUT_JSON = "state.pt", "meta.json", "output_json.json"
@@ -49,8 +57,23 @@ def _host_copy(obj):
     return obj
 
 
+def _full_state(model: torch.nn.Module, mesh, sharded) -> dict:
+    """The model's state dict with the split expert weights gathered."""
+    state = model.state_dict()
+    if mesh is None or not sharded:
+        return state
+    return mesh_lib.gather_params(state, sharded, mesh)
+
+
 class Checkpointer:
-    def __init__(self, workdir: str, max_to_keep: int = 3):
+    def __init__(self, workdir: str, max_to_keep: int = 3,
+                 mesh: Optional[mesh_lib.Mesh] = None,
+                 sharded: Sequence[str] = ()):
+        """`mesh` and `sharded` (the names of the split parameters): the
+        rank's place in a mesh run (module docstring)."""
+        self.mesh = mesh
+        self.sharded = list(sharded)
+        self.primary = mesh is None or mesh.is_primary
         self.workdir = os.path.abspath(workdir)
         self.root = os.path.join(self.workdir, "checkpoints")
         self.max_to_keep = max_to_keep
@@ -77,8 +100,14 @@ class Checkpointer:
         next."""
         t0 = time.perf_counter()
         self.wait_until_finished()
-        state = {"model": model.state_dict(),
-                 "optimizer": optimizer.state_dict()}
+        optimizer_state = optimizer.state_dict()
+        if self.sharded:
+            optimizer_state = mesh_lib.gather_optimizer_state(
+                optimizer_state, model, self.sharded, self.mesh)
+        state = {"model": _full_state(model, self.mesh, self.sharded),
+                 "optimizer": optimizer_state}
+        if not self.primary:
+            return
         if generator is not None:
             state["generator"] = generator.get_state()
         state = _host_copy(state)
@@ -161,6 +190,11 @@ class Checkpointer:
         path = os.path.join(self.root, str(epoch))
         state = torch.load(os.path.join(path, STATE), map_location="cpu",
                            weights_only=True)
+        if self.sharded:
+            state["model"] = mesh_lib.slice_params(state["model"],
+                                                   self.sharded, self.mesh)
+            state["optimizer"] = mesh_lib.slice_optimizer_state(
+                state["optimizer"], model, self.sharded, self.mesh)
         model.load_state_dict(state["model"])
         optimizer.load_state_dict(state["optimizer"])
         with open(os.path.join(path, META)) as f:
@@ -179,12 +213,19 @@ def write_output_json(workdir: str, name: str, output_json: dict) -> str:
     return path
 
 
-def save_best_params(workdir: str, model: torch.nn.Module) -> str:
+def save_best_params(workdir: str, model: torch.nn.Module,
+                     mesh: Optional[mesh_lib.Mesh] = None,
+                     sharded: Sequence[str] = ()) -> str:
     """Write the model's parameters (CPU copies) to `{workdir}/best.pth`,
-    through a temporary file so a reader never sees a partial one."""
-    os.makedirs(workdir, exist_ok=True)
+    through a temporary file so a reader never sees a partial one. Under a
+    mesh every rank calls it (the expert weights are gathered) and rank 0
+    writes."""
     path = os.path.join(workdir, BEST_PARAMS)
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    state = _full_state(model, mesh, sharded)
+    if mesh is not None and not mesh.is_primary:
+        return path
+    os.makedirs(workdir, exist_ok=True)
+    state = {k: v.detach().cpu() for k, v in state.items()}
     tmp = path + ".tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)

@@ -28,6 +28,21 @@ step (the trainer seeds one per epoch), as integer seeds on the host, so
 the step never copies a random number from the device. The mask of each
 microbatch, and the mixture's eps, are drawn on the device from generators
 seeded by them.
+
+Under a (data, model) mesh (`mesh=`, parallel/mesh.py) every rank is given
+the same global batch and draws the same seeds (the JAX package's
+single-host semantics). Microbatch i is global rows [i mb, (i + 1) mb), as
+JAX's reshape to [grad_accum, mb, ...] gives it (steps.py:223-246); each
+rank draws that microbatch's mask (and eps) whole and keeps its data shard
+of it. The objectives divide by the global microbatch's normalizers (the
+masked count, the sample weights' sum, the ELBO's weighted masked count:
+sums over the data group) and the MoE aux loss is the global batch's
+(models/moe.py), so the sum of the ranks' losses is the one-process loss;
+the gradients are summed over the data group before the update, and the
+metrics returned are the global batch's. With a 'data' axis above 1 the
+forward's dropout seeds come from a generator seeded by one draw of the
+chain and the data index, so that data shards draw different masks and the
+ranks of one data index the same. Without a mesh the step is unchanged.
 """
 
 from typing import NamedTuple, Optional
@@ -43,6 +58,7 @@ from weathermodel_tpu_torch.ops.losses import (
     mixture_kl_divergence,
 )
 from weathermodel_tpu_torch.ops.masking import make_mask
+from weathermodel_tpu_torch.parallel import mesh as mesh_lib
 from weathermodel_tpu_torch.train.state import set_learning_rate
 
 
@@ -83,24 +99,32 @@ def _sample_weights(weather, weight):
             if weight is None else weight.float())
 
 
-def masked_mse_losses(outputs, weather, mask, weight=None) -> dict:
+def _identity(x):
+    return x
+
+
+def masked_mse_losses(outputs, weather, mask, weight=None,
+                      total=_identity) -> dict:
     """MSE and MAE over the masked positions, weighting sample b by
-    weight[b] (weathermodel_tpu/train/steps.py:109-117)."""
+    weight[b] (weathermodel_tpu/train/steps.py:109-117). `total` turns a
+    rank's sum into the global batch's (the data group's; the identity
+    without a mesh): the normalizers go through it, so a rank's values
+    are its share of the global ones."""
     wm = mask * _sample_weights(weather, weight)[:, None, None]
-    msum = wm.sum().clamp(min=1)
+    msum = total(wm.sum()).clamp(min=1)
     err = weather - outputs
     return {"total_loss": (err.square() * wm).sum() / msum,
             "mae": (err.abs() * wm).sum() / msum}
 
 
-def mlp_mse_losses(outputs, weather, weight=None) -> dict:
+def mlp_mse_losses(outputs, weather, weight=None, total=_identity) -> dict:
     """The weighted full-sequence MSE of each MLP target feature and their
     mean (weathermodel_tpu/train/steps.py:119-133)."""
     w1 = _sample_weights(weather, weight)
     target = weather[:, :, list(MLP_TARGET_FEATURES)]
     t = target.shape[1]
     feature_losses = (((outputs - target).square() * w1[:, None, None])
-                      .sum(dim=(0, 1)) / (w1.sum().clamp(min=1.0) * t))
+                      .sum(dim=(0, 1)) / (total(w1.sum()).clamp(min=1.0) * t))
     losses = {"total_loss": feature_losses.mean()}
     for i, feat in enumerate(MLP_TARGET_FEATURES):
         losses[f"feature_{feat}_mse"] = feature_losses[i]
@@ -108,18 +132,19 @@ def mlp_mse_losses(outputs, weather, weight=None) -> dict:
 
 
 def elbo_losses(objective, outputs, weather, mask, weight=None,
-                beta: float = 1.0, eps=None) -> dict:
+                beta: float = 1.0, eps=None, total=_identity) -> dict:
     """The ELBO objectives on the model's output tuple, per-sample sums
     over the masked positions normalised by the batch-mean masked count
     (weathermodel_tpu/train/steps.py:136-169). `eps` [B, T, F] is the
     mixture's standard-normal sample."""
     w1 = _sample_weights(weather, weight)
-    wsum = w1.sum().clamp(min=1.0)
+    wsum = total(w1.sum()).clamp(min=1.0)
 
     def wmean(per_sample):
         return (per_sample * w1).sum() / wsum
 
-    n_masked = wmean(mask.sum(dim=(1, 2)).float()).clamp(min=1.0)
+    n_masked = (total((mask.sum(dim=(1, 2)).float() * w1).sum())
+                / wsum).clamp(min=1.0)
     mu_x, var_x = outputs[0], outputs[1]
     recon = wmean(-gaussian_log_likelihood(weather, mu_x, var_x, mask)
                   / n_masked)
@@ -135,7 +160,7 @@ def elbo_losses(objective, outputs, weather, mask, weight=None,
         raise ValueError(f"Unknown objective: {objective}")
     kl_term = beta * wmean(kl) / n_masked
     wm = mask * w1[:, None, None]
-    mae = ((weather - mu_x).abs() * wm).sum() / wm.sum().clamp(min=1)
+    mae = ((weather - mu_x).abs() * wm).sum() / total(wm.sum()).clamp(min=1)
     return {"total_loss": recon + kl_term, "reconstruction": recon,
             "kl_term": kl_term, "mae": mae}
 
@@ -162,35 +187,84 @@ def moe_aux_weight(model) -> float:
     return 0.0
 
 
+class _Shard(NamedTuple):
+    """How a rank's step sees a global microbatch: `mesh` (None without
+    one) and `rows`, the slice of it the rank keeps."""
+    mesh: object
+    rows: slice
+
+    def total(self, x):
+        """The global batch's sum of a rank's sum (the data group's)."""
+        return mesh_lib.data_total(self.mesh, x)
+
+
+def _forward_generator(shard: _Shard, generator):
+    """The generator of the forward's dropout seeds: the step's own, or
+    with a 'data' axis above 1 one seeded by a draw of it and the data
+    index (every data shard its own masks, a data index's ranks the
+    same)."""
+    mesh = shard.mesh
+    if mesh is None or mesh.n_data == 1:
+        return generator
+    return torch.Generator().manual_seed(
+        draw_seed(generator) * mesh.n_data + mesh.data_index)
+
+
 def _forward_losses(model, batch: Batch, mask, generator, dropout_rate,
-                    objective, beta, eps, train: bool):
+                    objective, beta, eps, train: bool, shard: _Shard):
+    """(the objective to differentiate, its metrics): the metrics are the
+    global batch's, detached; without a mesh the objective is the metrics'
+    total_loss."""
     moe_w = moe_aux_weight(model)
-    outputs = model(batch.weather, batch.coords, batch.year, batch.interval,
-                    mask, generator=generator, dropout_rate=dropout_rate,
-                    return_moe_aux=bool(moe_w))
+    with mesh_lib.activate(shard.mesh):
+        outputs = model(batch.weather, batch.coords, batch.year,
+                        batch.interval, mask,
+                        generator=_forward_generator(shard, generator),
+                        dropout_rate=dropout_rate,
+                        return_moe_aux=bool(moe_w))
     if moe_w:
         outputs, moe_aux = outputs
+    total = shard.total
     if objective == "masked_mse":
-        losses = masked_mse_losses(outputs, batch.weather, mask, batch.weight)
+        losses = masked_mse_losses(outputs, batch.weather, mask, batch.weight,
+                                   total)
     elif objective == "mlp_mse":
-        losses = mlp_mse_losses(outputs, batch.weather, batch.weight)
+        losses = mlp_mse_losses(outputs, batch.weather, batch.weight, total)
     else:
         if objective == "elbo_mixture" and eps is None:
+            b = batch.weather.shape[0]
+            if shard.mesh is not None:
+                b *= shard.mesh.n_data
             eps = torch.randn(
-                batch.weather.shape, device=batch.weather.device,
-                generator=_seeded(generator, batch.weather.device))
+                (b, *batch.weather.shape[1:]), device=batch.weather.device,
+                generator=_seeded(generator, batch.weather.device))[
+                    shard.rows]
         losses = elbo_losses(objective, outputs, batch.weather, mask,
-                             batch.weight, beta, eps)
+                             batch.weight, beta, eps, total)
+    objective_value = losses["total_loss"]
+    if shard.mesh is not None:
+        losses = _global_metrics(shard.mesh, losses)
     if moe_w:
         losses["moe_aux"] = moe_aux
         if train:
+            objective_value = objective_value + moe_w * moe_aux
             losses["total_loss"] = losses["total_loss"] + moe_w * moe_aux
-    return losses
+    return objective_value, {k: v.detach() for k, v in losses.items()}
+
+
+def _global_metrics(mesh, losses: dict) -> dict:
+    """A rank's shares of the metrics summed over the data group: one
+    all_reduce of the stacked values."""
+    keys = list(losses)
+    stacked = torch.stack([losses[k].detach() for k in keys])
+    stacked = mesh_lib.data_total(mesh, stacked)
+    return {k: stacked[i] for i, k in enumerate(keys)}
 
 
 def make_train_step(model, optimizer, masking: str, *,
                     masking_prob: float = 0.15, grad_accum: int = 1,
-                    objective: str = "masked_mse", beta: float = 1.0):
+                    objective: str = "masked_mse", beta: float = 1.0,
+                    mesh=None):
     """Returns train_step(batch, generator, lr, n_masked, mask=None,
     dropout_rate=None, eps=None) -> metrics (0-dim tensors on the device).
 
@@ -199,7 +273,9 @@ def make_train_step(model, optimizer, masking: str, *,
     masked count; the update uses the mean of their gradients and the
     metrics are the mean of theirs. `mask` ([B, T, F] bool) replaces the
     drawn masks, `eps` ([B, T, F]) the mixture's drawn samples, and
-    `dropout_rate` overrides the model's rate (the parity tests use them)."""
+    `dropout_rate` overrides the model's rate (the parity tests use them).
+    With `mesh` the batch, `mask` and `eps` are the global ones (module
+    docstring)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -210,6 +286,7 @@ def make_train_step(model, optimizer, masking: str, *,
             raise ValueError(f"batch size {b} is not divisible by "
                              f"grad_accum={grad_accum}")
         mb = b // grad_accum
+        shard = _Shard(mesh, mesh_lib.data_rows(mesh, mb))
         model.train()
         optimizer.zero_grad(set_to_none=True)
         metrics = []
@@ -219,12 +296,16 @@ def make_train_step(model, optimizer, masking: str, *,
             m = (_draw_mask(masking, generator, micro.weather.shape,
                             micro.weather.device, masking_prob, n_masked)
                  if mask is None else mask[sl])
-            losses = _forward_losses(model, micro, m, generator, dropout_rate,
-                                     objective, beta,
-                                     None if eps is None else eps[sl],
-                                     train=True)
-            losses["total_loss"].backward()
-            metrics.append({k: v.detach() for k, v in losses.items()})
+            micro = Batch(*(None if a is None else a[shard.rows]
+                            for a in micro))
+            loss, losses = _forward_losses(
+                model, micro, m[shard.rows], generator, dropout_rate,
+                objective, beta, None if eps is None else eps[sl][shard.rows],
+                train=True, shard=shard)
+            loss.backward()
+            metrics.append(losses)
+        if mesh is not None:
+            mesh_lib.all_reduce_grads(model.parameters(), mesh)
         if grad_accum > 1:
             for p in model.parameters():
                 if p.grad is not None:
@@ -238,19 +319,26 @@ def make_train_step(model, optimizer, masking: str, *,
 
 
 def make_eval_step(model, masking: str, *, masking_prob: float = 0.15,
-                   objective: str = "masked_mse", beta: float = 1.0):
+                   objective: str = "masked_mse", beta: float = 1.0,
+                   mesh=None):
     """Returns eval_step(batch, generator, n_masked, mask=None, eps=None)
     -> metrics: the deterministic forward (dropout off, reference
-    model.eval())."""
+    model.eval()); with `mesh`, of the global batch."""
 
     def eval_step(batch: Batch, generator, n_masked, mask=None, eps=None):
         model.eval()
+        shard = _Shard(mesh, mesh_lib.data_rows(
+            mesh, batch.weather.shape[0]))
         with torch.no_grad():
             if mask is None:
                 mask = _draw_mask(masking, generator, batch.weather.shape,
                                   batch.weather.device, masking_prob,
                                   n_masked)
-            return _forward_losses(model, batch, mask, generator, None,
-                                   objective, beta, eps, train=False)
+            local = Batch(*(None if a is None else a[shard.rows]
+                            for a in batch))
+            return _forward_losses(
+                model, local, mask[shard.rows], generator, None, objective,
+                beta, None if eps is None else eps[shard.rows], train=False,
+                shard=shard)[1]
 
     return eval_step

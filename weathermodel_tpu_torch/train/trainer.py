@@ -33,7 +33,22 @@ With WEATHERMODEL_PROFILE_DIR set, a `torch.profiler` run (CPU, and CUDA on
 the card) covers epoch start_epoch + 1's training pass and writes a Chrome
 trace into that directory (trainer.py:437-458).
 
-Mesh and parallel options (ROADMAP.md queue A item 14) are not ported.
+Under `torchrun` the trainer runs on a (data, model) mesh (parallel/mesh.py;
+JAX trainer.py:91-153): `tensor_parallel=N` puts N ranks on 'model' and the
+rest on 'data'. Every rank builds the same model from the seed; with the
+ragged MoE dispatch each keeps its slice of the expert weights (so its Adam
+state is local too) and runs its experts over 'model' (models/moe.py).
+Other parameters stay whole on every rank, so a dense model's model ranks
+compute the same thing; the capacity dispatches (sort, scatter) under
+`tensor_parallel` > 1 are refused, since their expert split is not ported.
+The steps run the global batch's objective and the metrics are the global
+batch's. Rank 0 alone logs, writes output_json and best.pth, and
+writes the checkpoints, whose expert weights and Adam moments every rank
+first gathers over its model group: the files are those a one-process run
+writes, and `resume` re-shards them. A stop asked for by SIGTERM is agreed
+over all ranks at each step boundary, so that no rank enters a collective
+alone. FSDP, sequence parallelism and the pipeline are not ported (ROADMAP.md
+queue A item 14).
 """
 
 import contextlib
@@ -48,6 +63,7 @@ import torch
 
 from weathermodel_tpu_torch.models.transfer import load_pretrained
 from weathermodel_tpu_torch.ops.schedules import epoch_lr_schedule
+from weathermodel_tpu_torch.parallel import mesh as mesh_lib
 from weathermodel_tpu_torch.train.checkpoint import (
     Checkpointer,
     save_best_params,
@@ -83,6 +99,7 @@ class PretrainTrainer:
         pretrained_state: Optional[dict] = None,
         grad_accum: int = 1,
         resume: bool = False,
+        tensor_parallel: int = 1,
     ):
         """make_loaders(split, shuffle, seed) -> iterator of numpy Batch.
 
@@ -93,7 +110,10 @@ class PretrainTrainer:
         `pretrained_state`, a reference-format state dict, through the JAX
         trainer's transfer rules, models/transfer.py's `load_pretrained`)
         and moved to `device`. `resume` restores the newest checkpoint of
-        `workdir`, if there is one."""
+        `workdir`, if there is one.
+
+        `tensor_parallel=N` runs the ranks of the process group on a
+        (world / N) x N (data, model) mesh (module docstring)."""
         if model_name not in OBJECTIVE_FOR_MODEL:
             raise NotImplementedError(
                 f"pretraining {model_name!r} is not ported yet; see "
@@ -104,26 +124,33 @@ class PretrainTrainer:
         self.workdir = workdir
         self.device = torch.device(device)
         objective, self.masking = OBJECTIVE_FOR_MODEL[model_name]
+        self.mesh = _make_mesh(model_cfg, tensor_parallel)
+        self.is_primary = self.mesh.is_primary
 
         model.reset_parameters(torch.Generator().manual_seed(train_cfg.seed))
         if pretrained_state is not None:
             model.load_state_dict(load_pretrained(
                 model_name, model.state_dict(), pretrained_state))
         self.model = model.to(self.device)
+        # each rank keeps its experts, before the optimizer: Adam's state
+        # is local too
+        self.sharded = mesh_lib.shard_params(self.model, self.mesh)
         self.optimizer = make_optimizer(self.model)
+        step_mesh = self.mesh if self.mesh.world > 1 else None
 
         def train_step_for(model, optimizer):
             return make_train_step(
                 model, optimizer, self.masking,
                 masking_prob=train_cfg.masking_prob, grad_accum=grad_accum,
-                objective=objective, beta=train_cfg.beta)
+                objective=objective, beta=train_cfg.beta, mesh=step_mesh)
 
         self._train_step_for = train_step_for
         self._train_step = train_step_for(self.model, self.optimizer)
         self._eval_step = make_eval_step(
             self.model, self.masking, masking_prob=train_cfg.masking_prob,
-            objective=objective, beta=train_cfg.beta)
-        self.checkpointer = Checkpointer(workdir)
+            objective=objective, beta=train_cfg.beta, mesh=step_mesh)
+        self.checkpointer = Checkpointer(workdir, mesh=self.mesh,
+                                         sharded=self.sharded)
         self.start_epoch = 0
         self.best_val_loss = float("inf")
         self._last_epoch_batches = 0
@@ -144,7 +171,7 @@ class PretrainTrainer:
                 "beta": train_cfg.beta,
                 "masking_prob": train_cfg.masking_prob,
                 "n_masked_features": train_cfg.n_masked_features,
-                "n_devices": 1,
+                "n_devices": self.mesh.world,
                 # stringified architecture (reference output_json contract,
                 # base_trainer.py:353-381 embeds str(model))
                 "architecture": str(model),
@@ -156,25 +183,29 @@ class PretrainTrainer:
 
     def _resume(self):
         if self.checkpointer.latest_epoch() is None:
-            logger.info("No checkpoint to resume from in %s", self.workdir)
+            self._log("No checkpoint to resume from in %s", self.workdir)
             return
         (epoch, self.best_val_loss, self.output_json, mid,
          generator_state) = self.checkpointer.restore(self.model,
                                                       self.optimizer)
         optimal = self.output_json["model_config"].get("optimal_lr")
         if optimal is not None:
-            logger.info("Restored optimal LR %.3e from checkpoint", optimal)
+            self._log("Restored optimal LR %.3e from checkpoint", optimal)
         if mid is not None:
             # a preemption checkpoint taken inside `epoch`: continue that
             # epoch at the recorded step
             self.start_epoch = epoch
             self._resume_mid = dict(mid, generator=generator_state)
-            logger.info("Resumed mid-epoch %d at batch %d (best val %.6f)",
-                        epoch, mid["batch_idx"], self.best_val_loss)
+            self._log("Resumed mid-epoch %d at batch %d (best val %.6f)",
+                      epoch, mid["batch_idx"], self.best_val_loss)
         else:
             self.start_epoch = epoch + 1
-            logger.info("Resumed from epoch %d (best val %.6f)", epoch,
-                        self.best_val_loss)
+            self._log("Resumed from epoch %d (best val %.6f)", epoch,
+                      self.best_val_loss)
+
+    def _log(self, *args, level=logging.INFO):
+        if self.is_primary:
+            logger.log(level, *args)
 
     def lr_schedule(self, epoch: int) -> float:
         """The epoch's LR: the schedule from init_lr, or from the LR range
@@ -207,8 +238,8 @@ class PretrainTrainer:
             run_step, self.make_loaders("train", True, self.cfg.seed),
             num_iter=5 if DRY_RUN else 100)
         del model, optimizer
-        logger.info("Using optimal LR %.3e (was %.3e)", optimal,
-                    self.cfg.init_lr)
+        self._log("Using optimal LR %.3e (was %.3e)", optimal,
+                  self.cfg.init_lr)
         self.output_json["model_config"]["optimal_lr"] = optimal
 
     def _run_epoch(self, epoch: int, split: str, mid: Optional[dict] = None):
@@ -248,16 +279,16 @@ class PretrainTrainer:
                 sums[k] = sums.get(k, 0.0) + float(v)
             n_batches += 1
             step_seconds.append(time.perf_counter() - t0)
-            if train and self._stop_requested:
+            if train and self._stop_agreed():
                 self.checkpointer.save(
                     epoch, self.model, self.optimizer, self.best_val_loss,
                     self.output_json,
                     mid_epoch={"batch_idx": n_batches, "sums": sums},
                     generator=generator)
-                logger.warning(
+                self._log(
                     "Preemption checkpoint written: epoch %d, batch %d "
                     "(--resume-from-checkpoint continues here exactly)",
-                    epoch, n_batches)
+                    epoch, n_batches, level=logging.WARNING)
                 return None
         if n_batches == 0:
             raise RuntimeError(f"empty {split} loader at epoch {epoch}")
@@ -265,10 +296,19 @@ class PretrainTrainer:
             self._last_epoch_batches = n_batches
         return {k: v / n_batches for k, v in sums.items()}, step_seconds
 
+    def _stop_agreed(self) -> bool:
+        """Whether any rank was asked to stop (this rank's flag without a
+        process group); every rank calls it at the same step boundary."""
+        self._stop_requested = mesh_lib.all_reduce_flag(self._stop_requested,
+                                                        self.device)
+        return self._stop_requested
+
     def _profiler(self, epoch: int, profile_dir: Optional[str]):
         """A torch.profiler context over epoch start_epoch + 1's training
-        pass when `profile_dir` is set, else a null context."""
-        if not (profile_dir and epoch == self.start_epoch + 1):
+        pass when `profile_dir` is set (rank 0's under a mesh), else a null
+        context."""
+        if not (profile_dir and epoch == self.start_epoch + 1
+                and self.is_primary):
             return contextlib.nullcontext()
         from torch.profiler import ProfilerActivity, profile
 
@@ -326,10 +366,11 @@ class PretrainTrainer:
                 path = os.path.join(profile_dir,
                                     f"{self.model_name}_epoch{epoch}.json")
                 prof.export_chrome_trace(path)
-                logger.info("profiler trace written to %s", path)
+                self._log("profiler trace written to %s", path)
             if train_out is None:  # preempted; the checkpoint is written
-                write_output_json(self.workdir, self.model_name,
-                                  self.output_json)
+                if self.is_primary:
+                    write_output_json(self.workdir, self.model_name,
+                                      self.output_json)
                 result["preempted"] = True
                 break
             train_losses, step_seconds = train_out
@@ -339,14 +380,14 @@ class PretrainTrainer:
             samples = self._last_epoch_batches * cfg.batch_size
             m = self.output_json.setdefault("metrics", {})
             m.setdefault("train_samples_per_sec_per_chip", []).append(
-                samples / max(train_time, 1e-9))
+                samples / max(train_time, 1e-9) / self.mesh.world)
             m.setdefault("epoch_seconds", []).append(dt)
             for scope, losses in (("train", train_losses),
                                   ("val", val_losses)):
                 for k, v in losses.items():
                     self.output_json["losses"][scope].setdefault(
                         k, []).append(v)
-            logger.info(
+            self._log(
                 "epoch %d: train %.6f val %.6f lr %.2e n_masked %d (%.1fs)",
                 epoch, train_losses["total_loss"], val_losses["total_loss"],
                 self.lr_schedule(epoch),
@@ -354,7 +395,8 @@ class PretrainTrainer:
                                             cfg.n_masked_features), dt)
             if val_losses["total_loss"] < self.best_val_loss:
                 self.best_val_loss = val_losses["total_loss"]
-                save_best_params(self.workdir, self.model)
+                save_best_params(self.workdir, self.model, self.mesh,
+                                 self.sharded)
             # the reference cadence (base_trainer.py:110), in the background
             saved = (epoch % cfg.checkpoint_every == 1
                      or epoch == cfg.num_epochs - 1)
@@ -362,20 +404,40 @@ class PretrainTrainer:
                 self.checkpointer.save(epoch, self.model, self.optimizer,
                                        self.best_val_loss, self.output_json,
                                        wait=False)
-            write_output_json(self.workdir, self.model_name,
-                              self.output_json)
+            if self.is_primary:
+                write_output_json(self.workdir, self.model_name,
+                                  self.output_json)
             result["train_step_seconds"].append(step_seconds)
             result["val_batches"].append(len(val_seconds))
-            if self._stop_requested:  # the signal came during validation
+            if self._stop_agreed():  # the signal came during validation
                 if not saved:
                     self.checkpointer.save(
                         epoch, self.model, self.optimizer,
                         self.best_val_loss, self.output_json)
-                logger.warning("Stopping after completed epoch %d "
-                               "(checkpoint written)", epoch)
+                self._log("Stopping after completed epoch %d (checkpoint "
+                          "written)", epoch, level=logging.WARNING)
                 result["preempted"] = True
                 break
         result["best_val_loss"] = self.best_val_loss
         if self.fast_forward_seconds is not None:
             result["fast_forward_seconds"] = self.fast_forward_seconds
         return result
+
+
+def _make_mesh(model_cfg, tensor_parallel: int) -> mesh_lib.Mesh:
+    """The trainer's (world / tensor_parallel) x tensor_parallel mesh, with
+    the JAX trainer's divisibility check and error text
+    (trainer.py:103-111)."""
+    if tensor_parallel > 1:
+        dispatch = getattr(model_cfg, "moe_dispatch", "ragged")
+        if getattr(model_cfg, "num_experts", 0) > 0 and dispatch != "ragged":
+            raise NotImplementedError(
+                f"tensor parallelism with the {dispatch!r} MoE dispatch "
+                "(its expert split) is not ported to weathermodel_tpu_torch "
+                "yet (ROADMAP.md queue A item 14); use --moe-dispatch ragged")
+        n_dev = mesh_lib.world_size()
+        if n_dev % tensor_parallel:
+            raise ValueError(
+                f"{n_dev} devices not divisible by parallel degree "
+                f"{tensor_parallel}")
+    return mesh_lib.make_mesh(n_model=tensor_parallel)
