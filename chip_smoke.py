@@ -327,6 +327,33 @@ Phases, each printing one line; any failure raises and exits non-zero:
                32 B4s and 16 B4ts a step, 16 B4s a validation batch, none of
                B4/B4t, finite losses that fall; samples/s (not EP's rate: one
                card shared, gloo's host copies) and peak memory a rank
+  23. export (after serve_moe_int8) - `wm-export-torch --platforms cuda`
+               (attention forced to the plain `torch` form) freezes phase 5's
+               WeatherBERT-large .pth into torch.export bundles: bf16 at
+               buckets 32 and 256, fp32 at 256; each bundle's
+               ExportedPredictor against the live `--attention-impl torch`
+               predictor on phase 5's 300 windows at the served-output bars
+               (SERVE_TOL); a child process that loads the bf16 bundle with
+               torch.export.load alone and must import nothing of
+               weathermodel_tpu_torch, its answer equal to this process's;
+               then serve_moe_int8's E=8 top-2 MoE checkpoint exported in
+               bf16 at bucket 256: its program holds the op wm::gmm, serving
+               it launches B4 (2 a layer a chunk, nothing else) and matches
+               the live MoE predictor; MB, write and load seconds of each
+               bundle
+  24. serve_bundle (after 23) - `python -m weathermodel_tpu_torch.cli.serve
+               --daemon --bundle` on the bf16 bundle with --allow-reload: the
+               serve_daemon clients (8 x 4 x 32 windows) held against
+               ExportedPredictor; POST /reload {"bundle": ...} of a bundle of
+               serve_daemon's second checkpoint, after which an answer
+               matches its predictor; a bundle of other buckets refused with
+               400 naming them; windows/s and p50/p99 beside serve_daemon's;
+               SIGTERM, exit 0
+  25. train_cnn (after yield) - the CNN baselines: `wm-pretrain-torch
+               --model weathercnn` 2 epochs on the store (masked MSE, fp32,
+               falling finite losses, no kernel launched) and `wm-yield-torch
+               --model cnnrnn` one fold on the yield phase's synthetic frame
+               (cuDNN's LSTM), finite RMSE and R^2; ms a step and samples/s
 With `--ep-cards N` (an even N of at least 2 cards) the script runs only device, build
 and the EP comparison on separate cards: train_ep's fp32 step on an (N/2) x 2 mesh of
 one card a rank (NCCL, which rank 0 must log) against one process, and
@@ -1373,7 +1400,7 @@ def phase_serve_daemon(smi: str, tmp: Path):
           f"(max, RMS)/RMS {err}, after /reload {reload_err} (bar "
           f"{SERVE_TOL['bfloat16']}); exit 0 {stop_s:.1f} s after SIGTERM; "
           f"card {smi}", flush=True)
-    return stats
+    return {**stats, "windows_per_s": n / wall}
 
 
 def _train_kernels_case(x, w, b, do, nh, dtype, rate, seed, timed: bool):
@@ -2627,7 +2654,7 @@ def phase_yield(smi: str, tmp: Path):
           f"{crop_s:.1f} s; "
           f"{ {fn.__name__: fn.launches for fn in counted if fn.launches} }",
           flush=True)
-    return runs
+    return crop_df
 
 
 # grouped-matmul edge cases (rows per group): boundaries inside a 128-row
@@ -4520,6 +4547,313 @@ def phase_ep_cards(smi: str, tmp: Path, n_cards: int):
           f"{wall:.1f} s; cards {smi} x {n_cards}", flush=True)
 
 
+# the export: two padding buckets (daemon batches and small requests), the
+# MoE bundle one (its program holds ~170 M fp32 parameters, 0.7 GB)
+EXPORT_BUCKETS, EXPORT_MOE_BUCKETS = (32, BATCH), (BATCH,)
+# a child process loads a bundle with torch alone and reports which modules
+# of the port it imported (none may be)
+EXPORT_CHILD = """
+import io, json, sys
+import numpy as np, torch
+import time
+path, bucket, inputs, out = sys.argv[1:5]
+t0 = time.perf_counter()
+with np.load(path) as z:
+    manifest = json.loads(bytes(z["manifest"].tobytes()).decode())
+    blob = z[f"bucket_{bucket}_cuda"].tobytes()
+fn = torch.export.load(io.BytesIO(blob)).module()
+load_s = time.perf_counter() - t0
+with np.load(inputs) as z:
+    args = [torch.from_numpy(z[k]).cuda() for k in
+            ("weather", "coords", "year", "interval", "mask")]
+with torch.inference_mode():
+    np.save(out, fn(*args).float().cpu().numpy())
+print(json.dumps({"format": manifest["format"], "ops": manifest["ops"],
+                  "load_s": load_s,
+                  "port_modules": sorted(m for m in sys.modules
+                                         if m.startswith("weathermodel"))}))
+"""
+
+
+def _export_cli(checkpoint: Path, out: Path, dtype: str, buckets, *extra):
+    """`wm-export-torch --platforms cuda` of `checkpoint`: (manifest, MB)."""
+    from weathermodel_tpu_torch.cli import export
+
+    manifest = export.main([
+        "--checkpoint", str(checkpoint), "--model", "weatherbert",
+        "--model-size", MODEL_SIZE, "--output", str(out), "--seq-len",
+        str(SEQ_LEN), "--buckets", ",".join(map(str, buckets)),
+        "--platforms", "cuda", "--compute-dtype", dtype, *extra])
+    if manifest["platforms"] != ["cuda"] or manifest["buckets"] != list(
+            buckets):
+        raise AssertionError(f"wm-export-torch manifest {manifest}")
+    return manifest
+
+
+def _bundle_serve(path: Path, windows, counted=()):
+    """ExportedPredictor of `path` on the card over `windows`, every wrapper
+    in `counted` at 0 just before: (output, load seconds, predict seconds,
+    launches by wrapper, the predictor)."""
+    from weathermodel_tpu_torch.export_artifact import ExportedPredictor
+
+    pred = ExportedPredictor(str(path), "cuda")
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pred(windows["weather"], windows["coords"], windows["year"],
+               windows["interval"], windows["mask"])
+    predict_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    if not np.isfinite(out).all():
+        raise AssertionError(f"{path.name}: non-finite served output")
+    return out, pred.load_seconds, predict_s, launches, pred
+
+
+def _live_torch(checkpoint: Path, dtype: str, windows, **moe):
+    from weathermodel_tpu_torch.serve import load_weather_predictor
+
+    predictor = load_weather_predictor(
+        str(checkpoint), MODEL_SIZE, attention_impl="torch", max_len=SEQ_LEN,
+        buckets=EXPORT_BUCKETS, compute_dtype=dtype, device="cuda", **moe)
+    out = predictor(windows["weather"], windows["coords"], windows["year"],
+                    windows["interval"], windows["mask"])
+    del predictor
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_export(smi: str, tmp: Path):
+    from weathermodel_tpu_torch.ops.gmm import gmm
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    with np.load(tmp / "windows.npz") as z:
+        windows = dict(z)
+    counted = _all_kernels()
+    lines, served, child = [], None, None
+    head = {k: v[:EXPORT_BUCKETS[0]] for k, v in windows.items()}
+    np.savez(tmp / "export_head.npz", **head)
+    try:
+        for dtype, buckets in (("bfloat16", EXPORT_BUCKETS),
+                               ("float32", EXPORT_BUCKETS[-1:])):
+            path = tmp / f"large_{dtype}.wmx"
+            manifest = _export_cli(tmp / "weatherbert_large.pth", path,
+                                   dtype, buckets)
+            if manifest["ops"]:
+                raise AssertionError(f"the dense bundle holds ops "
+                                     f"{manifest['ops']}")
+            if dtype == "bfloat16":
+                # a process that imports nothing of the port loads the
+                # bundle, beside the exports below
+                child = subprocess.Popen(
+                    [sys.executable, "-c", EXPORT_CHILD, str(path),
+                     str(EXPORT_BUCKETS[0]), str(tmp / "export_head.npz"),
+                     str(tmp / "export_child.npy")], stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True, cwd=str(tmp))
+            out, load_s, predict_s, launches, pred = _bundle_serve(
+                path, windows, counted)
+            _only(launches)  # the plain attention: no kernel of the port
+            err = _serve_err(out, _live_torch(tmp / "weatherbert_large.pth",
+                                              dtype, windows))
+            _check_serve_err("bundle vs the live torch predictor", err,
+                             dtype)
+            if dtype == "bfloat16":
+                served = pred
+            lines.append(f"{dtype} buckets {list(buckets)}: "
+                         f"{manifest['mb']:.1f} MB, written in "
+                         f"{manifest['write_seconds']:.1f} s (trace "
+                         f"{sum(manifest['export_seconds'].values()):.1f} "
+                         f"s), loaded in {load_s:.1f} s, {N_WINDOWS} windows "
+                         f"in {predict_s:.3f} s, (max, RMS)/RMS vs live "
+                         f"{err}")
+        # the MoE checkpoint of serve_moe_int8: B4 inside the program
+        moe = ("--moe-experts", str(MOE["num_experts"]), "--moe-top-k",
+               str(MOE["moe_top_k"]))
+        path = tmp / "large_moe.wmx"
+        manifest = _export_cli(tmp / "weatherbert_large_moe.pth", path,
+                               "bfloat16", EXPORT_MOE_BUCKETS, *moe)
+        if manifest["ops"] != ["wm::gmm"]:
+            raise AssertionError(f"the MoE bundle's ops {manifest['ops']}")
+        out, load_s, predict_s, launches, _ = _bundle_serve(path, windows,
+                                                             counted)
+        chunks = -(-N_WINDOWS // EXPORT_MOE_BUCKETS[-1])
+        layers = model_config_for_size(MODEL_SIZE).num_layers
+        _only(launches, gmm=2 * layers * chunks)
+        moe_err = _serve_err(out, _live_torch(
+            tmp / "weatherbert_large_moe.pth", "bfloat16", windows,
+            num_experts=MOE["num_experts"], moe_top_k=MOE["moe_top_k"]))
+        _check_serve_err("MoE bundle vs the live MoE predictor", moe_err,
+                         "bfloat16")
+        lines.append(f"MoE E={MOE['num_experts']} top-{MOE['moe_top_k']} "
+                     f"bf16 bucket {EXPORT_MOE_BUCKETS[0]}: "
+                     f"{manifest['mb']:.1f} MB, written in "
+                     f"{manifest['write_seconds']:.1f} s, loaded in "
+                     f"{load_s:.1f} s, {N_WINDOWS} windows in "
+                     f"{predict_s:.3f} s, launches "
+                     f"{ {gmm.__name__: launches['gmm']} }, (max, RMS)/RMS "
+                     f"vs live {moe_err}")
+        stdout, stderr = child.communicate(timeout=300)
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"the bundle's child process failed: "
+                             f"{stderr[-2000:]}")
+    report = json.loads(stdout.strip().splitlines()[-1])
+    if report["port_modules"]:
+        raise AssertionError(f"loading a dense bundle imported "
+                             f"{report['port_modules']}")
+    want = served(*(head[k] for k in ("weather", "coords", "year",
+                                      "interval", "mask")))
+    if not np.array_equal(np.load(tmp / "export_child.npy"), want):
+        raise AssertionError("the child's answer differs from "
+                             "ExportedPredictor's for the same bucket")
+    print(f"export: wm-export-torch WeatherBERT-{MODEL_SIZE} --platforms "
+          f"cuda, attention torch: " + "; ".join(lines) + f"; bar "
+          f"{SERVE_TOL}; a child process loaded the bf16 bundle in "
+          f"{report['load_s']:.1f} s importing {report['port_modules']} of "
+          f"the port, its answer bitwise ExportedPredictor's; card {smi}",
+          flush=True)
+    return served
+
+
+def phase_serve_bundle(smi: str, tmp: Path, daemon_stats: dict, exported):
+    """`exported` is phase_export's ExportedPredictor of the served bundle."""
+    from weathermodel_tpu_torch.export_artifact import ExportedPredictor
+
+    served, second = tmp / "large_bfloat16.wmx", tmp / "second.wmx"
+    n = DAEMON_CLIENTS * DAEMON_REQUESTS * DAEMON_WINDOWS
+    windows = _windows(np.random.default_rng(SEED + 3), n)
+    port = _free_port()
+    log_path = tmp / "bundle_daemon.log"
+    cmd = [sys.executable, "-m", "weathermodel_tpu_torch.cli.serve",
+           "--daemon", "--bundle", str(served), "--allow-reload",
+           "--port", str(port), "--device", "cuda"]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=Path(__file__).resolve().parent)
+    try:
+        # the reload's bundle is written while the daemon starts
+        _export_cli(tmp / "second.pth", second, "bfloat16", EXPORT_BUCKETS)
+        _wait_healthy(proc, port, log_path)
+        start_s = time.perf_counter() - t0
+        answers, errors = {}, []
+
+        def client(c):
+            try:
+                for r in range(DAEMON_REQUESTS):
+                    i0 = (c * DAEMON_REQUESTS + r) * DAEMON_WINDOWS
+                    answers[i0] = _predict(port, {
+                        k: v[i0:i0 + DAEMON_WINDOWS]
+                        for k, v in windows.items()})
+            except Exception as e:  # re-raised below, in the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(DAEMON_CLIENTS)]
+        t1 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t1
+        if errors:
+            raise errors[0]
+        got = np.concatenate([answers[i] for i in sorted(answers)])
+
+        def run(pred, w):
+            return pred(w["weather"], w["coords"], w["year"], w["interval"],
+                        w["mask"])
+
+        err = _serve_err(got, run(exported, windows))
+        _check_serve_err("bundle daemon vs ExportedPredictor", err,
+                         "bfloat16")
+        stats = json.loads(_http(port, "GET", "/stats")[1])
+        if stats["n_rows"] != n or not stats["bundle"]:
+            raise AssertionError(f"/stats {stats}: expected {n} rows of a "
+                                 "bundle")
+        refused, body = _http(port, "POST", "/reload", json.dumps(
+            {"bundle": str(tmp / "large_float32.wmx")}).encode())
+        if refused != 400 or b"buckets" not in body:
+            raise AssertionError(f"/reload of a bundle of other buckets "
+                                 f"answered {refused}: {body[:300]}")
+        status, data = _http(port, "POST", "/reload", json.dumps(
+            {"bundle": str(second)}).encode())
+        if status != 200:
+            raise AssertionError(f"/reload answered {status}: {data[:300]}")
+        head = {k: v[:DAEMON_WINDOWS] for k, v in windows.items()}
+        reloaded = _predict(port, head)
+        reload_err = _serve_err(reloaded, run(
+            ExportedPredictor(str(second), "cuda"), head))
+        _check_serve_err("bundle daemon after /reload vs the new bundle",
+                         reload_err, "bfloat16")
+        if np.allclose(reloaded, got[:DAEMON_WINDOWS]):
+            raise AssertionError("/reload did not change the answers")
+        stats = json.loads(_http(port, "GET", "/stats")[1])
+        if stats["n_reloads"] != 1 or stats["checkpoint"] != str(second):
+            raise AssertionError(f"/stats after /reload {stats}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=DAEMON_STOP_S)
+        if rc != 0:
+            raise AssertionError(f"the daemon exited with {rc} on SIGTERM: "
+                                 f"{log_path.read_text()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lat, ck = stats["latency_ms"], daemon_stats["latency_ms"]
+    print(f"serve_bundle: wm-serve-torch --daemon --bundle (bf16, buckets "
+          f"{list(EXPORT_BUCKETS)}): /healthz after {start_s:.1f} s (start, "
+          f"load, warm-up; the reload's bundle written meanwhile); "
+          f"{DAEMON_CLIENTS} clients x {DAEMON_REQUESTS} x {DAEMON_WINDOWS} "
+          f"windows: {n / wall:.1f} windows/s, p50 {lat['p50']} ms, p99 "
+          f"{lat['p99']} ms (checkpoint daemon, fused_qkv_op: "
+          f"{daemon_stats['windows_per_s']:.1f} windows/s, p50 {ck['p50']} "
+          f"ms, p99 {ck['p99']} ms); vs ExportedPredictor (max, RMS)/RMS "
+          f"{err}, after /reload {{\"bundle\": ...}} {reload_err}; a "
+          f"bundle of other buckets refused (400); exit 0 on SIGTERM; card "
+          f"{smi}", flush=True)
+
+
+def phase_train_cnn(smi: str, data: Path, tmp: Path, crop_df):
+    """`crop_df` is the yield phase's synthetic frame."""
+    counted = _all_kernels()
+    argv = ["--model", "weathercnn", "--batch-size", str(FORMER_BATCH),
+            "--n-epochs", "2", "--n-warmup-epochs", "0", "--data-dir",
+            str(data), "--workdir", str(tmp / "cnn_pretrain"), "--device",
+            "cuda"]
+    result, launches, wall, peak_gb, record = _run_pretrain(argv, counted)
+    _only(launches)
+    train_loss, val_loss = _check_record(record)
+    step_ms = float(np.median(result["train_step_seconds"][-1])) * 1e3
+    yargv = ["--model", "cnnrnn", "--device", "cuda", "--country",
+             "synthetic", "--n-train-years", "15", "--test-year", "2016",
+             "--n-epochs", "2"]
+    yres, ylaunches, ywall, ypeak = _run_yield(yargv, crop_df, counted)
+    _only(ylaunches)
+    (trainer,) = yres["trainers"]
+    history = trainer.loss_history["train"]["total_loss"]
+    if not (np.all(np.isfinite(history))
+            and np.isfinite(yres["avg_rmse_bu_acre"])
+            and np.isfinite(yres["avg_r_squared"])):
+        raise AssertionError(f"cnnrnn: losses {history}, RMSE "
+                             f"{yres['avg_rmse_bu_acre']}, R^2 "
+                             f"{yres['avg_r_squared']}")
+    ystep_ms = float(np.median(trainer.train_step_seconds[-1])) * 1e3
+    print(f"train_cnn: wm-pretrain-torch --model weathercnn --batch-size "
+          f"{FORMER_BATCH}, 2 epochs: train loss {train_loss}, val "
+          f"{val_loss}, {step_ms:.2f} ms a step "
+          f"({FORMER_BATCH / step_ms * 1e3:.1f} samples/s), {wall:.1f} s, peak {peak_gb:.2f} GB; wm-yield-torch "
+          f"--model cnnrnn, one fold (test 2016), 2 epochs: train loss "
+          f"{history}, RMSE {yres['avg_rmse_bu_acre']:.3f} bu/acre, R^2 "
+          f"{yres['avg_r_squared']:.3f}, {ystep_ms:.2f} ms a step "
+          f"({YIELD_BATCH / ystep_ms * 1e3:.1f} windows/s), {ywall:.1f} s, "
+          f"peak {ypeak:.2f} GB; no kernel of the port launched; card {smi}",
+          flush=True)
+
+
 def _record(name, source, replaces, launches, k, prefix,
             folder="weathermodel_tpu/ops/"):
     """One kernel's entry of the JSON line: `replaces` is "file:line" under
@@ -4562,9 +4896,13 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         _write_inputs(Path(tmp))
         serve_launches = timed("serve", phase_serve, smi, Path(tmp))
-        timed("serve_daemon", phase_serve_daemon, smi, Path(tmp))
+        daemon_stats = timed("serve_daemon", phase_serve_daemon, smi,
+                             Path(tmp))
         timed("serve_int8", phase_serve_int8, smi, Path(tmp))
         timed("serve_moe_int8", phase_serve_moe_int8, smi, Path(tmp))
+        served = timed("export", phase_export, smi, Path(tmp))
+        timed("serve_bundle", phase_serve_bundle, smi, Path(tmp),
+              daemon_stats, served)
     train_kernels = timed("kernel_train", phase_kernel_train)
     with tempfile.TemporaryDirectory() as tmp:
         data = _write_store(Path(tmp))
@@ -4572,7 +4910,8 @@ def main(argv=None):
         flash_kernels = timed("kernel_flash", phase_kernel_flash)
         former_launches = timed("train_former", phase_train_former, smi, data)
         timed("resume", phase_resume, smi, data)
-        timed("yield", phase_yield, smi, Path(tmp))
+        crop_df = timed("yield", phase_yield, smi, Path(tmp))
+        timed("train_cnn", phase_train_cnn, smi, data, Path(tmp), crop_df)
         gmm_kernel, tgmm_kernel = timed("kernel_gmm", phase_kernel_gmm)
         moe_launches = timed("train_moe", phase_train_moe, smi, data)
         timed("train_moe_dispatch", phase_train_moe_dispatch, smi, data)

@@ -42,6 +42,7 @@ from weathermodel_tpu_torch.serving_daemon import (
     warmup,
 )
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
+from test_torch_port_jax_params import jax_params_from_state
 from weathermodel_tpu_torch.utils.config import (
     ModelConfig,
     model_config_for_size,
@@ -584,11 +585,13 @@ def test_port_daemon_answers_as_the_jax_daemon():
     jax_cfg = JaxModelConfig(num_heads=4, num_layers=1, hidden_dim_factor=12,
                              max_len=T, dropout_rate=0.0)
     jax_model = JaxWeatherBERT(jax_cfg)
-    params = jax_model.init(jax.random.PRNGKey(0),
-                            *map(np.asarray, _arrays(2)))
+    # the port's seeded init in the flax tree (test_torch_port_jax_params.py)
     model = WeatherBERT(CFG, attention_impl="torch")
-    model.load_state_dict(state_dict_from_jax_params(
-        jax.tree.map(np.asarray, params)))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    params = jax_params_from_state(
+        lambda: jax_model.init(jax.random.PRNGKey(0),
+                               *map(np.asarray, _arrays(2))),
+        state_dict_from_jax_params, model.state_dict())
     body = _npz(**_kw(_arrays(5, 50)))
     answers = []
     for pred, make in ((JaxPredictor(jax_model, params, buckets=(8,)),

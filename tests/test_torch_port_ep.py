@@ -34,6 +34,10 @@ from weathermodel_tpu_torch.ops.gmm import (
 )
 from weathermodel_tpu_torch.parallel import mesh as mesh_lib
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
+from test_torch_port_jax_params import (
+    jax_params_from_state,
+    moe_ffn_state_dict,
+)
 
 # (S, group sizes): boundaries inside a 128-row tile, empty first and last
 # groups, an empty middle group with S off the tile, tiny groups sharing a
@@ -182,8 +186,13 @@ def test_shard_local_expert_body_matches_jax_ep(_restore_ep_meshes, n_data,
     cot = rng.normal(size=(B, T, H)).astype(np.float32)
     jm = JaxMoEFFN(hidden_dim=H, ffn_dim=F, num_experts=E, top_k=2,
                    dropout_rate=0.0, dispatch="ragged")
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
-                     deterministic=True)
+    seeded = moe.MoEFFN(H, F, E, top_k=2)
+    seeded.reset_parameters(torch.Generator().manual_seed(0))
+    # the port's init as the flax tree (test_torch_port_jax_params.py)
+    params = jax_params_from_state(
+        lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                        deterministic=True),
+        moe_ffn_state_dict, seeded.state_dict())
     mesh = jax_make_mesh(n_data, n_model)
     jax_configure_ep(mesh)
 

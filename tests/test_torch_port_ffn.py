@@ -39,6 +39,12 @@ from weathermodel_tpu_torch.ops.fused_ffn_ln import (
     fused_ffn_ln_reference,
 )
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
+from test_torch_port_jax_params import (
+    encoder_layer_state_dict,
+    jax_compiled,
+    jax_params_from_state,
+    seeded_encoder_layer,
+)
 from weathermodel_tpu_torch.train.state import make_optimizer
 from weathermodel_tpu_torch.train.steps import (
     Batch,
@@ -109,17 +115,6 @@ def test_fused_ffn_matches_jax(m):
                                    err_msg=name)
 
 
-def _layer_state_dict(params):
-    """A JAX encoder layer's params as the port layer's state dict (through
-    the model converter, wrapped as layer 0 of a model)."""
-    stub = {"kernel": np.zeros((1, 1), np.float32),
-            "bias": np.zeros(1, np.float32)}
-    sd = state_dict_from_jax_params({"core": {
-        "in_proj": stub, "encoder": {"layer_0": params["params"]}}})
-    prefix = "transformer_encoder.layers.0."
-    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
-
-
 def _assert_bf16_close(got, want):
     """The model tests' bf16 bar: the frameworks' bf16 matmuls and
     reductions sum in other orders, so values near a rounding boundary land
@@ -140,12 +135,14 @@ def test_encoder_layer_matches_jax(ffn_impl, dtype):
     jdt = jnp.dtype(dtype)
     layer = JaxEncoderLayer(h, nh, f, attention_impl="xla", dtype=jdt,
                             ffn_impl=JAX_FFN[ffn_impl])
-    params = jax.tree.map(np.asarray, layer.init(jax.random.PRNGKey(0),
-                                                 jnp.asarray(x)))
-    want = np.asarray(layer.apply(params, jnp.asarray(x, jdt)),
+    port = seeded_encoder_layer(TransformerEncoderLayer(h, nh, f, "torch",
+                                                        ffn_impl))
+    # the port's init as the flax tree (test_torch_port_jax_params.py)
+    params = jax_params_from_state(
+        lambda: layer.init(jax.random.PRNGKey(0), jnp.asarray(x)),
+        encoder_layer_state_dict, port.state_dict())
+    want = np.asarray(jax_compiled(layer.apply, params, jnp.asarray(x, jdt)),
                       np.float32)
-    port = TransformerEncoderLayer(h, nh, f, "torch", ffn_impl)
-    port.load_state_dict(_layer_state_dict(params))
     with torch.inference_mode():
         got, aux = port(torch.from_numpy(x).to(getattr(torch, dtype)))
     assert aux is None
@@ -167,10 +164,16 @@ def _inputs(b=3, seed=0):
 
 @pytest.fixture(scope="module")
 def mini_params():
+    """The port's seeded WeatherBERT-mini in the flax tree
+    (test_torch_port_jax_params.py)."""
     cfg = jax_config_for_size("mini", max_len=T)
-    params = JaxWeatherBERT(cfg).init(
-        jax.random.PRNGKey(0), *(jnp.asarray(a) for a in _inputs(1)))
-    return jax.tree.map(np.asarray, params)
+    model = make_model("weatherbert", model_config_for_size(
+        "mini", max_len=T), "torch")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return jax_params_from_state(
+        lambda: JaxWeatherBERT(cfg).init(
+            jax.random.PRNGKey(0), *(jnp.asarray(a) for a in _inputs(1))),
+        state_dict_from_jax_params, model.state_dict())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -180,8 +183,8 @@ def test_weatherbert_mini_matches_jax(mini_params, ffn_impl, dtype):
     the JAX model with the matching ffn_impl, bf16 at the (max, RMS) bars."""
     inputs = _inputs()
     jcfg = jax_config_for_size("mini", max_len=T, compute_dtype=dtype)
-    want = np.asarray(JaxWeatherBERT(
-        jcfg, attention_impl="xla", ffn_impl=JAX_FFN[ffn_impl]).apply(
+    want = np.asarray(jax_compiled(JaxWeatherBERT(
+        jcfg, attention_impl="xla", ffn_impl=JAX_FFN[ffn_impl]).apply,
         mini_params, *(jnp.asarray(a) for a in inputs)))
     cfg = model_config_for_size("mini", max_len=T, compute_dtype=dtype)
     model = make_model("weatherbert", cfg, "torch", ffn_impl).eval()

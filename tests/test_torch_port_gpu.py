@@ -2100,3 +2100,61 @@ def test_two_ranks_on_one_card_match_the_one_process_step(cuda, tmp_path):
     assert mesh["launches/tgmm_sharded"].tolist() == [2 * layers] * 2
     assert not mesh["launches/gmm"].any() and not mesh["launches/tgmm"].any()
     assert one["launches/gmm"].tolist() == [4 * layers]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_op_launches_b4_bitwise_as_gmm(cuda, dtype):
+    """`torch.ops.wm.gmm` on CUDA tensors is B4's launch: one launch a
+    call, counted in gmm.launches, bitwise `gmm`'s output."""
+    lhs, rhs, _, gs = _gmm_inputs([700, 0, 333, 1024], 80, 200, dtype, cuda)
+    want = gmm(lhs, rhs, gs)
+    before = gmm.launches
+    got = torch.ops.wm.gmm(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert gmm.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_moe_bundle_launches_b4_on_the_card(cuda, tmp_path):
+    """A MoE WeatherBERT-mini exported for "cuda": the program holds
+    wm::gmm, and serving it launches B4 two times a layer and matches the
+    live forward; a failed launch inside the program raises."""
+    from weathermodel_tpu_torch.export_artifact import (
+        ExportedPredictor,
+        write_bundle,
+    )
+    from weathermodel_tpu_torch.kernels import build
+
+    cfg = model_config_for_size("mini", max_len=24, num_experts=4,
+                                compute_dtype="bfloat16")
+    model = make_model("weatherbert", cfg, "torch").eval()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    manifest = write_bundle(str(tmp_path / "moe.wmx"), model.to(cuda), None,
+                            (8,), 24, platforms=("cuda",))
+    assert manifest["ops"] == ["wm::gmm"]
+    pred = ExportedPredictor(str(tmp_path / "moe.wmx"))
+    assert pred.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(5, 24, 31)).astype(np.float32),
+         np.zeros((5, 2), np.float32), np.full((5, 24), 1990.0, np.float32),
+         np.full((5, 1), 7.0, np.float32), np.zeros((5, 24, 31), bool))
+    before = gmm.launches
+    got = pred(*x)
+    assert gmm.launches == before + 2 * cfg.num_layers
+    with torch.inference_mode():
+        want = model(*(torch.from_numpy(np.pad(a, [(0, 3)] + [(0, 0)] * (
+            a.ndim - 1))).to(cuda) for a in x)).float().cpu().numpy()[:5]
+    # the same ops in one graph: cuBLAS may pick another algorithm, so
+    # within the kernels' bf16 scale bar
+    assert np.abs(got - want).max() <= 2.0 ** -6 * np.abs(want).max()
+    real = build.check
+
+    def failing(err):
+        raise RuntimeError("B4 launch failed")
+
+    build.check = failing
+    try:
+        with pytest.raises(RuntimeError, match="B4 launch failed"):
+            pred(*x)
+    finally:
+        build.check = real

@@ -1,5 +1,6 @@
 """The PyTorch port imports no JAX, and its size table, training defaults
-and dataset constants are the JAX package's."""
+and dataset constants are the JAX package's; an exported bundle loads
+without the port's model code."""
 
 import dataclasses
 import subprocess
@@ -45,7 +46,10 @@ def test_port_imports_no_jax():
             "weathermodel_tpu_torch.cli.best_config",
             "weathermodel_tpu_torch.parallel.mesh",
             "weathermodel_tpu_torch.parallel.multihost",
-            "weathermodel_tpu_torch.parallel.step_check"} <= set(modules)
+            "weathermodel_tpu_torch.parallel.step_check",
+            "weathermodel_tpu_torch.export_artifact",
+            "weathermodel_tpu_torch.cli.export",
+            "weathermodel_tpu_torch.models.cnn"} <= set(modules)
     code = (
         "import sys\n"
         "import chip_smoke\n"
@@ -91,3 +95,55 @@ def test_constants_match_jax_package():
                  "CROPNET_FEATURE_INDICES"):
         assert getattr(port_constants, name) == \
             getattr(jax_constants, name), name
+
+
+# what loading a bundle may import of the port: the loader, and for a
+# program that holds wm::gmm the module that registers it (and the kernel
+# build module that it imports)
+BUNDLE_LOADER = {"weathermodel_tpu_torch",
+                 "weathermodel_tpu_torch.export_artifact"}
+GMM_OP = {"weathermodel_tpu_torch.ops", "weathermodel_tpu_torch.ops.gmm",
+          "weathermodel_tpu_torch.kernels",
+          "weathermodel_tpu_torch.kernels.build"}
+
+
+def test_bundles_load_without_the_port_model_code(tmp_path):
+    """A subprocess serves a dense bundle through ExportedPredictor with
+    nothing of the port imported but the loader, and a MoE bundle with the
+    op's module besides; neither imports JAX."""
+    import torch
+
+    from weathermodel_tpu_torch.cli.pretrain import make_model
+    from weathermodel_tpu_torch.export_artifact import write_bundle
+
+    for name, experts in (("dense", 0), ("moe", 4)):
+        cfg = port_config.model_config_for_size(
+            "mini", max_len=8, num_experts=experts, compute_dtype="float32")
+        model = make_model("weatherbert", cfg, "torch")
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        write_bundle(str(tmp_path / f"{name}.wmx"), model, None, (2,), 8,
+                     platforms=("cpu",))
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from weathermodel_tpu_torch.export_artifact import "
+        "ExportedPredictor\n"
+        "for path in sys.argv[1:]:\n"
+        "    out = ExportedPredictor(path)(\n"
+        "        np.ones((3, 8, 31), np.float32),\n"
+        "        np.zeros((3, 2), np.float32),\n"
+        "        np.full((3, 8), 1990.0, np.float32),\n"
+        "        np.full((3, 1), 7.0, np.float32),\n"
+        "        np.zeros((3, 8, 31), bool))\n"
+        "    assert out.shape == (3, 8, 31) and np.isfinite(out).all()\n"
+        "    print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('weathermodel_tpu_torch', 'weathermodel_tpu', 'jax', 'flax')))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "dense.wmx"),
+         str(tmp_path / "moe.wmx")],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    dense, moe = (set(eval(line))
+                  for line in proc.stdout.strip().splitlines()[-2:])
+    assert dense == BUNDLE_LOADER, dense ^ BUNDLE_LOADER
+    assert moe == BUNDLE_LOADER | GMM_OP, moe ^ (BUNDLE_LOADER | GMM_OP)

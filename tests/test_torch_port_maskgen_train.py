@@ -13,11 +13,16 @@ import torch
 
 import weathermodel_tpu.ops.dropout as jax_dropout
 import weathermodel_tpu.ops.pallas_maskgen as jax_maskgen
+from weathermodel_tpu.ops import pallas_gmm
 from weathermodel_tpu.models.moe import MoEFFN as JaxMoEFFN
 from weathermodel_tpu_torch.cli.pretrain import make_model
 from weathermodel_tpu_torch.models.moe import MoEFFN
 from weathermodel_tpu_torch.ops import dropout, maskgen
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
+from test_torch_port_jax_params import (
+    jax_params_from_state,
+    moe_ffn_state_dict,
+)
 from weathermodel_tpu_torch.train.state import make_optimizer
 from weathermodel_tpu_torch.train.steps import Batch, make_train_step
 from weathermodel_tpu_torch.utils.config import ModelConfig
@@ -106,21 +111,21 @@ def test_moe_hidden_site_takes_the_bool_kernel_and_matches_jax(monkeypatch,
     `maskgen_bool`: its expert hidden [64, 128] goes through B9b's plain
     version once; the JAX MoEFFN under `maskgen_bool` with that mask
     injected gives the same output (2e-5) and gradients (1e-4), the bars
-    of tests/test_torch_port_moe.py."""
+    of tests/test_torch_port_moe.py. JAX's grouped matmul runs its plain
+    form (`lax.ragged_dot`, as off the TPU without interpret mode): this
+    test holds the mask site, and tests/test_torch_port_moe.py holds the
+    grouped matmul against the interpreted kernel."""
     h, f, e, k, rate = 32, 128, 4, 2, 0.1
     rng = np.random.default_rng(0)
     x, dy = rng.normal(size=(2, 2, 16, h)).astype(np.float32)
     jmoe = JaxMoEFFN(h, f, e, top_k=k, dropout_rate=rate, dispatch="ragged")
-    params = jmoe.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
-
+    monkeypatch.setattr(pallas_gmm, "_INTERPRET", False)
     port = MoEFFN(h, f, e, top_k=k)
-    router = {key: np.asarray(a) for key, a in params["router"].items()}
-    port.load_state_dict({
-        "router.weight": torch.tensor(router["kernel"].T),
-        "router.bias": torch.tensor(router["bias"]),
-        **{name: torch.tensor(np.asarray(params[name]))
-           for name in ("expert_w1", "expert_b1", "expert_w2",
-                        "expert_b2")}})
+    port.reset_parameters(torch.Generator().manual_seed(1))
+    # the port's init as the flax tree (test_torch_port_jax_params.py)
+    params = jax_params_from_state(
+        lambda: jmoe.init(jax.random.PRNGKey(1), jnp.asarray(x)),
+        moe_ffn_state_dict, port.state_dict())["params"]
     masks = []
     fn = maskgen.bool_keep_mask_reference
 

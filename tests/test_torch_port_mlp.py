@@ -23,6 +23,8 @@ from weathermodel_tpu_torch.models.transfer import state_dict_from_jax_params
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 from weathermodel_tpu_torch.train.steps import Batch, make_eval_step
 from weathermodel_tpu_torch.utils.config import ModelConfig
+from test_torch_port_jax_params import jax_compiled, jax_params_from_state
+from test_torch_port_pretrain_cli import keys_only_jax_runs
 
 B, T, F = 6, 24, 31
 TOL = 2e-5
@@ -40,11 +42,16 @@ def _inputs(seed=0):
 
 
 def _jax_params(seed=0):
+    """The flax tree of the port's init from `seed`
+    (test_torch_port_jax_params.py)."""
     weather, coords, year, interval, mask = (jnp.asarray(a)
                                              for a in _inputs(seed))
-    params = JaxWeatherMLP(JaxModelConfig()).init(
-        jax.random.PRNGKey(seed), weather, coords, year, interval, mask)
-    return jax.tree.map(np.asarray, params)
+    model = WeatherMLP(ModelConfig())
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return jax_params_from_state(
+        lambda: JaxWeatherMLP(JaxModelConfig()).init(
+            jax.random.PRNGKey(seed), weather, coords, year, interval, mask),
+        state_dict_from_jax_params, model.state_dict())
 
 
 def _port_model(params):
@@ -70,9 +77,10 @@ def test_params_carry_across_with_the_reference_keys():
 def test_forward_matches_jax(seed):
     params = _jax_params(seed)
     weather, coords, year, interval, mask = _inputs(seed)
-    want = np.asarray(JaxWeatherMLP(JaxModelConfig()).apply(
-        params, jnp.asarray(weather), jnp.asarray(coords),
-        jnp.asarray(year), jnp.asarray(interval), jnp.asarray(mask)))
+    want = np.asarray(jax_compiled(
+        JaxWeatherMLP(JaxModelConfig()).apply, params, jnp.asarray(weather),
+        jnp.asarray(coords), jnp.asarray(year), jnp.asarray(interval),
+        jnp.asarray(mask)))
     with torch.no_grad():
         got = _port_model(params)(
             *(torch.from_numpy(a) for a in (weather, coords, year,
@@ -116,7 +124,7 @@ def _keys(tree, prefix=""):
     return out
 
 
-def test_pretrain_cli_trains_the_mlp(tmp_path):
+def test_pretrain_cli_trains_the_mlp(tmp_path, monkeypatch):
     store = tmp_path / "store"
     write_synthetic_dataset(str(store), n_chunks=8, n_samples=24, seq_len=T,
                             seed=0)
@@ -125,6 +133,7 @@ def test_pretrain_cli_trains_the_mlp(tmp_path):
             "--data-dir", str(store)]
     result = pretrain.run(pretrain.build_parser().parse_args(
         argv + ["--workdir", str(tmp_path / "port"), "--device", "cpu"]))
+    keys_only_jax_runs(monkeypatch)
     jax_pretrain.run(jax_pretrain.build_parser().parse_args(
         argv + ["--workdir", str(tmp_path / "jax")]))
     with open(tmp_path / "port" / "mlp_output.json") as f:

@@ -16,6 +16,7 @@ from weathermodel_tpu_torch.cli.pretrain import make_model
 from weathermodel_tpu_torch.models.transfer import state_dict_from_jax_params
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 from weathermodel_tpu_torch.utils.config import model_config_for_size
+from test_torch_port_jax_params import jax_compiled, jax_params_from_state
 
 T = 24
 
@@ -32,10 +33,18 @@ def _inputs(b=3, t=T, seed=0):
 
 
 def _jax_params(size, max_len=T, seed=0):
+    """The port's init from `seed` as a flax tree: the tree's structure from
+    flax's init (traced, not run), the values through the inverse of
+    `state_dict_from_jax_params` (test_torch_port_jax_params.py)."""
     cfg = jax_config_for_size(size, max_len=max_len)
     init_inputs = [jnp.asarray(a) for a in _inputs(1, max_len)]
-    params = JaxWeatherBERT(cfg).init(jax.random.PRNGKey(seed), *init_inputs)
-    return jax.tree.map(np.asarray, params)
+    model = make_model("weatherbert", model_config_for_size(
+        size, max_len=max_len), "torch")
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return jax_params_from_state(
+        lambda: JaxWeatherBERT(cfg).init(jax.random.PRNGKey(seed),
+                                         *init_inputs),
+        state_dict_from_jax_params, model.state_dict())
 
 
 def _port_forward(size, params, impl, dtype, inputs):
@@ -51,7 +60,8 @@ def _port_forward(size, params, impl, dtype, inputs):
 def _jax_forward(size, params, impl, dtype, inputs):
     cfg = jax_config_for_size(size, max_len=T, compute_dtype=dtype)
     model = JaxWeatherBERT(cfg, attention_impl=impl)
-    return np.asarray(model.apply(params, *(jnp.asarray(a) for a in inputs)))
+    return np.asarray(jax_compiled(model.apply, params,
+                                   *(jnp.asarray(a) for a in inputs)))
 
 
 @pytest.mark.parametrize("size", ["mini", "large"])
@@ -106,7 +116,5 @@ def test_forward_matches_jax_bf16(port_impl, jax_impl):
 
 def test_unported_options_raise():
     cfg = model_config_for_size("mini")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model("weathercnn", cfg, "torch")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="Unknown model type"):
         make_model("nosuchmodel", cfg, "torch")

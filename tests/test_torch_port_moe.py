@@ -40,6 +40,10 @@ from weathermodel_tpu_torch.models.transfer import (
 )
 from weathermodel_tpu_torch.serve import load_weather_predictor
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
+from test_torch_port_jax_params import (
+    jax_params_from_state,
+    moe_ffn_state_dict,
+)
 from weathermodel_tpu_torch.train.state import make_optimizer
 from weathermodel_tpu_torch.train.steps import (
     Batch,
@@ -71,8 +75,12 @@ def test_moe_ffn_matches_jax_ragged():
     x = rng.normal(size=(b, t, h)).astype(np.float32)
     dy = rng.normal(size=(b, t, h)).astype(np.float32)
     jmoe = JaxMoEFFN(h, f, E, top_k=K, dropout_rate=0.0, dispatch="ragged")
-    params = jax.jit(jmoe.init)(jax.random.PRNGKey(1),
-                                jnp.asarray(x))["params"]
+    seeded = MoEFFN(h, f, E, top_k=K)
+    seeded.reset_parameters(torch.Generator().manual_seed(1))
+    # the port's init as the flax tree (test_torch_port_jax_params.py)
+    params = jax_params_from_state(
+        lambda: jmoe.init(jax.random.PRNGKey(1), jnp.asarray(x)),
+        moe_ffn_state_dict, seeded.state_dict())["params"]
 
     def jax_loss(p, xx):
         out, mvars = jmoe.apply({"params": p}, xx, deterministic=True,
@@ -143,14 +151,20 @@ _PARAMS = {}
 
 
 def _jax_params(max_len=T, seed=0):
-    """A WeatherBERT-mini MoE's flax params (cached, and the init jitted:
-    it runs the model once, through the interpreted Pallas kernels)."""
+    """A WeatherBERT-mini MoE's port init from `seed` as a flax tree
+    (cached): the tree's structure from flax's init (traced, not run), the
+    values through the inverse of `state_dict_from_jax_params`
+    (test_torch_port_jax_params.py)."""
     if (max_len, seed) not in _PARAMS:
         cfg = jax_config_for_size("mini", max_len=max_len, **MOE)
-        params = jax.jit(JaxWeatherBERT(cfg).init)(
-            jax.random.PRNGKey(seed),
-            *(jnp.asarray(a) for a in _inputs(1, max_len)))
-        _PARAMS[max_len, seed] = jax.tree.map(np.asarray, params)
+        model = make_model("weatherbert", model_config_for_size(
+            "mini", max_len=max_len, **MOE), "torch")
+        model.reset_parameters(torch.Generator().manual_seed(seed))
+        _PARAMS[max_len, seed] = jax_params_from_state(
+            lambda: JaxWeatherBERT(cfg).init(
+                jax.random.PRNGKey(seed),
+                *(jnp.asarray(a) for a in _inputs(1, max_len))),
+            state_dict_from_jax_params, model.state_dict())
     return _PARAMS[max_len, seed]
 
 

@@ -24,6 +24,47 @@ def store(tmp_path_factory):
     return str(root)
 
 
+class _NoCheckpoints:
+    """Stands in for the JAX trainer's orbax `Checkpointer` in the JAX runs
+    whose record keys these tests read: the checkpoint files are not
+    compared, and orbax's first save costs seconds."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+def keys_only_jax_runs(monkeypatch):
+    """The JAX trainer as these tests use it, for its record's keys: no
+    orbax checkpoints, and its initial parameters drawn by a jitted init
+    (one compile) in place of flax's op-by-op init (a compile an op, ~9 s
+    in a fresh worker); the keys depend on neither."""
+    import jax
+    import jax.numpy as jnp
+
+    from weathermodel_tpu.train import trainer as jax_trainer
+
+    monkeypatch.setattr(jax_trainer, "Checkpointer", _NoCheckpoints)
+
+    def jitted(self):   # PretrainTrainer._init_params, under jit
+        cfg = self.model_cfg
+        b, t = 2, cfg.max_len
+        dummy = (jnp.zeros((b, t, cfg.weather_dim)), jnp.zeros((b, 2)),
+                 jnp.full((b, t), 1990.0), jnp.full((b, 1), 7.0),
+                 jnp.zeros((b, t, cfg.weather_dim), dtype=bool))
+        self.rng, key = jax.random.split(self.rng)
+        return jax.jit(self.model.init)(key, *dummy)
+
+    monkeypatch.setattr(jax_trainer.PretrainTrainer, "_init_params", jitted)
+
+
+@pytest.fixture
+def no_jax_checkpoints(monkeypatch):
+    keys_only_jax_runs(monkeypatch)
+
+
 def _argv(store, workdir):
     return ["--model", "weatherbert", "--model-size", "mini",
             "--batch-size", "8", "--n-epochs", "2", "--n-warmup-epochs", "0",
@@ -41,8 +82,8 @@ def _keys(tree, prefix=""):
     return out
 
 
-def test_pretrain_writes_the_jax_record_and_a_servable_checkpoint(store,
-                                                                  tmp_path):
+def test_pretrain_writes_the_jax_record_and_a_servable_checkpoint(
+        store, tmp_path, no_jax_checkpoints):
     port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
     result = pretrain.run(pretrain.build_parser().parse_args(
         _argv(store, port_dir) + ["--grad-accum", "2", "--attention-impl",
@@ -259,18 +300,20 @@ def test_use_optimal_lr_runs_the_range_test_and_records_its_lr(
 
 
 def test_unported_models_and_sizes_raise(store, tmp_path):
-    for model in ("weathercnn",):
-        args = pretrain.build_parser().parse_args(
-            _argv(store, tmp_path) + ["--device", "cpu", "--model", model])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pretrain.run(args)
+    """Every model of `wm-pretrain` is ported (weathercnn in
+    test_torch_port_cnn.py); an unknown model and size raise as in JAX."""
+    args = pretrain.build_parser().parse_args(
+        _argv(store, tmp_path) + ["--device", "cpu", "--model", "nope"])
+    with pytest.raises(ValueError, match="Unknown model type"):
+        pretrain.run(args)
     args = pretrain.build_parser().parse_args(
         _argv(store, tmp_path) + ["--device", "cpu", "--model-size", "huge"])
     with pytest.raises(ValueError, match="Unknown model size"):
         pretrain.run(args)
 
 
-def test_defaults_train_weatherformer_small_with_the_elbo(store, tmp_path):
+def test_defaults_train_weatherformer_small_with_the_elbo(
+        store, tmp_path, no_jax_checkpoints):
     """With no --model/--model-size `wm-pretrain-torch` trains what
     `wm-pretrain` does (WeatherFormer-small, ELBO, beta 0.5, 10 masked
     features, attention "auto" -> the flash kernels' plain versions here),

@@ -27,6 +27,7 @@ from weathermodel_tpu.models.blocks import (
     TransformerEncoderLayer as JaxLayer,
 )
 from weathermodel_tpu.models import WeatherBERT as JaxWeatherBERT
+from weathermodel_tpu.ops import pallas_gmm
 from weathermodel_tpu.ops import quant as jax_quant
 from weathermodel_tpu.serve import (
     calibrate_quant_scales as jax_calibrate_quant_scales,
@@ -48,6 +49,11 @@ from weathermodel_tpu_torch.serve import (
     reload_predictor_params,
 )
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
+from test_torch_port_jax_params import (
+    encoder_layer_state_dict,
+    jax_params_from_state,
+    seeded_encoder_layer,
+)
 from weathermodel_tpu_torch.utils.config import model_config_for_size
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -162,21 +168,18 @@ def test_int_mm_on_the_card_takes_only_its_shapes():
 
 
 def _layer_pair(ffn_impl, seed=0):
-    """A JAX dense encoder layer's params and the port's layer with them."""
+    """A JAX dense encoder layer's params and the port's layer with them:
+    the port's seeded init as the flax tree (test_torch_port_jax_params.py)."""
     jlayer = JaxLayer(H, NH, F, dropout_rate=0.0, attention_impl="xla",
                       ffn_impl=ffn_impl)
     x = np.random.default_rng(seed).normal(size=(3, T, H)).astype(np.float32)
-    params = jax.device_get(jax.jit(JaxLayer(
-        H, NH, F, dropout_rate=0.0, attention_impl="xla").init)(
-        jax.random.PRNGKey(seed), jnp.asarray(x)))["params"]
-    tree = {"core": {"in_proj": {"kernel": np.zeros((1, H), np.float32),
-                                 "bias": np.zeros(H, np.float32)},
-                     "encoder": {"layer_0": params}}}
-    pre = "transformer_encoder.layers.0."
-    sd = {k[len(pre):]: v for k, v in
-          state_dict_from_jax_params(tree).items() if k.startswith(pre)}
-    layer = TransformerEncoderLayer(H, NH, F, "torch", ffn_impl)
-    layer.load_state_dict(sd)
+    layer = seeded_encoder_layer(
+        TransformerEncoderLayer(H, NH, F, "torch", ffn_impl), seed)
+    params = jax_params_from_state(
+        lambda: JaxLayer(H, NH, F, dropout_rate=0.0,
+                         attention_impl="xla").init(
+            jax.random.PRNGKey(seed), jnp.asarray(x)),
+        encoder_layer_state_dict, layer.state_dict())["params"]
     return jlayer, params, layer, x
 
 
@@ -271,18 +274,26 @@ def _model_batch(n=4, seed=9):
 
 
 @pytest.mark.parametrize("experts", [0, 4])
-def test_calibrate_quant_scales_matches_jax(attn_out_quant, experts):
+def test_calibrate_quant_scales_matches_jax(attn_out_quant, monkeypatch,
+                                           experts):
     """serve.calibrate_quant_scales on WeatherBERT-mini (dense, and E=4
     through the dropless ragged dispatch) over two batches: the same
-    scale names as JAX's `quant` collection, each within the fp32 bar."""
+    scale names as JAX's `quant` collection, each within the fp32 bar.
+    JAX's grouped matmul runs its plain form (`lax.ragged_dot`): the
+    statistics are held here, the kernel in tests/test_torch_port_moe.py."""
+    monkeypatch.setattr(pallas_gmm, "_INTERPRET", False)
     cfg = model_config_for_size("mini", max_len=T, num_experts=experts,
                                 moe_dispatch="sort")
     jcfg = jax_config_for_size("mini", max_len=T, num_experts=experts,
                                moe_dispatch="sort")
     batches = [_model_batch(), _model_batch(3, 10)]
-    params = jax.device_get(jax.jit(JaxWeatherBERT(
-        jcfg, attention_impl="xla").init)(jax.random.PRNGKey(0),
-                                          *batches[0]))
+    # the port's seeded init as a flax tree (test_torch_port_jax_params.py)
+    seeded = make_model("weatherbert", cfg, "torch")
+    seeded.reset_parameters(torch.Generator().manual_seed(0))
+    params = jax_params_from_state(
+        lambda: JaxWeatherBERT(jcfg, attention_impl="xla").init(
+            jax.random.PRNGKey(0), *batches[0]),
+        state_dict_from_jax_params, seeded.state_dict())
     want = quant_scales_from_jax(jax_calibrate_quant_scales(
         "weatherbert", jcfg, params, batches, attention_impl="xla"))
     got = calibrate_quant_scales(

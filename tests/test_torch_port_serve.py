@@ -86,10 +86,9 @@ def test_port_serve_matches_jax_serve_for_weatherformer(files, tmp_path):
                                        err_msg=key)
 
 
-# the daemon is ported (test_torch_port_daemon.py), its bundle source not
-@pytest.mark.parametrize("flag", [["--daemon", "--bundle", "x.wmx"],
-                                  ["--bundle", "x.wmx"],
-                                  ["--tensor-parallel", "2"]])
+# the daemon and its bundle source are ported (test_torch_port_daemon.py,
+# test_torch_port_export.py); tensor-parallel serving is not
+@pytest.mark.parametrize("flag", [["--tensor-parallel", "2"]])
 def test_unported_flags_exit_naming_the_roadmap(files, tmp_path, flag):
     args = port_serve.build_parser().parse_args(
         _argv(files, tmp_path / "o.npz") + ["--device", "cpu"] + flag)

@@ -18,6 +18,7 @@ from weathermodel_tpu.models import WeatherBERT as JaxWeatherBERT
 from weathermodel_tpu.models import WeatherFormer as JaxWeatherFormer
 from weathermodel_tpu.models import WeatherFormerMixture as JaxMixture
 from weathermodel_tpu.models import WeatherFormerSinusoid as JaxSinusoid
+from weathermodel_tpu.models.transfer import convert_torch_state_dict
 from weathermodel_tpu.ops.schedules import epoch_lr_schedule as jax_schedule
 from weathermodel_tpu.train.steps import Batch as JaxBatch
 from weathermodel_tpu.train.steps import _objective_losses
@@ -69,12 +70,15 @@ MODELS = {"weatherbert": (JaxWeatherBERT, "masked_mse"),
 BETA = 0.5
 
 
-def _jax_params(name, size, data):
-    init = [jnp.asarray(a[0]) if a.ndim == 4 else jnp.asarray(a)
-            for a in data]
-    params = MODELS[name][0](_sized(jax_config_for_size, size)).init(
-        jax.random.PRNGKey(0), *init)
-    return jax.tree.map(np.asarray, params)
+def _jax_params(name, size, seed=0):
+    """The JAX param tree of the port's seeded init (the JAX package's
+    distributions), through the JAX package's converter, which
+    test_torch_port_model holds bit exact: flax's init draws op by op, a
+    few seconds a model in each fresh worker."""
+    cfg = _sized(model_config_for_size, size)
+    model = make_model(name, cfg, "torch")
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return convert_torch_state_dict(model.state_dict(), cfg.num_layers)
 
 
 def _jax_run(size, impl, params, data, name="weatherbert"):
@@ -149,7 +153,7 @@ def _check_trajectories(port, jax_run):
                                                 ("flash", "pallas")])
 def test_20_step_trajectory_matches_jax(size, port_impl, jax_impl):
     data = _data()
-    params = _jax_params("weatherbert", size, data)
+    params = _jax_params("weatherbert", size)
     _check_trajectories(_port_run(size, port_impl, params, data),
                         _jax_run(size, jax_impl, params, data))
 
@@ -160,7 +164,7 @@ def test_20_step_elbo_trajectory_matches_jax(name):
     flash attention against `pallas` (the path `auto` takes at mini/small
     training), at the bars of the WeatherBERT trajectory above."""
     data = _data(4)
-    params = _jax_params(name, "mini", data)
+    params = _jax_params(name, "mini")
     _check_trajectories(_port_run("mini", "flash", params, data, name),
                         _jax_run("mini", "pallas", params, data, name))
 
@@ -171,7 +175,7 @@ def test_elbo_mixture_step_matches_jax_with_the_same_eps():
     every gradient at the trajectory test's step-0 bars."""
     weather, coords, year, interval, masks = _data(5, n=1)
     data = (weather, coords, year, interval, masks)
-    params = _jax_params("weatherformermixture", "mini", data)
+    params = _jax_params("weatherformermixture", "mini")
     cfg = jax_config_for_size("mini", max_len=T)
     model = JaxMixture(cfg, attention_impl="xla")
     batch = JaxBatch(*(jnp.asarray(a) for a in (weather[0], coords, year,

@@ -28,8 +28,11 @@ from weathermodel_tpu_torch.models.transfer import (
 )
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 from weathermodel_tpu_torch.utils.config import model_config_for_size
+from test_torch_port_jax_params import jax_params_from_state
 
 T = 8
+PORT_NAMES = {"weatherbert": "weatherbert", "weatherformer": "weatherformer",
+              "weatherformer_sinusoid": "weatherformersinusoid"}
 JAX_MODELS = {"weatherbert": JaxWeatherBERT,
               "weatherformer": JaxWeatherFormer,
               "weatherformer_sinusoid": JaxSinusoid}
@@ -46,9 +49,17 @@ def _inputs(t=T):
 
 @functools.cache
 def _params(name, seed, size="mini", k=4, num_experts=0):
+    """flax params of `name`: the port's init from `seed` in the flax tree
+    (test_torch_port_jax_params.py; the tree's shapes traced from flax's
+    init)."""
     cfg = jax_config_for_size(size, max_len=T, k=k, num_experts=num_experts)
-    params = JAX_MODELS[name](cfg).init(jax.random.PRNGKey(seed), *_inputs())
-    return jax.tree.map(np.asarray, params)
+    model = pretrain.make_model(PORT_NAMES[name], model_config_for_size(
+        size, max_len=T, k=k, num_experts=num_experts), "torch")
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return jax_params_from_state(
+        lambda: JAX_MODELS[name](cfg).init(jax.random.PRNGKey(seed),
+                                           *_inputs()),
+        state_dict_from_jax_params, model.state_dict())
 
 
 def _assert_same_state(got, want):

@@ -21,6 +21,7 @@ from weathermodel_tpu_torch.cli.pretrain import make_model
 from weathermodel_tpu_torch.models.transfer import state_dict_from_jax_params
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
 from weathermodel_tpu_torch.utils.config import model_config_for_size
+from test_torch_port_jax_params import jax_params_from_state
 
 T = 24
 JAX_MODELS = {"weatherformer": JaxWeatherFormer,
@@ -44,11 +45,18 @@ def _inputs(b=3, t=T, seed=0):
 
 @functools.cache
 def _jax_params(name, size, max_len=T, seed=0):
+    """`name`'s port init from `seed` as a flax tree: the tree's structure
+    from flax's init (traced, not run), the values through the inverse of
+    `state_dict_from_jax_params` (test_torch_port_jax_params.py)."""
     cfg = jax_config_for_size(size, max_len=max_len, k=K[name])
-    params = JAX_MODELS[name](cfg).init(
-        jax.random.PRNGKey(seed), *(jnp.asarray(a) for a in _inputs(1,
-                                                                   max_len)))
-    return jax.tree.map(np.asarray, params)
+    model = make_model(name, model_config_for_size(size, max_len=max_len,
+                                                   k=K[name]), "torch")
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return jax_params_from_state(
+        lambda: JAX_MODELS[name](cfg).init(
+            jax.random.PRNGKey(seed),
+            *(jnp.asarray(a) for a in _inputs(1, max_len))),
+        state_dict_from_jax_params, model.state_dict())
 
 
 @pytest.mark.parametrize("name", list(JAX_MODELS))

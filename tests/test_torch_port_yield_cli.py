@@ -117,7 +117,7 @@ def test_k_folds_and_a_pretrained_encoder(crop_df, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "cnnrnn"], "item 11"), (["--model", "gnnrnn"], "item 11"),
+    (["--model", "gnnrnn"], "item 11"),
     (["--model", "chronos"], "item 11"),
     (["--prng", "threefry2x32"], "item 14")])
 def test_unported_models_and_flags_exit(crop_df, argv, match):

@@ -24,6 +24,7 @@ from weathermodel_tpu.models import WeatherFormer as JaxWeatherFormer
 from weathermodel_tpu.models import yield_models as jax_models
 from weathermodel_tpu.train import yield_trainer as jax_trainer
 from weathermodel_tpu.utils.config import ModelConfig as JaxModelConfig
+from weathermodel_tpu_torch.cli.pretrain import make_model
 from weathermodel_tpu_torch.models import yield_models
 from weathermodel_tpu_torch.models.transfer import (
     state_dict_from_jax_params,
@@ -35,6 +36,7 @@ from weathermodel_tpu_torch.train.yield_trainer import (
     yield_losses,
 )
 from weathermodel_tpu_torch.utils.config import ModelConfig
+from test_torch_port_jax_params import jax_compiled, jax_params_from_state
 
 B, T, F, N_PAST = 4, 32, 31, 1
 MINI = dict(num_heads=4, num_layers=2, hidden_dim_factor=12, max_len=T,
@@ -55,6 +57,9 @@ MODELS = {
 }
 
 
+PORT_NAMES = {JaxWeatherBERT: "weatherbert", JaxWeatherFormer: "weatherformer"}
+
+
 def _inputs(seed=0):
     rng = np.random.default_rng(seed)
     weather = rng.normal(size=(B, T, F)).astype(np.float32)
@@ -70,7 +75,9 @@ def _inputs(seed=0):
 
 def _models(name, compute_dtype="float32", impls=None):
     """(JAX model, its params, the port model with them loaded); `impls`
-    (JAX, port) replaces the model's attention impls."""
+    (JAX, port) replaces the model's attention impls. The weights are the
+    port's seeded init carried into the flax tree
+    (test_torch_port_jax_params.py)."""
     jax_impl, port_impl = impls or MODELS[name][2:]
     jcfg = JaxModelConfig(**MINI, compute_dtype=compute_dtype)
     pcfg = ModelConfig(**MINI, compute_dtype=compute_dtype)
@@ -80,11 +87,12 @@ def _models(name, compute_dtype="float32", impls=None):
     else:
         jm = getattr(jax_models, name)(jcfg, N_PAST, attention_impl=jax_impl)
         pm = getattr(yield_models, name)(pcfg, N_PAST, port_impl)
-    params = jm.init({"params": jax.random.PRNGKey(0),
-                      "sample": jax.random.PRNGKey(1)},
-                     *map(jnp.asarray, _inputs()))
-    params = jax.tree.map(np.asarray, params)
-    pm.load_state_dict(yield_state_dict_from_jax_params(params))
+    pm.reset_parameters(torch.Generator().manual_seed(0))
+    params = jax_params_from_state(
+        lambda: jm.init({"params": jax.random.PRNGKey(0),
+                         "sample": jax.random.PRNGKey(1)},
+                        *map(jnp.asarray, _inputs())),
+        yield_state_dict_from_jax_params, pm.state_dict())
     return jm, params, pm.eval()
 
 
@@ -108,8 +116,9 @@ def _as_tuple(out):
 def test_yield_model_outputs_match_jax(name):
     inputs = _inputs(1)
     jm, params, pm = _models(name)
-    want = _as_tuple(jm.apply(params, *map(jnp.asarray, inputs),
-                              rngs={"sample": jax.random.PRNGKey(2)}))
+    want = _as_tuple(jax_compiled(
+        lambda p, *a: jm.apply(p, *a, rngs={"sample": jax.random.PRNGKey(2)}),
+        params, *map(jnp.asarray, inputs)))
     eps = _eps(want, inputs[4]) if len(want) > 1 else None
     got = _as_tuple(_port(pm, inputs, eps))
     assert len(got) == len(want)
@@ -126,8 +135,9 @@ def test_yield_model_outputs_match_jax(name):
 def test_bf16_weatherformer_yield_model_at_the_bf16_bars():
     inputs = _inputs(2)
     jm, params, pm = _models("WeatherFormerSinusoidYieldModel", "bfloat16")
-    want = jm.apply(params, *map(jnp.asarray, inputs),
-                    rngs={"sample": jax.random.PRNGKey(3)})
+    want = jax_compiled(
+        lambda p, *a: jm.apply(p, *a, rngs={"sample": jax.random.PRNGKey(3)}),
+        params, *map(jnp.asarray, inputs))
     got = _port(pm, inputs, _eps(want, inputs[4]))
     for i in (0, 2, 3, 4, 5):   # prediction, mu, var and the prior
         w = np.asarray(want[i])
@@ -159,12 +169,12 @@ def test_yield_losses_match_jax(name):
     jbatch = jax_trainer.YieldBatch(*map(jnp.asarray, (
         weather, coords, year, interval, mask, y_past, y, weights, soil,
         practices)))
-    want = jax_trainer._yield_losses(jm, objective, params, jbatch, BETA,
-                                     True, rngs)
+    want = jax_compiled(lambda p, b: jax_trainer._yield_losses(
+        jm, objective, p, b, BETA, True, rngs), params, jbatch)
     eps = None
     if rngs:
-        eps = _eps(jm.apply(params, *map(jnp.asarray, inputs), rngs=rngs),
-                   mask)
+        eps = _eps(jax_compiled(lambda p, *a: jm.apply(p, *a, rngs=rngs),
+                                params, *map(jnp.asarray, inputs)), mask)
     batch = YieldBatch(*map(torch.from_numpy, (
         weather, coords, year, interval, mask, y_past, y, weights, soil,
         practices)))
@@ -187,9 +197,13 @@ def test_transfer_encoder_into_yield_matches_jax(yield_name, encoder):
     shape matches: not a WeatherBERT's into a WeatherFormer); a model with
     no encoder keeps its state."""
     _, params, _ = _models(yield_name)
-    enc = encoder(JaxModelConfig(**MINI)).init(
-        jax.random.PRNGKey(9), *map(jnp.asarray, _inputs()[:5]))
-    enc = jax.tree.map(np.asarray, enc)
+    port_encoder = make_model(PORT_NAMES[encoder], ModelConfig(**MINI),
+                              "torch")
+    port_encoder.reset_parameters(torch.Generator().manual_seed(9))
+    enc = jax_params_from_state(
+        lambda: encoder(JaxModelConfig(**MINI)).init(
+            jax.random.PRNGKey(9), *map(jnp.asarray, _inputs()[:5])),
+        state_dict_from_jax_params, port_encoder.state_dict())
     want = yield_state_dict_from_jax_params(
         jax_models.transfer_encoder_into_yield(params, enc))
     got = yield_models.transfer_encoder_into_yield(

@@ -32,6 +32,7 @@ from weathermodel_tpu_torch.models.transfer import (
     yield_state_dict_from_jax_params,
 )
 from weathermodel_tpu_torch.testing import _one_torch_thread  # noqa: F401
+from test_torch_port_jax_params import jax_params_from_state
 from weathermodel_tpu_torch.train import lr_finder, yield_trainer
 from weathermodel_tpu_torch.train.state import make_optimizer
 from weathermodel_tpu_torch.utils.config import ModelConfig, TrainConfig
@@ -62,10 +63,15 @@ def test_one_adam_step_matches_jax(name, objective):
     lr, beta, data = 1e-3, 0.5, _batch(1)
     jm = getattr(jax_models, name)(JaxModelConfig(**MINI, max_len=T),
                                    N_PAST, attention_impl="xla")
-    params = jm.init({"params": jax.random.PRNGKey(0),
-                      "sample": jax.random.PRNGKey(1)},
-                     *map(jnp.asarray, data[:6]))
-    params = jax.tree.map(np.asarray, params)
+    # the port's seeded init in the flax tree (test_torch_port_jax_params.py)
+    seeded = getattr(yield_models, name)(ModelConfig(**MINI, max_len=T),
+                                         N_PAST, "torch")
+    seeded.reset_parameters(torch.Generator().manual_seed(0))
+    params = jax_params_from_state(
+        lambda: jm.init({"params": jax.random.PRNGKey(0),
+                         "sample": jax.random.PRNGKey(1)},
+                        *map(jnp.asarray, data[:6])),
+        yield_state_dict_from_jax_params, seeded.state_dict())
     start = yield_state_dict_from_jax_params(params)
     key = jax.random.PRNGKey(3)
     step = jax_trainer.make_yield_train_step(jm, objective, beta)
@@ -122,9 +128,16 @@ def fold():
     return get_train_test_arrays(df, 4, 2016, N_PAST, "soybean", "usa")
 
 
-def test_two_epoch_trainer_matches_jax(fold, tmp_path):
+def test_two_epoch_trainer_matches_jax(fold, tmp_path, monkeypatch):
     """WeatherBERT-mini mse, dropout 0, batch 8 (three steps an epoch, the
-    third padded), lr 1e-3 flat: the two trainers' loss histories."""
+    third padded), lr 1e-3 flat: the two trainers' loss histories. The JAX
+    trainer draws its initial parameters through a jitted init (one compile
+    in place of flax's op-by-op draws); the port starts from them."""
+    real_init = jax_models.WeatherBERTYieldModel.init
+    monkeypatch.setattr(
+        jax_models.WeatherBERTYieldModel, "init",
+        lambda self, rngs, *args: jax.jit(
+            lambda r, *a: real_init(self, r, *a))(rngs, *args))
     train, test, _, n_past = fold
     cfg = dict(batch_size=8, num_epochs=2, init_lr=1e-3, num_warmup_epochs=0,
                decay_factor=1.0, seed=7)

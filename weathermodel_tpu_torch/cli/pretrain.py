@@ -46,7 +46,9 @@ runs the ranks on the CPU (gloo):
         --model-size large --moe-experts 8 --moe-top-k 2 \
         --tensor-parallel 2 --batch-size 288 --data-dir data/ --workdir run/
 
-`--model mlp` trains the per-timestep MLP baseline (models/mlp.py). The
+`--model mlp` trains the per-timestep MLP baseline (models/mlp.py) and
+`--model weathercnn` the CNN baseline's masked-MSE pretraining
+(models/cnn.py, in fp32; neither takes `--moe-experts`). The
 module also holds `make_model` and `load_pretrained_params`, which the
 serving path shares. Flags of the JAX entry point whose feature is not
 ported exit non-zero when set, naming their ROADMAP.md item.
@@ -59,6 +61,7 @@ import sys
 
 import torch
 
+from weathermodel_tpu_torch.models.cnn import WeatherCNNPretrain
 from weathermodel_tpu_torch.models.mlp import WeatherMLP
 from weathermodel_tpu_torch.models.transfer import load_reference_checkpoint
 from weathermodel_tpu_torch.models.weatherbert import (
@@ -84,9 +87,8 @@ PORTED_MODELS = {
     "weatherautoencoder": WeatherAutoencoder,
     "simmtm": SimMTM,
     "mlp": WeatherMLP,
+    "weathercnn": WeatherCNNPretrain,
 }
-# models of the JAX package that the port does not have yet
-UNPORTED_MODELS = ("weathercnn",)
 # models without a transformer encoder trunk
 # (weathermodel_tpu/cli/pretrain.py:200-206)
 NO_ENCODER_MODELS = ("mlp", "weathercnn")
@@ -134,15 +136,15 @@ def make_model(name: str, cfg: ModelConfig, attention_impl: str,
     """The model `name` at `cfg` (MoE layers when cfg.num_experts > 0;
     `gmm_impl` "plain" runs their grouped matmuls as the plain versions on
     any device, the reference path)."""
-    if name in UNPORTED_MODELS:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet; see ROADMAP.md queue A "
-            "item 11 (weathercnn)")
     if name not in PORTED_MODELS:
         raise ValueError(f"Unknown model type: {name}. Choose one of "
-                         + ", ".join((*PORTED_MODELS, *UNPORTED_MODELS)))
+                         + ", ".join(PORTED_MODELS))
     if name == "mlp":
         return WeatherMLP(cfg)
+    if name == "weathercnn":
+        # the JAX package's working redesign of the reference's CNN
+        # pretraining (models/cnn.py)
+        return WeatherCNNPretrain(cfg.weather_dim, cfg.max_len)
     return PORTED_MODELS[name](cfg, attention_impl=attention_impl,
                                ffn_impl=ffn_impl, gmm_impl=gmm_impl)
 
@@ -183,8 +185,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--model", default="weatherformer",
-                   help="one of: " + ", ".join(PORTED_MODELS)
-                        + " (weathercnn is not ported yet)")
+                   help="one of: " + ", ".join(PORTED_MODELS))
     p.add_argument("--resume-from-checkpoint", default=None,
                    help="resume the full train state from --workdir's "
                         "newest checkpoint; as in wm-pretrain, any value "

@@ -15,6 +15,13 @@ load shedding, hot reload and a SIGTERM drain (serving_daemon.py):
                    --model weatherbert --model-size large --allow-reload
     # clients: POST /predict with .npz bytes; GET /healthz /stats
 
+`--daemon --bundle model.wmx` serves a bundle of `wm-export-torch`
+(export_artifact.py) instead of a checkpoint: no model code, the programs'
+padding buckets and sequence length; with `--allow-reload`, POST /reload
+{"bundle": "<.wmx>"} hot-swaps it for a bundle of the same geometry:
+
+    wm-serve-torch --daemon --port 8476 --bundle model.wmx --allow-reload
+
 `--attention-impl fused_qkv_op` runs each layer's projection, attention and
 out-projection as one kernel (B5, inference only).
 
@@ -47,7 +54,6 @@ logger = logging.getLogger(__name__)
 
 # flags of the JAX entry point whose feature the port does not have yet
 _UNPORTED = {
-    "bundle": "exported bundles (ROADMAP.md queue A item 13)",
     "tensor_parallel": "tensor-parallel serving (ROADMAP.md queue A item 14)",
 }
 
@@ -109,7 +115,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) needs a card; cpu runs the kernels' "
                         "plain versions")
-    p.add_argument("--bundle", help="not ported yet")
+    p.add_argument("--bundle",
+                   help="daemon mode: serve a wm-export-torch bundle "
+                        "(.wmx) instead of --checkpoint; its programs fix "
+                        "the buckets and the sequence length")
     p.add_argument("--quantize", default="none",
                    choices=("none", "int8", "int8_static"),
                    help="int8: dynamic W8A8 FFN matmuls (ops/quant.py); "
@@ -181,8 +190,12 @@ def run(args: argparse.Namespace) -> dict:
         if getattr(args, flag) != getattr(defaults, flag):
             raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not "
                              "ported to weathermodel_tpu_torch yet")
-    if not args.checkpoint:
-        raise SystemExit("--checkpoint is required")
+    if (args.checkpoint is None) == (args.bundle is None):
+        raise SystemExit("pass exactly one of --checkpoint / --bundle")
+    if args.bundle and not args.daemon:
+        raise SystemExit("--bundle is daemon-only (offline batch "
+                         "inference on a bundle: use "
+                         "export_artifact.ExportedPredictor directly)")
     from weathermodel_tpu_torch.cli.pretrain import resolve_device
 
     device = resolve_device(args.device)
@@ -212,20 +225,33 @@ def run(args: argparse.Namespace) -> dict:
 
 
 def _run_daemon(args: argparse.Namespace, device) -> dict:
-    """Serve `args.checkpoint` over HTTP until SIGTERM/SIGINT."""
-    from weathermodel_tpu_torch.serve import reload_predictor_params
+    """Serve `args.checkpoint` or `args.bundle` over HTTP until
+    SIGTERM/SIGINT."""
     from weathermodel_tpu_torch.serving_daemon import serve_forever
 
-    predictor = _make_predictor(args, args.seq_len, device)
-    reload_fn = None
-    if args.allow_reload:
-        def reload_fn(path):
-            return reload_predictor_params(predictor, path)
+    if args.bundle:
+        from weathermodel_tpu_torch.export_artifact import (
+            BundleServingPredictor,
+        )
+
+        predictor = BundleServingPredictor(args.bundle, device.type)
+        seq_len, max_batch = predictor.seq_len, max(predictor.buckets)
+        reload_fn = predictor.reload_bundle if args.allow_reload else None
+    else:
+        from weathermodel_tpu_torch.serve import reload_predictor_params
+
+        predictor = _make_predictor(args, args.seq_len, device)
+        seq_len, max_batch = args.seq_len, args.batch_size
+        reload_fn = None
+        if args.allow_reload:
+            def reload_fn(path):
+                return reload_predictor_params(predictor, path)
 
     serve_forever(predictor, args.host, args.port,
-                  max_batch=args.batch_size, max_wait_ms=args.max_wait_ms,
-                  do_warmup=not args.no_warmup, seq_len=args.seq_len,
-                  reload_fn=reload_fn, checkpoint=args.checkpoint,
+                  max_batch=max_batch, max_wait_ms=args.max_wait_ms,
+                  do_warmup=not args.no_warmup, seq_len=seq_len,
+                  reload_fn=reload_fn,
+                  checkpoint=args.bundle or args.checkpoint,
                   max_queue_rows=args.max_queue_rows,
                   request_timeout_s=args.request_timeout_s)
     return {"daemon": True}

@@ -13,9 +13,10 @@ B3f/B3b at mini/small, the fused QKV kernels B1/B2 at medium/large.
 
 `--pretrained-model-path` reads a reference-format `.pth` (what
 `wm-pretrain-torch` writes). `--workdir` gets, per fold, the best
-parameters as `best.pth` and `yield_output.json`. The baselines cnnrnn,
-gnnrnn and chronos and the JAX-only `--prng` exit naming their ROADMAP.md
-items.
+parameters as `best.pth` and `yield_output.json`. `--model cnnrnn` trains
+the Khaki CNN-RNN baseline (models/cnn.py) on the weekly frame and its
+soil. The baselines gnnrnn and chronos and the JAX-only `--prng` exit
+naming their ROADMAP.md items.
 """
 
 import argparse
@@ -35,7 +36,7 @@ YIELD_MODELS = (
     "chronos",
 )
 # the baselines of the JAX CLI that the port does not have yet
-UNPORTED_MODELS = ("cnnrnn", "gnnrnn", "chronos")
+UNPORTED_MODELS = ("gnnrnn", "chronos")
 
 # The reference grid search offers --model weatherautoencodersinusoid while
 # its yield CLI dispatches only "weatherautoencodersine"; both are accepted,
@@ -45,6 +46,7 @@ MODEL_ALIASES = {"weatherautoencodersinusoid": "weatherautoencodersine"}
 
 def model_table():
     """Model name -> (yield model class, objective), for the ported models."""
+    from weathermodel_tpu_torch.models.cnn import CNNRNNYieldModel
     from weathermodel_tpu_torch.models.yield_models import (
         LinearYieldModel,
         WeatherAutoencoderMixtureYieldModel,
@@ -69,6 +71,7 @@ def model_table():
         "weatherautoencodermixture": (WeatherAutoencoderMixtureYieldModel,
                                       "elbo_mixture"),
         "linear": (LinearYieldModel, "mse"),
+        "cnnrnn": (CNNRNNYieldModel, "mse"),
     }
 
 
@@ -112,6 +115,8 @@ def model_factory(name: str, mcfg, attention_impl: str):
     def make_model(n_past_years: int):
         if name == "linear":
             return model_cls(mcfg, n_past_years, (n_past_years + 1) * 52)
+        if name == "cnnrnn":
+            return model_cls(mcfg.weather_dim, n_past_years)
         return model_cls(mcfg, n_past_years, attention_impl)
 
     return make_model
@@ -122,7 +127,7 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--model", default="weatherformer",
                    help="one of: " + ", ".join(YIELD_MODELS)
-                        + " (cnnrnn, gnnrnn and chronos are not ported yet)")
+                        + " (gnnrnn and chronos are not ported yet)")
     p.add_argument("--batch-size", default=64, type=int)
     p.add_argument("--n-past-years", default=6, type=int)
     p.add_argument("--n-epochs", default=40, type=int)

@@ -91,7 +91,11 @@ from weathermodel_tpu_torch.ops.dropout import (
     dropout,
     rounded_scale,
 )
-from weathermodel_tpu_torch.ops.gmm import GroupedMatmul, gmm_reference
+from weathermodel_tpu_torch.ops.gmm import (
+    GroupedMatmul,
+    gmm_op,
+    gmm_reference,
+)
 from weathermodel_tpu_torch.parallel import mesh as mesh_lib
 from weathermodel_tpu_torch.ops.quant import (
     calibrated,
@@ -390,9 +394,13 @@ class MoEFFN(nn.Module):
 
     def _gmm(self, lhs, rhs, n_e, group_offset=None):
         """B4 (B4s over the window from `group_offset`), or its plain
-        version with gmm_impl "plain"."""
+        version with gmm_impl "plain". With gradients off the full form is
+        the op `torch.ops.wm.gmm` (ops/gmm.py), the same launch, which
+        `torch.export` keeps as one node."""
         if self.gmm_impl == "plain":
             return gmm_reference(lhs, rhs, n_e, group_offset=group_offset)
+        if group_offset is None and not torch.is_grad_enabled():
+            return gmm_op(lhs, rhs, n_e)
         return GroupedMatmul.apply(lhs, rhs, n_e, group_offset)
 
     def forward(self, x, dropout_rate: float = 0.0, generator=None):

@@ -16,6 +16,9 @@ does the same for a flax yield-model tree (models/yield_models.py): the
 `yield_head/{attn_fc1,attn_fc2,mlp_fc1,mlp_fc2}` as
 `weather_attention.{0,2}` and `yield_mlp.{0,2}`, and the variational heads'
 dense layers and priors under their own names.
+`cnn_state_dict_from_jax_params` maps a flax CNN-family tree
+(models/cnn.py: the conv kernels to torch's [out, in, k], the LSTM cell to
+`nn.LSTM`'s stacked gates).
 
 `quant_scales_from_jax` maps the JAX package's `quant` collection (the
 calibrated int8_static activation scales, as `calibrate_quant_scales`
@@ -287,4 +290,50 @@ def yield_state_dict_from_jax_params(params) -> dict:
     for name in _YIELD_PRIORS:
         if name in p:
             sd[name] = _tensor(p[name])
+    return sd
+
+
+_LSTM_GATES = ("i", "f", "g", "o")   # flax's names, nn.LSTM's row order
+_LSTM_CELL = "OptimizedLSTMCell_0"
+
+
+def cnn_state_dict_from_jax_params(params) -> dict:
+    """flax CNN-family param tree (weathermodel_tpu/models/cnn.py:
+    WeatherCNNPretrain, CNNRNNYieldModel; with or without the top-level
+    'params') -> the port's state dict (models/cnn.py) of CPU tensors. A conv
+    kernel [k, in, out] becomes torch's [out, in, k]; a Dense kernel [in,
+    out] becomes [out, in]; the LSTM cell's `ii/if/ig/io` (no bias) and
+    `hi/hf/hg/ho` (with bias; flax names the cell `OptimizedLSTMCell_0`, as
+    the model builds it outside its `nn.RNN`) become `weight_ih_l0` and
+    `weight_hh_l0`,
+    gates stacked in i, f, g, o order, the hidden bias `bias_hh_l0` and
+    `bias_ih_l0` zeros (flax adds one bias a gate; nn.LSTM adds both)."""
+    p = params["params"] if "params" in params else params
+    unknown = set(p) - {"cnn", "decoder", "soil_cnn", _LSTM_CELL,
+                        "output_layer"}
+    if unknown or "cnn" not in p:
+        raise ValueError(f"not a CNN-family param tree: top-level entries "
+                         f"{sorted(p)}")
+    sd = {}
+
+    def layers(prefix, tree):
+        for name, node in tree.items():
+            kernel = np.asarray(node["kernel"])
+            sd[f"{prefix}{name}.weight"] = _tensor(
+                kernel.transpose(2, 1, 0) if kernel.ndim == 3 else kernel.T)
+            sd[f"{prefix}{name}.bias"] = _tensor(node["bias"])
+
+    for name in ("cnn", "soil_cnn"):
+        if name in p:
+            layers(name + ".", p[name])
+    layers("", {k: p[k] for k in ("decoder", "output_layer") if k in p})
+    if _LSTM_CELL in p:
+        cell = p[_LSTM_CELL]
+        sd["lstm.weight_ih_l0"] = _tensor(np.concatenate(
+            [np.asarray(cell["i" + g]["kernel"]).T for g in _LSTM_GATES]))
+        sd["lstm.weight_hh_l0"] = _tensor(np.concatenate(
+            [np.asarray(cell["h" + g]["kernel"]).T for g in _LSTM_GATES]))
+        sd["lstm.bias_hh_l0"] = _tensor(np.concatenate(
+            [np.asarray(cell["h" + g]["bias"]) for g in _LSTM_GATES]))
+        sd["lstm.bias_ih_l0"] = torch.zeros_like(sd["lstm.bias_hh_l0"])
     return sd

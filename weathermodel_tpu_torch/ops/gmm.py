@@ -12,6 +12,15 @@
 * `GroupedMatmul` - the autograd Function joining them (the custom VJP at
   pallas_gmm.py:307-341): d_lhs = gmm(dy, rhs^T), d_rhs = tgmm(lhs, dy) in
   rhs's dtype.
+* `torch.ops.wm.gmm` (`gmm_op`) - B4's forward as a `torch.library` op, the
+  form the MoE layer calls with gradients off (serving, validation): the
+  CUDA implementation is `gmm` (the launch, counted in `gmm.launches`), the
+  CPU one `gmm_reference`, and the fake one an empty [S, N] in lhs.dtype
+  (S is static; only the group sizes are data). `torch.export` records
+  the op as one node and traces neither the ctypes launch nor the plain
+  version's host reads of the sizes, so an exported MoE program
+  (export_artifact.py) launches B4 on the card. A program that holds the
+  op needs this module imported before it loads.
 
 Both kernels accumulate in fp32 and round once to the inputs' dtype. Each
 wrapper launches its hand-written Hopper kernel on CUDA tensors (counting
@@ -186,6 +195,24 @@ def gmm_sharded(lhs, rhs, group_sizes, group_offset: int,
 
 
 gmm.launches = gmm_sharded.launches = 0
+
+
+@torch.library.custom_op("wm::gmm", mutates_args=(), device_types="cpu")
+def gmm_op(lhs: torch.Tensor, rhs: torch.Tensor,
+           group_sizes: torch.Tensor) -> torch.Tensor:
+    """Kernel B4's forward as an op: the plain version on the CPU, `gmm`
+    (the launch) on the card."""
+    return gmm_reference(lhs, rhs, group_sizes)
+
+
+@gmm_op.register_kernel("cuda")
+def _gmm_op_cuda(lhs, rhs, group_sizes):
+    return gmm(lhs, rhs, group_sizes)
+
+
+@gmm_op.register_fake
+def _gmm_op_fake(lhs, rhs, group_sizes):
+    return lhs.new_empty(lhs.shape[0], rhs.shape[2])
 
 
 def tgmm_reference(lhs, dy, group_sizes, group_offset=None, e_local=None):

@@ -30,14 +30,19 @@ Protocol (stdlib-only, works with `requests` or `curl --data-binary`):
                   served weights with no dropped traffic (serve.py
                   `reload_predictor_params`; a batch in flight finishes on
                   the weights it started with). Same-architecture
-                  checkpoints only (key/shape/MoE mismatches: 400). Gated
-                  behind `wm-serve-torch --allow-reload` (403 otherwise).
+                  checkpoints only (key/shape/MoE mismatches: 400). When
+                  the daemon serves an exported bundle, {"bundle":
+                  "<.wmx>"} is the same request: the new bundle must have
+                  the served geometry (export_artifact.py
+                  `BundleServingPredictor.reload_bundle`). Gated behind
+                  `wm-serve-torch --allow-reload` (403 otherwise).
   GET  /healthz   {"ok": true}
-  GET  /stats     JSON counters + latency percentiles (ms) + the current
-                  checkpoint path and reload count
+  GET  /stats     JSON counters + latency percentiles (ms) + the served
+                  checkpoint or bundle path (`checkpoint`), whether it is a
+                  bundle (`bundle`) and the reload count
 
-Start with `wm-serve-torch --daemon --port 8476 --checkpoint ... --model ...`.
-The JAX daemon's exported-bundle weight source (`--bundle`) is not ported.
+Start with `wm-serve-torch --daemon --port 8476 --checkpoint ... --model ...`,
+or `--bundle model.wmx` to serve a `wm-export-torch` bundle.
 """
 
 import collections
@@ -298,7 +303,9 @@ def make_server(predictor, host: str = "127.0.0.1", port: int = 8476,
 
     `reload_fn(checkpoint_path) -> n_params` enables POST /reload
     (hot weight swap); None keeps the route disabled (403).
-    `checkpoint` labels the initially served weights in /stats.
+    `checkpoint` labels the initially served weights (or bundle) in
+    /stats, whose `bundle` says whether the predictor serves an exported
+    bundle (export_artifact.BundleServingPredictor).
     `max_queue_rows` (default 8 x max_batch) bounds the pending queue:
     beyond it /predict answers 429 + Retry-After. `request_timeout_s`
     bounds any accepted request's end-to-end wait (503 on expiry)."""
@@ -306,15 +313,23 @@ def make_server(predictor, host: str = "127.0.0.1", port: int = 8476,
                            max_wait_ms=max_wait_ms,
                            max_queue_rows=max_queue_rows,
                            request_timeout_s=request_timeout_s)
-    reload_state = {"checkpoint": checkpoint, "n_reloads": 0}
+    reload_state = {"checkpoint": checkpoint,
+                    "bundle": hasattr(predictor, "reload_bundle"),
+                    "n_reloads": 0}
     reload_lock = threading.Lock()
 
     def _do_reload(body: bytes) -> dict:
         try:
-            path = json.loads(body.decode())["checkpoint"]
-        except (ValueError, KeyError, TypeError, UnicodeDecodeError):
+            req = json.loads(body.decode())
+            # "bundle" is an accepted alias when serving an exported
+            # bundle (wm-serve-torch --daemon --bundle): the reload target
+            # is a .wmx path, not a checkpoint
+            path = req.get("checkpoint") or req["bundle"]
+        except (ValueError, KeyError, TypeError, AttributeError,
+                UnicodeDecodeError):
             raise ValueError(
-                'body must be JSON {"checkpoint": "<path>"}') from None
+                'body must be JSON {"checkpoint": "<path>"} '
+                '(or {"bundle": "<path>"} in bundle mode)') from None
         with reload_lock:   # serialize concurrent reloads; last one wins
             n = reload_fn(path)
             reload_state["checkpoint"] = path
@@ -431,6 +446,10 @@ def serve_forever(predictor, host: str, port: int, max_batch: int,
                   reload_fn=None, checkpoint: Optional[str] = None,
                   max_queue_rows: Optional[int] = None,
                   request_timeout_s: Optional[float] = None):
+    if weather_dim is None:
+        # checkpoint predictors carry a model config; bundle predictors
+        # (export_artifact.BundleServingPredictor) expose it directly
+        weather_dim = getattr(predictor, "weather_dim", None)
     if weather_dim is None:
         cfg = getattr(getattr(predictor, "model", None), "cfg", None)
         weather_dim = cfg.weather_dim if cfg is not None else 31

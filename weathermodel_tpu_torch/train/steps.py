@@ -84,6 +84,9 @@ OBJECTIVE_FOR_MODEL = {
     # the mask is drawn and ignored, so the generator's draws are those of
     # the other models (trainer.py:45)
     "mlp": ("mlp_mse", "weatherbert"),
+    # the JAX package's redesign of the reference's CNN pretraining
+    # (trainer.py:46-48: BERT masking "for consistency")
+    "weathercnn": ("masked_mse", "weatherbert"),
 }
 
 

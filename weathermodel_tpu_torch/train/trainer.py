@@ -115,9 +115,9 @@ class PretrainTrainer:
         `tensor_parallel=N` runs the ranks of the process group on a
         (world / N) x N (data, model) mesh (module docstring)."""
         if model_name not in OBJECTIVE_FOR_MODEL:
-            raise NotImplementedError(
-                f"pretraining {model_name!r} is not ported yet; see "
-                "ROADMAP.md queue A item 11 (weathercnn)")
+            raise ValueError(
+                f"no pretraining objective for {model_name!r}; one of "
+                + ", ".join(OBJECTIVE_FOR_MODEL))
         self.model_name = model_name
         self.cfg = train_cfg
         self.make_loaders = make_loaders
