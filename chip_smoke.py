@@ -326,7 +326,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                bf16 at --batch-size 32 for 2 epochs on a small store: per rank
                32 B4s and 16 B4ts a step, 16 B4s a validation batch, none of
                B4/B4t, finite losses that fall; samples/s (not EP's rate: one
-               card shared, gloo's host copies) and peak memory a rank
+               card shared, gloo's host copies) and peak memory a rank; the
+               seconds of each part, and of each torchrun task on rank 0
   23. export (after serve_moe_int8) - `wm-export-torch --platforms cuda`
                (attention forced to the plain `torch` form) freezes phase 5's
                WeatherBERT-large .pth into torch.export bundles: bf16 at
@@ -354,6 +355,14 @@ Phases, each printing one line; any failure raises and exits non-zero:
                falling finite losses, no kernel launched) and `wm-yield-torch
                --model cnnrnn` one fold on the yield phase's synthetic frame
                (cuDNN's LSTM), finite RMSE and R^2; ms a step and samples/s
+  26. yield_baselines (after 25) - `wm-yield-torch --model gnnrnn` (one
+               graph of 1024 counties x 7 years a step) and `--model chronos`
+               (chronos-bolt-tiny from its seeded init, batch 64) with the
+               yield phase's flags on its frame, fp32: finite losses that
+               fall, finite RMSE and R^2, no kernel of the port launched; one
+               step on the card against the CPU (TF32 off) within
+               BASELINE_TOL; ms a step, graphs/s or windows/s, the fold's
+               seconds and peak memory
 With `--ep-cards N` (an even N of at least 2 cards) the script runs only device, build
 and the EP comparison on separate cards: train_ep's fp32 step on an (N/2) x 2 mesh of
 one card a rank (NCCL, which rank 0 must log) against one process, and
@@ -364,6 +373,7 @@ and power limit are printed by phase 1 and again before the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.
 """
 
+import functools
 import gc
 import io
 import json
@@ -4119,6 +4129,9 @@ EP_STEP_SEEDS = (SEED + 8, SEED + 9, SEED + 10)
 # the bf16 runs: a global batch of 32, 2 epochs on a store of 8 chunks of 24
 EP_BATCH, EP_STORE_SAMPLES = 32, 24
 EP_MESHES = ((1, 2), (2, 2))
+# the window forms' timing: launches a reading after the warm-up ones (each
+# window's form, full B4/B4t and the library call; the plain version one)
+EP_TIMING = dict(iters=3, warmup=1)
 
 
 def _window_call(op, lhs, other, gs, off, e_loc, plain=False):
@@ -4177,7 +4190,8 @@ def _ep_kernels(cfg):
                            SEED + 7)
         for name, (op, lhs, other) in cases.items():
             full = _gmm_call(op, lhs, other, gs)
-            full_ms = _cuda_ms(lambda: _gmm_call(op, lhs, other, gs))
+            full_ms = _cuda_ms(lambda: _gmm_call(op, lhs, other, gs),
+                               **EP_TIMING)
             for e_loc in EP_E_LOCS:
                 parts, total, rs = [], None, []
                 for off in range(0, e, e_loc):
@@ -4205,11 +4219,12 @@ def _ep_kernels(cfg):
                         bound=_window_bound(op, lhs, other, gs, off, e_loc,
                                             dtype),
                         ms=_cuda_ms(lambda: _window_call(
-                            op, lhs, other, gs, off, e_loc)),
+                            op, lhs, other, gs, off, e_loc), **EP_TIMING),
                         plain_ms=_cuda_ms(lambda: _window_call(
                             op, lhs, other, gs, off, e_loc, plain=True),
-                            iters=2, warmup=1),
-                        library_ms=_cuda_ms(library), library=library_name))
+                            iters=1, warmup=1),
+                        library_ms=_cuda_ms(library, **EP_TIMING),
+                        library=library_name))
                 if op == "tgmm":
                     total = torch.cat(parts)
                 bitwise = torch.equal(total, full)
@@ -4253,48 +4268,93 @@ def _ep_kernels(cfg):
     return record(("gmm", "gmm_t")), record(("tgmm",))
 
 
-def _run_ranks(tmp: Path, name: str, n: int, tasks, device="cuda:0",
-               backend_name="gloo", timeout=600):
-    """`torchrun` of parallel/step_check.py with `n` ranks on `device`
-    (cuda:0: all pinned to card 0; cuda: one card a rank) on `tasks`, from
-    this checkout: (wall seconds, rank 0's line naming its backend, which
-    must be `backend_name`); raises on a failed rank."""
-    job = tmp / f"{name}.json"
-    job.write_text(json.dumps({"device": device, "tasks": tasks}))
+def _run_ranks(tmp: Path, jobs, device="cuda:0", backend_name="gloo",
+               timeout=600):
+    """`torchrun` of parallel/step_check.py for each (name, ranks, tasks) of
+    `jobs`, all started together, on `device` (cuda:0: every rank pinned to
+    card 0; cuda: one card a rank), from this checkout: {name: (wall
+    seconds, rank 0's line naming its backend, which must be
+    `backend_name`)}; raises on a failed rank. Every process it starts has
+    ended when it returns."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", str(n), "-m",
-         "weathermodel_tpu_torch.parallel.step_check", str(job)],
-        cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
-    if proc.returncode != 0:
-        raise AssertionError(f"{name}: torchrun exited {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
-    backend = [ln.split(" - ")[-1] for ln in proc.stderr.splitlines()
-               if "multihost:" in ln]
-    if len(backend) != 1 or f"backend {backend_name}" not in backend[0]:
-        raise AssertionError(f"{name}: rank 0 logged {backend}, not one "
-                             f"line naming {backend_name}")
-    return time.perf_counter() - t0, backend[0]
+    running = {}
+    try:
+        for name, n, tasks in jobs:
+            job = tmp / f"{name}.json"
+            job.write_text(json.dumps({"device": device, "tasks": tasks}))
+            logs = [open(tmp / f"{name}.{k}", "w+") for k in ("out", "err")]
+            running[name] = (n, logs, time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", str(n), "-m",
+                 "weathermodel_tpu_torch.parallel.step_check", str(job)],
+                cwd=root, env=env, stdout=logs[0], stderr=logs[1]))
+        done, start = {}, time.perf_counter()
+        while len(done) < len(running):
+            for name, (_, _, t0, proc) in running.items():
+                if name not in done and proc.poll() is not None:
+                    done[name] = time.perf_counter() - t0
+            if time.perf_counter() - start > timeout:
+                raise AssertionError(f"torchrun jobs {sorted(running)}: "
+                                     f"not done in {timeout} s")
+            time.sleep(0.2)
+    finally:
+        for _, logs, _, proc in running.values():
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+            for log in logs:
+                log.seek(0)
+    results = {}
+    for name, (n, (out, err), _, proc) in running.items():
+        stdout, stderr = out.read(), err.read()
+        out.close()
+        err.close()
+        if proc.returncode != 0:
+            raise AssertionError(f"{name}: torchrun exited {proc.returncode}"
+                                 f":\n{stdout[-3000:]}\n{stderr[-6000:]}")
+        backend = [ln.split(" - ")[-1] for ln in stderr.splitlines()
+                   if "multihost:" in ln]
+        if len(backend) != 1 or f"backend {backend_name}" not in backend[0]:
+            raise AssertionError(f"{name}: rank 0 logged {backend}, not one "
+                                 f"line naming {backend_name}")
+        tasks_s = [ln.split("step_check: ")[-1]
+                   for ln in stderr.splitlines() if "step_check: task" in ln]
+        beside = sorted(set(running) - {name})
+        print(f"{name}: torchrun of {n} ranks {done[name]:.1f} s"
+              f"{' beside ' + ', '.join(beside) if beside else ''}; rank 0's "
+              f"tasks: {'; '.join(tasks_s)}", flush=True)
+        results[name] = (done[name], backend[0])
+    return results
+
+
+def _on_card(step):
+    """A step's results (step_task's dict or its npz) with every array on
+    the card, for comparing: the 0-dim entries as floats."""
+    return {k: float(v) if np.ndim(v) == 0 else torch.from_numpy(
+        np.asarray(v)).to("cuda") for k, v in step.items()}
 
 
 def _ep_step_check(mesh, got, want, check=True):
     """The fp32 mesh step against a reference step (one process, or
-    another mesh), at EP_STEP_TOL when `check`: text, and whether every
-    number is bitwise equal."""
+    another mesh; both through _on_card), at EP_STEP_TOL when `check`:
+    text, and whether every number is bitwise equal."""
     loss = abs(got["metric/total_loss"] - want["metric/total_loss"]) / abs(
         want["metric/total_loss"])
     aux = abs(got["metric/moe_aux"] - want["metric/moe_aux"]) / abs(
         want["metric/moe_aux"])
-    grad, worst = max((float(np.linalg.norm(got[k] - want[k])
-                             / max(np.linalg.norm(want[k]), 1e-30)), k[5:])
+    grad, worst = max((float((got[k] - want[k]).norm()
+                             / max(float(want[k].norm()), 1e-30)), k[5:])
                       for k in want if k.startswith("grad/"))
-    param = max(float(np.abs(got[k] - want[k]).max())
+    param = max(float((got[k] - want[k]).abs().max())
                 for k in want if k.startswith("param/"))
     keys = [k for k in want if k.startswith(("metric/", "grad/", "param/"))]
-    equal = [k for k in keys if np.array_equal(got[k], want[k])]
+    equal = [k for k in keys if (got[k] == want[k] if k.startswith("metric/")
+                                 else torch.equal(got[k], want[k]))]
     bitwise = len(equal) == len(keys)
     if check and not (loss <= EP_STEP_TOL["loss"]
                       and aux <= EP_STEP_TOL["loss"]
@@ -4370,26 +4430,39 @@ def phase_train_ep(smi: str, tmp: Path):
     from weathermodel_tpu_torch.utils.config import model_config_for_size
 
     cfg = model_config_for_size(MODEL_SIZE, **MOE)
+    parts, t0 = {}, time.perf_counter()
     b4s, b4ts = _ep_kernels(cfg)
+    parts["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     step, cli = _ep_tasks(tmp, cfg, EP_STEP_BATCH, EP_STORE_SAMPLES,
                           EP_BATCH, "cuda:0", seeds=EP_STEP_SEEDS)
+    parts["inputs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     main_seed = EP_STEP_SEEDS[0]
-    ones = {seed: step_task(step((1, 1), seed), torch.device("cuda"))
-            for seed in EP_STEP_SEEDS}
-    torch.cuda.empty_cache()
-    # 2 x 1 runs in the two-rank job, beside 1 x 2
+    ones = {}
+    for seed in EP_STEP_SEEDS:
+        ones[seed] = _on_card(step_task(step((1, 1), seed),
+                                        torch.device("cuda")))
+        gc.collect()
+        torch.cuda.empty_cache()
+    parts["one-process steps"] = time.perf_counter() - t0
+    # 2 x 1 runs in the two-rank job, beside 1 x 2; the two jobs run side by
+    # side (6 ranks on the card)
     tasks = {(1, 2): [step((1, 2)), *(step((2, 1), seed)
                                       for seed in EP_STEP_SEEDS)],
              (2, 2): [step((2, 2), seed) for seed in EP_STEP_SEEDS]}
-    wall, backend = {}, {}
-    for mesh in EP_MESHES:
-        wall[mesh], backend[mesh] = _run_ranks(
-            tmp, f"ep_{mesh[0]}x{mesh[1]}", mesh[0] * mesh[1],
-            tasks[mesh] + [cli(mesh)])
+    t0 = time.perf_counter()
+    runs = _run_ranks(tmp, [(f"ep_{m[0]}x{m[1]}", m[0] * m[1],
+                             tasks[m] + [cli(m)]) for m in EP_MESHES])
+    wall = {m: runs[f"ep_{m[0]}x{m[1]}"][0] for m in EP_MESHES}
+    backend = {m: runs[f"ep_{m[0]}x{m[1]}"][1] for m in EP_MESHES}
+    parts["torchrun jobs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
+    @functools.cache
     def load(mesh, seed):
         with np.load(tmp / f"ep_step_{mesh[0]}x{mesh[1]}_{seed}.npz") as z:
-            return dict(z)
+            return _on_card(z)
 
     def check_launches(mesh, got, want):
         for k in ("gmm", "tgmm", "gmm_sharded", "tgmm_sharded"):
@@ -4404,11 +4477,12 @@ def phase_train_ep(smi: str, tmp: Path):
     full_step = {"gmm": 4 * layers, "tgmm": 2 * layers}
     for seed, one in ones.items():
         check_launches((1, 1), one, full_step)
-    main_launches = None
+    main_launches, against_one = None, {}
     for mesh in EP_MESHES:
         n = mesh[0] * mesh[1]
         got = load(mesh, main_seed)
         text, _ = _ep_step_check(mesh, got, ones[main_seed])
+        against_one[mesh] = text
         check_launches(mesh, got, per_rank_step)
         print(f"train_ep: fp32 step, WeatherBERT-{MODEL_SIZE} E="
               f"{cfg.num_experts} top-{cfg.moe_top_k}, {EP_STEP_BATCH} "
@@ -4427,8 +4501,10 @@ def phase_train_ep(smi: str, tmp: Path):
                 vs_dp, _ = _ep_step_check((2, 2), ep, dp)
                 dp_one, _ = _ep_step_check((2, 1), dp, ones[seed],
                                            check=False)
-                ep_one, _ = _ep_step_check((2, 2), ep, ones[seed],
-                                           check=seed == main_seed)
+                # at the main seed: the check at the bars above
+                ep_one = (against_one[2, 2] if seed == main_seed else
+                          _ep_step_check((2, 2), ep, ones[seed],
+                                         check=False)[0])
                 print(f"train_ep: fp32 step, input seed {seed}: 2x2 against "
                       f"2x1 (the same 2 windows a rank; bars): {vs_dp}; 2x1 "
                       f"against one process (printed): {dp_one}; 2x2 "
@@ -4469,11 +4545,15 @@ def phase_train_ep(smi: str, tmp: Path):
               f"{val_loss}; launches a rank {expected} (a rank per "
               f"microbatch: 32 B4s, 16 B4ts); epoch 2 median "
               f"{step_s * 1e3:.1f} ms/step, {EP_BATCH / step_s:.2f} samples/s "
-              f"(one card: the ranks take turns on it and gloo copies each "
-              f"all_reduce through the host, so this is not EP's rate); peak "
-              f"memory a rank {[round(r['peak_gb'], 2) for r in ranks]} GB; "
-              f"torchrun {wall[mesh]:.1f} s, rank 0 logged '{backend[mesh]}'; "
-              f"card {smi}", flush=True)
+              f"(one card: the ranks take turns on it, the other job's "
+              f"ranks beside them, and gloo copies each all_reduce through "
+              f"the host, so this is not EP's rate); peak memory a rank "
+              f"{[round(r['peak_gb'], 2) for r in ranks]} GB; torchrun "
+              f"{wall[mesh]:.1f} s, rank 0 logged '{backend[mesh]}'; card "
+              f"{smi}", flush=True)
+    parts["checks"] = time.perf_counter() - t0
+    print(f"train_ep: seconds by part "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }", flush=True)
     return (dict(b4s, launches=main_launches["gmm_sharded"]),
             dict(b4ts, launches=main_launches["tgmm_sharded"]))
 
@@ -4500,13 +4580,13 @@ def phase_ep_cards(smi: str, tmp: Path, n_cards: int):
     mesh = (n_cards // 2, 2)
     step, cli = _ep_tasks(tmp, cfg, EP_CARDS_STEP_WINDOWS,
                           EP_CARDS_STORE_SAMPLES, EP_CARDS_BATCH, "cuda")
-    wall, backend = _run_ranks(tmp, "ep_cards", n_cards,
-                               [step(mesh), cli(mesh)], device="cuda",
-                               backend_name="nccl", timeout=1200)
-    one = step_task(step((1, 1)), torch.device("cuda:0"))
+    ((wall, backend),) = _run_ranks(
+        tmp, [("ep_cards", n_cards, [step(mesh), cli(mesh)])],
+        device="cuda", backend_name="nccl", timeout=1200).values()
+    one = _on_card(step_task(step((1, 1)), torch.device("cuda:0")))
     with np.load(tmp / f"ep_step_{mesh[0]}x{mesh[1]}_{EP_STEP_SEEDS[0]}.npz"
                  ) as z:
-        text, _ = _ep_step_check(mesh, dict(z), one)
+        text, _ = _ep_step_check(mesh, _on_card(z), one)
     print(f"ep_cards: fp32 step, {EP_CARDS_STEP_WINDOWS} windows, {n_cards} "
           f"ranks a card each against one process: {text}", flush=True)
     ranks = [json.loads((tmp / f"ep_cli_{mesh[0]}x{mesh[1]}.rank{r}.json")
@@ -4854,6 +4934,95 @@ def phase_train_cnn(smi: str, data: Path, tmp: Path, crop_df):
           flush=True)
 
 
+# the yield baselines (yield_baselines): wm-yield-torch --model gnnrnn and
+# --model chronos with YIELD_ARGS on the yield phase's frame, at the JAX
+# CLI's defaults (GNN-RNN: z_dim 128, 3 SAGE layers, dropout 0.1, n_past 6,
+# one graph of 1024 counties x 7 years a step; Chronos: chronos-bolt-tiny
+# from its seeded init, batch 64, 31 series of 364 weeks a window, 23
+# patches + REG). Neither reaches a kernel of the port: their convs,
+# matmuls, LSTMs and attention are plain ops, as JAX runs them outside
+# Pallas. One fp32 step on the card is held against the CPU's with TF32 off
+# (main sets both switches): the forward's max |diff| and the loss to
+# 1e-4 of their scale, each gradient's L2 to 1e-3, on a graph of 256
+# counties and on 8 windows
+BASELINE_TOL = dict(out=1e-4, grad=1e-3)
+BASELINE_STEP = {"gnnrnn": 256, "chronos": 8}
+# Chronos's pooling logit bias: the softmax over patches is invariant to
+# it, so its gradient is rounding noise on both devices
+BASELINE_SHIFT_INVARIANT = ("attn_fc2.bias",)
+
+
+def _baseline_card_vs_cpu(name):
+    """(forward max|diff| / max|cpu|, loss rel diff, worst gradient
+    ||diff|| / ||cpu||, its parameter) of one step on the card against the
+    CPU; raises past BASELINE_TOL."""
+    from weathermodel_tpu_torch.testing import yield_baseline_step
+
+    n = BASELINE_STEP[name]
+    out, loss, grads = yield_baseline_step(name, "cuda", n, SEED + 11)
+    want_out, want_loss, want_grads = yield_baseline_step(name, "cpu", n,
+                                                          SEED + 11)
+    out_err = float((out - want_out).abs().max() / want_out.abs().max())
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    if set(grads) != set(want_grads):
+        raise AssertionError(f"{name}: gradients of {sorted(grads)} on the "
+                             f"card, {sorted(want_grads)} on the CPU")
+    grad, worst = max((float((grads[k] - g).norm() / max(g.norm(), 1e-30)),
+                       k) for k, g in want_grads.items()
+                      if k not in BASELINE_SHIFT_INVARIANT)
+    if (out_err > BASELINE_TOL["out"] or loss_rel > BASELINE_TOL["out"]
+            or grad > BASELINE_TOL["grad"]):
+        raise AssertionError(f"{name}: one step, card vs CPU: forward "
+                             f"{out_err:.3g}, loss {loss_rel:.3g}, worst "
+                             f"gradient {grad:.3g} ({worst}); bars "
+                             f"{BASELINE_TOL}")
+    return out_err, loss_rel, grad, worst
+
+
+def phase_yield_baselines(smi: str, crop_df):
+    """`crop_df` is the yield phase's synthetic frame."""
+    counted = _all_kernels()
+    lines = []
+    for name, unit, per_step in (("gnnrnn", "graphs/s", 1),
+                                 ("chronos", "windows/s", YIELD_BATCH)):
+        argv = ["--model", name, "--device", "cuda", *YIELD_ARGS]
+        result, launches, wall, peak_gb = _run_yield(argv, crop_df, counted)
+        _only(launches)
+        (trainer,) = result["trainers"]
+        history = trainer.loss_history
+        for scope in ("train", "val"):
+            if not np.all(np.isfinite(history[scope]["total_loss"])):
+                raise AssertionError(f"{name}: non-finite {scope} loss "
+                                     f"{history[scope]['total_loss']}")
+        train_loss = history["train"]["total_loss"]
+        if not train_loss[1] < train_loss[0]:
+            raise AssertionError(f"{name}: train loss did not fall: "
+                                 f"{train_loss}")
+        if not (np.isfinite(result["avg_rmse_bu_acre"])
+                and np.isfinite(result["avg_r_squared"])):
+            raise AssertionError(f"{name}: RMSE {result['avg_rmse_bu_acre']}"
+                                 f", R^2 {result['avg_r_squared']}")
+        steps = sum(len(x) for x in trainer.train_step_seconds)
+        step_s = float(np.median(trainer.train_step_seconds[-1]))
+        out_err, loss_rel, grad, worst = _baseline_card_vs_cpu(name)
+        lines.append(
+            f"--model {name}: {steps} steps and {len(trainer.lr_range[0])} "
+            f"range-test steps, train loss {train_loss}, val "
+            f"{history['val']['total_loss']}, RMSE "
+            f"{result['avg_rmse_bu_acre']:.3f} bu/acre, R^2 "
+            f"{result['avg_r_squared']:.3f}; epoch 2 median "
+            f"{step_s * 1e3:.2f} ms a step ({per_step / step_s:.1f} {unit}), "
+            f"fold {wall:.1f} s, peak {peak_gb:.2f} GB; one step card vs CPU "
+            f"at {BASELINE_STEP[name]} "
+            f"{'counties' if name == 'gnnrnn' else 'windows'}: forward "
+            f"{out_err:.3g}, loss {loss_rel:.3g}, worst gradient {grad:.3g} "
+            f"({worst})")
+    print(f"yield_baselines: wm-yield-torch {' '.join(YIELD_ARGS)}, fp32: "
+          f"{'; '.join(lines)}; bars {BASELINE_TOL}; no kernel of the port "
+          f"launched; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+          f"cuDNN {torch.backends.cudnn.allow_tf32}; card {smi}", flush=True)
+
+
 def _record(name, source, replaces, launches, k, prefix,
             folder="weathermodel_tpu/ops/"):
     """One kernel's entry of the JSON line: `replaces` is "file:line" under
@@ -4912,6 +5081,7 @@ def main(argv=None):
         timed("resume", phase_resume, smi, data)
         crop_df = timed("yield", phase_yield, smi, Path(tmp))
         timed("train_cnn", phase_train_cnn, smi, data, Path(tmp), crop_df)
+        timed("yield_baselines", phase_yield_baselines, smi, crop_df)
         gmm_kernel, tgmm_kernel = timed("kernel_gmm", phase_kernel_gmm)
         moe_launches = timed("train_moe", phase_train_moe, smi, data)
         timed("train_moe_dispatch", phase_train_moe_dispatch, smi, data)

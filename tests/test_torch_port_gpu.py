@@ -768,6 +768,69 @@ def test_wm_yield_torch_on_the_card(cuda):
     assert np.isfinite(result["avg_rmse_bu_acre"])
 
 
+# the yield baselines, one fp32 step on the card against the CPU with TF32
+# off: the output's max |diff| over its largest |value|, and each
+# gradient's L2 (the same bars as chip_smoke.py's yield_baselines)
+BASELINE_TOL = dict(out=1e-4, grad=1e-3)
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+
+
+@pytest.mark.parametrize("name,n", [("gnnrnn", 64), ("chronos", 4)])
+def test_yield_baseline_step_on_the_card_matches_the_cpu(no_tf32, name, n):
+    """The CLI's GNN-RNN (a 64-county graph) and Chronos (4 windows): the
+    forward and one training step's loss and gradients. Chronos's pooling
+    logit bias is left out: the softmax over patches is invariant to it,
+    so its gradient is rounding noise on both devices."""
+    from weathermodel_tpu_torch.testing import yield_baseline_step
+
+    out, loss, grads = yield_baseline_step(name, no_tf32, n)
+    want_out, want_loss, want_grads = yield_baseline_step(name, "cpu", n)
+    scale = want_out.abs().max()
+    assert (out - want_out).abs().max() <= BASELINE_TOL["out"] * scale
+    assert abs(loss - want_loss) <= BASELINE_TOL["out"] * abs(want_loss)
+    assert set(grads) == set(want_grads)
+    for k, g in want_grads.items():
+        if k == "attn_fc2.bias":
+            continue
+        assert (grads[k] - g).norm() <= BASELINE_TOL["grad"] * max(
+            g.norm(), 1e-30), k
+
+
+@pytest.mark.parametrize("model", ["gnnrnn", "chronos"])
+def test_wm_yield_torch_trains_the_baselines_on_the_card(cuda, model):
+    """`wm-yield-torch --model gnnrnn|chronos` on a small frame: finite
+    losses and RMSE, no kernel of the port launched."""
+    from weathermodel_tpu_torch.cli import yield_main
+    from weathermodel_tpu_torch.data.yield_data import synthetic_yield_df
+
+    args = yield_main.build_parser().parse_args([
+        "--model", model, "--country", "synthetic", "--n-past-years", "1",
+        "--n-train-years", "4", "--test-year", "2016", "--n-epochs", "2",
+        "--n-warmup-epochs", "0", "--batch-size", "8"])
+    args.crop_df = synthetic_yield_df(seed=0, n_locs=5)
+    counted = (flash_attention_fwd, flash_attention_bwd,
+               fused_qkv_attention_train, fused_qkv_attention_bwd,
+               fused_qkv_attention, gmm, tgmm)
+    before = [fn.launches for fn in counted]
+    result = yield_main.run(args)
+    (trainer,) = result["trainers"]
+    assert next(trainer.model.parameters()).is_cuda
+    assert [fn.launches - b for fn, b in zip(counted, before)] == \
+        [0] * len(counted)
+    assert np.isfinite(trainer.loss_history["train"]["total_loss"]).all()
+    assert np.isfinite(result["avg_rmse_bu_acre"])
+
+
 def test_preempt_and_resume_on_the_card_is_bitwise(cuda, tmp_path):
     """`wm-pretrain-torch`'s defaults (WeatherFormer-small, bf16, B3f/B3b) on
     a small store: (a) 3 epochs uninterrupted; (b) the same, stopped by a

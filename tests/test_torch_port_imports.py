@@ -49,7 +49,12 @@ def test_port_imports_no_jax():
             "weathermodel_tpu_torch.parallel.step_check",
             "weathermodel_tpu_torch.export_artifact",
             "weathermodel_tpu_torch.cli.export",
-            "weathermodel_tpu_torch.models.cnn"} <= set(modules)
+            "weathermodel_tpu_torch.models.cnn",
+            "weathermodel_tpu_torch.models.gnn",
+            "weathermodel_tpu_torch.data.gnnrnn_data",
+            "weathermodel_tpu_torch.train.gnn_trainer",
+            "weathermodel_tpu_torch.models.chronos_bolt",
+            "weathermodel_tpu_torch.models.chronos"} <= set(modules)
     code = (
         "import sys\n"
         "import chip_smoke\n"

@@ -2,9 +2,10 @@
 small synthetic frame): `wm-yield-torch` (one pinned fold with the LR range
 test, and k folds), `wm-cropnet-torch` (its defaults, `--attention-impl auto`
 included, and per-crop isolation), `wm-grid-search-torch` (resume, a failed
-cell) and `wm-best-config-torch`; the unported models and flags exit
-naming their ROADMAP items, and the entry points want a card unless asked
-for the CPU."""
+cell) and `wm-best-config-torch`; an unknown model raises the JAX CLI's
+text, the JAX-only `--prng` exits naming its ROADMAP item, CropNet's
+`--model gnnrnn` fails every crop as JAX's does, and the entry points want
+a card unless asked for the CPU."""
 
 import json
 import os
@@ -116,17 +117,49 @@ def test_k_folds_and_a_pretrained_encoder(crop_df, tmp_path):
         assert torch.equal(saved[k], v)
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--model", "gnnrnn"], "item 11"),
-    (["--model", "chronos"], "item 11"),
-    (["--prng", "threefry2x32"], "item 14")])
-def test_unported_models_and_flags_exit(crop_df, argv, match):
-    with pytest.raises(SystemExit, match=match):
+@pytest.mark.parametrize("argv", [
+    ["--model", "nope"], ["--model", "gnnrnn", "--prng", "threefry2x32"],
+    ["--prng", "threefry2x32"]])
+def test_unported_models_and_flags_exit(crop_df, argv):
+    """An unknown model raises the JAX CLI's text (the CropNet loop reports
+    the crop failed, as JAX's does for any error); the JAX-only `--prng`
+    exits naming its item, on the GNN path too."""
+    from weathermodel_tpu.cli import yield_main as jax_yield
+
+    if "--prng" in argv:
+        with pytest.raises(SystemExit, match="item 14"):
+            yield_main.run(_yield_args(crop_df, *argv))
+        with pytest.raises(SystemExit, match="item 14"):
+            cropnet_main.run(cropnet_main.build_parser().parse_args(
+                ["--device", "cpu", "--crop-type", "Corn", *argv]))
+        return
+    with pytest.raises(ValueError) as want:
+        jax_yield.main(argv)
+    with pytest.raises(ValueError) as got:
         yield_main.run(_yield_args(crop_df, *argv))
+    assert str(got.value) == str(want.value)
     args = cropnet_main.build_parser().parse_args(
         ["--device", "cpu", "--crop-type", "Corn", *argv])
-    with pytest.raises(SystemExit, match=match):
-        cropnet_main.run(args)
+    args.cropnet_df = synthetic_cropnet_df(seed=0, n_counties=2)
+    assert cropnet_main.run(args) == {"Corn": None}
+
+
+def test_cropnet_gnnrnn_fails_every_crop_as_jax():
+    """`wm-cropnet --model gnnrnn`: no CropNet path; the model table lacks
+    the model, so every crop fails inside the per-crop try, is reported
+    FAILED, and the CLI returns normally (exit code 0)."""
+    from weathermodel_tpu.cli import cropnet_main as jax_cropnet
+
+    df = synthetic_cropnet_df(seed=0, n_counties=2)
+    results = []
+    for module, extra in ((cropnet_main, ["--device", "cpu"]),
+                          (jax_cropnet, [])):
+        args = module.build_parser().parse_args(
+            ["--model", "gnnrnn", "--n-epochs", "1", *extra])
+        args.cropnet_df = df
+        results.append(module.run(args))
+    assert results[0] == results[1] == {
+        crop: None for crop in ("Cotton", "Corn", "Soybeans", "WinterWheat")}
 
 
 def test_unknown_model_raises_and_aliases_resolve(crop_df):

@@ -8,7 +8,10 @@ trains on the in-repo synthetic CropNet frame.
 
 Unlike the JAX CLI, `--attention-impl auto` is resolved before the model
 is built (as `wm-yield` resolves it): the JAX CLI passes it on unresolved,
-so with its defaults every crop fails and is reported FAILED.
+so with its defaults every crop fails and is reported FAILED. As in the JAX
+CLI, `--model gnnrnn` has no CropNet path: the model table lacks it, so
+every crop logs the KeyError and is reported FAILED, and the exit code is
+0; `--model chronos` trains.
 """
 
 import logging

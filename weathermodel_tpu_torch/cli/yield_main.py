@@ -13,10 +13,15 @@ B3f/B3b at mini/small, the fused QKV kernels B1/B2 at medium/large.
 
 `--pretrained-model-path` reads a reference-format `.pth` (what
 `wm-pretrain-torch` writes). `--workdir` gets, per fold, the best
-parameters as `best.pth` and `yield_output.json`. `--model cnnrnn` trains
-the Khaki CNN-RNN baseline (models/cnn.py) on the weekly frame and its
-soil. The baselines gnnrnn and chronos and the JAX-only `--prng` exit
-naming their ROADMAP.md items.
+parameters as `best.pth` and `yield_output.json`. The baselines: `--model
+cnnrnn` trains the Khaki CNN-RNN (models/cnn.py) on the weekly frame and its
+soil, `--model gnnrnn` the GraphSAGE + LSTM model over the county graph
+(models/gnn.py, train/gnn_trainer.py: one full-graph step per target year,
+fp32) and `--model chronos` the chronos-bolt-tiny encoder under a yield
+head (models/chronos.py, fp32, from its seeded init: a chronos-bolt
+checkpoint is not in this repository). gnnrnn ignores `--compute-dtype`,
+`--beta` and `--pretrained-model-path`, as the JAX CLI does. The JAX-only
+`--prng` exits naming its ROADMAP.md item.
 """
 
 import argparse
@@ -35,9 +40,6 @@ YIELD_MODELS = (
     "weatherautoencodermixture", "simmtm", "linear", "cnnrnn", "gnnrnn",
     "chronos",
 )
-# the baselines of the JAX CLI that the port does not have yet
-UNPORTED_MODELS = ("gnnrnn", "chronos")
-
 # The reference grid search offers --model weatherautoencodersinusoid while
 # its yield CLI dispatches only "weatherautoencodersine"; both are accepted,
 # as in the JAX CLI.
@@ -45,7 +47,10 @@ MODEL_ALIASES = {"weatherautoencodersinusoid": "weatherautoencodersine"}
 
 
 def model_table():
-    """Model name -> (yield model class, objective), for the ported models."""
+    """Model name -> (yield model class, objective), for the models that
+    go through YieldCrossValidator (gnnrnn has its own, as in the JAX
+    CLI)."""
+    from weathermodel_tpu_torch.models.chronos import ChronosYieldModel
     from weathermodel_tpu_torch.models.cnn import CNNRNNYieldModel
     from weathermodel_tpu_torch.models.yield_models import (
         LinearYieldModel,
@@ -72,17 +77,14 @@ def model_table():
                                       "elbo_mixture"),
         "linear": (LinearYieldModel, "mse"),
         "cnnrnn": (CNNRNNYieldModel, "mse"),
+        "chronos": (ChronosYieldModel, "mse"),
     }
 
 
 def check_model(name: str) -> str:
-    """The canonical model name; exits for an unported baseline and raises
-    for an unknown name."""
+    """The canonical model name; raises the JAX CLI's text for an unknown
+    name."""
     name = MODEL_ALIASES.get(name, name)
-    if name in UNPORTED_MODELS:
-        raise SystemExit(f"--model {name}: the baseline is not ported to "
-                         "weathermodel_tpu_torch yet (ROADMAP.md queue A "
-                         "item 11)")
     if name not in YIELD_MODELS:
         raise ValueError(f"Unknown model type: {name}. Choose one of "
                          + ", ".join(YIELD_MODELS))
@@ -122,12 +124,36 @@ def model_factory(name: str, mcfg, attention_impl: str):
     return make_model
 
 
+def _run_gnnrnn_cv(args, crop_df, country: str, device) -> dict:
+    """GNN-RNN through the other yield models' cross-validation
+    (GNNCrossValidator subclasses YieldCrossValidator): the fold table,
+    per-fold best.pth and yield_output.json, the LR range test and the
+    RMSE/R^2 aggregation are shared."""
+    from weathermodel_tpu_torch.models.gnn import GNNRNNYieldModel
+    from weathermodel_tpu_torch.train.gnn_trainer import GNNCrossValidator
+
+    tcfg = TrainConfig(
+        batch_size=args.batch_size, num_epochs=args.n_epochs,
+        init_lr=args.init_lr, num_warmup_epochs=args.n_warmup_epochs,
+        decay_factor=args.decay_factor, seed=args.seed,
+        use_optimal_lr=args.use_optimal_lr)
+    cv = GNNCrossValidator(
+        make_model=lambda n_past: GNNRNNYieldModel(n_past_years=n_past),
+        model_cfg=None, train_cfg=tcfg, objective="mse", crop_df=crop_df,
+        country=country, crop_type=args.crop_type,
+        n_train_years=args.n_train_years, n_past_years=args.n_past_years,
+        test_type=args.test_type, k_folds=args.cross_validation_k,
+        workdir=args.workdir, test_year=args.test_year, device=device)
+    results = cv.run()
+    results["trainers"] = cv.trainers
+    return results
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--model", default="weatherformer",
-                   help="one of: " + ", ".join(YIELD_MODELS)
-                        + " (gnnrnn and chronos are not ported yet)")
+                   help="one of: " + ", ".join(YIELD_MODELS))
     p.add_argument("--batch-size", default=64, type=int)
     p.add_argument("--n-past-years", default=6, type=int)
     p.add_argument("--n-epochs", default=40, type=int)
@@ -226,6 +252,13 @@ def run(args) -> dict:
                else args.country.lower())
     if args.country.lower() == "synthetic" and args.test_type == "extreme":
         args.test_type = "overall"
+
+    if args.model == "gnnrnn":
+        results = _run_gnnrnn_cv(args, crop_df, country, device)
+        logger.info("Final average best RMSE for %s: %.3f +/- %.3f",
+                    args.crop_type, results["avg_rmse_bu_acre"],
+                    results["std_rmse_bu_acre"])
+        return results
 
     _, objective = model_table()[args.model]
     attention_impl = resolve_attention_impl(args.attention_impl,

@@ -54,6 +54,27 @@ def _torch_init(layers, generator) -> None:
         torch_linear_init_(layer.weight.flatten(1), layer.bias, generator)
 
 
+def lecun_normal_(weight, generator=None) -> None:
+    """flax's lecun_normal: a normal truncated at 2 sigma, its std rescaled
+    to sqrt(1 / fan_in) (fan_in = weight.shape[1], torch's [out, in])."""
+    std = (1.0 / weight.shape[1]) ** 0.5 / .87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    weight.mul_(std)
+
+
+def flax_lstm_init_(lstm: nn.LSTM, generator=None) -> None:
+    """flax's LSTM init on a one-layer nn.LSTM: lecun_normal input kernels,
+    orthogonal recurrent kernels, a gate at a time, zero biases."""
+    h = lstm.hidden_size
+    with torch.no_grad():
+        lecun_normal_(lstm.weight_ih_l0, generator)
+        for gate in range(4):
+            nn.init.orthogonal_(lstm.weight_hh_l0[gate * h:(gate + 1) * h],
+                                generator=generator)
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.zero_()
+
+
 class WeatherCNN(nn.Module):
     """[B, n_years * 52, F] -> [B, n_years, output_dim] per-year weather
     features (conv lengths 52 -> 44 -> 22 -> 20 -> 10 -> 8 -> 4 -> 2 -> 1).
@@ -180,22 +201,7 @@ class CNNRNNYieldModel(nn.Module):
     def reset_parameters(self, generator: torch.Generator = None) -> None:
         self.cnn.reset_parameters(generator)
         self.soil_cnn.reset_parameters(generator)
-        h = self.lstm.hidden_size
-        with torch.no_grad():
-            # flax: lecun_normal (a normal truncated at 2 sigma, std
-            # rescaled) input kernels, orthogonal recurrent kernels, a gate
-            # at a time; zero biases
-            w_ih = self.lstm.weight_ih_l0
-            std = (1.0 / w_ih.shape[1]) ** 0.5 / .87962566103423978
-            nn.init.trunc_normal_(w_ih, 0.0, 1.0, -2.0, 2.0,
-                                  generator=generator)
-            w_ih.mul_(std)
-            for gate in range(4):
-                nn.init.orthogonal_(self.lstm.weight_hh_l0[gate * h:
-                                                           (gate + 1) * h],
-                                    generator=generator)
-            self.lstm.bias_ih_l0.zero_()
-            self.lstm.bias_hh_l0.zero_()
+        flax_lstm_init_(self.lstm, generator)
         _torch_init((self.output_layer,), generator)
 
     def forward(self, weather, coords, year, interval, weather_feature_mask,

@@ -18,7 +18,10 @@ does the same for a flax yield-model tree (models/yield_models.py): the
 dense layers and priors under their own names.
 `cnn_state_dict_from_jax_params` maps a flax CNN-family tree
 (models/cnn.py: the conv kernels to torch's [out, in, k], the LSTM cell to
-`nn.LSTM`'s stacked gates).
+`nn.LSTM`'s stacked gates); `gnn_state_dict_from_jax_params` a GNN-RNN tree
+(models/gnn.py) the same way, and `chronos_state_dict_from_jax_params` a
+Chronos tree (models/chronos.py, whose modules carry the flax names: each
+Dense kernel transposed).
 
 `quant_scales_from_jax` maps the JAX package's `quant` collection (the
 calibrated int8_static activation scales, as `calibrate_quant_scales`
@@ -318,22 +321,92 @@ def cnn_state_dict_from_jax_params(params) -> dict:
 
     def layers(prefix, tree):
         for name, node in tree.items():
-            kernel = np.asarray(node["kernel"])
-            sd[f"{prefix}{name}.weight"] = _tensor(
-                kernel.transpose(2, 1, 0) if kernel.ndim == 3 else kernel.T)
-            sd[f"{prefix}{name}.bias"] = _tensor(node["bias"])
+            sd.update(_conv_or_dense(f"{prefix}{name}.", node))
 
     for name in ("cnn", "soil_cnn"):
         if name in p:
             layers(name + ".", p[name])
     layers("", {k: p[k] for k in ("decoder", "output_layer") if k in p})
     if _LSTM_CELL in p:
-        cell = p[_LSTM_CELL]
-        sd["lstm.weight_ih_l0"] = _tensor(np.concatenate(
-            [np.asarray(cell["i" + g]["kernel"]).T for g in _LSTM_GATES]))
-        sd["lstm.weight_hh_l0"] = _tensor(np.concatenate(
-            [np.asarray(cell["h" + g]["kernel"]).T for g in _LSTM_GATES]))
-        sd["lstm.bias_hh_l0"] = _tensor(np.concatenate(
-            [np.asarray(cell["h" + g]["bias"]) for g in _LSTM_GATES]))
-        sd["lstm.bias_ih_l0"] = torch.zeros_like(sd["lstm.bias_hh_l0"])
+        sd.update(_lstm_state_dict(p[_LSTM_CELL]))
+    return sd
+
+
+def _lstm_state_dict(cell, prefix: str = "lstm.") -> dict:
+    """A flax LSTM cell's `ii/if/ig/io` (no bias) and `hi/hf/hg/ho` (with
+    bias) -> a one-layer nn.LSTM's weight_ih_l0 and weight_hh_l0, gates
+    stacked in i, f, g, o order, the hidden bias as `bias_hh_l0` and zeros
+    as `bias_ih_l0`."""
+    sd = {
+        prefix + "weight_ih_l0": _tensor(np.concatenate(
+            [np.asarray(cell["i" + g]["kernel"]).T for g in _LSTM_GATES])),
+        prefix + "weight_hh_l0": _tensor(np.concatenate(
+            [np.asarray(cell["h" + g]["kernel"]).T for g in _LSTM_GATES])),
+        prefix + "bias_hh_l0": _tensor(np.concatenate(
+            [np.asarray(cell["h" + g]["bias"]) for g in _LSTM_GATES]))}
+    sd[prefix + "bias_ih_l0"] = torch.zeros_like(sd[prefix + "bias_hh_l0"])
+    return sd
+
+
+def _conv_or_dense(prefix: str, node) -> dict:
+    """A flax Conv ([k, in, out] -> torch's [out, in, k]) or Dense ([in,
+    out] -> [out, in]) with its bias, under `prefix`."""
+    kernel = np.asarray(node["kernel"])
+    return {prefix + "weight": _tensor(kernel.transpose(2, 1, 0)
+                                       if kernel.ndim == 3 else kernel.T),
+            prefix + "bias": _tensor(node["bias"])}
+
+
+def gnn_state_dict_from_jax_params(params) -> dict:
+    """flax GNNRNNYieldModel param tree (weathermodel_tpu/models/gnn.py;
+    with or without the top-level 'params') -> the port's state dict
+    (models/gnn.py) of CPU tensors. flax names the LSTM cell
+    `OptimizedLSTMCell_0` here too: the model builds it in its own scope and
+    hands it to `nn.RNN(name="lstm")`, which holds no parameters."""
+    p = params["params"] if "params" in params else params
+    sage = sorted((k for k in p if k.startswith("sage_")),
+                  key=lambda k: int(k[5:]))
+    unknown = set(p) - {"encoder", _LSTM_CELL, "reg_fc1", "reg_fc2", *sage}
+    if unknown or "encoder" not in p or _LSTM_CELL not in p:
+        raise ValueError(f"not a GNN-RNN param tree: top-level entries "
+                         f"{sorted(p)}")
+    sd = {}
+    for name, node in p["encoder"].items():
+        sd.update(_conv_or_dense(f"encoder.{name}.", node))
+    for i, name in enumerate(sage):
+        for fc in ("fc_self", "fc_neigh"):
+            sd.update(_conv_or_dense(f"sage.{i}.{fc}.", p[name][fc]))
+    for name in ("reg_fc1", "reg_fc2"):
+        sd.update(_conv_or_dense(name + ".", p[name]))
+    sd.update(_lstm_state_dict(p[_LSTM_CELL]))
+    return sd
+
+
+def chronos_port_key(path) -> str:
+    """A flax path of the chronos encoder or the Chronos yield model (a
+    tuple of names) -> the port's state-dict key: the port's modules carry
+    the flax names, a Dense's `kernel` and an Embed's `embedding` are torch's
+    `weight`."""
+    *head, leaf = path
+    leaf = {"kernel": "weight", "embedding": "weight"}.get(leaf, leaf)
+    return ".".join((*head, leaf))
+
+
+def chronos_state_dict_from_jax_params(params) -> dict:
+    """flax ChronosYieldModel param tree (weathermodel_tpu/models/chronos.py;
+    or a ChronosBoltEncoder's; with or without the top-level 'params') ->
+    the port's state dict (models/chronos.py, models/chronos_bolt.py) of CPU
+    tensors: every Dense kernel transposed, the rest as it is."""
+    p = params["params"] if "params" in params else params
+    sd = {}
+
+    def walk(path, node):
+        if hasattr(node, "items"):
+            for name, child in node.items():
+                walk((*path, name), child)
+        else:
+            sd[chronos_port_key(path)] = _tensor(
+                np.asarray(node).T if path[-1] == "kernel" else node)
+
+    walk((), p)
     return sd

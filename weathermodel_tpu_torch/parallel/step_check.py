@@ -20,7 +20,8 @@ order:
       each rank writes `{out}.rank{r}.json` with the result, its launches
       and its peak device memory.
 `step_task` is also the one-process reference, called in the caller's own
-process without a process group. Imports nothing of JAX.
+process without a process group. Rank 0 logs each task's seconds. Imports
+nothing of JAX.
 """
 
 import json
@@ -34,6 +35,8 @@ import torch.distributed as dist
 
 from weathermodel_tpu_torch.parallel import mesh as mesh_lib
 from weathermodel_tpu_torch.parallel import multihost
+
+logger = logging.getLogger(__name__)
 
 
 def counted_kernels():
@@ -193,7 +196,8 @@ def main(argv=None) -> int:
     device = multihost.rank_device(job["device"])
     rank = dist.get_rank() if dist.is_initialized() else 0
     try:
-        for task in job["tasks"]:
+        for i, task in enumerate(job["tasks"]):
+            t0 = time.perf_counter()
             if task["kind"] == "step":
                 out = step_task(task, device)
                 if rank == 0:
@@ -206,6 +210,9 @@ def main(argv=None) -> int:
                 raise ValueError(f"unknown task kind {task['kind']!r}")
             if dist.is_initialized():
                 dist.barrier()
+            if rank == 0:
+                logger.info("step_check: task %d (%s) took %.1f s", i,
+                            task["kind"], time.perf_counter() - t0)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
