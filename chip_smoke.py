@@ -88,7 +88,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
                fused_qkv_attention_kernel, bwd_dq_kernel or bwd_dkdv_kernel
                runs;
                one step of the kernel path against the plain attention path
-               at 16 windows, dropout off, fp32 and bf16
+               at 16 windows, dropout off, fp32 and bf16; per-layer remat: one
+               fp32 step at 16 windows with dropout 0.1 from one generator
+               seed, --remat against none (the loss and every gradient bitwise
+               equal, B1 train launched twice as often, B2 as often), and one
+               epoch of the same run with --remat (32 B1 train a step; ms a
+               step, samples/s and peak memory beside the run without it)
   9. kernel_flash - the attention kernels on separate q, k, v, B3f and its
                backward B3b, vs their plain versions at WeatherFormer-small's
                batch (B=256, T=365, H=200, 10 heads), on the column slices of
@@ -121,7 +126,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                none of B1/B2; finite losses, the train loss falls; the same
                timings, profile (B3f's forward body and B3b's backward body
                required, their bf16 scalar kernels forbidden) and one-step
-               comparison as phase 8
+               comparison as phase 8, and phase 8's --remat step (8 B3f and
+               4 B3b against 4 and 4)
   11. resume - the same run's fault tolerance at 3 epochs: (a)
                uninterrupted; (b) the same argv stopped by a real SIGTERM
                sent while step 3 of epoch 1 runs, which must return
@@ -326,8 +332,18 @@ Phases, each printing one line; any failure raises and exits non-zero:
                bf16 at --batch-size 32 for 2 epochs on a small store: per rank
                32 B4s and 16 B4ts a step, 16 B4s a validation batch, none of
                B4/B4t, finite losses that fall; samples/s (not EP's rate: one
-               card shared, gloo's host copies) and peak memory a rank; the
-               seconds of each part, and of each torchrun task on rank 0
+               card shared, gloo's host copies), peak memory and the stored
+               parameter and Adam entries a rank (held to the sharding rules'
+               blocks: the experts and the dense weights over 'model'). Sharded
+               storage in the same two jobs, one fp32 step each, compared by
+               digests of every gradient and updated parameter against the
+               same mesh with only the experts split (bitwise, -0.0 = 0.0):
+               --moe-dispatch sort's expert split with the dense split on
+               1 x 2 (its pair differs in the dense split alone), --fsdp on
+               2 x 1 (dense WeatherBERT-large) and --fsdp --tensor-parallel 2
+               on 2 x 2 (the MoE), each rank's stored bytes printed beside one
+               process's; the seconds of each part, and of each torchrun task
+               on rank 0
   23. export (after serve_moe_int8) - `wm-export-torch --platforms cuda`
                (attention forced to the plain `torch` form) freezes phase 5's
                WeatherBERT-large .pth into torch.export bundles: bf16 at
@@ -1590,9 +1606,10 @@ def _kernel_events(prof):
 
 
 def _train_step_fn(name, cfg, impl, device, grad_accum=1, gmm_impl="kernel",
-                   ffn_impl="torch"):
-    """A seeded model `name` on `device` and its train step with the
-    model's objective (beta 0.5, the CLI's default)."""
+                   ffn_impl="torch", remat=False):
+    """A seeded model `name` on `device` (with `remat`, each encoder layer
+    recomputed in the backward) and its train step with the model's
+    objective (beta 0.5, the CLI's default)."""
     from weathermodel_tpu_torch.cli.pretrain import make_model
     from weathermodel_tpu_torch.train.state import make_optimizer
     from weathermodel_tpu_torch.train.steps import (
@@ -1600,7 +1617,7 @@ def _train_step_fn(name, cfg, impl, device, grad_accum=1, gmm_impl="kernel",
         make_train_step,
     )
 
-    model = make_model(name, cfg, impl, ffn_impl, gmm_impl)
+    model = make_model(name, cfg, impl, ffn_impl, gmm_impl, remat=remat)
     model.reset_parameters(torch.Generator().manual_seed(SEED))
     model = model.to(device)
     objective, masking = OBJECTIVE_FOR_MODEL[name]
@@ -1718,6 +1735,49 @@ def _check_step_parity(name, size, impl, moe=None, ffn_impl="torch"):
             f"path ({what}), dropout off, (loss rel, worst gradient "
             "||diff||/||grad||, its parameter, the plain path's card-vs-CPU "
             f"worst gradient diff): {parity}; bars {STEP_TOL}")
+
+
+def _remat_step(name, size, impl, fwd, bwd):
+    """One fp32 train step at STEP_WINDOWS windows with dropout (the
+    model's 0.1) and the attention kernels (`impl`), with and without
+    --remat, from one generator seed: every gradient and the loss must be
+    bitwise equal (the recompute draws the forward's masks), the forward
+    kernel `fwd` must launch twice as often under remat (each layer's
+    forward runs again in the backward) and the backward kernel `bwd` as
+    often. Returns the printed text."""
+    from weathermodel_tpu_torch.train.steps import batch_to_device
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    cfg = model_config_for_size(size, compute_dtype="float32")
+    batch, mask = _windows_batch(STEP_WINDOWS, SEED + 2)
+    runs = []
+    for remat in (False, True):
+        model, step = _train_step_fn(name, cfg, impl, "cuda", remat=remat)
+        for fn in (fwd, bwd):
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = step(batch_to_device(batch, "cuda"),
+                   torch.Generator().manual_seed(SEED), 0.0, 10,
+                   mask=torch.from_numpy(mask).to("cuda"))
+        loss = float(out["total_loss"])
+        runs.append((loss, {k: p.grad for k, p in model.named_parameters()},
+                     fwd.launches, bwd.launches,
+                     torch.cuda.max_memory_allocated() / 1e9))
+        del model, step
+    (l0, g0, f0, b0, m0), (l1, g1, f1, b1, m1) = runs
+    unequal = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+    if l0 != l1 or unequal or f1 != 2 * f0 or b1 != b0 or not f0:
+        raise AssertionError(
+            f"{name} --remat step: loss {l1!r} against {l0!r}, gradients "
+            f"not bitwise equal {unequal[:5]}, {fwd.__name__} {f0} -> {f1} "
+            f"(expected doubled), {bwd.__name__} {b0} -> {b1}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"one fp32 step at {STEP_WINDOWS} windows, dropout "
+            f"{cfg.dropout_rate}, {impl} kernels, --remat against none: loss "
+            f"{l1:.7f} and all {len(g0)} gradients bitwise equal; "
+            f"{fwd.__name__} {f0} -> {f1}, {bwd.__name__} {b0} -> {b1}; peak "
+            f"{m0:.2f} -> {m1:.2f} GB")
 
 
 def _write_store(root: Path) -> Path:
@@ -1893,6 +1953,47 @@ def phase_train(smi: str, data: Path):
         forbid=(ATTN_SCALAR_BF16, *ATTN_BWD_SCALAR_BF16)), flush=True)
     print("train: " + _check_step_parity("weatherbert", MODEL_SIZE,
                                          "fused_qkv"), flush=True)
+    from weathermodel_tpu_torch.ops.fused_qkv_attention import (
+        fused_qkv_attention_bwd,
+        fused_qkv_attention_train,
+    )
+
+    print("train: " + _remat_step("weatherbert", MODEL_SIZE, "fused_qkv",
+                                  fused_qkv_attention_train,
+                                  fused_qkv_attention_bwd), flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        r_result, r_launches, r_wall, r_peak, r_record = _run_pretrain([
+            "--model", "weatherbert", "--model-size", MODEL_SIZE,
+            "--batch-size", str(TRAIN_BATCH), "--grad-accum", str(GRAD_ACCUM),
+            "--n-epochs", "1", "--n-warmup-epochs", "0",
+            "--masking-prob", "0.15", "--data-dir", str(data),
+            "--workdir", workdir, "--compute-dtype", "bfloat16",
+            "--device", "cuda", "--remat"], _all_kernels())
+    r_steps = len(r_result["train_step_seconds"][0])
+    r_val = r_result["val_batches"][0]
+    _check_launches(r_launches, {
+        "fused_qkv_attention": cfg.num_layers * r_val,
+        "fused_qkv_attention_train": 2 * per_step * r_steps,
+        "fused_qkv_attention_bwd": per_step * r_steps,
+        "flash_attention_fwd": 0, "flash_attention_bwd": 0, "gmm": 0,
+        "tgmm": 0, **NOT_IN_TRAINING}, r_steps, r_val)
+    r_losses = r_record["losses"]
+    if not all(np.isfinite(r_losses[scope]["total_loss"]).all()
+               for scope in ("train", "val")):
+        raise AssertionError(f"--remat: non-finite losses {r_losses}")
+    ms_remat = float(np.median(r_result["train_step_seconds"][0])) * 1e3
+    ms_plain = [float(np.median(s)) * 1e3
+                for s in result["train_step_seconds"]]
+    print(f"train: wm-pretrain-torch --remat, the same run for 1 epoch: "
+          f"{r_steps} steps, train loss {r_losses['train']['total_loss']} "
+          f"(no remat: {train_loss[0]}), val loss "
+          f"{r_losses['val']['total_loss']}; {r_launches}; epoch 1 median "
+          f"{ms_remat:.1f} ms/step, {TRAIN_BATCH / ms_remat * 1e3:.1f} "
+          f"samples/s, against no remat's epoch 1 {ms_plain[0]:.1f} and "
+          f"epoch 2 {ms_plain[1]:.1f} ms/step ({ms_remat / ms_plain[0]:.3f}x "
+          f"and {ms_remat / ms_plain[1]:.3f}x); peak memory {r_peak:.2f} GB "
+          f"against {peak_gb:.2f} GB ({peak_gb - r_peak:.2f} GB less); run "
+          f"{r_wall:.1f} s; card {smi}", flush=True)
     return launches
 
 
@@ -2225,6 +2326,14 @@ def phase_train_former(smi: str, data: Path):
         forbid=(FLASH_SCALAR_BF16, *ATTN_BWD_SCALAR_BF16)), flush=True)
     print("train_former: " + _check_step_parity("weatherformer", FORMER_SIZE,
                                                 "flash"), flush=True)
+    from weathermodel_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    print("train_former: " + _remat_step(
+        "weatherformer", FORMER_SIZE, "flash", flash_attention_fwd,
+        flash_attention_bwd), flush=True)
     return launches
 
 
@@ -4397,13 +4506,19 @@ def _ep_tasks(tmp: Path, cfg, step_windows, store_samples, batch_size,
     write_synthetic_dataset(str(store), n_chunks=8, n_samples=store_samples,
                             seq_len=SEQ_LEN, seed=SEED)
 
-    def step(mesh, seed=seeds[0]):
+    def step(mesh, seed=seeds[0], tag="", state="ep_state.pth", model=None,
+             **options):
+        """A step task: the MoE model (`model`: other overrides) or
+        another state; `options` for step_check (fsdp, storage, digest,
+        arrays)."""
         return dict(kind="step", mesh=list(mesh), lr=EP_LR,
                     inputs=str(tmp / f"ep_inputs_{seed}.npz"),
-                    state=str(tmp / "ep_state.pth"),
-                    config=dict(size=MODEL_SIZE, overrides=overrides,
+                    state=str(tmp / state),
+                    config=dict(size=MODEL_SIZE,
+                                overrides=model or overrides,
                                 attention_impl="fused_qkv"),
-                    out=str(tmp / f"ep_step_{mesh[0]}x{mesh[1]}_{seed}.npz"))
+                    out=str(tmp / f"ep_step_{mesh[0]}x{mesh[1]}_{seed}{tag}"
+                                  ".npz"), **options)
 
     def cli(mesh, tag=None):
         tag = tag or f"{mesh[0]}x{mesh[1]}"
@@ -4422,6 +4537,83 @@ def _ep_tasks(tmp: Path, cfg, step_windows, store_samples, batch_size,
     return step, cli
 
 
+# sharded storage in train_ep: the sort dispatch's expert split, and the
+# dense WeatherBERT-large (fp32, dropout off) of the --fsdp step
+SORT_EP = dict(MOE, compute_dtype="float32", dropout_rate=0.0,
+               moe_dispatch="sort")
+DENSE_EP = dict(compute_dtype="float32", dropout_rate=0.0)
+
+
+def _storage_state(tmp: Path) -> dict:
+    """The seeded dense WeatherBERT-large's state for the --fsdp step: the
+    step options that name it."""
+    from weathermodel_tpu_torch.cli.pretrain import make_model
+    from weathermodel_tpu_torch.utils.config import model_config_for_size
+
+    model = make_model("weatherbert", model_config_for_size(
+        MODEL_SIZE, **DENSE_EP), "fused_qkv")
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    torch.save(model.state_dict(), tmp / "ep_dense.pth")
+    return dict(state="ep_dense.pth", model=DENSE_EP)
+
+
+def _expected_stored(cfg, mesh, fsdp=False) -> int:
+    """The parameter entries a rank of `mesh` holds by the sharding rules,
+    for the model of `cfg` (built on the meta device)."""
+    from weathermodel_tpu_torch.cli.pretrain import make_model
+    from weathermodel_tpu_torch.parallel import mesh as mesh_lib
+
+    with torch.device("meta"):
+        model = make_model("weatherbert", cfg, "fused_qkv")
+    m = mesh_lib.Mesh(*mesh)
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    return mesh_lib.expected_elements(shapes, {
+        k: mesh_lib.combined_sharding_rules(k, v, m, fsdp=fsdp)
+        for k, v in shapes.items()}, m)
+
+
+def _storage_check(tmp: Path, what, mesh, tag, plain, full, seed, smi):
+    """A step with sharded storage against the same mesh's step without it
+    (only the experts split): the metrics and the digest of every gradient
+    and updated parameter must be equal (bitwise, -0.0 = 0.0), each rank's
+    stored parameters those its blocks hold by the rules and its kernel
+    launches the plain step's. `full`: one process's parameter entries
+    (None: the plain step's)."""
+    def read(suffix):
+        with np.load(tmp / f"ep_step_{mesh[0]}x{mesh[1]}_{seed}{suffix}.npz"
+                     ) as z:
+            return {k: z[k] for k in z if not k.startswith(("grad/",
+                                                            "param/"))}
+
+    got, want = read(tag), read(plain)
+    keys = [k for k in want if k.startswith(("metric/", "hash/"))]
+    equal = [k for k in keys if np.array_equal(got[k], want[k])]
+    stored = got["stored/params"]
+    launches = {k[len("launches/"):]: got[k].astype(int).tolist()
+                for k in got if k.startswith("launches/") and got[k].any()}
+    if len(equal) != len(keys) or len(keys) < 3 or not np.array_equal(
+            stored, got["stored/by_rules"]) or launches != {
+                k[len("launches/"):]: want[k].astype(int).tolist()
+                for k in want if k.startswith("launches/") and want[k].any()}:
+        raise AssertionError(
+            f"{what} on {mesh}: {len(equal)} of {len(keys)} metrics and "
+            f"digests equal to the mesh without sharded storage (unequal: "
+            f"{sorted(set(keys) - set(equal))[:6]}); stored entries a rank "
+            f"{stored.tolist()}, by the rules "
+            f"{got['stored/by_rules'].tolist()}"
+            f"; launches a rank {launches}, without sharded storage "
+            f"{ {k: want[k].tolist() for k in want if 'launches/' in k} }")
+    full = int(want["stored/params"][0]) if full is None else full
+    return (f"sharded storage, {what}, mesh {mesh[0]}x{mesh[1]}, one fp32 "
+            f"step: all {len(keys)} metrics and gradient and parameter "
+            f"digests bitwise equal to the same mesh without sharded storage, "
+            f"and its launches a rank {launches}; "
+            f"stored parameters + Adam moments a rank "
+            f"{[round(12 * x / 1e9, 3) for x in stored.tolist()]} GB (the "
+            f"rules' blocks, {stored.astype(int).tolist()} parameters) "
+            f"against {12 * full / 1e9:.3f} GB in one process; card {smi}")
+
+
 def phase_train_ep(smi: str, tmp: Path):
     """(a) the window forms B4s/B4ts; (b) the EP trainer under torchrun on
     WeatherBERT-large E=8 top-2 (ragged): an fp32 step on meshes 1x2 and
@@ -4436,6 +4628,7 @@ def phase_train_ep(smi: str, tmp: Path):
     t0 = time.perf_counter()
     step, cli = _ep_tasks(tmp, cfg, EP_STEP_BATCH, EP_STORE_SAMPLES,
                           EP_BATCH, "cuda:0", seeds=EP_STEP_SEEDS)
+    dense = _storage_state(tmp)
     parts["inputs"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     main_seed = EP_STEP_SEEDS[0]
@@ -4445,12 +4638,30 @@ def phase_train_ep(smi: str, tmp: Path):
                                         torch.device("cuda")))
         gc.collect()
         torch.cuda.empty_cache()
+    # the sort dispatch's one-process step, which its 1 x 2 split must match
+    one_sort = _on_card(step_task(step((1, 1), tag="-sort", model=SORT_EP),
+                                  torch.device("cuda")))
+    gc.collect()
+    torch.cuda.empty_cache()
     parts["one-process steps"] = time.perf_counter() - t0
     # 2 x 1 runs in the two-rank job, beside 1 x 2; the two jobs run side by
-    # side (6 ranks on the card)
-    tasks = {(1, 2): [step((1, 2)), *(step((2, 1), seed)
-                                      for seed in EP_STEP_SEEDS)],
-             (2, 2): [step((2, 2), seed) for seed in EP_STEP_SEEDS]}
+    # side (6 ranks on the card). Sharded storage: each case's step and the
+    # same mesh's without it (only the experts split), compared by digests
+    # (sort on 1 x 2 also holds the dense split: its pair differs in that
+    # alone; its arrays are held against the one-process sort step too)
+    hashed = dict(digest=True, arrays=False)
+    tasks = {(1, 2): [step((1, 2)),
+                      *(step((2, 1), seed) for seed in EP_STEP_SEEDS),
+                      step((1, 2), tag="-sort", model=SORT_EP, digest=True),
+                      step((1, 2), tag="-sort-experts", model=SORT_EP,
+                           storage="experts", **hashed),
+                      step((2, 1), tag="-dense", **dense, **hashed),
+                      step((2, 1), tag="-dense-fsdp", fsdp=True, **dense,
+                           **hashed)],
+             (2, 2): [*(step((2, 2), seed) for seed in EP_STEP_SEEDS),
+                      step((2, 2), tag="-fsdp", fsdp=True, **hashed),
+                      step((2, 2), tag="-experts", storage="experts",
+                           **hashed)]}
     t0 = time.perf_counter()
     runs = _run_ranks(tmp, [(f"ep_{m[0]}x{m[1]}", m[0] * m[1],
                              tasks[m] + [cli(m)]) for m in EP_MESHES])
@@ -4533,6 +4744,12 @@ def phase_train_ep(smi: str, tmp: Path):
                                                       "moe_aux"))
         if record["model_config"]["n_devices"] != n:
             raise AssertionError(f"n_devices {record['model_config']}")
+        stored = [r["result"]["stored_elements"] for r in ranks]
+        want = _expected_stored(cfg, mesh)
+        if any(x != {"params": want, "optimizer": 2 * want} for x in stored):
+            raise AssertionError(f"mesh {mesh}: stored entries a rank "
+                                 f"{stored}, the rules give {want} "
+                                 "parameters and twice that in Adam")
         step_s = float(np.median(result["train_step_seconds"][-1]))
         if mesh == EP_MESHES[0]:
             main_launches = {k: sum(r["launches"][k] for r in ranks)
@@ -4548,9 +4765,32 @@ def phase_train_ep(smi: str, tmp: Path):
               f"(one card: the ranks take turns on it, the other job's "
               f"ranks beside them, and gloo copies each all_reduce through "
               f"the host, so this is not EP's rate); peak memory a rank "
-              f"{[round(r['peak_gb'], 2) for r in ranks]} GB; torchrun "
+              f"{[round(r['peak_gb'], 2) for r in ranks]} GB; stored "
+              f"parameters and Adam moments a rank {12 * want / 1e9:.3f} GB "
+              f"(the rules' blocks: the experts and the dense weights split "
+              f"over 'model'); torchrun "
               f"{wall[mesh]:.1f} s, rank 0 logged '{backend[mesh]}'; card "
               f"{smi}", flush=True)
+    sort_text, _ = _ep_step_check((1, 2), load((1, 2), f"{main_seed}-sort"),
+                                  one_sort)
+    print(f"train_ep: fp32 step, --moe-dispatch sort, "
+          f"{EP_STEP_BATCH} windows, 2 ranks on cuda:0 (each its 4 experts' "
+          f"window of the capacity buffer, the dense weights split over "
+          f"'model') against the one-process sort step: {sort_text}; card "
+          f"{smi}", flush=True)
+    del one_sort
+    load.cache_clear()
+    one_full = int(ones[main_seed]["stored/params"].sum())
+    for what, mesh, tag, plain, full in (
+            ("--moe-dispatch sort's expert split (each rank its 4 experts' "
+             "window of the capacity buffer) with the dense weights split "
+             "over 'model'", (1, 2), "-sort", "-sort-experts", one_full),
+            ("--fsdp (dense WeatherBERT-large)", (2, 1), "-dense-fsdp",
+             "-dense", None),
+            ("--fsdp --tensor-parallel 2 (MoE, ragged)", (2, 2), "-fsdp",
+             "-experts", one_full)):
+        print("train_ep: " + _storage_check(tmp, what, mesh, tag, plain, full,
+                                           main_seed, smi), flush=True)
     parts["checks"] = time.perf_counter() - t0
     print(f"train_ep: seconds by part "
           f"{ {k: round(v, 1) for k, v in parts.items()} }", flush=True)

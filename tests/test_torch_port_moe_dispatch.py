@@ -150,6 +150,34 @@ def test_port_sort_equals_scatter():
                                    atol=1e-6, rtol=1e-6, err_msg=name)
 
 
+@pytest.mark.parametrize("impl", ["auto", "maskgen", "maskgen_bool"])
+def test_window_dropout_keeps_the_one_process_entries(impl):
+    """A rank's window of the experts under a 'model' split: its hidden
+    dropout keeps, for each window, the entries that one process's dropout
+    of the whole buffer keeps there, scaled the same, in both capacity
+    layouts (sort's [E, M, F], expert dim 0; scatter's [B, E, cap, F],
+    dim 1), for every impl; without a window it is that one dropout."""
+    from weathermodel_tpu_torch.models.moe import window_dropout
+    from weathermodel_tpu_torch.ops import dropout
+
+    old = dropout.get_impl()
+    dropout.set_impl(impl)
+    try:
+        rng = np.random.default_rng(4)
+        for shape, dim in (((E, 6, F), 0), ((2, E, 3, F), 1)):
+            h = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            whole = dropout.dropout(h, 0.1, 7)
+            assert torch.equal(window_dropout(h, 0.1, 7, None, dim), whole)
+            assert 0 < int((whole == 0).sum()) < h.numel() // 2
+            for off in range(0, E, 2):
+                got = window_dropout(h.narrow(dim, off, 2), 0.1, 7,
+                                     (off, E), dim)
+                assert torch.equal(got, whole.narrow(dim, off, 2)), off
+            assert torch.equal(window_dropout(h, 0.0, 7, (0, E), dim), h)
+    finally:
+        dropout.set_impl(old)
+
+
 @pytest.mark.parametrize("dispatch", ["sort", "scatter", "ragged"])
 def test_remat_gradients_are_bitwise(dispatch):
     """Dropout 0.1 from one generator seed: the recomputed expert region

@@ -143,11 +143,14 @@ def test_pretrained_state_initialises_the_trainer(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--remat"],
+    ["--remat", "--prng", "threefry2x32"],
     ["--seq-parallel", "2"], ["--pipeline-stages", "2"],
-    ["--pipeline-microbatches", "8"], ["--fsdp", "--tensor-parallel", "2"],
-    ["--fsdp"], ["--prng", "threefry2x32"]])
+    ["--pipeline-microbatches", "8"],
+    ["--fsdp", "--tensor-parallel", "2", "--pipeline-microbatches", "8"],
+    ["--fsdp", "--prng", "threefry2x32"], ["--prng", "threefry2x32"]])
 def test_unported_flags_exit_naming_the_roadmap(store, tmp_path, flag):
+    """The flags whose feature is not ported exit naming their item, also
+    beside the ported --remat and --fsdp."""
     args = pretrain.build_parser().parse_args(
         _argv(store, tmp_path) + ["--device", "cpu"] + flag)
     with pytest.raises(SystemExit, match="ROADMAP.md queue A item"):
@@ -157,16 +160,17 @@ def test_unported_flags_exit_naming_the_roadmap(store, tmp_path, flag):
 @pytest.mark.parametrize("dispatch", ["sort", "scatter"])
 def test_tensor_parallel_with_a_capacity_dispatch_names_the_roadmap(
         store, tmp_path, dispatch):
-    """--tensor-parallel splits the experts of the ragged dispatch only:
-    with sort or scatter it exits naming the ROADMAP before any rank builds
-    a mesh (the expert weights would otherwise be cut to E / N while the
-    capacity layouts compute all E)."""
+    """--tensor-parallel splits the experts of the capacity dispatches too
+    (their mesh runs: tests/test_torch_port_mesh.py): with sort or scatter
+    it is no longer refused, and in one process it stops only at the JAX
+    trainer's check of the world against the degree, as the ragged
+    dispatch does."""
     args = pretrain.build_parser().parse_args(
         _argv(store, tmp_path) + ["--device", "cpu", "--moe-experts", "4",
                                   "--moe-dispatch", dispatch,
                                   "--tensor-parallel", "2"])
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 14"):
+    with pytest.raises(ValueError,
+                       match="1 devices not divisible by parallel degree 2"):
         pretrain.run(args)
 
 

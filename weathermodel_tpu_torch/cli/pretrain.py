@@ -32,11 +32,17 @@ if it had not stopped:
     wm-pretrain-torch --data-dir data/ --workdir run/ \
         --resume-from-checkpoint run/
 
+`--remat` recomputes each encoder layer in the backward instead of keeping
+its activations (not with `--moe-experts`, as in wm-pretrain).
+
 Under `torchrun` the ranks train one model on a (data, model) mesh
-(parallel/): `--tensor-parallel N` puts N ranks on 'model' (the MoE experts
-split over them, the ragged dispatch's expert parallelism) and the rest on
-'data'; without it every rank is on 'data'. Every rank reads the same
-batches and keeps its rows of each; rank 0 logs and writes. `--device cuda`
+(parallel/): `--tensor-parallel N` puts N ranks on 'model' and the rest on
+'data'; without it every rank is on 'data'. Over 'model' the MoE experts
+split (expert parallelism, every `--moe-dispatch`) and so does the storage
+of the dense attention and FFN weights (gathered for their use). `--fsdp`
+splits every large parameter, and its Adam moments, over 'data' too
+(ZeRO-3; alone, a world x 1 mesh). Every rank reads the same batches and
+keeps its rows of each; rank 0 logs and writes. `--device cuda`
 gives each rank its own card (cuda:LOCAL_RANK, NCCL); `--device cuda:0`
 pins every rank to card 0 (gloo: ranks that share a card); `--device cpu`
 runs the ranks on the CPU (gloo):
@@ -45,6 +51,10 @@ runs the ranks on the CPU (gloo):
         -m weathermodel_tpu_torch.cli.pretrain --model weatherbert \
         --model-size large --moe-experts 8 --moe-top-k 2 \
         --tensor-parallel 2 --batch-size 288 --data-dir data/ --workdir run/
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m weathermodel_tpu_torch.cli.pretrain --model weatherbert \
+        --model-size large --fsdp --remat --batch-size 576 \
+        --grad-accum 2 --data-dir data/ --workdir run/
 
 `--model mlp` trains the per-timestep MLP baseline (models/mlp.py) and
 `--model weathercnn` the CNN baseline's masked-MSE pretraining
@@ -98,12 +108,10 @@ TRAINER_KEY = {"weatherformersinusoid": "weatherformer_sinusoid",
 
 # flags of the JAX entry point whose feature the port does not have yet
 _UNPORTED = {
-    "remat": "layer rematerialization (ROADMAP.md queue A item 14)",
     "seq_parallel": "sequence parallelism (ROADMAP.md queue A item 14)",
     "pipeline_stages": "pipeline parallelism (ROADMAP.md queue A item 14)",
     "pipeline_microbatches": "pipeline parallelism (ROADMAP.md queue A "
                              "item 14)",
-    "fsdp": "FSDP sharding (ROADMAP.md queue A item 14)",
     "prng": "JAX's PRNG choice; the port draws from torch.Generator "
             "(ROADMAP.md queue A item 14)",
 }
@@ -132,10 +140,13 @@ def check_parallel_flags(args: argparse.Namespace) -> None:
 
 
 def make_model(name: str, cfg: ModelConfig, attention_impl: str,
-               ffn_impl: str = "torch", gmm_impl: str = "kernel"):
+               ffn_impl: str = "torch", gmm_impl: str = "kernel",
+               remat: bool = False):
     """The model `name` at `cfg` (MoE layers when cfg.num_experts > 0;
     `gmm_impl` "plain" runs their grouped matmuls as the plain versions on
-    any device, the reference path)."""
+    any device, the reference path; `remat` recomputes each encoder layer
+    in the backward, and the models without one ignore it, as JAX's
+    `make_model` does)."""
     if name not in PORTED_MODELS:
         raise ValueError(f"Unknown model type: {name}. Choose one of "
                          + ", ".join(PORTED_MODELS))
@@ -146,7 +157,8 @@ def make_model(name: str, cfg: ModelConfig, attention_impl: str,
         # pretraining (models/cnn.py)
         return WeatherCNNPretrain(cfg.weather_dim, cfg.max_len)
     return PORTED_MODELS[name](cfg, attention_impl=attention_impl,
-                               ffn_impl=ffn_impl, gmm_impl=gmm_impl)
+                               ffn_impl=ffn_impl, gmm_impl=gmm_impl,
+                               remat=remat)
 
 
 def load_pretrained_params(path: str) -> dict:
@@ -248,12 +260,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recompute the expert computation in the backward "
                         "(torch.utils.checkpoint) instead of saving its "
                         "activations")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize encoder layers in the backward "
+                        "(torch.utils.checkpoint: trade FLOPs for memory; "
+                        "not with --moe-experts)")
     p.add_argument("--tensor-parallel", default=1, type=int,
                    help="ranks on the mesh's 'model' axis: the MoE experts "
-                        "split over them (expert parallelism); dense "
-                        "weights stay whole")
-    for flag in ("--remat", "--fsdp"):
-        p.add_argument(flag, action="store_true", help="not ported yet")
+                        "split over them (expert parallelism) and the "
+                        "dense attention and FFN weights' storage "
+                        "(Megatron column/row, gathered for their use)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard parameters and Adam moments over the mesh's "
+                        "'data' axis (ZeRO-3: gathered for each layer's "
+                        "use); composes with --tensor-parallel (2-D)")
     for flag, default in (("--seq-parallel", 1), ("--pipeline-stages", 1),
                           ("--pipeline-microbatches", 4)):
         p.add_argument(flag, default=default, type=int, help="not ported yet")
@@ -330,7 +349,7 @@ def run(args: argparse.Namespace) -> dict:
 
     attention_impl = resolve_attention_impl(args.attention_impl,
                                             args.model_size)
-    model = make_model(args.model, mcfg, attention_impl)
+    model = make_model(args.model, mcfg, attention_impl, remat=args.remat)
     pretrained = None
     if args.pretrained_model_path:
         pretrained = load_pretrained_params(args.pretrained_model_path)
@@ -339,7 +358,7 @@ def run(args: argparse.Namespace) -> dict:
         make_loaders, workdir=args.workdir,
         device=device, pretrained_state=pretrained,
         grad_accum=args.grad_accum, resume=resume,
-        tensor_parallel=args.tensor_parallel)
+        tensor_parallel=args.tensor_parallel, fsdp=args.fsdp)
     return trainer.train()
 
 

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from weathermodel_tpu_torch.models.moe import MoEFFN
 from weathermodel_tpu_torch.ops import quant
@@ -65,6 +66,7 @@ from weathermodel_tpu_torch.ops.fused_qkv_attention import (
     fused_qkv_attention,
     fused_qkv_attention_outproj,
 )
+from weathermodel_tpu_torch.parallel import mesh as mesh_lib
 
 LN_EPS = 1e-5
 FFN_IMPLS = ("torch", "fused_ffn_ln", "fused_ffn", "int8", "int8_static",
@@ -198,7 +200,10 @@ class TransformerEncoderLayer(nn.Module):
     hand-written tail, blocks.py:391-396, does); the MoE branch's norm2 is a
     flax nn.LayerNorm again (blocks.py:287-305), with fp32 statistics. So bf16
     rounds where the JAX package rounds. The forward returns (x, the MoE aux
-    loss or None)."""
+    loss or None). Parameters stored as shards under a mesh
+    (parallel/mesh.py) are gathered whole at the start of its forward."""
+
+    gathers_own_shards = True
 
     def __init__(self, hidden_dim: int, num_heads: int, ffn_dim: int,
                  attention_impl: str = "torch", ffn_impl: str = "torch",
@@ -230,6 +235,10 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
 
     def forward(self, x, dropout_rate: float = 0.0, generator=None):
+        with mesh_lib.gathered(self):
+            return self._forward(x, dropout_rate, generator)
+
+    def _forward(self, x, dropout_rate: float, generator):
         def drop(a):
             if dropout_rate <= 0.0:
                 return a
@@ -302,12 +311,28 @@ class TransformerEncoder(nn.Module):
     """Stack of post-LN layers with no final norm (reference
     weatherbert.py:52-54). Returns (x, the mean of the layers' MoE aux
     losses, or None for dense layers), as the JAX step averages the sown
-    losses (train/steps.py:71-79)."""
+    losses (train/steps.py:71-79).
+
+    `remat` (JAX blocks.py:410-427, `nn.remat` of each layer) runs each layer
+    under a non-reentrant `torch.utils.checkpoint` while gradients are on:
+    the backward recomputes the layer's forward (its kernels and, under a
+    mesh, its parameter gathers) instead of keeping its activations. The
+    layer draws its dropout seeds from the caller's generator inside its
+    forward, so the region starts from a snapshot of the generator's state
+    and the caller's generator is advanced past the layer's draws: the
+    recompute draws the masks the forward drew, and the gradients are those
+    without remat bit for bit. MoE layers are refused, with JAX's text (flax
+    drops the aux loss sown inside `nn.remat`)."""
 
     def __init__(self, hidden_dim: int, num_heads: int, ffn_dim: int,
                  num_layers: int, attention_impl: str = "torch",
-                 ffn_impl: str = "torch", moe: dict = None):
+                 ffn_impl: str = "torch", moe: dict = None,
+                 remat: bool = False):
         super().__init__()
+        if remat and moe:
+            raise ValueError("remat is not supported with MoE layers "
+                             "(sown aux loss would be dropped)")
+        self.remat = remat
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(hidden_dim, num_heads, ffn_dim,
                                     attention_impl, ffn_impl, moe)
@@ -315,8 +340,38 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, x, dropout_rate: float = 0.0, generator=None):
         auxes = []
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x, aux = layer(x, dropout_rate, generator)
+            if remat:
+                x, aux = _remat_layer(layer, x, dropout_rate, generator)
+            else:
+                x, aux = layer(x, dropout_rate, generator)
             if aux is not None:
                 auxes.append(aux)
         return x, (torch.stack(auxes).mean() if auxes else None)
+
+
+def _remat_layer(layer, x, dropout_rate, generator):
+    """layer(x, dropout_rate, generator) under `checkpoint`, its region
+    drawing from a copy of the generator's state and seeing the mesh
+    active at the forward (the recompute runs in the backward, outside the
+    step's `activate`)."""
+    mesh = mesh_lib.active()
+    state = None if generator is None else generator.get_state()
+    drawn = []
+
+    def region(x):
+        g = None
+        if state is not None:
+            g = torch.Generator()
+            g.set_state(state)
+        with mesh_lib.activate(mesh):
+            out = layer(x, dropout_rate, g)
+        drawn.append(g)
+        return out
+
+    out = checkpoint(region, x, use_reentrant=False,
+                     preserve_rng_state=False)
+    if state is not None:
+        generator.set_state(drawn[0].get_state())
+    return out

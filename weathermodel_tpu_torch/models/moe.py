@@ -57,23 +57,31 @@ torch [E, H] weight), `expert_w1` [E, H, F], `expert_b1` [E, F], `expert_w2`
 
 Under a (data, model) mesh (parallel/mesh.py):
 * Expert parallelism (`_ep_ragged_experts`, moe.py:267-338, and its
-  branch :565-580): with the ragged dispatch and a 'model' axis above 1 in
-  the mesh the step runs under (`parallel.mesh.active()`, read once in the
-  forward, so a remat recompute sees the forward's), each rank holds the e_loc = E / n_model experts [off, off +
-  e_loc), off = model index x e_loc (parallel/mesh.py's `shard_params`), and
-  runs the grouped matmul's window forms B4s/B4ts (`GroupedMatmul` with the
-  group offset) over its own rows: the rows of other ranks' experts come out as zeros,
-  and so does their one-hot bias. `reduce_from_model` sums the ranks'
-  outputs (the EP combine) and `copy_to_model`, around the sorted rows, sums
-  their partial row gradients in the backward (JAX's shard_map transpose
-  inserts that sum). The layout differs from JAX's in one thing: each data
+  branch :565-580): with a 'model' axis above 1 in the mesh the step runs
+  under (`parallel.mesh.active()`, read once in the forward, so a remat
+  recompute sees the forward's), each rank holds the e_loc = E / n_model
+  experts [off, off + e_loc), off = model index x e_loc (parallel/mesh.py's
+  `shard_params`), and runs the grouped matmul's window forms B4s/B4ts
+  (`GroupedMatmul` with the group offset) over its own rows: the rows of
+  other ranks' experts come out as zeros, and so does their one-hot bias.
+  `reduce_from_model` sums the ranks' outputs (the EP combine) and
+  `copy_to_model`, around the sorted rows, sums their partial row gradients
+  in the backward (JAX's shard_map transpose inserts that sum). The layout differs from JAX's in one thing: each data
   rank sorts its own tokens by expert and its experts' counts cover its rows
   only, where JAX sorts the global batch and chunks the sorted rows over
   'data' (that would need every token gathered). Each row's products are
   the same; only the order of sums over rows differs. Dropout keeps the data
   rank's stream (the step folds the data index into the generator); rows of
   different model ranks are disjoint, so it needs no model index, where JAX
-  folds both.
+  folds both. The capacity layouts split the same way (JAX leaves them to
+  GSPMD on the `P('model')` expert weights, mesh.py:113-122): `sort` runs
+  the rank's experts on its window [off, off + e_loc) of the expert-major
+  slots (the two `bmm`s over [e_loc, B*cap, H]), `scatter` scatters only
+  the tokens of its experts; each combines the window's tokens (the others
+  zero) and `reduce_from_model` sums the ranks, `copy_to_model` the input's
+  partial gradients. Their hidden dropout draws the one-process buffer's
+  mask whole and keeps the rank's window of it (`window_dropout`), so a
+  1 x N mesh drops what one process drops.
 * The aux loss is the global batch's (a one-process run's) whenever the
   'data' axis is above 1: the expert counts, the router probabilities' sums
   and the squared logsumexp's sum are summed over the data group, each with
@@ -87,6 +95,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from weathermodel_tpu_torch.ops.dropout import (
+    apply_keep,
     draw_seed,
     dropout,
     rounded_scale,
@@ -160,18 +169,19 @@ class GatherRows(torch.autograd.Function):
 
 
 class BiasReluDropout(torch.autograd.Function):
-    """relu(pre + bias[:, None]) then dropout (at `rate` > 0, from `seed`)
-    as one Function that saves only its output y (moe.py:149-185): the ReLU
-    and dropout-survivor masks coincide with y > 0 and the dropout scale is
-    a constant, so the backward is one elementwise pass and the bias's sum.
-    pre [E, M, F] in the compute dtype, bias [E, F] fp32. Valid for every
-    dropout impl of the port: each keeps a value as x * 1/(1 - rate)."""
+    """relu(pre + bias[:, None]) then dropout (at `rate` > 0, from `seed`;
+    `window` as `window_dropout`'s) as one Function that saves only its
+    output y (moe.py:149-185): the ReLU and dropout-survivor masks coincide
+    with y > 0 and the dropout scale is a constant, so the backward is one
+    elementwise pass and the bias's sum. pre [E, M, F] in the compute
+    dtype, bias [E, F] fp32. Valid for every dropout impl of the port:
+    each keeps a value as x * 1/(1 - rate)."""
 
     @staticmethod
-    def forward(ctx, pre, bias, rate, seed):
+    def forward(ctx, pre, bias, rate, seed, window=None):
         y = torch.relu(pre + bias[:, None].to(pre.dtype))
         if rate > 0.0:
-            y = dropout(y, rate, seed)
+            y = window_dropout(y, rate, seed, window, 0)
         ctx.save_for_backward(y)
         ctx.rate = rate
         return y
@@ -183,7 +193,22 @@ class BiasReluDropout(torch.autograd.Function):
         dpre = torch.where(y > 0, g * scale,
                            torch.zeros((), dtype=g.dtype, device=g.device))
         db = dpre.sum(dim=tuple(range(1, dpre.dim() - 1))).float()
-        return dpre, db, None, None
+        return dpre, db, None, None, None
+
+
+def window_dropout(h, rate: float, seed: int, window, dim: int):
+    """`dropout(h, rate, seed)`; with `window` = (off, e), h is the slice
+    [off, off + h.shape[dim]) along the expert dim `dim` of a buffer of e
+    experts: that buffer's mask is drawn whole and sliced, so a rank holding
+    a window of the experts keeps the entries one process keeps."""
+    if window is None or rate <= 0.0:
+        return dropout(h, rate, seed)
+    off, e = window
+    shape = list(h.shape)
+    shape[dim] = e
+    keep = dropout(h.new_ones(shape), rate, seed).narrow(
+        dim, off, h.shape[dim]) != 0
+    return apply_keep(h, keep, rate)
 
 
 def ragged_routing(flat_idx, num_experts: int):
@@ -288,15 +313,10 @@ def _global_aux(mesh, counts, probs, z, k: int):
     return balance + Z_LOSS_SCALE * (stats[2 * e] / tokens)
 
 
-def _ep_ragged_experts(mesh, xs, sorted_e, n_e, w1, b1, w2, b2, rate, seed,
-                       dtype, grouped):
-    """The ragged dispatch's expert FFN on this rank's experts [off, off +
-    e_loc) (`_ep_ragged_experts`, moe.py:267-338): xs [S, H], this rank's
-    rows sorted by expert with the per-expert counts n_e [E], and the local
-    expert weights [e_loc, ...]; `grouped(lhs, rhs, n_e, off)` is the
-    grouped matmul over the window. Returns the sum over the model group,
-    [S, H]: every row's output exactly once."""
-    e = n_e.shape[0]
+def expert_window(mesh, e: int, w1) -> tuple:
+    """(off, e_loc): the experts [off, off + e_loc) this rank of `mesh`
+    holds and runs, off = model index x e_loc, with the checks that the
+    expert weights `w1` [e_loc, ...] are its shards."""
     m = int(mesh.shape["model"])
     e_loc = e // m
     if e_loc * m != e:
@@ -306,7 +326,18 @@ def _ep_ragged_experts(mesh, xs, sorted_e, n_e, w1, b1, w2, b2, rate, seed,
         raise ValueError(f"expert weights hold {w1.shape[0]} experts, the "
                          f"mesh gives a rank {e_loc}: shard them with "
                          "parallel.mesh.shard_params")
-    off = mesh.model_index * e_loc
+    return mesh.model_index * e_loc, e_loc
+
+
+def _ep_ragged_experts(mesh, xs, sorted_e, n_e, w1, b1, w2, b2, rate, seed,
+                       dtype, grouped):
+    """The ragged dispatch's expert FFN on this rank's experts [off, off +
+    e_loc) (`_ep_ragged_experts`, moe.py:267-338): xs [S, H], this rank's
+    rows sorted by expert with the per-expert counts n_e [E], and the local
+    expert weights [e_loc, ...]; `grouped(lhs, rhs, n_e, off)` is the
+    grouped matmul over the window. Returns the sum over the model group,
+    [S, H]: every row's output exactly once."""
+    off, e_loc = expert_window(mesh, n_e.shape[0], w1)
     xs = mesh_lib.copy_to_model(xs, mesh)
     le = sorted_e - off
     onehot = (le[:, None] == torch.arange(
@@ -447,97 +478,129 @@ class MoEFFN(nn.Module):
         # calibration is an offline one-process pass: always the unsharded
         # branch (moe.py:565-580)
         ep = mesh if (mesh is not None and mesh.n_model > 1 and e > 1
-                      and self.dispatch == "ragged"
                       and self.quant_mode != "calibrate") else None
+        # the weights as read now (under a mesh, gathered over 'data' for
+        # this forward), so that a remat recompute uses the same tensors
+        weights = (self.expert_w1, self.expert_b1, self.expert_w2,
+                   self.expert_b2)
         if self.remat and torch.is_grad_enabled():
             out = checkpoint(self._experts, x, w_gate, routing, cap,
-                             dropout_rate, seed, ep, use_reentrant=False)
+                             dropout_rate, seed, ep, weights,
+                             use_reentrant=False)
         else:
             out = self._experts(x, w_gate, routing, cap, dropout_rate, seed,
-                                ep)
+                                ep, weights)
         return out, aux
 
-    def _experts(self, x, w_gate, routing, cap, rate, seed, ep=None):
+    def _experts(self, x, w_gate, routing, cap, rate, seed, ep, weights):
         """Dispatch, the experts, combine and the gate-weighted sum: the
         region `remat` recomputes."""
         b, t, h = x.shape
         k = self.top_k
         xk = x.unsqueeze(2).expand(b, t, k, h).reshape(b * t * k, h)
         if self.dispatch == "ragged":
-            got = self._ragged(xk, routing, rate, seed, ep)
+            got = self._ragged(xk, routing, rate, seed, ep, weights)
         elif self.dispatch == "sort":
-            got = self._sort(xk, routing, b, cap, rate, seed)
+            got = self._sort(xk, routing, b, cap, rate, seed, ep, weights)
         else:
             got = self._scatter(xk.reshape(b, t * k, h), routing, cap, rate,
-                                seed)
+                                seed, ep, weights)
         return (got.reshape(b, t, k, h)
                 * w_gate.reshape(b, t, k)[..., None]).sum(dim=2)
 
-    def _ragged(self, xk, routing, rate, seed, ep=None):
+    def _ragged(self, xk, routing, rate, seed, ep, weights):
         order, inv, n_e, sorted_e = routing
         e, dtype = self.num_experts, xk.dtype
+        w1, b1, w2, b2 = weights
         calibrate = self.quant_mode == "calibrate"
         xs = PermuteRows.apply(xk, order, inv)
         if ep is not None:
-            out = _ep_ragged_experts(
-                ep, xs, sorted_e, n_e, self.expert_w1, self.expert_b1,
-                self.expert_w2, self.expert_b2, rate, seed, dtype, self._gmm)
+            out = _ep_ragged_experts(ep, xs, sorted_e, n_e, w1, b1, w2, b2,
+                                     rate, seed, dtype, self._gmm)
             return PermuteRows.apply(out, inv, order)
         if calibrate:
             record_amax(self, "expert_in_amax", segment_amax(xs, sorted_e, e))
         onehot = (sorted_e[:, None] == torch.arange(
             e, device=xk.device)).to(dtype)                           # [S, E]
-        hdn = self._gmm(xs, self.expert_w1.to(dtype), n_e)
-        hdn = torch.relu(hdn + onehot @ self.expert_b1.to(dtype))
+        hdn = self._gmm(xs, w1.to(dtype), n_e)
+        hdn = torch.relu(hdn + onehot @ b1.to(dtype))
         hdn = dropout(hdn, rate, seed)
         if calibrate:
             record_amax(self, "expert_hidden_amax",
                         segment_amax(hdn, sorted_e, e))
-        out = self._gmm(hdn, self.expert_w2.to(dtype), n_e)
-        out = out + onehot @ self.expert_b2.to(dtype)                 # [S, H]
+        out = self._gmm(hdn, w2.to(dtype), n_e)
+        out = out + onehot @ b2.to(dtype)                             # [S, H]
         return PermuteRows.apply(out, inv, order)
 
-    def _sort(self, xk, routing, b, cap, rate, seed):
+    def _sort(self, xk, routing, b, cap, rate, seed, ep, weights):
         gtok, gfill, gslot, gkeep = routing
         e, h, dtype = self.num_experts, xk.shape[1], xk.dtype
+        w1, b1, w2, b2 = weights
+        off, e_here, window = 0, e, None
+        if ep is not None:
+            # this rank's experts [off, off + e_loc): the window of the
+            # expert-major slots, and the tokens whose slot lies in it
+            off, e_here = expert_window(ep, e, w1)
+            window = (off, e)
+            n = b * cap
+            gtok = gtok[off * n:(off + e_here) * n]
+            gfill = gfill[off * n:(off + e_here) * n]
+            gkeep = gkeep & (gslot >= off * n) & (gslot < (off + e_here) * n)
+            gslot = (gslot - off * n).clamp(0, e_here * n - 1)
+            xk = mesh_lib.copy_to_model(xk, ep)
         expert_in = GatherRows.apply(xk, gtok, gfill, gslot,
-                                     gkeep).reshape(e, b * cap, h)
-        b1 = self.expert_b1
-        b2 = self.expert_b2[:, None].to(dtype)
+                                     gkeep).reshape(e_here, b * cap, h)
+        b2 = b2[:, None].to(dtype)
         if self.quant_mode == "int8_static":
             qa1, qa2 = (calibrated(self, name) for name in QUANT_BUFFERS)
             # an expert that saw no calibration token: each channel's max
             # across experts, rather than saturating everything routed to it
             qa1 = torch.where(qa1 > 0, qa1, qa1.amax(dim=0, keepdim=True))
             qa2 = torch.where(qa2 > 0, qa2, qa2.amax(dim=0, keepdim=True))
-            hdn = int8_expert_einsum(expert_in, self.expert_w1, qa1, dtype)
+            hdn = int8_expert_einsum(expert_in, w1, qa1, dtype)
             hdn = torch.relu(hdn + b1[:, None].to(dtype))
-            out = int8_expert_einsum(hdn, self.expert_w2, qa2, dtype) + b2
+            out = int8_expert_einsum(hdn, w2, qa2, dtype) + b2
         else:
             calibrate = self.quant_mode == "calibrate"
             if calibrate:
                 record_amax(self, "expert_in_amax",
                             expert_in.abs().float().amax(dim=1))
-            hdn = torch.bmm(expert_in, self.expert_w1.to(dtype))
-            hdn = BiasReluDropout.apply(hdn, b1, rate, seed)
+            hdn = torch.bmm(expert_in, w1.to(dtype))
+            hdn = BiasReluDropout.apply(hdn, b1, rate, seed, window)
             if calibrate:
                 record_amax(self, "expert_hidden_amax",
                             hdn.abs().float().amax(dim=1))
-            out = torch.bmm(hdn, self.expert_w2.to(dtype)) + b2  # [E, M, H]
-        return GatherRows.apply(out.reshape(-1, h), gslot, gkeep, gtok,
-                                gfill)
+            out = torch.bmm(hdn, w2.to(dtype)) + b2              # [E, M, H]
+        out = GatherRows.apply(out.reshape(-1, h), gslot, gkeep, gtok, gfill)
+        return out if ep is None else mesh_lib.reduce_from_model(out, ep)
 
-    def _scatter(self, xk, routing, cap, rate, seed):
+    def _scatter(self, xk, routing, cap, rate, seed, ep, weights):
         flat_idx, pos = routing
         b, tk, h = xk.shape
         e, dtype = self.num_experts, xk.dtype
+        w1, b1, w2, b2 = weights
+        off, e_here, window = 0, e, None
+        if ep is not None:
+            off, e_here = expert_window(ep, e, w1)
+            window = (off, e)
+            xk = mesh_lib.copy_to_model(xk, ep)
+        local = flat_idx - off
+        here = (local >= 0) & (local < e_here)
+        # a token of another rank's expert goes to the spare slot `cap` of
+        # expert 0, which is cut off, as a dropped token does
+        local = torch.where(here, local, 0)
         rows = torch.arange(b, device=xk.device)[:, None].expand(b, tk)
-        buf = xk.new_zeros(b, e, cap + 1, h)
-        expert_in = buf.index_put((rows, flat_idx, pos), xk)[:, :, :cap]
-        hdn = torch.einsum("bech,ehf->becf", expert_in,
-                           self.expert_w1.to(dtype))
-        hdn = torch.relu(hdn + self.expert_b1[None, :, None].to(dtype))
-        hdn = dropout(hdn, rate, seed)
-        out = torch.einsum("becf,efh->bech", hdn, self.expert_w2.to(dtype))
-        out = out + self.expert_b2[None, :, None].to(dtype)  # [B, E, cap, H]
-        return out[rows, flat_idx, pos.clamp(max=cap - 1)]
+        buf = xk.new_zeros(b, e_here, cap + 1, h)
+        expert_in = buf.index_put((rows, local, torch.where(here, pos, cap)),
+                                  xk)[:, :, :cap]
+        hdn = torch.einsum("bech,ehf->becf", expert_in, w1.to(dtype))
+        hdn = torch.relu(hdn + b1[None, :, None].to(dtype))
+        hdn = window_dropout(hdn, rate, seed, window, 1)
+        out = torch.einsum("becf,efh->bech", hdn, w2.to(dtype))
+        out = out + b2[None, :, None].to(dtype)          # [B, E, cap, H]
+        got = out[rows, local, pos.clamp(max=cap - 1)]
+        if ep is None:
+            return got
+        got = torch.where(here[..., None], got,
+                          torch.zeros((), dtype=dtype, device=got.device))
+        return mesh_lib.reduce_from_model(got, ep)

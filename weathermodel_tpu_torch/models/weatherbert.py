@@ -39,10 +39,13 @@ from weathermodel_tpu_torch.utils.config import ModelConfig
 
 class WeatherEncoderCore(nn.Module):
     """in_proj + positional encoding + transformer trunk -> hidden states,
-    computed in `cfg.compute_dtype` (parameters stay fp32)."""
+    computed in `cfg.compute_dtype` (parameters stay fp32). `remat`
+    recomputes each encoder layer in the backward (models/blocks.py's
+    TransformerEncoder; JAX weatherbert.py:39,89)."""
 
     def __init__(self, cfg: ModelConfig, attention_impl: str = "torch",
-                 ffn_impl: str = "torch", gmm_impl: str = "kernel"):
+                 ffn_impl: str = "torch", gmm_impl: str = "kernel",
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
@@ -58,7 +61,7 @@ class WeatherEncoderCore(nn.Module):
                        gmm_impl=gmm_impl)
         self.transformer_encoder = TransformerEncoder(
             cfg.hidden_dim, cfg.num_heads, cfg.ffn_dim, cfg.num_layers,
-            attention_impl, ffn_impl, moe)
+            attention_impl, ffn_impl, moe, remat)
 
     def reset_parameters(self, generator: torch.Generator = None) -> None:
         """Re-initialize from `generator` with the init the modules are
@@ -113,8 +116,9 @@ class WeatherBERT(WeatherEncoderCore):
     in fp32 (and the MoE aux loss with `return_moe_aux`)."""
 
     def __init__(self, cfg: ModelConfig, attention_impl: str = "torch",
-                 ffn_impl: str = "torch", gmm_impl: str = "kernel"):
-        super().__init__(cfg, attention_impl, ffn_impl, gmm_impl)
+                 ffn_impl: str = "torch", gmm_impl: str = "kernel",
+                 remat: bool = False):
+        super().__init__(cfg, attention_impl, ffn_impl, gmm_impl, remat)
         self.out_proj = nn.Linear(cfg.hidden_dim, cfg.output_dim)
 
     def forward(self, weather, coords, year, interval, weather_feature_mask,

@@ -40,8 +40,9 @@ class WeatherFormer(WeatherEncoderCore):
     """Encoder with a (mu, var) head; returns fp32 [B, T, output_dim] each."""
 
     def __init__(self, cfg: ModelConfig, attention_impl: str = "torch",
-                 ffn_impl: str = "torch", gmm_impl: str = "kernel"):
-        super().__init__(cfg, attention_impl, ffn_impl, gmm_impl)
+                 ffn_impl: str = "torch", gmm_impl: str = "kernel",
+                 remat: bool = False):
+        super().__init__(cfg, attention_impl, ffn_impl, gmm_impl, remat)
         self.out_proj = nn.Linear(cfg.hidden_dim, 2 * cfg.output_dim)
 
     def posterior(self, weather, coords, year, interval, weather_feature_mask,
@@ -70,8 +71,9 @@ class _SinusoidPrior(WeatherFormer):
     PRIOR_DIM = "weather_dim"
 
     def __init__(self, cfg: ModelConfig, attention_impl: str = "torch",
-                 ffn_impl: str = "torch", gmm_impl: str = "kernel"):
-        super().__init__(cfg, attention_impl, ffn_impl, gmm_impl)
+                 ffn_impl: str = "torch", gmm_impl: str = "kernel",
+                 remat: bool = False):
+        super().__init__(cfg, attention_impl, ffn_impl, gmm_impl, remat)
         shape = (1, cfg.k, cfg.max_len, getattr(cfg, self.PRIOR_DIM))
         self.frequency = nn.Parameter(torch.empty(shape))
         self.phase = nn.Parameter(torch.empty(shape))

@@ -1,6 +1,6 @@
 """The (data, model) mesh on torch.distributed (port of
-weathermodel_tpu/parallel/mesh.py:1-214 for the data and expert parallel
-layouts).
+weathermodel_tpu/parallel/mesh.py: the data, expert, tensor and fully-sharded
+data parallel layouts).
 
 `world = n_data x n_model` ranks, one process each (parallel/multihost.py).
 Rank r sits at (r // n_model, r % n_model), the row-major reshape that JAX's
@@ -13,20 +13,31 @@ index, the model group the ranks of one data index.
   and sums the gradients over the data group (train/steps.py). This is the
   JAX package's single-host semantics, in which a mesh run draws what a
   one-process run draws.
-* Expert parallelism over 'model': the MoE expert weights split their expert
-  dim over the model group (`param_sharding_rules`' `expert_*` rule,
-  `shard_params`); models/moe.py runs each rank's experts on its own rows and
-  sums the ranks' outputs (`reduce_from_model`).
-* Dense parameters stay replicated over 'model'. `param_sharding_rules` also
-  gives the Megatron column/row split of the attention and FFN weights (in
-  the port's torch [out, in] layout), but the JAX package cannot partition
-  its attention kernels either and replicates their compute; the port keeps
-  their storage whole too (ROADMAP.md queue A item 14).
+* Parameter storage follows JAX's sharding rules, mapped to the port's
+  torch [out, in] layout (`combined_sharding_rules`; `shard_params` keeps a
+  rank's block of each split parameter, before the optimizer is made, so
+  Adam's moments are blocks too):
+  - over 'model' (`--tensor-parallel`): the Megatron column/row split of
+    the attention and FFN weights, and the expert dim of the MoE experts;
+  - over 'data' (`--fsdp`, ZeRO-3): each parameter of at least
+    FSDP_MIN_ELEMS entries along its largest other divisible axis.
+* Compute: the experts run where they are stored (expert parallelism:
+  models/moe.py runs each rank's experts and sums the ranks' outputs with
+  `reduce_from_model`). Every other split is gathered whole for its op by
+  `_GatherParam` inside the forward of the module that uses it (`gathered`:
+  an encoder layer gathers its own, the train step the rest), so under
+  `--remat` a layer's full weights live only during its forward and its
+  recompute. Its backward sums the gradient over 'data' and keeps the
+  rank's block (a reduce-scatter), and `all_reduce_grads` skips those
+  parameters. The JAX package cannot partition its attention kernels
+  either: GSPMD gathers their weights and replicates their compute over
+  'model', as the port does.
 
 Only `all_reduce` runs on device tensors (with `broadcast`, the collectives
 gloo takes for CUDA tensors, and ranks that share one card use gloo); a
-gather is an all_reduce of a zero-padded buffer. A group of one rank is None and
-its collectives are the identity.
+gather is an all_reduce of a zero-padded buffer and a reduce-scatter an
+all_reduce and a slice. A group of one rank is None and its collectives are
+the identity.
 
 `copy_to_model` and `reduce_from_model` are the Megatron pair of autograd
 functions: identity forward and a sum over the model group backward, and
@@ -39,6 +50,7 @@ import contextlib
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -173,8 +185,7 @@ def param_sharding_rules(path: str, shape, mesh: Mesh) -> tuple:
       self_attn.out_proj / linear2 weights: split the input dim
                                                 -> (None, MODEL_AXIS)
       expert_* (MoE): split the leading expert dim -> (MODEL_AXIS,)
-      everything else: replicated.
-    The port applies the expert rule only (`shard_params`)."""
+      everything else: replicated."""
     if mesh.shape[MODEL_AXIS] == 1:
         return ()
     if "expert_" in path:
@@ -197,96 +208,294 @@ def param_sharding_rules(path: str, shape, mesh: Mesh) -> tuple:
     return ()
 
 
-def _expert_slice(mesh: Mesh, n: int) -> slice:
-    e_loc = n // mesh.n_model
-    return slice(mesh.model_index * e_loc, (mesh.model_index + 1) * e_loc)
+# Params smaller than this stay replicated under FSDP: sharding LayerNorm
+# scales/biases buys nothing and costs gather latency (JAX mesh.py:135-137).
+FSDP_MIN_ELEMS = 2 ** 14
 
 
-def sharded_names(model: torch.nn.Module, mesh: Mesh) -> list:
-    """The parameters `shard_params` splits: those the rules give the expert
-    split (names of the full model)."""
-    return [name for name, p in model.named_parameters()
-            if param_sharding_rules(name, p.shape, mesh) == (MODEL_AXIS,)
-            and "expert_" in name]
+def _jax_dims(path: str, ndim: int) -> list:
+    """The port's dim of each axis of the JAX leaf: a Linear's or conv's
+    `weight` is the flax kernel with its axes reversed (torch [out, in]
+    against flax [in, out], models/transfer.py); every other parameter
+    (biases, norms, the MoE expert weights, the priors) keeps JAX's
+    layout."""
+    if ndim >= 2 and path.endswith("weight") and "expert_" not in path:
+        return list(range(ndim))[::-1]
+    return list(range(ndim))
 
 
-def shard_params(model: torch.nn.Module, mesh: Mesh) -> list:
-    """Keep this rank's slice of each expert parameter (its model index's
-    E / n_model experts), in place; the optimizer is made after, so its
-    state is local too. Returns the split parameters' names."""
-    names = sharded_names(model, mesh)
-    for name in names:
+def _full_spec(spec, ndim: int) -> list:
+    return list(spec) + [None] * (ndim - len(spec))
+
+
+def _fill_data_axis(path: str, spec, shape, mesh: Mesh,
+                    min_elems: int) -> tuple:
+    """Shard the largest still-unsharded divisible axis over 'data' (JAX
+    `_fill_data_axis`, mesh.py:140-152). The axes are ranked in JAX's
+    layout, ties kept in JAX's axis order by the stable sort, so a square
+    weight transposed into the port's layout splits the dim JAX splits."""
+    n = mesh.shape[DATA_AXIS]
+    if n == 1 or int(np.prod(shape)) < min_elems:
+        return tuple(spec)
+    full = _full_spec(spec, len(shape))
+    dims = _jax_dims(path, len(shape))
+    for j in sorted(range(len(shape)), key=lambda j: -shape[dims[j]]):
+        d = dims[j]
+        if full[d] is None and shape[d] % n == 0:
+            full[d] = DATA_AXIS
+            return tuple(full)
+    return tuple(spec)  # no divisible axis: unchanged
+
+
+def fsdp_sharding_rules(path: str, shape, mesh: Mesh,
+                        min_elems: int = FSDP_MIN_ELEMS) -> tuple:
+    """The fully-sharded data-parallel (ZeRO-3) layout: every parameter of
+    at least `min_elems` entries split along its largest divisible axis
+    over 'data' (JAX `fsdp_sharding_rules`, mesh.py:155-164)."""
+    return _fill_data_axis(path, (), shape, mesh, min_elems)
+
+
+def combined_sharding_rules(path: str, shape, mesh: Mesh,
+                            fsdp: bool = False) -> tuple:
+    """The tensor-parallel rules first; with `fsdp` the largest other
+    divisible axis over 'data' (2-D sharding; JAX
+    `combined_sharding_rules`, mesh.py:167-176)."""
+    tp = param_sharding_rules(path, shape, mesh)
+    if not fsdp:
+        return tp
+    return _fill_data_axis(path, tp, shape, mesh, FSDP_MIN_ELEMS)
+
+
+def _axis(mesh: Mesh, axis: str):
+    """(size, this rank's index, group) of a mesh axis."""
+    if axis == DATA_AXIS:
+        return mesh.n_data, mesh.data_index, mesh.data_group
+    return mesh.n_model, mesh.model_index, mesh.model_group
+
+
+def is_split(spec) -> bool:
+    return any(a is not None for a in spec)
+
+
+def local_shape(shape, spec, mesh: Mesh) -> tuple:
+    """The shape of a rank's shard of a tensor of `shape` under `spec`."""
+    return tuple(n if a is None else n // _axis(mesh, a)[0]
+                 for n, a in zip(shape, _full_spec(spec, len(shape))))
+
+
+def local_slice(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of the full tensor `t` under `spec`: along each
+    split dim, the chunk of its index on that dim's axis."""
+    for d, a in enumerate(_full_spec(spec, t.dim())):
+        if a is not None:
+            n, i, _ = _axis(mesh, a)
+            t = t.narrow(d, i * (t.shape[d] // n), t.shape[d] // n)
+    return t
+
+
+def gather(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The full tensor of a rank's shard `t` under `spec`: for each split
+    dim, 'data' first, an all_reduce over that axis's group of a
+    zero-padded buffer holding the shard at its index (every entry is one
+    rank's value plus zeros, so the gather is exact, but -0.0 comes back
+    as 0.0)."""
+    full = _full_spec(spec, t.dim())
+    for axis in (DATA_AXIS, MODEL_AXIS):
+        if axis not in full:
+            continue
+        d = full.index(axis)
+        n, i, group = _axis(mesh, axis)
+        if n == 1:
+            continue
+        shape = list(t.shape)
+        shape[d] *= n
+        buf = t.new_zeros(shape)
+        buf.narrow(d, i * t.shape[d], t.shape[d]).copy_(t)
+        t = all_reduce_(buf, group)
+    return t
+
+
+class _GatherParam(torch.autograd.Function):
+    """A stored shard gathered whole for its op. The backward sums the
+    full gradient over 'data' when the spec splits over 'data' (each data
+    rank's is its own rows' part) and keeps this rank's block: a
+    reduce-scatter as an all_reduce and a slice. Over 'model' it only
+    slices: the model ranks compute the dense layers on the same rows, so
+    their gradients are one and the same."""
+
+    @staticmethod
+    def forward(ctx, shard, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return gather(shard, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        if DATA_AXIS in ctx.spec and ctx.mesh.data_group is not None:
+            g = all_reduce_(g.contiguous().clone(), ctx.mesh.data_group)
+        return local_slice(g, ctx.spec, ctx.mesh).contiguous(), None, None
+
+
+def _forward_spec(path: str, spec) -> tuple:
+    """What a stored parameter is gathered over for its op: every split,
+    but the expert dim of the expert weights over 'model', which expert
+    parallelism computes on where it is stored (models/moe.py)."""
+    if "expert_" in path:
+        spec = tuple(None if a == MODEL_AXIS else a for a in spec)
+    return tuple(spec) if is_split(spec) else ()
+
+
+# a module that gathers its own stored shards in its forward (an encoder
+# layer, models/blocks.py) sets this; `gathered` on an ancestor skips it
+GATHERS_OWN = "gathers_own_shards"
+# the attribute on a module that holds shards: {attribute: forward spec}
+_SHARDS = "_shard_specs"
+
+
+def _owners(module: torch.nn.Module):
+    if getattr(module, _SHARDS, None):
+        yield module
+    for child in module.children():
+        if not getattr(child, GATHERS_OWN, False):
+            yield from _owners(child)
+
+
+@contextlib.contextmanager
+def gathered(module: torch.nn.Module):
+    """Within the block, each stored shard of `module` and of its
+    submodules (but those that gather their own) reads as the full
+    parameter, gathered by `_GatherParam` on the active mesh; after it,
+    the shards are back. Without shards, nothing happens."""
+    owners = list(_owners(module))
+    if not owners:
+        yield
+        return
+    mesh = _ACTIVE
+    if mesh is None:
+        raise RuntimeError("a module holding parameter shards ran with no "
+                           "mesh active (parallel.mesh.activate)")
+    swapped = []
+    try:
+        for owner in owners:
+            for attr, spec in getattr(owner, _SHARDS).items():
+                shard = owner._parameters[attr]
+                swapped.append((owner, attr, shard))
+                owner._parameters[attr] = _GatherParam.apply(shard, spec,
+                                                             mesh)
+        yield
+    finally:
+        for owner, attr, shard in swapped:
+            owner._parameters[attr] = shard
+
+
+def shard_params(model: torch.nn.Module, mesh: Mesh,
+                 fsdp: bool = False) -> dict:
+    """Keep this rank's block of each parameter `combined_sharding_rules`
+    splits, in place (JAX `shard_params`, mesh.py:179-196): the Megatron
+    split of the dense weights and the expert split over 'model', with
+    `fsdp` the largest other axis over 'data'. The optimizer is made after,
+    so its state is the shards' too. A shard whose op does not run where it
+    is stored is gathered for each forward (`gathered`). Returns {name:
+    spec} of the split parameters (names of the full model)."""
+    specs = {}
+    for name, p in list(model.named_parameters()):
+        spec = tuple(combined_sharding_rules(name, p.shape, mesh, fsdp=fsdp))
+        if not is_split(spec):
+            continue
+        specs[name] = spec
         parent, _, attr = name.rpartition(".")
-        module = model.get_submodule(parent)
-        p = getattr(module, attr)
-        local = p.detach()[_expert_slice(mesh, p.shape[0])].clone()
-        setattr(module, attr, torch.nn.Parameter(local))
-    return names
+        owner = model.get_submodule(parent)
+        setattr(owner, attr, torch.nn.Parameter(
+            local_slice(p.detach(), spec, mesh).clone()))
+        gspec = _forward_spec(name, spec)
+        if gspec:
+            owner.__dict__.setdefault(_SHARDS, {})[attr] = gspec
+    return specs
 
 
-def gather_expert(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The full [E, ...] tensor of a rank's expert slice [E / n_model, ...]:
-    an all_reduce over the model group of a zero-padded buffer."""
-    if mesh.n_model == 1:
-        return t
-    e_loc = t.shape[0]
-    full = t.new_zeros(e_loc * mesh.n_model, *t.shape[1:])
-    full[mesh.model_index * e_loc:(mesh.model_index + 1) * e_loc] = t
-    return all_reduce_(full, mesh.model_group)
+def data_reduced(model: torch.nn.Module) -> set:
+    """The ids of the parameters whose gradient `_GatherParam` already
+    summed over 'data'."""
+    return {id(owner._parameters[attr])
+            for owner in model.modules()
+            for attr, spec in getattr(owner, _SHARDS, {}).items()
+            if DATA_AXIS in spec}
 
 
-def gather_params(state: dict, names, mesh: Mesh) -> dict:
-    """`state` (a state dict) with each entry of `names` gathered whole:
-    the inverse of `shard_params`, on every rank of a model group."""
-    names = set(names)
-    return {k: gather_expert(v, mesh) if k in names else v
+def gather_params(state: dict, specs: dict, mesh: Mesh) -> dict:
+    """`state` (a state dict) with each entry of `specs` gathered whole:
+    the inverse of `shard_params`, on every rank (a collective)."""
+    return {k: gather(v, specs[k], mesh) if k in specs else v
             for k, v in state.items()}
 
 
-def slice_params(state: dict, names, mesh: Mesh) -> dict:
-    """`state` with each entry of `names` cut to this rank's expert slice
-    (a full state dict loaded into a sharded model)."""
-    names = set(names)
-    return {k: v[_expert_slice(mesh, v.shape[0])] if k in names else v
+def slice_params(state: dict, specs: dict, mesh: Mesh) -> dict:
+    """`state` with each entry of `specs` cut to this rank's block (a full
+    state dict loaded into a sharded model)."""
+    return {k: local_slice(v, specs[k], mesh).clone() if k in specs else v
             for k, v in state.items()}
 
 
-def _optimizer_map(model, names, fn):
-    index = {name: i for i, (name, _) in enumerate(model.named_parameters())}
-    targets = {index[name] for name in names}
+def _optimizer_map(model, specs: dict, fn):
+    index = {i: specs[name]
+             for i, (name, _) in enumerate(model.named_parameters())
+             if name in specs}
 
     def apply(opt_state: dict) -> dict:
         state = {}
         for i, entry in opt_state["state"].items():
-            if int(i) in targets:
-                entry = {k: fn(v) if isinstance(v, torch.Tensor) and v.dim()
-                         else v for k, v in entry.items()}
+            spec = index.get(int(i))
+            if spec is not None:
+                entry = {k: fn(v, spec) if isinstance(v, torch.Tensor)
+                         and v.dim() else v for k, v in entry.items()}
             state[i] = entry
         return dict(opt_state, state=state)
 
     return apply
 
 
-def gather_optimizer_state(opt_state: dict, model, names, mesh: Mesh):
+def gather_optimizer_state(opt_state: dict, model, specs: dict, mesh: Mesh):
     """An optimizer state dict with the per-parameter tensors (Adam's
     moments) of the split parameters gathered whole."""
-    return _optimizer_map(model, names,
-                          lambda v: gather_expert(v, mesh))(opt_state)
+    return _optimizer_map(model, specs,
+                          lambda v, spec: gather(v, spec, mesh))(opt_state)
 
 
-def slice_optimizer_state(opt_state: dict, model, names, mesh: Mesh):
+def slice_optimizer_state(opt_state: dict, model, specs: dict, mesh: Mesh):
     """The inverse of `gather_optimizer_state`."""
     return _optimizer_map(
-        model, names,
-        lambda v: v[_expert_slice(mesh, v.shape[0])])(opt_state)
+        model, specs,
+        lambda v, spec: local_slice(v, spec, mesh).clone())(opt_state)
 
 
-def all_reduce_grads(params, mesh: Mesh) -> None:
-    """Sum the gradients of `params` over the data group, as one flat
-    buffer (a parameter without a gradient counts as zeros)."""
+def stored_elements(model: torch.nn.Module, optimizer=None) -> dict:
+    """The entries this rank stores: its parameters and the optimizer's
+    per-parameter tensors (Adam's two moments)."""
+    params = sum(p.numel() for p in model.parameters())
+    state = 0
+    if optimizer is not None:
+        state = sum(v.numel() for entry in optimizer.state.values()
+                    for v in entry.values()
+                    if isinstance(v, torch.Tensor) and v.dim())
+    return {"params": params, "optimizer": state}
+
+
+def expected_elements(shapes: dict, specs: dict, mesh: Mesh) -> int:
+    """The parameter entries a rank holds by the rules: each parameter of
+    the full model ({name: shape}) at its block's shape under its spec."""
+    return sum(int(np.prod(local_shape(shape, specs.get(name, ()), mesh)))
+               for name, shape in shapes.items())
+
+
+def all_reduce_grads(model: torch.nn.Module, mesh: Mesh) -> None:
+    """Sum the gradients of `model`'s parameters over the data group, as
+    one flat buffer (a parameter without a gradient counts as zeros),
+    skipping the shards `_GatherParam` already summed."""
     if mesh.data_group is None:
         return
-    params = list(params)
+    skip = data_reduced(model)
+    params = [p for p in model.parameters() if id(p) not in skip]
+    if not params:
+        return
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)

@@ -9,11 +9,18 @@ run against a one-process run.
 ranks join one process group (parallel/multihost.py) and run the tasks in
 order:
   {"kind": "step", "mesh": [n_data, n_model], "inputs": npz, "state": pth,
-   "config": {...}, "out": npz, ...}
+   "config": {...}, "out": npz, "fsdp": bool, "storage": "rules" |
+   "experts", ...}
       one train step (`step_task`) of a model of the given config from the
-      state dict, on the npz's global batch and mask, dropout off; rank 0
-      writes the global metrics, the gathered gradients and updated
-      parameters, each rank's masked count and the kernels' launches.
+      state dict, on the npz's global batch and mask, dropout off, its
+      parameters stored as JAX's rules split them (with "fsdp", over 'data'
+      too) or, with "storage": "experts", only the experts split (a mesh
+      run without sharded storage); rank 0 writes the global metrics, the
+      gathered gradients and updated parameters, and each rank's masked
+      count, stored parameter entries (and those its blocks hold by the
+      rules) and the kernels' launches; with "digest" a hash of each
+      gradient and parameter too (-0.0 read as 0.0), and with "arrays":
+      false only those hashes.
   {"kind": "pretrain", "argv": [...], "out": json, "sigterm": [epoch, step]}
       `wm-pretrain-torch`'s run(args) with the kernels' counts at 0; rank 0
       is sent a real SIGTERM as that training step starts (when given);
@@ -24,6 +31,7 @@ process without a process group. Rank 0 logs each task's seconds. Imports
 nothing of JAX.
 """
 
+import hashlib
 import json
 import logging
 import sys
@@ -67,16 +75,33 @@ def _launches(kernels) -> dict:
     return {fn.__name__: fn.launches for fn in kernels}
 
 
-def _gathered(model, names, mesh, grads: bool) -> dict:
-    """Each parameter (or its gradient), expert slices gathered whole, on
-    the host."""
+def _gathered(model, specs, mesh, grads: bool) -> dict:
+    """Each parameter (or its gradient), its blocks gathered whole, on the
+    host."""
     out = {}
     for name, p in model.named_parameters():
         t = p.grad if grads else p.detach()
-        if mesh is not None and name in names:
-            t = mesh_lib.gather_expert(t, mesh)
+        if mesh is not None and name in specs:
+            t = mesh_lib.gather(t, specs[name], mesh)
         out[name] = t.detach().float().cpu().numpy()
     return out
+
+
+def _split_experts(model, mesh) -> dict:
+    """Keep this rank's block of the expert weights alone, every other
+    parameter whole: the layout of a mesh run without sharded storage,
+    where only expert parallelism splits a parameter (its compute needs
+    it). Returns {name: spec}, as `shard_params`."""
+    specs = {}
+    for name, p in list(model.named_parameters()):
+        spec = mesh_lib.param_sharding_rules(name, p.shape, mesh)
+        if "expert_" not in name or not mesh_lib.is_split(spec):
+            continue
+        specs[name] = spec
+        parent, _, attr = name.rpartition(".")
+        setattr(model.get_submodule(parent), attr, torch.nn.Parameter(
+            mesh_lib.local_slice(p.detach(), spec, mesh).clone()))
+    return specs
 
 
 def step_task(task: dict, device) -> dict:
@@ -103,10 +128,14 @@ def step_task(task: dict, device) -> dict:
                                      weights_only=True))
     model = model.to(device)
     mesh = None
-    names = []
+    specs = {}
     if multihost.launched():
         mesh = mesh_lib.make_mesh(*task["mesh"])
-        names = mesh_lib.shard_params(model, mesh)
+        if task.get("storage") == "experts":
+            specs = _split_experts(model, mesh)
+        else:
+            specs = mesh_lib.shard_params(model, mesh,
+                                          fsdp=bool(task.get("fsdp")))
     params = list(model.parameters())
     opt = (torch.optim.SGD(params, lr=task["lr"])
            if task.get("optimizer", "sgd") == "sgd"
@@ -132,27 +161,48 @@ def step_task(task: dict, device) -> dict:
     launches = _launches(kernels)
     out = {f"metric/{k}": np.float64(v) for k, v in metrics.items()}
     out.update({f"grad/{k}": v for k, v in
-                _gathered(model, names, mesh, grads=True).items()})
+                _gathered(model, specs, mesh, grads=True).items()})
     out.update({f"param/{k}": v for k, v in
-                _gathered(model, names, mesh, grads=False).items()})
+                _gathered(model, specs, mesh, grads=False).items()})
+    if task.get("digest"):
+        for k in [k for k in out if k.startswith(("grad/", "param/"))]:
+            out[f"hash/{k}"] = digest(out[k])
     world = 1 if mesh is None else mesh.world
     rank = 0 if mesh is None else mesh.rank
-    # this rank's masked count (its data shard of the mask) and
-    # launches, one column each rank, summed over the ranks
+    # this rank's masked count (its data shard of the mask), stored
+    # entries, those the rules give it, and launches, one column each rank,
+    # summed over the ranks
     rows = mesh_lib.shard_batch(mesh, mask)
-    per_rank = torch.zeros(1 + len(kernels), world, dtype=torch.float64,
+    shapes = {k[len("param/"):]: v.shape for k, v in out.items()
+              if k.startswith("param/")}
+    per_rank = torch.zeros(3 + len(kernels), world, dtype=torch.float64,
                            device=device)
     per_rank[0, rank] = float(rows.sum())
+    per_rank[1, rank] = sum(p.numel() for p in model.parameters())
+    per_rank[2, rank] = mesh_lib.expected_elements(shapes, specs, mesh)
     for i, fn in enumerate(kernels):
-        per_rank[1 + i, rank] = launches[fn.__name__]
+        per_rank[3 + i, rank] = launches[fn.__name__]
     if mesh is not None:
         dist.all_reduce(per_rank)
     per_rank = per_rank.cpu().numpy()
     out["mask_counts"] = per_rank[0]
+    out["stored/params"] = per_rank[1]
+    out["stored/by_rules"] = per_rank[2]
     for i, fn in enumerate(kernels):
-        out[f"launches/{fn.__name__}"] = per_rank[1 + i]
+        out[f"launches/{fn.__name__}"] = per_rank[3 + i]
     out["seconds"] = np.float64(seconds)
+    if not task.get("arrays", True):
+        out = {k: v for k, v in out.items()
+               if not k.startswith(("grad/", "param/"))}
     return out
+
+
+def digest(a: np.ndarray) -> np.ndarray:
+    """A hash of an fp32 array's bits, with -0.0 read as 0.0 (x + 0.0): two
+    arrays of one shape have one digest iff they are equal as numbers."""
+    a = np.ascontiguousarray(a, np.float32) + np.float32(0.0)
+    return np.frombuffer(hashlib.blake2b(a.tobytes(), digest_size=16)
+                         .digest(), np.uint8).copy()
 
 
 def pretrain_task(task: dict) -> dict:

@@ -21,11 +21,12 @@ parameters:
   `.pth` (`{workdir}/best.pth`), which `wm-serve-torch --checkpoint` and
   `--pretrained-model-path` load unchanged.
 
-Under a mesh (parallel/mesh.py) each rank holds a slice of the expert
-weights and of their Adam moments. Every rank gathers them over its model
-group (a collective: all ranks save together) and rank 0 alone writes, so
-the files are those of a one-process run; `restore` loads them on every
-rank and keeps the rank's slices.
+Under a mesh (parallel/mesh.py) each rank holds blocks of the parameters
+the sharding rules split (the experts, the dense weights over 'model', with
+`--fsdp` the large ones over 'data') and of their Adam moments. Every rank
+gathers them whole (a collective: all ranks save together) and rank 0 alone
+writes, so the files are those of a one-process run; `restore` loads them on
+every rank and keeps the rank's blocks.
 """
 
 import copy
@@ -34,7 +35,7 @@ import os
 import shutil
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional
 
 import torch
 
@@ -58,7 +59,7 @@ def _host_copy(obj):
 
 
 def _full_state(model: torch.nn.Module, mesh, sharded) -> dict:
-    """The model's state dict with the split expert weights gathered."""
+    """The model's state dict with the split parameters gathered."""
     state = model.state_dict()
     if mesh is None or not sharded:
         return state
@@ -68,11 +69,12 @@ def _full_state(model: torch.nn.Module, mesh, sharded) -> dict:
 class Checkpointer:
     def __init__(self, workdir: str, max_to_keep: int = 3,
                  mesh: Optional[mesh_lib.Mesh] = None,
-                 sharded: Sequence[str] = ()):
-        """`mesh` and `sharded` (the names of the split parameters): the
-        rank's place in a mesh run (module docstring)."""
+                 sharded: Optional[dict] = None):
+        """`mesh` and `sharded` ({name: spec} of the split parameters, as
+        `parallel.mesh.shard_params` returns it): the rank's place in a mesh
+        run (module docstring)."""
         self.mesh = mesh
-        self.sharded = list(sharded)
+        self.sharded = dict(sharded or {})
         self.primary = mesh is None or mesh.is_primary
         self.workdir = os.path.abspath(workdir)
         self.root = os.path.join(self.workdir, "checkpoints")
@@ -215,10 +217,10 @@ def write_output_json(workdir: str, name: str, output_json: dict) -> str:
 
 def save_best_params(workdir: str, model: torch.nn.Module,
                      mesh: Optional[mesh_lib.Mesh] = None,
-                     sharded: Sequence[str] = ()) -> str:
+                     sharded: Optional[dict] = None) -> str:
     """Write the model's parameters (CPU copies) to `{workdir}/best.pth`,
     through a temporary file so a reader never sees a partial one. Under a
-    mesh every rank calls it (the expert weights are gathered) and rank 0
+    mesh every rank calls it (the split parameters are gathered) and rank 0
     writes."""
     path = os.path.join(workdir, BEST_PARAMS)
     state = _full_state(model, mesh, sharded)

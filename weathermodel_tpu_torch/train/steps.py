@@ -42,7 +42,11 @@ the gradients are summed over the data group before the update, and the
 metrics returned are the global batch's. With a 'data' axis above 1 the
 forward's dropout seeds come from a generator seeded by one draw of the
 chain and the data index, so that data shards draw different masks and the
-ranks of one data index the same. Without a mesh the step is unchanged.
+ranks of one data index the same. Parameters stored as shards
+(`parallel.mesh.shard_params`: `--fsdp`, the dense split over 'model') are
+gathered whole for the forward, and the gradients of those split over
+'data' are summed as they are sliced back, in the backward. Without a mesh
+the step is unchanged.
 """
 
 from typing import NamedTuple, Optional
@@ -219,7 +223,9 @@ def _forward_losses(model, batch: Batch, mask, generator, dropout_rate,
     global batch's, detached; without a mesh the objective is the metrics'
     total_loss."""
     moe_w = moe_aux_weight(model)
-    with mesh_lib.activate(shard.mesh):
+    # the shards stored outside the encoder layers (which gather their own)
+    # read whole for this forward
+    with mesh_lib.activate(shard.mesh), mesh_lib.gathered(model):
         outputs = model(batch.weather, batch.coords, batch.year,
                         batch.interval, mask,
                         generator=_forward_generator(shard, generator),
@@ -308,7 +314,7 @@ def make_train_step(model, optimizer, masking: str, *,
             loss.backward()
             metrics.append(losses)
         if mesh is not None:
-            mesh_lib.all_reduce_grads(model.parameters(), mesh)
+            mesh_lib.all_reduce_grads(model, mesh)
         if grad_accum > 1:
             for p in model.parameters():
                 if p.grad is not None:

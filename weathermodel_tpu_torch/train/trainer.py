@@ -34,21 +34,23 @@ the card) covers epoch start_epoch + 1's training pass and writes a Chrome
 trace into that directory (trainer.py:437-458).
 
 Under `torchrun` the trainer runs on a (data, model) mesh (parallel/mesh.py;
-JAX trainer.py:91-153): `tensor_parallel=N` puts N ranks on 'model' and the
-rest on 'data'. Every rank builds the same model from the seed; with the
-ragged MoE dispatch each keeps its slice of the expert weights (so its Adam
-state is local too) and runs its experts over 'model' (models/moe.py).
-Other parameters stay whole on every rank, so a dense model's model ranks
-compute the same thing; the capacity dispatches (sort, scatter) under
-`tensor_parallel` > 1 are refused, since their expert split is not ported.
-The steps run the global batch's objective and the metrics are the global
-batch's. Rank 0 alone logs, writes output_json and best.pth, and
-writes the checkpoints, whose expert weights and Adam moments every rank
-first gathers over its model group: the files are those a one-process run
-writes, and `resume` re-shards them. A stop asked for by SIGTERM is agreed
-over all ranks at each step boundary, so that no rank enters a collective
-alone. FSDP, sequence parallelism and the pipeline are not ported (ROADMAP.md
-queue A item 14).
+JAX trainer.py:91-196): `tensor_parallel=N` puts N ranks on 'model' and the
+rest on 'data'. Every rank builds the same model from the seed and keeps its
+blocks of the parameters the JAX sharding rules split
+(`parallel.mesh.shard_params`), before the optimizer is made, so Adam's
+state is the blocks too: under `tensor_parallel` > 1 the MoE experts (which
+run where they are stored: expert parallelism, for every dispatch) and the
+dense attention and FFN weights (the Megatron column/row split of their
+storage; their compute is gathered, as JAX's is for its attention kernels),
+and with `fsdp` every parameter of at least 2^14 entries over 'data' as
+well (`fsdp` alone: a world x 1 mesh, ZeRO-3). The steps run the global
+batch's objective and the metrics are the global batch's. Rank 0 alone
+logs, writes output_json and best.pth, and writes the checkpoints, whose
+parameters and Adam moments every rank first gathers whole: the files are
+those a one-process run writes, and `resume` slices them again. A stop
+asked for by SIGTERM is agreed over all ranks at each step boundary, so that
+no rank enters a collective alone. Sequence parallelism and the pipeline
+are not ported (ROADMAP.md queue A item 14).
 """
 
 import contextlib
@@ -100,6 +102,7 @@ class PretrainTrainer:
         grad_accum: int = 1,
         resume: bool = False,
         tensor_parallel: int = 1,
+        fsdp: bool = False,
     ):
         """make_loaders(split, shuffle, seed) -> iterator of numpy Batch.
 
@@ -113,7 +116,8 @@ class PretrainTrainer:
         `workdir`, if there is one.
 
         `tensor_parallel=N` runs the ranks of the process group on a
-        (world / N) x N (data, model) mesh (module docstring)."""
+        (world / N) x N (data, model) mesh; `fsdp` splits the parameters'
+        storage over 'data' too (module docstring)."""
         if model_name not in OBJECTIVE_FOR_MODEL:
             raise ValueError(
                 f"no pretraining objective for {model_name!r}; one of "
@@ -124,7 +128,7 @@ class PretrainTrainer:
         self.workdir = workdir
         self.device = torch.device(device)
         objective, self.masking = OBJECTIVE_FOR_MODEL[model_name]
-        self.mesh = _make_mesh(model_cfg, tensor_parallel)
+        self.mesh = _make_mesh(tensor_parallel)
         self.is_primary = self.mesh.is_primary
 
         model.reset_parameters(torch.Generator().manual_seed(train_cfg.seed))
@@ -132,9 +136,10 @@ class PretrainTrainer:
             model.load_state_dict(load_pretrained(
                 model_name, model.state_dict(), pretrained_state))
         self.model = model.to(self.device)
-        # each rank keeps its experts, before the optimizer: Adam's state
-        # is local too
-        self.sharded = mesh_lib.shard_params(self.model, self.mesh)
+        # each rank keeps its blocks, before the optimizer: Adam's state is
+        # the blocks too
+        self.sharded = mesh_lib.shard_params(self.model, self.mesh,
+                                             fsdp=fsdp)
         self.optimizer = make_optimizer(self.model)
         step_mesh = self.mesh if self.mesh.world > 1 else None
 
@@ -322,8 +327,9 @@ class PretrainTrainer:
         completed epoch, the seconds of each training step and the number
         of validation batches; "preempted": True when a SIGTERM stopped it
         (a checkpoint then holds the state to resume from);
-        "checkpoint_saves", the Checkpointer's record of each save; and
-        "fast_forward_seconds" after a mid-epoch resume."""
+        "checkpoint_saves", the Checkpointer's record of each save;
+        "stored_elements", the parameter and optimizer-state entries this
+        rank holds; and "fast_forward_seconds" after a mid-epoch resume."""
         old_handlers = {}
 
         def on_signal(signum, frame):
@@ -419,22 +425,18 @@ class PretrainTrainer:
                 result["preempted"] = True
                 break
         result["best_val_loss"] = self.best_val_loss
+        result["stored_elements"] = mesh_lib.stored_elements(self.model,
+                                                             self.optimizer)
         if self.fast_forward_seconds is not None:
             result["fast_forward_seconds"] = self.fast_forward_seconds
         return result
 
 
-def _make_mesh(model_cfg, tensor_parallel: int) -> mesh_lib.Mesh:
+def _make_mesh(tensor_parallel: int) -> mesh_lib.Mesh:
     """The trainer's (world / tensor_parallel) x tensor_parallel mesh, with
     the JAX trainer's divisibility check and error text
     (trainer.py:103-111)."""
     if tensor_parallel > 1:
-        dispatch = getattr(model_cfg, "moe_dispatch", "ragged")
-        if getattr(model_cfg, "num_experts", 0) > 0 and dispatch != "ragged":
-            raise NotImplementedError(
-                f"tensor parallelism with the {dispatch!r} MoE dispatch "
-                "(its expert split) is not ported to weathermodel_tpu_torch "
-                "yet (ROADMAP.md queue A item 14); use --moe-dispatch ragged")
         n_dev = mesh_lib.world_size()
         if n_dev % tensor_parallel:
             raise ValueError(
